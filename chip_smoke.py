@@ -1,0 +1,485 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--profile] [--out results.json]
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. Device: the card's name and power limit (nvidia-smi); TF32 off.
+2. Kernels: build the three CUDA kernels from ``src/repro_torch/csrc``
+   (one nvcc per source, in parallel), run each wrapper at the serving
+   path's shapes on the card and hold it against its plain PyTorch
+   version (nibble matmul: ``torch.equal``; attention: stated
+   tolerances), and time kernel, plain version and a PyTorch library
+   yardstick with CUDA events.
+3. Serve: yi-6b at full published width (random weights from a seed),
+   every projection ``w8a8_nibble`` on the CUDA backend, flash prefill,
+   paged decode; 8 requests through ``Engine.submit`` / ``Engine.run``.
+   Launch counters are zeroed just before and read just after; every
+   kernel must have launched.  Then the first request's prefill runs
+   through the plain path (``quant_backend="torch"``,
+   ``attn_impl="chunked"``) and its logits are held to the kernel path's.
+
+The line before the last is the per-kernel JSON; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.nibble import pack_int4  # noqa: E402
+from repro_torch.kernels import _build, flash_attention as fa  # noqa: E402
+from repro_torch.kernels import nibble_matmul as nm  # noqa: E402
+from repro_torch.models import model_init, prefill  # noqa: E402
+from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+
+DEV = "cuda"
+
+# H100 SXM published peaks (dense): HBM bytes/s, int8 ops/s, bf16 FLOP/s
+HBM_BPS = 3.35e12
+INT8_OPS = 1.979e15
+BF16_FLOPS = 989e12
+
+# attention kernels vs their plain versions: same inputs in bf16; both
+# accumulate in f32, but the kernel rescales online per 32-key tile and
+# rounds p to bf16 against the running max, the plain version against the
+# final max, so outputs (|o| < ~1, bf16 ulp <= 2**-8) differ by a few ulp
+ATTN_ATOL = 2e-2
+LSE_ATOL = 1e-3
+# full-width prefill logits, kernel path vs plain path: the nibble kernel is
+# bit-exact, but flash vs chunked attention round differently, which over
+# 32 layers flips some int8 activation roundings; bound relative to the
+# logits' own scale
+LOGIT_RTOL = 0.1
+
+MM_SHAPES_DECODE = [  # one decode layer's projections at 4 slots
+    ("wq", 4, 4096, 4096), ("wk", 4, 4096, 512), ("wv", 4, 4096, 512),
+    ("wo", 4, 4096, 4096), ("gate", 4, 4096, 11008),
+    ("up", 4, 4096, 11008), ("down", 4, 11008, 4096)]
+MM_CHECK_SHAPES = [(4, 4096, 4096), (4, 4096, 512), (4, 4096, 11008),
+                   (4, 11008, 4096), (128, 4096, 11008)]
+
+
+def cuda_ms(fn, iters=20, warmup=3) -> float:
+    """Median milliseconds of ``fn`` over ``iters`` CUDA-event-timed runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, ops: float, peak_ops: float):
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    line = smi.stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"capability {torch.cuda.get_device_capability(0)}", flush=True)
+    return line
+
+
+def phase_build() -> None:
+    t = time.perf_counter()
+    logs = _build.build_all()
+    print(f"built {sorted(_build.SOURCES)} in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    for name, log in logs.items():
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  [{name}] {ln.strip()}")
+
+
+def _int_mm_ms(x, wt):
+    """torch._int_mm yardstick (M padded to 32: cuBLASLt needs M > 16)."""
+    xp = torch.zeros((32, x.shape[1]), dtype=torch.int8, device=x.device)
+    xp[:x.shape[0]] = x
+    for b in (wt.t(), wt.t().contiguous()):
+        try:
+            torch._int_mm(xp, b)
+        except RuntimeError as exc:
+            err = exc
+            continue
+        return cuda_ms(lambda: torch._int_mm(xp, b))
+    print(f"  torch._int_mm unavailable: {err}")
+    return None
+
+
+def check_nibble(gen) -> dict:
+    dev = DEV
+    for m, k, n in MM_CHECK_SHAPES:
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev,
+                          generator=gen)
+        wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=dev,
+                           generator=gen)
+        w = wt.t()
+        xs = torch.rand((m, 1), device=dev, generator=gen) * 0.01 + 1e-4
+        ws = torch.rand((1, n), device=dev, generator=gen) * 0.01 + 1e-4
+        w4 = torch.randint(-8, 8, (k, n), dtype=torch.int8, device=dev,
+                           generator=gen)
+        w4p = pack_int4(w4)
+        checks = {
+            "int32": (nm.nibble_matmul_cuda(x, w), nm.nibble_matmul_plain(x, w)),
+            "bf16": (nm.nibble_matmul_cuda(x, w, xs, ws),
+                     nm.nibble_matmul_plain(x, w, xs, ws)),
+            "int4": (nm.nibble_matmul_cuda(x, w4p, w_packed=True),
+                     nm.nibble_matmul_plain(x, w4p, w_packed=True)),
+        }
+        torch.cuda.synchronize()
+        for what, (got, want) in checks.items():
+            if not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"nibble matmul {what} ({m},{k},{n}) "
+                                     f"differs from plain: max err {err}")
+        print(f"  nibble ({m},{k},{n}): int32, bf16, int4 torch.equal",
+              flush=True)
+    # time one decode layer's seven projections (the main path's variant:
+    # N-major int8 weight, scaled bf16 epilogue)
+    ms = plain = lib = 0.0
+    n_bytes = ops = 0
+    for name, m, k, n in MM_SHAPES_DECODE:
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev,
+                          generator=gen)
+        wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=dev,
+                           generator=gen)
+        xs = torch.full((m, 1), 1e-3, device=dev)
+        ws = torch.full((1, n), 1e-3, device=dev)
+        t_k = cuda_ms(lambda: nm.nibble_matmul_cuda(x, wt.t(), xs, ws))
+        t_p = cuda_ms(lambda: nm.nibble_matmul_plain(x, wt.t(), xs, ws),
+                      iters=5)
+        t_l = _int_mm_ms(x, wt)
+        print(f"  nibble {name} ({m},{k},{n}): kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, _int_mm {t_l} ms", flush=True)
+        ms += t_k
+        plain += t_p
+        lib = None if (lib is None or t_l is None) else lib + t_l
+        n_bytes += m * k + k * n + 2 * m * n + 4 * m + 4 * n
+        ops += 2 * m * n * k
+    b, by = bound_ms(n_bytes, ops, INT8_OPS)
+    return {"name": "nibble_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/nibble_matmul.cu",
+            "replaces": "src/repro/kernels/nibble_matmul.py:161",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "shapes": "one decode layer: wq,wk,wv,wo,gate,up,down at M=4"}
+
+
+def _sdpa_gqa(q, k, v, **kw):
+    try:
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True, **kw)
+    except TypeError:               # torch without enable_gqa
+        g = q.shape[1] // k.shape[1]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), **kw)
+
+
+def check_flash(gen) -> dict:
+    dev = DEV
+    bh, group, s, d = 32, 8, 128, 128
+    scale = 1.0 / math.sqrt(d)
+    worst = 0.0
+    cases = [dict(sq=s, window=0, softcap=0.0),
+             dict(sq=100, window=0, softcap=0.0),
+             dict(sq=s, window=40, softcap=30.0)]
+    for c in cases:
+        sq = c["sq"]
+        q = torch.randn((bh, sq, d), device=dev, generator=gen).bfloat16()
+        k = torch.randn((bh // group, sq, d), device=dev,
+                        generator=gen).bfloat16()
+        v = torch.randn((bh // group, sq, d), device=dev,
+                        generator=gen).bfloat16()
+        kw = dict(scale=scale, causal=True, window=c["window"],
+                  softcap=c["softcap"], group=group)
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - o_p.float()).abs().max().item()
+        err_l = (lse - lse_p).abs().max().item()
+        print(f"  flash {c}: max|o err| {err:.3e} (atol {ATTN_ATOL}), "
+              f"max|lse err| {err_l:.3e} (atol {LSE_ATOL})", flush=True)
+        if not (err <= ATTN_ATOL and err_l <= LSE_ATOL):
+            raise AssertionError(f"flash forward {c} disagrees with plain")
+        worst = max(worst, err)
+    q = torch.randn((bh, s, d), device=dev, generator=gen).bfloat16()
+    k = torch.randn((bh // group, s, d), device=dev, generator=gen).bfloat16()
+    v = torch.randn((bh // group, s, d), device=dev, generator=gen).bfloat16()
+    kw = dict(scale=scale, causal=True, group=group)
+    ms = cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw))
+    plain = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw))
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+    lib = cuda_ms(lambda: _sdpa_gqa(q4, k4, v4, is_causal=True, scale=scale))
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + bh * s * d) + 4 * bh * s
+    pairs = s * (s + 1) // 2
+    flops = 2 * 2 * bh * pairs * d
+    b, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    print(f"  flash timing (BH={bh}, G={group}, S={s}, d={d}): kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+          f"{b:.5f} ms ({by})", flush=True)
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:90",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "shapes": f"BH={bh} group={group} Sq=Sk={s} d={d} causal"}
+
+
+def check_paged(gen) -> dict:
+    dev = DEV
+    b, kvh, g, d, ps, per_slot = 4, 4, 8, 128, 16, 16
+    num_pages = b * per_slot + 1
+    scale = 1.0 / math.sqrt(d)
+    rng = np.random.default_rng(0)
+    kp = torch.randn((num_pages, ps, kvh, d), device=dev,
+                     generator=gen).bfloat16()
+    vp = torch.randn((num_pages, ps, kvh, d), device=dev,
+                     generator=gen).bfloat16()
+    q = torch.randn((b, kvh, g, d), device=dev, generator=gen).bfloat16()
+    q_pos = rng.integers(0, per_slot * ps, b).astype(np.int32)
+    perm = rng.permutation(np.arange(1, num_pages)).reshape(b, per_slot)
+    table = np.zeros((b, per_slot), np.int32)      # trash page 0 past live
+    for i in range(b):
+        live = q_pos[i] // ps + 1
+        table[i, :live] = perm[i, :live]
+    table_t = torch.as_tensor(table, device=dev)
+    qpos_t = torch.as_tensor(q_pos, device=dev)
+    worst = 0.0
+    for window, softcap in ((0, 0.0), (48, 0.0), (0, 30.0)):
+        kw = dict(scale=scale, window=window, softcap=softcap)
+        o = fa.paged_decode_attention_cuda(q, kp, vp, table_t, qpos_t, **kw)
+        o_p = fa.paged_decode_attention_plain(q, kp, vp, table_t, qpos_t,
+                                              **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - o_p.float()).abs().max().item()
+        print(f"  paged window={window} softcap={softcap}: max|err| "
+              f"{err:.3e} (atol {ATTN_ATOL})", flush=True)
+        if not err <= ATTN_ATOL:
+            raise AssertionError("paged decode disagrees with plain")
+        worst = max(worst, err)
+    kw = dict(scale=scale)
+    ms = cuda_ms(lambda: fa.paged_decode_attention_cuda(q, kp, vp, table_t,
+                                                        qpos_t, **kw))
+    plain = cuda_ms(lambda: fa.paged_decode_attention_plain(
+        q, kp, vp, table_t, qpos_t, **kw))
+    L = per_slot * ps
+    mask = (torch.arange(L, device=dev)[None, :]
+            <= qpos_t[:, None].long())[:, None, None, :]
+
+    def lib_fn():
+        kk = kp[table_t.long()].reshape(b, L, kvh, d).transpose(1, 2)
+        vv = vp[table_t.long()].reshape(b, L, kvh, d).transpose(1, 2)
+        qq = q.reshape(b, kvh * g, 1, d)
+        return _sdpa_gqa(qq, kk, vv, attn_mask=mask, scale=scale)
+
+    lib = cuda_ms(lib_fn)
+    rows = int((q_pos + 1).sum())
+    n_bytes = 2 * (rows * kvh * 2 * d + 2 * q.numel()) + 4 * table.size + 4 * b
+    flops = 2 * 2 * rows * kvh * g * d
+    bd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    print(f"  paged timing (B={b}, KVH={kvh}, G={g}, d={d}, live rows "
+          f"{rows}): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa over "
+          f"gathered pages {lib:.4f} ms, bound {bd:.5f} ms ({by})",
+          flush=True)
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:182",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bd, "bound_by": by, "library_ms": lib,
+            "shapes": f"B={b} KVH={kvh} G={g} d={d} page_size={ps} "
+                      f"{per_slot} pages/slot"}
+
+
+def reset_counts() -> None:
+    nm.launches = 0
+    fa.fwd_launches = 0
+    fa.paged_launches = 0
+
+
+def read_counts() -> dict:
+    return {"nibble_matmul": nm.launches,
+            "flash_attention_fwd": fa.fwd_launches,
+            "paged_decode_attention": fa.paged_launches}
+
+
+def phase_serve() -> dict:
+    cfg = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    print(f"serve: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} (full width, all layers)",
+          flush=True)
+    t = time.perf_counter()
+    params = model_init(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"  weights built and quantized in {time.perf_counter() - t:.1f} s"
+          f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    n_req, n_new, prefill_len = 8, 32, 128
+    scfg = ServeConfig(batch=4, max_len=prefill_len + n_new,
+                       prefill_len=prefill_len, decode_chunk=8)
+    engine = Engine(cfg, params, scfg, device=DEV)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, prefill_len + 1, n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    # warm-up request (first-call allocations), not counted
+    engine.submit(prompts[0], 2)
+    engine.run()
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t = time.perf_counter()
+    ids = [engine.submit(p, n_new) for p in prompts]
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+
+    for i in ids:
+        toks = done[i].tokens
+        if len(toks) != n_new or not all(0 <= x < cfg.vocab_size
+                                         for x in toks):
+            raise AssertionError(f"request {i}: bad stream {toks}")
+    if engine.leaked_pages():
+        raise AssertionError(f"{engine.leaked_pages()} pages leaked")
+    n_tok = sum(len(done[i].tokens) for i in ids)
+    print(f"  served {n_req} requests (prompt lengths {lens.tolist()}), "
+          f"{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.2f} tok/s "
+          f"({engine.decode_chunks} decode chunks)", flush=True)
+    print(f"  launches in the serve run: {counts}", flush=True)
+    for i in ids[:2]:
+        print(f"  request {i} first tokens: {done[i].tokens[:8]}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+
+    # the first request's prefill: kernel path vs plain path
+    p = prompts[0]
+    padded = torch.zeros((1, prefill_len), dtype=torch.int64, device=DEV)
+    padded[0, :p.size] = torch.as_tensor(p, device=DEV)
+    plain_cfg = cfg.replace(quant_backend="torch", attn_impl="chunked")
+    ref, _ = prefill(params, plain_cfg, padded, logits_index=p.size - 1)
+    got, _ = prefill(params, cfg, padded, logits_index=p.size - 1)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(ref).all() and torch.isfinite(got).all()):
+        raise AssertionError("non-finite prefill logits")
+    diff = (got - ref).abs().max().item()
+    tol = LOGIT_RTOL * ref.abs().max().item()
+    print(f"  prefill logits kernel vs plain path: max|diff| {diff:.4e}, "
+          f"max|logit| {ref.abs().max().item():.4f}, tolerance {tol:.4e}; "
+          f"argmax {int(got.argmax())} vs {int(ref.argmax())}; first "
+          f"served token {done[ids[0]].tokens[0]}", flush=True)
+    if not diff <= tol:
+        raise AssertionError("kernel-path prefill logits disagree with the "
+                             "plain path")
+    return {"counts": counts, "tok_s": n_tok / wall, "wall_s": wall,
+            "decode_chunks": engine.decode_chunks, "logit_diff": diff,
+            "logit_tol": tol, "engine": engine, "prompts": prompts}
+
+
+def phase_profile(engine, prompts, n_new=32) -> dict:
+    """One wave of 4 requests under torch.profiler: wall time, device time
+    per kernel (self device time of CUDA events) and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts[:4]:
+        engine.submit(p, n_new)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile: 4 requests x {n_new} tokens, wall {wall_us / 1e3:.1f} "
+          f"ms, device busy {busy / 1e3:.1f} ms, idle share "
+          f"{1 - busy / wall_us:.3f}", flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:9.2f} ms  {name[:90]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "top": [(n, us / 1e3) for n, us in top]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", action="store_true",
+                    help="after serving, profile one wave of 4 requests")
+    ap.add_argument("--out", default=None, help="write details as JSON")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows = [check_nibble(gen), check_flash(gen), check_paged(gen)]
+    serve = phase_serve()
+    engine, prompts = serve.pop("engine"), serve.pop("prompts")
+    for r in rows:
+        r["launches"] = serve["counts"][r["name"]]
+    if args.profile:
+        serve["profile"] = phase_profile(engine, prompts)
+    print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"nvidia_smi": smi, "kernels": rows, "serve": serve,
+                       "torch": torch.__version__}, f, indent=1)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,186 @@
+"""Flash-attention forward and paged decode: CUDA kernels + plain versions.
+
+Ports of ``repro.kernels.flash_attention.flash_attention_fwd_pallas`` and
+``paged_decode_attention_pallas`` (the backward waits for the training
+slice).  Both kernels (``csrc/flash_attention.cu``, ``csrc/paged_decode.cu``)
+run an online softmax in f32 with the finite ``-1e30`` mask sentinel and
+cast ``p`` to the value dtype before the PV product.  The plain versions
+compute the same function in one softmax over all keys (no blocking), so
+kernel and plain agree to float rounding, not bit for bit.
+
+Dispatch is by device: plain version for CPU tensors, kernel for CUDA
+tensors (no fallback).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
+           "flash_attention_fwd_cuda", "paged_decode_attention",
+           "paged_decode_attention_plain", "paged_decode_attention_cuda",
+           "fwd_launches", "paged_launches"]
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128          # the kernels keep one head row per warp lane set
+
+fwd_launches = 0            # launches by flash_attention_fwd_cuda
+paged_launches = 0          # launches by paged_decode_attention_cuda
+
+
+def _softmax_pv(s, v, out_dtype):
+    """Masked scores (..., Sk) f32 and values -> (o, lse), the reference
+    kernel's finish: ``acc / max(l, 1e-30)`` with ``p`` in ``v.dtype``."""
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    acc = torch.matmul(p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return (acc / l_safe).to(out_dtype), (m + torch.log(l_safe))[..., 0]
+
+
+def flash_attention_fwd_plain(q, k, v, *, scale, causal=True, window=0,
+                              softcap=0.0, group=1):
+    """q: (BH, Sq, d); k/v: (BKV, Sk, d/dv) with BH = BKV * group, query
+    head ``bh`` reading K/V row ``bh // group``.  Returns (o (BH, Sq, dv)
+    in q.dtype, lse (BH, Sq) f32)."""
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    rows = torch.arange(bh, device=q.device) // group
+    kk, vv = k[rows], v[rows]
+    s = torch.matmul(q.to(torch.float32),
+                     kk.to(torch.float32).transpose(1, 2)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= (qp - kp) < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return _softmax_pv(s, vv, q.dtype)
+
+
+def _check_heads(d, dv):
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or d % 8 or dv % 8:
+        raise ValueError(f"head dims d={d}, dv={dv} must be <= "
+                         f"{MAX_HEAD_DIM} and multiples of 8 for the kernel")
+
+
+def _fn(lib_name, sym, n_ptr, n_int_before, n_float, n_int_after):
+    fn = getattr(_build.library(lib_name), sym)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int_before
+                       + [ctypes.c_float] * n_float
+                       + [ctypes.c_int] * n_int_after + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bf16_cuda(*ts):
+    for t in ts:
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+            raise TypeError(f"bf16 CUDA tensors expected, got {t.dtype} on "
+                            f"{t.device}")
+    return [t.contiguous() for t in ts]
+
+
+def flash_attention_fwd_cuda(q, k, v, *, scale, causal=True, window=0,
+                             softcap=0.0, group=1):
+    """Launch ``csrc/flash_attention.cu`` (same contract as the plain
+    version; bf16 inputs, head dims <= 128)."""
+    global fwd_launches
+    q, k, v = _bf16_cuda(q, k, v)
+    bh, sq, d = q.shape
+    bkv, sk, dv = v.shape
+    if bh != bkv * group or k.shape[:2] != (bkv, sk) or k.shape[2] != d:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} and group {group} disagree")
+    _check_heads(d, dv)
+    o = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    if bh and sq:
+        fn = _fn("flash_attention", "flash_attention_fwd", 5, 6, 2, 2)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), bh, sq, sk, d, dv, group, float(scale),
+                 float(softcap), int(bool(causal)), int(window),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "flash_attention_fwd")
+        fwd_launches += 1
+    return o, lse
+
+
+def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0,
+                        softcap=0.0, group=1):
+    """Flash forward: plain version on CPU tensors, kernel on CUDA."""
+    impl = (flash_attention_fwd_plain if q.device.type == "cpu"
+            else flash_attention_fwd_cuda)
+    return impl(q, k, v, scale=scale, causal=causal, window=window,
+                softcap=softcap, group=group)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode
+# ---------------------------------------------------------------------------
+
+def paged_decode_attention_plain(q, k_pool, v_pool, table, q_pos, *, scale,
+                                 window=0, softcap=0.0):
+    """q: (B, KVH, G, d); pools: (P, page_size, KVH, d/dv); table:
+    (B, max_pages) int32; q_pos: (B,) int32.  Returns (B, KVH, G, dv)."""
+    b, kvh, g, d = q.shape
+    _, ps, _, dv = v_pool.shape
+    mp = table.shape[1]
+    idx = table.long()
+    kk = k_pool[idx].reshape(b, mp * ps, kvh, d)
+    vv = v_pool[idx].reshape(b, mp * ps, kvh, dv)
+    s = torch.einsum("bhgd,bkhd->bhgk", q.to(torch.float32),
+                     kk.to(torch.float32)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kp = torch.arange(mp * ps, device=q.device)[None, :]
+    qp = q_pos.to(torch.int64)[:, None]
+    mask = kp <= qp
+    if window:
+        mask &= (qp - kp) < window
+    s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    o, _ = _softmax_pv(s, vv.permute(0, 2, 1, 3), q.dtype)
+    return o
+
+
+def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, *, scale,
+                                window=0, softcap=0.0):
+    """Launch ``csrc/paged_decode.cu`` (same contract as the plain
+    version; bf16, head dims <= 128, G <= 16)."""
+    global paged_launches
+    q, k_pool, v_pool = _bf16_cuda(q, k_pool, v_pool)
+    b, kvh, g, d = q.shape
+    _, ps, _, dv = v_pool.shape
+    if g > 16:
+        raise ValueError(f"group size {g} exceeds the kernel's 16")
+    _check_heads(d, dv)
+    table = table.to(device=q.device, dtype=torch.int32).contiguous()
+    q_pos = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
+    o = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
+    if b and kvh:
+        fn = _fn("paged_decode", "paged_decode_attention", 6, 7, 2, 1)
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 table.data_ptr(), q_pos.data_ptr(), o.data_ptr(), b, kvh, g,
+                 d, dv, ps, table.shape[1], float(scale), float(softcap),
+                 int(window), torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "paged_decode_attention")
+        paged_launches += 1
+    return o
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, q_pos, *, scale,
+                           window=0, softcap=0.0):
+    """Paged decode: plain version on CPU tensors, kernel on CUDA."""
+    impl = (paged_decode_attention_plain if q.device.type == "cpu"
+            else paged_decode_attention_cuda)
+    return impl(q, k_pool, v_pool, table, q_pos, scale=scale, window=window,
+                softcap=softcap)

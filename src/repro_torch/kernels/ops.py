@@ -1,0 +1,91 @@
+"""Public entry points for the kernels (port of ``repro.kernels.ops``).
+
+``quant_matmul`` is the single dispatch path for every quantized matmul:
+leading dims are flattened, the weight format and the optional dequant
+epilogue are arguments.  ``flash_mha`` (forward) and
+``paged_flash_decode`` wrap the attention kernels in the reference's
+layouts.  Every wrapper runs its plain version for CPU tensors and its
+CUDA kernel for CUDA tensors; ragged shapes are masked inside the
+kernels instead of padded to a 128 grid (the results are the same).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import (
+    flash_attention_fwd,
+    paged_decode_attention,
+)
+from repro_torch.kernels.nibble_matmul import fused_nibble_matmul
+
+__all__ = ["quant_matmul", "flash_mha", "paged_flash_decode", "W_FORMATS"]
+
+W_FORMATS = ("int8", "int4_packed", "lut")
+
+
+def _row_scale(s, m, device):
+    """Scalar / (M,) / (M,1) scale -> f32 (M, 1)."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=device).reshape(-1, 1)
+    return torch.broadcast_to(s, (m, 1))
+
+
+def _col_scale(s, n, device):
+    """Scalar / (N,) / (1,N) scale -> f32 (1, N)."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=device).reshape(1, -1)
+    return torch.broadcast_to(s, (1, n))
+
+
+def quant_matmul(x_q: torch.Tensor, w: torch.Tensor, *, x_scale=None,
+                 w_scale=None, w_format: str = "int8",
+                 out_dtype=None) -> torch.Tensor:
+    """``x_q``: int8 (..., K).  ``w``: int8 (K, N) for "int8", packed
+    int4 (K, N//2) for "int4_packed".  Unscaled -> exact int32 (..., N);
+    with scales (``x_scale`` broadcastable to (M, 1), ``w_scale`` to
+    (1, N)) the epilogue runs in the kernel and the result is
+    ``out_dtype`` (bf16 by default).  ``"lut"`` waits for the LUT kernel's
+    slice."""
+    if w_format not in W_FORMATS:
+        raise ValueError(f"w_format must be one of {W_FORMATS}: {w_format}")
+    if w_format == "lut":
+        raise NotImplementedError("the LUT selection kernel is not ported "
+                                  "yet (ROADMAP queue 2)")
+    lead = x_q.shape[:-1]
+    mat = x_q.reshape(-1, x_q.shape[-1])
+    m = mat.shape[0]
+    packed = w_format == "int4_packed"
+    n = 2 * w.shape[1] if packed else w.shape[1]
+    xs = ws = None
+    if x_scale is not None or w_scale is not None:
+        ones = torch.ones((), dtype=torch.float32, device=mat.device)
+        xs = _row_scale(ones if x_scale is None else x_scale, m, mat.device)
+        ws = _col_scale(ones if w_scale is None else w_scale, n, mat.device)
+    out = fused_nibble_matmul(mat, w, xs, ws, w_packed=packed,
+                              out_dtype=out_dtype)
+    return out.reshape(*lead, n)
+
+
+def flash_mha(q, k, v, scale, causal=True, window=0, softcap=0.0, group=1):
+    """Flash attention forward over flat head-major layouts: q (B*H, Sq,
+    d), k/v (B*KVH, Sk, d/dv), heads ordered (kv_head, group) so head
+    ``bh`` reads K/V row ``bh // group``.  Returns o (B*H, Sq, dv)."""
+    o, _ = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                               window=window, softcap=softcap, group=group)
+    return o
+
+
+def paged_flash_decode(q, k_pool, v_pool, table, q_pos, *, scale, window=0,
+                       softcap=0.0):
+    """Single-token decode attention against a paged KV cache.  ``q``:
+    (B, 1, H, d) with heads ordered (kv_head, group); pools (num_pages,
+    page_size, KVH, d/dv); ``table`` (B, max_pages) int32; ``q_pos`` (B,).
+    Returns (B, 1, H, dv)."""
+    b, s, h, d = q.shape
+    if s != 1:
+        raise ValueError(f"paged decode takes one query per slot, got S={s}")
+    kvh = k_pool.shape[2]
+    dv = v_pool.shape[-1]
+    o = paged_decode_attention(q.reshape(b, kvh, h // kvh, d), k_pool,
+                               v_pool, table, q_pos, scale=scale,
+                               window=window, softcap=softcap)
+    return o.reshape(b, 1, h, dv)

@@ -36,6 +36,7 @@ _MINI_FILTER_RETRIES = 100
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers", "cuda: needs a CUDA device; skipped without one")
 
 
 def pytest_report_header(config):

@@ -1,0 +1,145 @@
+"""On the card: each CUDA kernel against its plain version, and the
+``"cuda"`` linear route against the ``"torch"`` one.  Every test here
+needs a CUDA device and skips without one; run them on the GPU machine
+with ``python -m pytest -q -m cuda tests/test_torch_cuda.py`` (this file
+imports only torch, numpy and the port, no JAX).
+
+Tolerances: the nibble matmul and the w8a8 linear are exact (int32
+accumulation, the same two f32 multiplies and one bf16 rounding on both
+routes); attention atol 2e-2 in bf16 (p is rounded to bf16 against the
+kernel's running max, the plain version's final max; |o| < ~3), lse 1e-3.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import linear as tlin
+from repro_torch.core.nibble import pack_int4
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import nibble_matmul as nm
+from repro_torch.kernels import ops
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+BF16_ATOL = 2e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc and "
+                    "run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 512), (5, 37, 22),
+                                   (128, 256, 200), (17, 64, 64)])
+def test_nibble_kernel_equals_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda,
+                      generator=g)
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda,
+                      generator=g)
+    w4 = pack_int4(torch.randint(-8, 8, (k, n), dtype=torch.int8,
+                                 device=cuda, generator=g))
+    xs = torch.rand((m, 1), device=cuda, generator=g)
+    ws = torch.rand((1, n), device=cuda, generator=g)
+    before = nm.launches
+    assert torch.equal(nm.nibble_matmul_cuda(x, w),
+                       nm.nibble_matmul_plain(x, w))
+    assert torch.equal(nm.nibble_matmul_cuda(x, w, xs, ws),
+                       nm.nibble_matmul_plain(x, w, xs, ws))
+    assert torch.equal(
+        nm.nibble_matmul_cuda(x, w, xs, ws, out_dtype=torch.float32),
+        nm.nibble_matmul_plain(x, w, xs, ws, out_dtype=torch.float32))
+    assert torch.equal(nm.nibble_matmul_cuda(x, w4, w_packed=True),
+                       nm.nibble_matmul_plain(x, w4, w_packed=True))
+    assert nm.launches == before + 4
+
+
+def test_quant_matmul_dispatches_to_kernel(cuda):
+    x = torch.randint(-128, 128, (2, 3, 64), dtype=torch.int8, device=cuda)
+    w = torch.randint(-128, 128, (64, 48), dtype=torch.int8, device=cuda)
+    before = nm.launches
+    got = ops.quant_matmul(x, w, x_scale=torch.tensor(0.5, device=cuda),
+                           w_scale=torch.full((48,), 0.25, device=cuda))
+    assert nm.launches == before + 1
+    want = nm.nibble_matmul_plain(
+        x.reshape(6, 64), w, torch.full((6, 1), 0.5, device=cuda),
+        torch.full((1, 48), 0.25, device=cuda)).reshape(2, 3, 48)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["w8a8_nibble", "w4a8_nibble"])
+def test_linear_cuda_route_equals_torch_route(cuda, mode):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((4, 1, 256), device=cuda, generator=g).bfloat16()
+    params = {"w": (torch.randn((256, 384), device=cuda, generator=g)
+                    * 0.05).bfloat16()}
+    tlin.prepare_quantized(params, mode)
+    got = tlin.linear_apply(params, x, mode=mode, backend="cuda")
+    want = tlin.linear_apply(params, x, mode=mode, backend="torch")
+    assert torch.equal(got, want)
+
+
+FLASH_CASES = [
+    dict(bkv=2, group=2, s=13, d=16, window=0, softcap=0.0),
+    dict(bkv=1, group=4, s=40, d=32, window=7, softcap=0.0),
+    dict(bkv=2, group=1, s=9, d=8, window=0, softcap=20.0),
+    dict(bkv=4, group=8, s=128, d=128, window=0, softcap=0.0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case):
+    bh = case["bkv"] * case["group"]
+    g = torch.Generator(device=cuda).manual_seed(case["s"])
+    q = torch.randn((bh, case["s"], case["d"]), device=cuda,
+                    generator=g).bfloat16()
+    k = torch.randn((case["bkv"], case["s"], case["d"]), device=cuda,
+                    generator=g).bfloat16()
+    v = torch.randn((case["bkv"], case["s"], case["d"]), device=cuda,
+                    generator=g).bfloat16()
+    kw = dict(scale=case["d"] ** -0.5, window=case["window"],
+              softcap=case["softcap"], group=case["group"])
+    before = fa.fwd_launches
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    assert fa.fwd_launches == before + 1
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
+                               rtol=0)
+    torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=0)
+
+
+def _paged_inputs(seed, b=3, kvh=2, g=4, d=32, ps=4, per_slot=5):
+    r = np.random.default_rng(seed)
+    num_pages = b * per_slot + 1
+    kp = r.standard_normal((num_pages, ps, kvh, d)).astype(np.float32)
+    vp = r.standard_normal((num_pages, ps, kvh, d)).astype(np.float32)
+    q = r.standard_normal((b, kvh, g, d)).astype(np.float32)
+    q_pos = r.integers(0, per_slot * ps, b).astype(np.int32)
+    perm = r.permutation(np.arange(1, num_pages)).reshape(b, per_slot)
+    table = np.zeros((b, per_slot), np.int32)       # trash page past live
+    for i in range(b):
+        live = q_pos[i] // ps + 1
+        table[i, :live] = perm[i, :live]
+    return q, kp, vp, table, q_pos
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (6, 0.0), (0, 15.0)])
+def test_paged_kernel_matches_plain(cuda, window, softcap):
+    q, kp, vp, table, q_pos = (torch.from_numpy(a).to(cuda)
+                               for a in _paged_inputs(window))
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    kw = dict(scale=0.25, window=window, softcap=softcap)
+    before = fa.paged_launches
+    o = fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos, **kw)
+    assert fa.paged_launches == before + 1
+    o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
+                               rtol=0)

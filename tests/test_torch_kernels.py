@@ -1,0 +1,294 @@
+"""Port parity for the kernel layer: the plain versions of the three
+ported kernels against the JAX reference (each CUDA kernel against its
+plain version is in test_torch_cuda.py, which runs on the card).
+
+Tolerances:
+* integer products: exact (``torch.equal`` / ``assert_array_equal``);
+* ``linear_apply`` in the nibble modes: bf16-exact against the reference's
+  ``backend="xla"`` formula (same int8 values, exact int32 accumulator,
+  the same two f32 multiplies, one rounding to bf16);
+* attention in f32: atol/rtol 1e-5 (the reference kernels rescale online
+  per block, the plain versions softmax over all keys at once: same
+  arithmetic in another order);
+* attention in bf16: atol 2e-2 (p is rounded to bf16 against a different
+  running max, |o| < ~3).
+
+The reference's fused nibble Pallas kernel cannot run under this JAX
+(no ``pltpu.TPUCompilerParams``), so matmuls are held to
+``repro.kernels.ref`` and to ``linear_apply(backend="xla")``, which are
+numerically identical to it by construction.  The attention kernels are
+held to the reference's interpret-mode Pallas kernels directly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import linear as jlin
+from repro.core.nibble import pack_int4 as jpack
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import linear as tlin
+from repro_torch.core.nibble import pack_int4
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import nibble_matmul as nm
+from repro_torch.kernels import ops
+
+torch.set_num_threads(1)
+
+F32_TOL = 1e-5
+BF16_ATOL = 2e-2
+
+
+def _bf16_np(a):
+    """Round to bf16 and back to f32 (the values both packages see)."""
+    return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul (plain version) against repro.kernels.ref
+# ---------------------------------------------------------------------------
+
+MM_SHAPES = [(1, 16, 8), (5, 37, 22), (4, 64, 96), (33, 100, 50)]
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+def test_quant_matmul_int8_exact(m, k, n):
+    r = _rng(m * k)
+    x = r.integers(-128, 128, (m, k)).astype(np.int8)
+    w = r.integers(-128, 128, (k, n)).astype(np.int8)
+    want = np.asarray(jref.nibble_matmul_ref(jnp.asarray(x), jnp.asarray(w)))
+    got = ops.quant_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+def test_quant_matmul_int4_packed_exact(m, k, n):
+    r = _rng(m + k + n)
+    x = r.integers(-128, 128, (m, k)).astype(np.int8)
+    w4 = r.integers(-8, 8, (k, n)).astype(np.int8)
+    wp = np.asarray(jpack(jnp.asarray(w4)))
+    np.testing.assert_array_equal(pack_int4(torch.from_numpy(w4)).numpy(), wp)
+    want = np.asarray(jref.nibble_matmul_w4_ref(jnp.asarray(x),
+                                                jnp.asarray(wp)))
+    got = ops.quant_matmul(torch.from_numpy(x), torch.from_numpy(wp),
+                           w_format="int4_packed")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("w_format", ["int8", "int4_packed"])
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_quant_matmul_scaled_epilogue_exact(w_format, out_dtype):
+    r = _rng(7)
+    m, k, n = 6, 45, 30
+    x = r.integers(-128, 128, (2, m // 2, k)).astype(np.int8)   # leading dims
+    if w_format == "int8":
+        w = r.integers(-128, 128, (k, n)).astype(np.int8)
+        acc = jref.nibble_matmul_ref(jnp.asarray(x.reshape(m, k)),
+                                     jnp.asarray(w))
+    else:
+        w = np.asarray(jpack(jnp.asarray(r.integers(-8, 8, (k, n)))))
+        acc = jref.nibble_matmul_w4_ref(jnp.asarray(x.reshape(m, k)),
+                                        jnp.asarray(w))
+    xs = (r.random(m) * 0.01 + 1e-4).astype(np.float32)
+    ws = (r.random(n) * 0.01 + 1e-4).astype(np.float32)
+    jdt = jnp.bfloat16 if out_dtype is None else jnp.float32
+    want = np.asarray((acc.astype(jnp.float32) * jnp.asarray(xs)[:, None]
+                       * jnp.asarray(ws)[None, :]).astype(jdt)
+                      .astype(jnp.float32)).reshape(2, m // 2, n)
+    got = ops.quant_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                           x_scale=torch.from_numpy(xs),
+                           w_scale=torch.from_numpy(ws), w_format=w_format,
+                           out_dtype=out_dtype)
+    assert got.dtype == (torch.bfloat16 if out_dtype is None
+                         else torch.float32)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_quant_matmul_lut_not_ported():
+    x = torch.zeros((2, 16), dtype=torch.int8)
+    with pytest.raises(NotImplementedError):
+        ops.quant_matmul(x, torch.zeros((16, 8), dtype=torch.int8),
+                         w_format="lut")
+    with pytest.raises(ValueError):
+        ops.quant_matmul(x, torch.zeros((16, 8), dtype=torch.int8),
+                         w_format="int2")
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((2, 16), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        nm.nibble_matmul_cuda(x, torch.zeros((16, 8), dtype=torch.int8))
+    q = torch.zeros((2, 4, 16), dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="CUDA"):
+        fa.flash_attention_fwd_cuda(q, q, q, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# linear_apply against the reference's xla backend: bf16-exact
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["w8a8_nibble", "w4a8_nibble", "dense"])
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("shape", [(3, 7, 64), (4, 1, 64), (1, 128, 64)])
+def test_linear_apply_matches_xla(mode, backend, shape):
+    r = _rng(len(shape) + shape[1])
+    x = _bf16_np(r.standard_normal(shape) * 2)
+    w = _bf16_np(r.standard_normal((64, 96)) * 0.1)
+    want = np.asarray(jlin.linear_apply(
+        {"w": jnp.asarray(w, jnp.bfloat16)}, jnp.asarray(x, jnp.bfloat16),
+        mode=mode, backend="xla").astype(jnp.float32))
+    params = {"w": torch.from_numpy(w).bfloat16()}
+    got = tlin.linear_apply(params, torch.from_numpy(x).bfloat16(),
+                            mode=mode, backend=backend)
+    assert got.dtype == torch.bfloat16
+    if mode == "dense":
+        # a plain bf16 GEMM: XLA and torch sum K in another order, so a
+        # result may round to the neighbouring bf16 value (1 ulp, 2**-7
+        # relative at most)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                                   atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    # quantizing the weight once (serving) gives the same result
+    tlin.prepare_quantized(params, mode)
+    again = tlin.linear_apply(params, torch.from_numpy(x).bfloat16(),
+                              mode=mode, backend=backend)
+    assert torch.equal(again, got)
+
+
+def test_prepared_weight_is_reference_quantization():
+    from repro.core import quantize as jq
+    w = _bf16_np(_rng(3).standard_normal((40, 24)))
+    params = {"w": torch.from_numpy(w).bfloat16()}
+    for mode, bits in (("w8a8_nibble", 8), ("w4a8_nibble", 4)):
+        tlin.prepare_quantized(params, mode)
+        jt = jq.quantize(jnp.asarray(w), bits=bits,
+                         granularity="per_channel", axis=0)
+        np.testing.assert_array_equal(params[f"qt{bits}"].t().numpy(),
+                                      np.asarray(jt.values))
+        np.testing.assert_array_equal(params[f"s{bits}"].numpy(),
+                                      np.asarray(jt.scale))
+
+
+def test_linear_unported_modes_raise():
+    params = {"w": torch.zeros((8, 8), dtype=torch.bfloat16)}
+    for mode in ("qat", "lut"):
+        with pytest.raises(NotImplementedError):
+            tlin.linear_apply(params, torch.zeros((1, 8)), mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# Flash forward (plain version) against ops.flash_mha (interpret Pallas)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    dict(bkv=2, group=2, s=13, d=16, window=0, softcap=0.0),
+    dict(bkv=1, group=4, s=40, d=32, window=7, softcap=0.0),
+    dict(bkv=2, group=1, s=9, d=8, window=0, softcap=20.0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_forward_plain_matches_reference(case, dtype):
+    r = _rng(case["s"])
+    bh = case["bkv"] * case["group"]
+    q = r.standard_normal((bh, case["s"], case["d"])).astype(np.float32)
+    k = r.standard_normal((case["bkv"], case["s"], case["d"])) \
+        .astype(np.float32)
+    v = r.standard_normal((case["bkv"], case["s"], case["d"])) \
+        .astype(np.float32)
+    scale = case["d"] ** -0.5
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.asarray(jops.flash_mha(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        scale, True, case["window"], case["softcap"], case["group"], True)
+        .astype(jnp.float32))
+    got = ops.flash_mha(torch.from_numpy(q).to(tdt),
+                        torch.from_numpy(k).to(tdt),
+                        torch.from_numpy(v).to(tdt), scale, True,
+                        case["window"], case["softcap"], case["group"])
+    assert got.dtype == tdt
+    if dtype == "f32":
+        np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL,
+                                   rtol=F32_TOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_ATOL)
+
+
+def test_flash_forward_lse_matches_reference():
+    from repro.kernels.flash_attention import flash_attention_fwd_pallas
+    r = _rng(11)
+    q = r.standard_normal((4, 128, 128)).astype(np.float32)
+    k = r.standard_normal((2, 128, 128)).astype(np.float32)
+    v = r.standard_normal((2, 128, 128)).astype(np.float32)
+    jo, jl = flash_attention_fwd_pallas(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), scale=0.1, group=2,
+                                        interpret=True)
+    to, tl = fa.flash_attention_fwd_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale=0.1, group=2)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=F32_TOL,
+                               rtol=F32_TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode (plain version) against ops.paged_flash_decode
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(seed, b=3, kvh=2, g=2, d=16, ps=4, per_slot=5):
+    r = _rng(seed)
+    num_pages = b * per_slot + 1
+    kp = r.standard_normal((num_pages, ps, kvh, d)).astype(np.float32)
+    vp = r.standard_normal((num_pages, ps, kvh, d)).astype(np.float32)
+    q = r.standard_normal((b, 1, kvh * g, d)).astype(np.float32)
+    q_pos = r.integers(0, per_slot * ps, b).astype(np.int32)
+    perm = r.permutation(np.arange(1, num_pages)).reshape(b, per_slot)
+    table = np.zeros((b, per_slot), np.int32)       # trash page past live
+    for i in range(b):
+        live = q_pos[i] // ps + 1
+        table[i, :live] = perm[i, :live]
+    return q, kp, vp, table, q_pos
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (6, 0.0), (0, 15.0)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_paged_decode_plain_matches_reference(window, softcap, dtype):
+    q, kp, vp, table, q_pos = _paged_inputs(window + int(softcap))
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.asarray(jops.paged_flash_decode(
+        jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+        jnp.asarray(table), jnp.asarray(q_pos), scale=0.25, window=window,
+        softcap=softcap, interpret=True).astype(jnp.float32))
+    got = ops.paged_flash_decode(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(kp).to(tdt),
+        torch.from_numpy(vp).to(tdt), torch.from_numpy(table),
+        torch.from_numpy(q_pos), scale=0.25, window=window, softcap=softcap)
+    assert got.shape == want.shape
+    if dtype == "f32":
+        np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL,
+                                   rtol=F32_TOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_ATOL)
+
+
+def test_paged_decode_ignores_trash_page_contents():
+    q, kp, vp, table, q_pos = _paged_inputs(5)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, table, q_pos)]
+    base = ops.paged_flash_decode(*args, scale=0.25)
+    args[1][0] = 1e4                   # poison the trash page
+    args[2][0] = -1e4
+    torch.testing.assert_close(ops.paged_flash_decode(*args, scale=0.25),
+                               base, rtol=0, atol=0)
+

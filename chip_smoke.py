@@ -4,28 +4,41 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Device: the card's name and power limit (nvidia-smi); TF32 off.
-2. Kernels: build the three CUDA kernels from ``src/repro_torch/csrc``
-   (one nvcc per source, in parallel), run each wrapper at the serving
-   path's shapes on the card and hold it against its plain PyTorch
-   version (nibble matmul: ``torch.equal``; attention: stated
-   tolerances), and time kernel, plain version and a PyTorch library
-   yardstick with CUDA events.
+1. Device: the card's name and power limit (nvidia-smi); TF32 off for
+   matmuls and cuDNN.
+2. Kernels: build the five CUDA sources in ``src/repro_torch/csrc`` (one
+   nvcc per source, in parallel), run each wrapper at its main path's
+   shapes on the card and hold it against its plain PyTorch version
+   (nibble and LUT matmuls: ``torch.equal``; attention forward and
+   backward: stated tolerances), and time kernel, plain version and a
+   PyTorch library yardstick with CUDA events.
 3. Serve: yi-6b at full published width (random weights from a seed),
    every projection ``w8a8_nibble`` on the CUDA backend, flash prefill,
    paged decode; 8 requests through ``Engine.submit`` / ``Engine.run``.
    Launch counters are zeroed just before and read just after; every
-   kernel must have launched.  Then the first request's prefill runs
-   through the plain path (``quant_backend="torch"``,
+   kernel of the path must have launched.  Then the first request's
+   prefill runs through the plain path (``quant_backend="torch"``,
    ``attn_impl="chunked"``) and its logits are held to the kernel path's.
+4. LUT serve: the same weights with ``quant_mode="lut"`` (the LUT-selection
+   kernel), 4 of the requests x 16 new tokens; the greedy streams must
+   equal, token for token, what ``w8a8_nibble`` serves for the same
+   requests (both compute the same int32 product and epilogue).
+5. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
+   (forward, remat recompute and the backward kernels), remat, batch 8 x
+   seq 256, 4 AdamW steps through ``Trainer.run`` on ``SyntheticLM``
+   data; losses must be finite and the flash forward, dq and dk/dv
+   kernels must have launched.  Then, cut to 2 layers, one step's
+   gradients through the kernels are held to the plain path's
+   (``attn_impl="chunked"``) leaf by leaf.
 
-The line before the last is the per-kernel JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The last three lines are the per-kernel JSON, the card's name and power
+limit as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -35,17 +48,30 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+# the training phase holds ~50 GB of long-lived state next to short-lived
+# GB-sized temporaries: expandable segments keep them from fragmenting
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.nibble import pack_int4  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, flash_attention as fa  # noqa: E402
+from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import nibble_matmul as nm  # noqa: E402
 from repro_torch.models import model_init, prefill  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.train import TrainConfig  # noqa: E402
+from repro_torch.train.step import (accumulate_grads,  # noqa: E402
+                                    make_loss_fn)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.tree import tree_paths  # noqa: E402
 
 DEV = "cuda"
 
@@ -65,6 +91,17 @@ LSE_ATOL = 1e-3
 # 32 layers flips some int8 activation roundings; bound relative to the
 # logits' own scale
 LOGIT_RTOL = 0.1
+# flash backward vs its plain version (same bf16 inputs, f32 sums in
+# another order; ds rounded to bf16 may flip by one ulp where the two f32
+# values straddle a midpoint): relative Frobenius norm per gradient
+BWD_RTOL = 1e-3
+# model-level gradients, kernel path (flash) vs plain path (chunked), per
+# leaf in relative Frobenius norm.  The two attention paths round p and
+# the outputs to bf16 at other points, and those ulps flip bf16 roundings
+# downstream; in QAT a flipped activation moves a fake-quantized value by
+# a whole int8 step.  On the CPU the reference's own flash and chunked
+# paths differ by 1.8% (dense) and 3.6% (qat) on reduced qwen3-4b.
+MODEL_GRAD_RTOL = {"dense": 0.05, "qat": 0.15}
 
 MM_SHAPES_DECODE = [  # one decode layer's projections at 4 slots
     ("wq", 4, 4096, 4096), ("wk", 4, 4096, 512), ("wv", 4, 4096, 512),
@@ -123,8 +160,10 @@ def phase_build() -> None:
 
 
 def _int_mm_ms(x, wt):
-    """torch._int_mm yardstick (M padded to 32: cuBLASLt needs M > 16)."""
-    xp = torch.zeros((32, x.shape[1]), dtype=torch.int8, device=x.device)
+    """torch._int_mm yardstick (M padded to at least 32 and to a multiple
+    of 8: cuBLASLt needs M > 16)."""
+    m = max(32, -(-x.shape[0] // 8) * 8)
+    xp = torch.zeros((m, x.shape[1]), dtype=torch.int8, device=x.device)
     xp[:x.shape[0]] = x
     for b in (wt.t(), wt.t().contiguous()):
         try:
@@ -321,16 +360,169 @@ def check_paged(gen) -> dict:
                       f"{per_slot} pages/slot"}
 
 
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def check_flash_bwd(gen, fwd_row: dict) -> dict:
+    """The backward at the training shape: qwen3-4b (32 query heads over
+    8 KV heads, head_dim 128) at batch 8, seq 256.  The forward that feeds
+    it is first held to its plain version at this shape too; its error is
+    folded into ``fwd_row``."""
+    dev = DEV
+    bkv, group, s, d = 64, 4, 256, 128
+    bh = bkv * group
+    scale = 1.0 / math.sqrt(d)
+    worst = 0.0
+    for c in (dict(window=0, softcap=0.0), dict(window=64, softcap=30.0)):
+        q, do = (torch.randn((bh, s, d), device=dev, generator=gen)
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn((bkv, s, d), device=dev, generator=gen)
+                .bfloat16() for _ in range(2))
+        kw = dict(scale=scale, causal=True, group=group, **c)
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err_o = (o.float() - o_p.float()).abs().max().item()
+        err_l = (lse - lse_p).abs().max().item()
+        print(f"  flash fwd (training shape) {c}: max|o err| {err_o:.3e} "
+              f"(atol {ATTN_ATOL}), max|lse err| {err_l:.3e} "
+              f"(atol {LSE_ATOL})", flush=True)
+        if not (err_o <= ATTN_ATOL and err_l <= LSE_ATOL):
+            raise AssertionError(f"flash forward at the training shape {c} "
+                                 f"disagrees with plain")
+        fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], err_o)
+        fwd_row["shapes"] += f"; checked at BH={bh} group={group} S={s} {c}"
+        del o_p, lse_p
+        dmat = (do.float() * o.float()).sum(-1)
+        got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, dmat, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, lse, do, dmat, **kw)
+        torch.cuda.synchronize()
+        errs = {n: _rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), got,
+                                                 want)}
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        print(f"  flash bwd {c}: rel-norm err "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (bound {BWD_RTOL}); max|err| {err:.3e}", flush=True)
+        if not max(errs.values()) <= BWD_RTOL:
+            raise AssertionError(f"flash backward {c} disagrees with plain")
+        worst = max(worst, err)
+    kw = dict(scale=scale, causal=True, group=group)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    dmat = (do.float() * o.float()).sum(-1)
+    ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, lse, do, dmat,
+                                                     **kw))
+    plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, lse, do,
+                                                         dmat, **kw), iters=5)
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw))
+    # yardstick: SDPA forward + backward with the KV heads expanded, minus
+    # SDPA's forward alone
+    b = bkv // 8
+    qq = q.reshape(b, 32, s, d).detach().requires_grad_(True)
+    kk, vv = (t.reshape(b, 8, s, d).repeat_interleave(group, 1).detach()
+              .requires_grad_(True) for t in (k, v))
+    do4 = do.reshape(b, 32, s, d)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True, scale=scale)
+
+    t_fb = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qq, kk, vv), do4))
+    t_f = cuda_ms(sdpa)
+    lib = t_fb - t_f
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
+        + 4 * (lse.numel() + dmat.numel()) \
+        + 4 * (q.numel() + k.numel() + v.numel())
+    pairs = bh * s * (s + 1) // 2
+    flops = 10 * d * pairs
+    bd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    print(f"  flash bwd timing (BH={bh}, G={group}, S={s}, d={d}): kernels "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa fwd+bwd {t_fb:.4f} - fwd "
+          f"{t_f:.4f} = {lib:.4f} ms, bound {bd:.5f} ms ({by}, "
+          f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); flash fwd at "
+          f"this shape {fwd_ms:.4f} ms", flush=True)
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:321",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bd, "bound_by": by, "library_ms": lib,
+            "fwd_train_ms": fwd_ms,
+            "shapes": f"BH={bh} group={group} Sq=Sk={s} d={d} causal "
+                      f"(dq + dk/dv kernels)"}
+
+
+def check_lut(gen) -> dict:
+    dev = DEV
+    for m, k, n in MM_CHECK_SHAPES:
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev,
+                          generator=gen)
+        wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=dev,
+                           generator=gen)
+        x[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
+        wt[:2, 0] = torch.tensor([-128, 127], dtype=torch.int8)
+        got = lm.lut_matmul_cuda(x, wt.t())
+        plain = lm.lut_matmul_plain(x, wt.t())
+        nib = nm.nibble_matmul_cuda(x, wt.t())
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain) and torch.equal(got, nib)):
+            raise AssertionError(f"LUT matmul ({m},{k},{n}) differs from "
+                                 f"its plain version or the nibble kernel")
+        print(f"  lut ({m},{k},{n}): torch.equal to plain and to the nibble "
+              f"kernel's int32", flush=True)
+    ms = plain = lib = 0.0
+    n_bytes = ops = 0
+    for name, m, k, n in MM_SHAPES_DECODE + [("prefill-up", 128, 4096,
+                                              11008)]:
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev,
+                          generator=gen)
+        wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=dev,
+                           generator=gen)
+        t_k = cuda_ms(lambda: lm.lut_matmul_cuda(x, wt.t()))
+        t_p = cuda_ms(lambda: lm.lut_matmul_plain(x, wt.t()), iters=5)
+        t_l = _int_mm_ms(x, wt)
+        print(f"  lut {name} ({m},{k},{n}): kernel {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, _int_mm {t_l} ms", flush=True)
+        if name == "prefill-up":
+            continue
+        ms += t_k
+        plain += t_p
+        lib = None if (lib is None or t_l is None) else lib + t_l
+        n_bytes += m * k + k * n + 4 * m * n
+        ops += 2 * m * n * k
+    b, by = bound_ms(n_bytes, ops, INT8_OPS)
+    return {"name": "lut_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/lut_matmul.cu",
+            "replaces": "src/repro/kernels/lut_matmul.py:87",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "shapes": "one decode layer: wq,wk,wv,wo,gate,up,down at M=4"}
+
+
+COUNTERS = {
+    "nibble_matmul": (nm, "launches"),
+    "flash_attention_fwd": (fa, "fwd_launches"),
+    "paged_decode_attention": (fa, "paged_launches"),
+    "flash_attention_bwd_dq": (fa, "bwd_dq_launches"),
+    "flash_attention_bwd_dkv": (fa, "bwd_dkv_launches"),
+    "lut_matmul": (lm, "lut_launches"),
+}
+
+
 def reset_counts() -> None:
-    nm.launches = 0
-    fa.fwd_launches = 0
-    fa.paged_launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {"nibble_matmul": nm.launches,
-            "flash_attention_fwd": fa.fwd_launches,
-            "paged_decode_attention": fa.paged_launches}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in COUNTERS.items()}
+
+
+def require_launched(counts: dict, names) -> None:
+    missing = [n for n in names if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
 
 
 def phase_serve() -> dict:
@@ -382,10 +574,8 @@ def phase_serve() -> dict:
     print(f"  launches in the serve run: {counts}", flush=True)
     for i in ids[:2]:
         print(f"  request {i} first tokens: {done[i].tokens[:8]}")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    require_launched(counts, ("nibble_matmul", "flash_attention_fwd",
+                              "paged_decode_attention"))
 
     # the first request's prefill: kernel path vs plain path
     p = prompts[0]
@@ -408,7 +598,184 @@ def phase_serve() -> dict:
                              "plain path")
     return {"counts": counts, "tok_s": n_tok / wall, "wall_s": wall,
             "decode_chunks": engine.decode_chunks, "logit_diff": diff,
-            "logit_tol": tol, "engine": engine, "prompts": prompts}
+            "logit_tol": tol, "engine": engine, "prompts": prompts,
+            "params": params}
+
+
+def phase_lut_serve(params, prompts, n_req=4, n_new=16,
+                    prefill_len=128) -> dict:
+    """The serve phase's model and settings in ``quant_mode="lut"``: the
+    streams must equal what ``w8a8_nibble`` serves for the same requests
+    (the prepared int8 weights are the same for both modes)."""
+    base = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    scfg = ServeConfig(batch=4, max_len=prefill_len + 32,
+                       prefill_len=prefill_len, decode_chunk=8)
+
+    def serve(cfg):
+        engine = Engine(cfg, params, scfg, device=DEV)
+        ids = [engine.submit(p, n_new) for p in prompts[:n_req]]
+        done = engine.run()
+        torch.cuda.synchronize()
+        if engine.leaked_pages():
+            raise AssertionError(f"{engine.leaked_pages()} pages leaked")
+        return [done[i].tokens for i in ids]
+
+    want = serve(base)
+    print(f"lut serve: {base.name} full width, quant_mode=lut on the CUDA "
+          f"backend, {n_req} requests x {n_new} new tokens (the serve "
+          f"phase's settings; no layer cut)", flush=True)
+    reset_counts()
+    t = time.perf_counter()
+    got = serve(base.replace(quant_mode="lut"))
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    n_tok = sum(len(x) for x in got)
+    print(f"  served {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.2f} "
+          f"tok/s; launches {counts}", flush=True)
+    require_launched(counts, ("lut_matmul", "flash_attention_fwd",
+                              "paged_decode_attention"))
+    if counts["nibble_matmul"]:
+        raise AssertionError("the lut path launched the nibble kernel")
+    same = sum(a == b for a, b in zip(got, want))
+    print(f"  lut streams equal to w8a8_nibble streams: {same}/{n_req} "
+          f"requests token for token; first: {got[0][:8]}", flush=True)
+    if got != want:
+        raise AssertionError(f"lut streams {got} differ from w8a8_nibble "
+                             f"streams {want}")
+    return {"counts": counts, "tok_s": n_tok / wall, "wall_s": wall}
+
+
+def phase_train(profile: bool) -> dict:
+    """Full-width qwen3-4b, QAT, flash attention, remat: 4 Trainer steps."""
+    cfg = get_config("qwen3-4b").replace(quant_mode="qat", attn_impl="flash",
+                                         remat=True)
+    batch, seq, steps = 8, 256, 4
+    print(f"train: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} tied head (full width, "
+          f"all layers), quant_mode=qat attn_impl=flash remat=True, batch "
+          f"{batch} x seq {seq}, {steps} steps", flush=True)
+    tcfg = TrainConfig(optimizer=AdamWConfig(), total_steps=steps,
+                       warmup_steps=max(1, steps // 10))
+    rcfg = TrainerConfig(steps=steps, log_every=1)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, rcfg, dcfg, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t_.numel() for _, t_ in tree_paths(trainer.params))
+    print(f"  {n_params / 1e9:.3f} B parameters, initialised in "
+          f"{time.perf_counter() - t:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"(bf16 params + f32 moments)", flush=True)
+    reset_counts()
+    t = time.perf_counter()
+    history = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in history:
+        print(f"  step {h['step']}: loss {h['loss']:.6f}, grad norm "
+              f"{h['grad_norm']:.6f}, lr {h['lr']:.3e}, "
+              f"{h['step_time_s']:.3f} s", flush=True)
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"non-finite loss at step {h['step']}")
+    steady = [h["step_time_s"] for h in history[1:]]
+    tok_s = batch * seq * len(steady) / sum(steady)
+    print(f"  {steps} steps in {wall:.2f} s; steady {tok_s:.1f} tokens/s "
+          f"(steps 1-{steps - 1}); peak memory allocated "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    print(f"  launches in the train run: {counts}; per step {per_step}",
+          flush=True)
+    require_launched(counts, ("flash_attention_fwd",
+                              "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv"))
+    out = {"counts": counts, "history": history, "wall_s": wall,
+           "tok_s": tok_s, "peak_bytes": peak, "n_params": n_params}
+    if profile:
+        out["profile"] = profile_train_step(trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(trainer) -> dict:
+    """One more training step under torch.profiler: device time by
+    kernel and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = trainer.data.batch(trainer.rcfg.steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.step_fn(trainer.params, trainer.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = _device_times(prof)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    print(f"profile: one train step, wall {wall_us / 1e3:.1f} ms, device "
+          f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}",
+          flush=True)
+    for name, us in top:
+        print(f"  {us / 1e3:9.2f} ms  {name[:90]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "top": [(n, us / 1e3) for n, us in top]}
+
+
+def check_train_grads() -> dict:
+    """One step's gradients on full-width qwen3-4b cut to 2 layers:
+    kernel path (flash) vs plain path (chunked), leaf by leaf."""
+    out = {}
+    for mode in ("qat", "dense"):
+        cfg = get_config("qwen3-4b").replace(n_layers=2, quant_mode=mode,
+                                             remat=True)
+        print(f"train grads: {cfg.name} full width cut to n_layers=2 "
+              f"(of 36), quant_mode={mode}, batch 8 x seq 256: flash "
+              f"kernels vs plain chunked attention", flush=True)
+        params = model_init(cfg, seed=1, device=DEV)
+        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=256, global_batch=8),
+                            device=DEV).batch(0)
+        res = {}
+        for impl in ("flash", "chunked"):
+            c = cfg.replace(attn_impl=impl)
+            loss, _, g = accumulate_grads(make_loss_fn(c, TrainConfig()),
+                                          params, batch, 1)
+            res[impl] = (float(loss), dict(tree_paths(g)))
+        errs = {p: _rel(a, res["chunked"][1][p])
+                for p, a in res["flash"][1].items()}
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])
+        print(f"  loss flash {res['flash'][0]:.6f} vs chunked "
+              f"{res['chunked'][0]:.6f}; worst rel-norm errors: "
+              + ", ".join(f"{p} {e:.3e}" for p, e in worst[:4])
+              + f" (bound {MODEL_GRAD_RTOL[mode]})", flush=True)
+        if not worst[0][1] <= MODEL_GRAD_RTOL[mode]:
+            raise AssertionError(f"{mode}: kernel-path gradients disagree "
+                                 f"with the plain path")
+        out[mode] = {"loss": {k: v[0] for k, v in res.items()},
+                     "worst": worst[:4]}
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _device_times(prof) -> dict:
+    """Self device time (us) per CUDA kernel name from a profiler run."""
+    kernels = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    return kernels
 
 
 def phase_profile(engine, prompts, n_new=32) -> dict:
@@ -424,13 +791,7 @@ def phase_profile(engine, prompts, n_new=32) -> dict:
         engine.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    kernels = {}
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = ev.self_cuda_time_total
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    kernels = _device_times(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     print(f"profile: 4 requests x {n_new} tokens, wall {wall_us / 1e3:.1f} "
@@ -457,19 +818,33 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = [check_nibble(gen), check_flash(gen), check_paged(gen)]
+    rows += [check_flash_bwd(gen, rows[1]), check_lut(gen)]
     serve = phase_serve()
     engine, prompts = serve.pop("engine"), serve.pop("prompts")
-    for r in rows:
+    params = serve.pop("params")
+    for r in rows[:3]:
         r["launches"] = serve["counts"][r["name"]]
     if args.profile:
         serve["profile"] = phase_profile(engine, prompts)
+    del engine
+    lut = phase_lut_serve(params, prompts)
+    rows[4]["launches"] = lut["counts"]["lut_matmul"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(args.profile)
+    rows[3]["launches"] = (train["counts"]["flash_attention_bwd_dq"]
+                           + train["counts"]["flash_attention_bwd_dkv"])
+    grads = check_train_grads()
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "kernels": rows, "serve": serve,
-                       "torch": torch.__version__}, f, indent=1)
+                       "lut_serve": lut, "train": train,
+                       "train_grads": grads, "torch": torch.__version__},
+                      f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,9 +1,10 @@
-"""PyTorch + CUDA port of the nibble-multiplier serving system.
+"""PyTorch + CUDA port of the nibble-multiplier serving and training
+system.
 
 The JAX package ``repro`` is the reference; this package runs the same
-model, quantization and serving path on an NVIDIA Hopper card through
-hand-written CUDA kernels (``repro_torch/csrc``), with a plain PyTorch
-version beside every kernel.  Entry points take ``device=`` and default
+model, quantization, serving and training paths on an NVIDIA Hopper card
+through hand-written CUDA kernels (``repro_torch/csrc``), with a plain
+PyTorch version beside every kernel.  Entry points take ``device=`` and default
 to ``"cuda"``; only tests pass ``device="cpu"``.
 """
 

@@ -7,8 +7,9 @@ packages.  Differences:
 * ``quant_backend`` takes ``"torch"`` (plain PyTorch formulas, the
   counterpart of the reference's ``"xla"``) or ``"cuda"`` (the
   hand-written Hopper kernels, the counterpart of ``"pallas"``);
-* ``attn_impl`` keeps ``"chunked" | "flash"``; ``"flash"`` routes prefill
-  and paged decode attention through the CUDA kernels on the card.
+* ``attn_impl`` keeps ``"chunked" | "flash"``; ``"flash"`` routes the
+  training forward and backward, prefill and paged decode attention
+  through the CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ class ModelConfig:
     # execution
     quant_mode: str = "dense"          # QuantLinear mode for projections
     quant_backend: str = "torch"       # "torch" | "cuda"
+    remat: bool = True                 # recompute each layer in backward
     norm_eps: float = 1e-6
     attn_impl: str = "chunked"         # "chunked" | "flash"
     kv_cache_dtype: str = "bf16"       # only "bf16" is ported

@@ -30,6 +30,8 @@ SOURCES = {
     "nibble_matmul": "nibble_matmul.cu",
     "flash_attention": "flash_attention.cu",
     "paged_decode": "paged_decode.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
+    "lut_matmul": "lut_matmul.cu",
 }
 _HEADERS = ("attention_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

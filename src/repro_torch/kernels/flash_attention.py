@@ -1,12 +1,15 @@
-"""Flash-attention forward and paged decode: CUDA kernels + plain versions.
+"""Flash attention forward and backward, paged decode: CUDA kernels +
+plain versions.
 
-Ports of ``repro.kernels.flash_attention.flash_attention_fwd_pallas`` and
-``paged_decode_attention_pallas`` (the backward waits for the training
-slice).  Both kernels (``csrc/flash_attention.cu``, ``csrc/paged_decode.cu``)
+Ports of ``repro.kernels.flash_attention.flash_attention_fwd_pallas``,
+``flash_attention_bwd_pallas`` and ``paged_decode_attention_pallas``.  The
+forward kernels (``csrc/flash_attention.cu``, ``csrc/paged_decode.cu``)
 run an online softmax in f32 with the finite ``-1e30`` mask sentinel and
-cast ``p`` to the value dtype before the PV product.  The plain versions
-compute the same function in one softmax over all keys (no blocking), so
-kernel and plain agree to float rounding, not bit for bit.
+cast ``p`` to the value dtype before the PV product.  The backward
+(``csrc/flash_attention_bwd.cu``: a dq kernel and a dk/dv kernel)
+recomputes ``p`` from the saved log-sum-exp with the reference's casts.
+The plain versions compute the same functions densely over all keys (no
+blocking), so kernel and plain agree to float rounding, not bit for bit.
 
 Dispatch is by device: plain version for CPU tensors, kernel for CUDA
 tensors (no fallback).
@@ -23,13 +26,17 @@ from repro_torch.kernels import _build
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_fwd_cuda", "paged_decode_attention",
            "paged_decode_attention_plain", "paged_decode_attention_cuda",
-           "fwd_launches", "paged_launches"]
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_bwd_cuda", "fwd_launches", "paged_launches",
+           "bwd_dq_launches", "bwd_dkv_launches"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128          # the kernels keep one head row per warp lane set
 
 fwd_launches = 0            # launches by flash_attention_fwd_cuda
 paged_launches = 0          # launches by paged_decode_attention_cuda
+bwd_dq_launches = 0         # dq-kernel launches by flash_attention_bwd_cuda
+bwd_dkv_launches = 0        # dk/dv-kernel launches by the same
 
 
 def _softmax_pv(s, v, out_dtype):
@@ -47,14 +54,25 @@ def flash_attention_fwd_plain(q, k, v, *, scale, causal=True, window=0,
     """q: (BH, Sq, d); k/v: (BKV, Sk, d/dv) with BH = BKV * group, query
     head ``bh`` reading K/V row ``bh // group``.  Returns (o (BH, Sq, dv)
     in q.dtype, lse (BH, Sq) f32)."""
-    bh, sq, _ = q.shape
-    sk = k.shape[1]
-    rows = torch.arange(bh, device=q.device) // group
-    kk, vv = k[rows], v[rows]
-    s = torch.matmul(q.to(torch.float32),
-                     kk.to(torch.float32).transpose(1, 2)) * scale
-    if softcap:
-        s = torch.tanh(s / softcap) * softcap
+    kk, vv = _kv_rows(k, v, q.shape[0], group)
+    s, _ = _scores(q, kk, scale=scale, causal=causal, window=window,
+                   softcap=softcap)
+    return _softmax_pv(s, vv, q.dtype)
+
+
+def _kv_rows(k, v, bh, group):
+    """K/V rows of every query head: head ``bh`` reads row ``bh // group``."""
+    rows = torch.arange(bh, device=k.device) // group
+    return k[rows], v[rows]
+
+
+def _scores(q, kk, *, scale, causal, window, softcap):
+    """Masked f32 scores (BH, Sq, Sk) and the raw scaled ones (before
+    softcap and mask), the reference's ``_recompute_p`` order."""
+    sq, sk = q.shape[1], kk.shape[1]
+    s_raw = torch.matmul(q.to(torch.float32),
+                         kk.to(torch.float32).transpose(1, 2)) * scale
+    s = torch.tanh(s_raw / softcap) * softcap if softcap else s_raw
     qp = torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -62,8 +80,7 @@ def flash_attention_fwd_plain(q, k, v, *, scale, causal=True, window=0,
         mask &= kp <= qp
     if window:
         mask &= (qp - kp) < window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    return _softmax_pv(s, vv, q.dtype)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), s_raw
 
 
 def _check_heads(d, dv):
@@ -122,6 +139,88 @@ def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0,
             else flash_attention_fwd_cuda)
     return impl(q, k, v, scale=scale, causal=causal, window=window,
                 softcap=softcap, group=group)
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q, k, v, lse, do, dmat, *, scale, causal=True,
+                              window=0, softcap=0.0, group=1):
+    """Gradients of the flash forward, densely over all keys.  ``lse``:
+    the forward's (BH, Sq) f32 log-sum-exp; ``dmat``: (BH, Sq) f32
+    ``rowsum(do * o)``.  Returns f32 (dq (BH, Sq, d), dk (BKV, Sk, d),
+    dv (BKV, Sk, dv)), dk/dv summed over each KV head's group.  Casts as
+    the reference kernels: ``do`` in ``v.dtype`` for dp, ``ds`` rounded to
+    ``k.dtype`` / ``q.dtype`` before the dq / dk products, ``p`` in f32
+    for the dv product."""
+    bh, sq, d = q.shape
+    bkv, sk, dv = v.shape
+    kk, vv = _kv_rows(k, v, bh, group)
+    s, s_raw = _scores(q, kk, scale=scale, causal=causal, window=window,
+                       softcap=softcap)
+    p = torch.exp(s - lse[..., None])
+    f32 = torch.float32
+    do32 = do.to(f32)
+    dp = torch.matmul(do.to(v.dtype).to(f32), vv.to(f32).transpose(1, 2))
+    ds = p * (dp - dmat[..., None])
+    if softcap:
+        t = torch.tanh(s_raw / softcap)
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    dq = torch.matmul(ds.to(k.dtype).to(f32), kk.to(f32))
+    dv_h = torch.matmul(p.transpose(1, 2), do32)
+    dk_h = torch.matmul(ds.to(q.dtype).to(f32).transpose(1, 2), q.to(f32))
+    return (dq, dk_h.reshape(bkv, group, sk, d).sum(1),
+            dv_h.reshape(bkv, group, sk, dv).sum(1))
+
+
+def flash_attention_bwd_cuda(q, k, v, lse, do, dmat, *, scale, causal=True,
+                             window=0, softcap=0.0, group=1):
+    """Launch the two kernels of ``csrc/flash_attention_bwd.cu`` (same
+    contract as the plain version; bf16 q/k/v/do, f32 lse/dmat, head dims
+    <= 128)."""
+    global bwd_dq_launches, bwd_dkv_launches
+    q, k, v, do = _bf16_cuda(q, k, v, do)
+    bh, sq, d = q.shape
+    bkv, sk, dv = v.shape
+    if (bh != bkv * group or k.shape != (bkv, sk, d)
+            or do.shape != (bh, sq, dv)):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, do {tuple(do.shape)} and "
+                         f"group {group} disagree")
+    _check_heads(d, dv)
+    lse, dmat = (t.to(device=q.device, dtype=torch.float32).contiguous()
+                 for t in (lse, dmat))
+    if lse.shape != (bh, sq) or dmat.shape != (bh, sq):
+        raise ValueError(f"lse {tuple(lse.shape)} / dmat "
+                         f"{tuple(dmat.shape)} must be {(bh, sq)}")
+    dq = torch.empty((bh, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((bkv, sk, d), dtype=torch.float32, device=q.device)
+    dvo = torch.empty((bkv, sk, dv), dtype=torch.float32, device=q.device)
+    if not (bh and sq and sk):
+        return dq.zero_(), dk.zero_(), dvo.zero_()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, dmat)]
+    args = [bh, sq, sk, d, dv, group, float(scale), float(softcap),
+            int(bool(causal)), int(window), stream]
+    fn = _fn("flash_attention_bwd", "flash_attention_bwd_dq", 7, 6, 2, 2)
+    _build.check(fn(*ptrs, dq.data_ptr(), *args), "flash_attention_bwd_dq")
+    bwd_dq_launches += 1
+    fn = _fn("flash_attention_bwd", "flash_attention_bwd_dkv", 8, 6, 2, 2)
+    _build.check(fn(*ptrs, dk.data_ptr(), dvo.data_ptr(), *args),
+                 "flash_attention_bwd_dkv")
+    bwd_dkv_launches += 1
+    return dq, dk, dvo
+
+
+def flash_attention_bwd(q, k, v, lse, do, dmat, *, scale, causal=True,
+                        window=0, softcap=0.0, group=1):
+    """Flash backward: plain version on CPU tensors, kernels on CUDA."""
+    impl = (flash_attention_bwd_plain if q.device.type == "cpu"
+            else flash_attention_bwd_cuda)
+    return impl(q, k, v, lse, do, dmat, scale=scale, causal=causal,
+                window=window, softcap=softcap, group=group)
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,12 @@
 
 ``quant_matmul`` is the single dispatch path for every quantized matmul:
 leading dims are flattened, the weight format and the optional dequant
-epilogue are arguments.  ``flash_mha`` (forward) and
-``paged_flash_decode`` wrap the attention kernels in the reference's
-layouts.  Every wrapper runs its plain version for CPU tensors and its
-CUDA kernel for CUDA tensors; ragged shapes are masked inside the
-kernels instead of padded to a 128 grid (the results are the same).
+epilogue are arguments.  ``flash_mha`` is differentiable (an autograd
+function over the flash forward and backward) and ``paged_flash_decode``
+wraps the decode kernel, both in the reference's layouts.  Every wrapper
+runs its plain version for CPU tensors and its CUDA kernel for CUDA
+tensors; ragged shapes are masked inside the kernels instead of padded to
+a 128 grid (the results are the same).
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import (
+    flash_attention_bwd,
     flash_attention_fwd,
     paged_decode_attention,
 )
+from repro_torch.kernels.lut_matmul import lut_matmul
 from repro_torch.kernels.nibble_matmul import fused_nibble_matmul
 
 __all__ = ["quant_matmul", "flash_mha", "paged_flash_decode", "W_FORMATS"]
@@ -39,24 +42,28 @@ def _col_scale(s, n, device):
 def quant_matmul(x_q: torch.Tensor, w: torch.Tensor, *, x_scale=None,
                  w_scale=None, w_format: str = "int8",
                  out_dtype=None) -> torch.Tensor:
-    """``x_q``: int8 (..., K).  ``w``: int8 (K, N) for "int8", packed
-    int4 (K, N//2) for "int4_packed".  Unscaled -> exact int32 (..., N);
-    with scales (``x_scale`` broadcastable to (M, 1), ``w_scale`` to
-    (1, N)) the epilogue runs in the kernel and the result is
-    ``out_dtype`` (bf16 by default).  ``"lut"`` waits for the LUT kernel's
-    slice."""
+    """``x_q``: int8 (..., K).  ``w``: int8 (K, N) for "int8" and "lut",
+    packed int4 (K, N//2) for "int4_packed".  Unscaled -> exact int32
+    (..., N); with scales (``x_scale`` broadcastable to (M, 1), ``w_scale``
+    to (1, N)) the result is ``(acc * x_scale) * w_scale`` in
+    ``out_dtype`` (bf16 by default), an epilogue the nibble kernel runs
+    itself.  "lut" takes no scales and returns exact int32 (the
+    LUT-selection kernel); its caller applies the epilogue."""
     if w_format not in W_FORMATS:
         raise ValueError(f"w_format must be one of {W_FORMATS}: {w_format}")
-    if w_format == "lut":
-        raise NotImplementedError("the LUT selection kernel is not ported "
-                                  "yet (ROADMAP queue 2)")
     lead = x_q.shape[:-1]
     mat = x_q.reshape(-1, x_q.shape[-1])
     m = mat.shape[0]
     packed = w_format == "int4_packed"
     n = 2 * w.shape[1] if packed else w.shape[1]
+    scaled = x_scale is not None or w_scale is not None
+    if w_format == "lut":
+        if scaled or out_dtype is not None:
+            raise ValueError("w_format='lut' returns exact int32: apply the "
+                             "scales and the cast outside")
+        return lut_matmul(mat, w).reshape(*lead, n)
     xs = ws = None
-    if x_scale is not None or w_scale is not None:
+    if scaled:
         ones = torch.ones((), dtype=torch.float32, device=mat.device)
         xs = _row_scale(ones if x_scale is None else x_scale, m, mat.device)
         ws = _col_scale(ones if w_scale is None else w_scale, n, mat.device)
@@ -65,13 +72,39 @@ def quant_matmul(x_q: torch.Tensor, w: torch.Tensor, *, x_scale=None,
     return out.reshape(*lead, n)
 
 
+class _FlashMHA(torch.autograd.Function):
+    """The reference's ``custom_vjp`` over both flash passes: the forward
+    saves q, k, v, o and the row log-sum-exp; the backward forms
+    ``dmat = rowsum(do * o)`` in f32, runs the flash backward and casts
+    dq / dk / dv (dk and dv already summed onto the KV heads) to the input
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap, group):
+        o, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                     window=window, softcap=softcap,
+                                     group=group)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(scale=scale, causal=causal, window=window,
+                        softcap=softcap, group=group)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dmat = torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1)
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, do, dmat, **ctx.opts)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None)
+
+
 def flash_mha(q, k, v, scale, causal=True, window=0, softcap=0.0, group=1):
-    """Flash attention forward over flat head-major layouts: q (B*H, Sq,
-    d), k/v (B*KVH, Sk, d/dv), heads ordered (kv_head, group) so head
-    ``bh`` reads K/V row ``bh // group``.  Returns o (B*H, Sq, dv)."""
-    o, _ = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
-                               window=window, softcap=softcap, group=group)
-    return o
+    """Flash attention over flat head-major layouts: q (B*H, Sq, d), k/v
+    (B*KVH, Sk, d/dv), heads ordered (kv_head, group) so head ``bh`` reads
+    K/V row ``bh // group``.  Returns o (B*H, Sq, dv); differentiable in
+    q, k and v (the backward runs the flash backward kernels)."""
+    return _FlashMHA.apply(q, k, v, scale, causal, window, softcap, group)
 
 
 def paged_flash_decode(q, k_pool, v_pool, table, q_pos, *, scale, window=0,

@@ -9,14 +9,17 @@ with one ``{"k", "v"}`` dict per layer: dense per-slot slabs
 ``(B, max_len, KVH, hd)`` or shared page pools ``(num_pages, page_size,
 KVH, hd)``.
 
-Entry points: :func:`forward` (full-sequence logits), :func:`prefill`
-(logits at ``logits_index`` plus the caches, grown to ``max_len``) and
-:func:`decode_step` (tokens against the caches at per-slot positions).
+Entry points: :func:`forward` (full-sequence training logits,
+differentiable; under ``cfg.remat`` each layer is recomputed in the
+backward pass), :func:`prefill` (logits at ``logits_index`` plus the
+caches, grown to ``max_len``) and :func:`decode_step` (tokens against the
+caches at per-slot positions).  Training mode never writes a cache.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -131,24 +134,42 @@ def _index_tree(node: dict, i: int) -> dict:
 # Stack
 # ---------------------------------------------------------------------------
 
+def _layer_apply(p, cfg: ModelConfig, spec, x, *, positions, cache=None,
+                 cache_index=None, mode="train", page_table=None):
+    """One pre-norm attention + MLP layer; returns (x, new_cache)."""
+    h = rms_norm(p["mixer_norm"], x, cfg.norm_eps)
+    out, c = attn_apply(p["attn"], cfg, h, positions=positions,
+                        kind=spec.attn_kind, cache=cache,
+                        cache_index=cache_index,
+                        return_cache=(mode == "prefill"),
+                        page_table=page_table)
+    x = x + out
+    h = rms_norm(p["ffn_norm"], x, cfg.norm_eps)
+    x = x + mlp_apply(p["mlp"], h, act=cfg.act, quant_mode=cfg.quant_mode,
+                      quant_backend=cfg.quant_backend)
+    return x, c
+
+
 def _stack_apply(params, cfg: ModelConfig, x, *, positions, caches=None,
                  cache_index=None, mode="train", page_table=None):
-    """Returns (x, new_caches); caches only for prefill / decode."""
+    """Returns (x, new_caches); caches only for prefill / decode.  In
+    training with ``cfg.remat`` every layer runs under a non-reentrant
+    checkpoint: only its input is kept, the rest is recomputed in the
+    backward pass (the reference's ``jax.checkpoint`` per block)."""
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     new_caches = []
     for li, (p, spec) in enumerate(zip(params["layers"], cfg.layer_specs)):
-        h = rms_norm(p["mixer_norm"], x, cfg.norm_eps)
-        out, c = attn_apply(p["attn"], cfg, h, positions=positions,
-                            kind=spec.attn_kind,
-                            cache=None if caches is None else caches[li],
-                            cache_index=cache_index,
-                            return_cache=(mode == "prefill"),
-                            page_table=page_table)
+        if remat:
+            x, c = checkpoint(
+                lambda x_, p_=p, s_=spec: _layer_apply(
+                    p_, cfg, s_, x_, positions=positions),
+                x, use_reentrant=False)
+        else:
+            x, c = _layer_apply(p, cfg, spec, x, positions=positions,
+                                cache=None if caches is None else caches[li],
+                                cache_index=cache_index, mode=mode,
+                                page_table=page_table)
         new_caches.append(c)
-        x = x + out
-        h = rms_norm(p["ffn_norm"], x, cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, act=cfg.act,
-                          quant_mode=cfg.quant_mode,
-                          quant_backend=cfg.quant_backend)
     return x, (new_caches if mode in ("prefill", "decode") else None)
 
 
@@ -166,15 +187,18 @@ def _embed(params, cfg, tokens):
                        scale_by_sqrt_dim=cfg.emb_scale_by_sqrt_dim)
 
 
-@torch.no_grad()
-def forward(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """Full-sequence logits.  tokens: (B, S) int."""
+def forward(params, cfg: ModelConfig, tokens):
+    """Training logits.  tokens: (B, S) int.  Returns ``(logits (B, S, V)
+    f32, aux)``; ``aux`` is the MoE auxiliary loss, 0 for the attention-only
+    stacks ported here.  Differentiable with respect to every float leaf
+    of ``params``."""
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
     pos = torch.broadcast_to(torch.arange(s, device=x.device)[None, :],
                              (b, s))
     x, _ = _stack_apply(params, cfg, x, positions=pos, mode="train")
-    return _logits(params, cfg, x)
+    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
+                                                device=x.device)
 
 
 @torch.no_grad()

@@ -4,10 +4,14 @@ needs a CUDA device and skips without one; run them on the GPU machine
 with ``python -m pytest -q -m cuda tests/test_torch_cuda.py`` (this file
 imports only torch, numpy and the port, no JAX).
 
-Tolerances: the nibble matmul and the w8a8 linear are exact (int32
-accumulation, the same two f32 multiplies and one bf16 rounding on both
-routes); attention atol 2e-2 in bf16 (p is rounded to bf16 against the
-kernel's running max, the plain version's final max; |o| < ~3), lse 1e-3.
+Tolerances: the nibble and LUT matmuls and the w8a8 / lut linears are
+exact (int32 accumulation, the same two f32 multiplies and one bf16
+rounding on every route); attention atol 2e-2 in bf16 (p is rounded to
+bf16 against the kernel's running max, the plain version's final max;
+|o| < ~3), lse 1e-3; the flash backward within BWD_RTOL = 1e-3 of the
+plain backward in relative Frobenius norm per gradient (both accumulate
+in f32 from the same bf16 inputs, in another order; a rounding of ds to
+bf16 can flip by one ulp where the two f32 values straddle a midpoint).
 """
 
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 from repro_torch.core import linear as tlin
 from repro_torch.core.nibble import pack_int4
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lut_matmul as lm
 from repro_torch.kernels import nibble_matmul as nm
 from repro_torch.kernels import ops
 
@@ -25,6 +30,7 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
 BF16_ATOL = 2e-2
+BWD_RTOL = 1e-3
 
 
 @pytest.fixture
@@ -143,3 +149,89 @@ def test_paged_kernel_matches_plain(cuda, window, softcap):
     o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
     torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
                                rtol=0)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+BWD_CASES = [
+    dict(bkv=2, group=2, s=13, d=16, window=0, softcap=0.0),
+    dict(bkv=1, group=4, s=70, d=32, window=7, softcap=0.0),
+    dict(bkv=2, group=1, s=9, d=8, window=0, softcap=20.0),
+    dict(bkv=2, group=4, s=256, d=128, window=0, softcap=0.0),
+    dict(bkv=2, group=4, s=200, d=128, window=64, softcap=30.0),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, case):
+    bh = case["bkv"] * case["group"]
+    g = torch.Generator(device=cuda).manual_seed(case["s"] + case["d"])
+    s, d = case["s"], case["d"]
+    q, do = (torch.randn((bh, s, d), device=cuda, generator=g).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((case["bkv"], s, d), device=cuda,
+                        generator=g).bfloat16() for _ in range(2))
+    kw = dict(scale=d ** -0.5, window=case["window"],
+              softcap=case["softcap"], group=case["group"])
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    dmat = (do.float() * o.float()).sum(-1)
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, dmat, **kw)
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, lse, do, dmat, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel(a, b) <= BWD_RTOL, (name, _rel(a, b))
+
+
+def test_flash_mha_backward_runs_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((8, 40, 64), device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn((2, 40, 64), device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    o = ops.flash_mha(*leaves, 0.125, True, 0, 0.0, 4)
+    grads = torch.autograd.grad((o.float() ** 2).sum(), leaves)
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == \
+        tuple(b + 1 for b in before)
+    ref = [t.cpu().float().requires_grad_(True) for t in (q, k, v)]
+    o_r = ops.flash_mha(*ref, 0.125, True, 0, 0.0, 4)
+    want = torch.autograd.grad((o_r ** 2).sum(), ref)
+    for a, b in zip(grads, want):
+        assert a.dtype == torch.bfloat16
+        assert _rel(a.cpu(), b) <= 2e-2
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 512), (5, 37, 22),
+                                   (128, 256, 200), (70, 64, 33)])
+def test_lut_kernel_equals_plain_and_nibble(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m * n + k)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda,
+                      generator=g)
+    wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=cuda,
+                       generator=g)
+    x[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
+    wt[:2, 0] = torch.tensor([-128, 127], dtype=torch.int8)
+    before = lm.lut_launches
+    got = lm.lut_matmul_cuda(x, wt.t())
+    assert lm.lut_launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, lm.lut_matmul_plain(x, wt.t()))
+    assert torch.equal(got, nm.nibble_matmul_cuda(x, wt.t()))
+
+
+def test_linear_lut_cuda_route_equals_nibble(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 3, 256), device=cuda, generator=g).bfloat16()
+    params = {"w": (torch.randn((256, 384), device=cuda, generator=g)
+                    * 0.05).bfloat16()}
+    tlin.prepare_quantized(params, "lut")
+    got = tlin.linear_apply(params, x, mode="lut", backend="cuda")
+    assert torch.equal(got, tlin.linear_apply(params, x, mode="lut",
+                                              backend="torch"))
+    assert torch.equal(got, tlin.linear_apply(params, x, mode="w8a8_nibble",
+                                              backend="cuda"))

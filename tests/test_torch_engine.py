@@ -2,14 +2,15 @@
 reference ``Engine`` on one seed-pinned staggered workload (more requests
 than slots, mixed prompt lengths and budgets, so slots refill mid-stream
 next to older sequences), reduced yi-6b, greedy, ``attn_impl="flash"``,
-in ``dense`` and ``w8a8_nibble`` over dense and paged caches.
+in ``dense``, ``w8a8_nibble`` and ``lut`` (the reference on its ``xla``
+LUT formula) over dense and paged caches.
 
 Greedy streams must be equal token for token.  A divergence is accepted
 only at an exact tie: the reference's logits at the diverging step, read
 back from its own run, must rank the port's token within LOGIT_TOL of its
 own top-1 (yi-6b's logits are bf16, so ties are common; the two packages'
-logits agree to LOGIT_TOL, see test_torch_model.py).  In ``w8a8_nibble``
-the activation scale is taken over the whole batch, so once one stream
+logits agree to LOGIT_TOL, see test_torch_model.py).  In the integer
+modes the activation scale is taken over the whole batch, so once one stream
 diverges the others in its batch may follow; only the first divergence in
 time is then held to the tie rule.
 """
@@ -81,7 +82,7 @@ def _reference_logits(records, prompt, stream, i):
     raise AssertionError(f"no reference step emitted token {i}")
 
 
-@pytest.mark.parametrize("mode", ["dense", "w8a8_nibble"])
+@pytest.mark.parametrize("mode", ["dense", "w8a8_nibble", "lut"])
 @pytest.mark.parametrize("cache_mode", ["dense", "paged"])
 def test_staggered_streams_match_reference(monkeypatch, mode, cache_mode):
     over = dict(quant_mode=mode, attn_impl="flash", cache_mode=cache_mode,
@@ -119,7 +120,7 @@ def test_staggered_streams_match_reference(monkeypatch, mode, cache_mode):
     if not firsts:
         return
     firsts.sort()
-    held = firsts[:1] if mode == "w8a8_nibble" else firsts
+    held = firsts[:1] if mode != "dense" else firsts
     for rec, margin, i in held:
         assert margin <= LOGIT_TOL, (
             f"streams diverge at token {i} where the reference's margin "

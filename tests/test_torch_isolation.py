@@ -10,6 +10,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
+from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.models import init_caches, model_init
 from repro_torch.serve import Engine, ServeConfig
 
@@ -62,6 +63,8 @@ def test_entry_points_default_to_cuda():
         model_init(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_caches(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticLM(DataConfig(vocab_size=16, seq_len=4, global_batch=2))
     assert Engine(cfg, params, scfg, device="cpu").device.type == "cpu"
 
 

@@ -112,10 +112,17 @@ def test_quant_matmul_scaled_epilogue_exact(w_format, out_dtype):
 
 
 def test_quant_matmul_lut_not_ported():
-    x = torch.zeros((2, 16), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        ops.quant_matmul(x, torch.zeros((16, 8), dtype=torch.int8),
-                         w_format="lut")
+    """Named for when "lut" raised here.  It now holds what the LUT format
+    still refuses: scales (its result is exact int32 and the caller applies
+    the epilogue), and an unknown format raises.  test_torch_lut.py holds
+    the LUT product itself to the reference."""
+    x = torch.ones((2, 16), dtype=torch.int8)
+    out = ops.quant_matmul(x, torch.ones((16, 8), dtype=torch.int8),
+                           w_format="lut")
+    assert out.dtype == torch.int32 and bool((out == 16).all())
+    with pytest.raises(ValueError, match="int32"):
+        ops.quant_matmul(x, torch.ones((16, 8), dtype=torch.int8),
+                         x_scale=torch.tensor(0.5), w_format="lut")
     with pytest.raises(ValueError):
         ops.quant_matmul(x, torch.zeros((16, 8), dtype=torch.int8),
                          w_format="int2")
@@ -128,6 +135,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q = torch.zeros((2, 4, 16), dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="CUDA"):
         fa.flash_attention_fwd_cuda(q, q, q, scale=1.0)
+    lse = torch.zeros((2, 4))
+    with pytest.raises(TypeError, match="CUDA"):
+        fa.flash_attention_bwd_cuda(q, q, q, lse, q, lse, scale=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +188,16 @@ def test_prepared_weight_is_reference_quantization():
 
 
 def test_linear_unported_modes_raise():
+    """Named for when ``qat`` and ``lut`` raised here.  Every mode of the
+    reference is ported now (``qat`` and ``lut`` are held to it in
+    test_torch_train.py / test_torch_lut.py); only an unknown mode
+    raises."""
     params = {"w": torch.zeros((8, 8), dtype=torch.bfloat16)}
     for mode in ("qat", "lut"):
-        with pytest.raises(NotImplementedError):
-            tlin.linear_apply(params, torch.zeros((1, 8)), mode=mode)
+        out = tlin.linear_apply(params, torch.zeros((1, 8)), mode=mode)
+        assert out.shape == (1, 8)
+    with pytest.raises(NotImplementedError):
+        tlin.linear_apply(params, torch.zeros((1, 8)), mode="w2a8_nibble")
 
 
 # ---------------------------------------------------------------------------

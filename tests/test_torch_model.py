@@ -114,7 +114,8 @@ def test_forward_logits_match(arch, mode, impl):
     jcfg, jp, tcfg, tp = _pair(arch, quant_mode=mode, attn_impl=impl)
     toks = np.random.default_rng(0).integers(0, 256, (2, 11)).astype(np.int32)
     want, _ = jforward(jp, jcfg, jnp.asarray(toks))
-    got = forward(tp, tcfg, torch.from_numpy(toks))
+    got, aux = forward(tp, tcfg, torch.from_numpy(toks))
+    assert float(aux) == 0.0
     assert got.dtype == torch.float32 and got.shape == want.shape
     _close(got, want)
 
@@ -219,6 +220,25 @@ def test_scalar_index_decode_matches():
     jl, _ = jdecode(jp, jcfg, jnp.asarray(nxt), jc, 6)
     tl, _ = decode_step(tp, tcfg, torch.from_numpy(nxt), tc, 6)
     _close(tl, jl)
+
+
+@pytest.mark.parametrize("impl", ["chunked", "flash"])
+def test_forward_gradients_with_and_without_remat(impl):
+    """``forward`` is differentiable in every leaf (untied head included);
+    recomputing each layer in the backward pass (remat) changes nothing."""
+    grads = {}
+    toks = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 256, (2, 7)).astype(np.int64))
+    for remat in (True, False):
+        *_, tcfg, tp = _pair("yi-6b", attn_impl=impl, remat=remat)
+        leaves = [tp["lm_head"]["w"], tp["layers"][0]["attn"]["wq"]["w"],
+                  tp["layers"][1]["mixer_norm"]["scale"], tp["embed"]["emb"]]
+        for t in leaves:
+            t.requires_grad_(True)
+        logits, _ = forward(tp, tcfg, toks)
+        grads[remat] = torch.autograd.grad(logits.square().mean(), leaves)
+    for a, b in zip(grads[True], grads[False]):
+        assert torch.equal(a, b) and bool(a.abs().sum() > 0)
 
 
 def test_unported_layers_raise():

@@ -11,7 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
    shapes on the card and hold it against its plain PyTorch version
    (nibble and LUT matmuls: ``torch.equal``; attention forward and
    backward: stated tolerances), and time kernel, plain version and a
-   PyTorch library yardstick with CUDA events.
+   PyTorch library yardstick with CUDA events (the LUT kernel and its
+   yardsticks also in a CUDA graph: device time without host gaps).
 3. Serve: yi-6b at full published width (random weights from a seed),
    every projection ``w8a8_nibble`` on the CUDA backend, flash prefill,
    paged decode; 8 requests through ``Engine.submit`` / ``Engine.run``.
@@ -128,6 +129,19 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps=20) -> float:
+    """Device milliseconds of one ``fn`` call: ``reps`` calls captured in
+    one CUDA graph and replayed, so no host time falls between them (the
+    median of 5 timed replays after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, iters=5, warmup=1) / reps
+
+
 def bound_ms(n_bytes: float, ops: float, peak_ops: float):
     t_bytes = n_bytes / HBM_BPS * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -159,9 +173,9 @@ def phase_build() -> None:
                 print(f"  [{name}] {ln.strip()}")
 
 
-def _int_mm_ms(x, wt):
+def _int_mm_ms(x, wt, timer=cuda_ms):
     """torch._int_mm yardstick (M padded to at least 32 and to a multiple
-    of 8: cuBLASLt needs M > 16)."""
+    of 8: cuBLASLt needs M > 16), timed by ``timer``."""
     m = max(32, -(-x.shape[0] // 8) * 8)
     xp = torch.zeros((m, x.shape[1]), dtype=torch.int8, device=x.device)
     xp[:x.shape[0]] = x
@@ -171,7 +185,7 @@ def _int_mm_ms(x, wt):
         except RuntimeError as exc:
             err = exc
             continue
-        return cuda_ms(lambda: torch._int_mm(xp, b))
+        return timer(lambda: torch._int_mm(xp, b))
     print(f"  torch._int_mm unavailable: {err}")
     return None
 
@@ -453,13 +467,19 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
 
 def check_lut(gen) -> dict:
     dev = DEV
-    for m, k, n in MM_CHECK_SHAPES:
+    for ln in _build.build_logs.get("lut_matmul", "").splitlines():
+        if "entry function" in ln or "registers" in ln or "spill" in ln:
+            print(f"  [lut_matmul ptxas] {ln.strip()}")
+    # the main path's shapes, plus one decode row at N = 512 and a ragged
+    # row tile at N = 4096 (the kernel's split of K and its row tiles)
+    for m, k, n in MM_CHECK_SHAPES + [(1, 4096, 512), (65, 4096, 4096)]:
         x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev,
                           generator=gen)
         wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=dev,
                            generator=gen)
         x[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
         wt[:2, 0] = torch.tensor([-128, 127], dtype=torch.int8)
+        x[:, 0] = -128        # t_hi's extreme, (-8 << 4) * -128, in every row
         got = lm.lut_matmul_cuda(x, wt.t())
         plain = lm.lut_matmul_plain(x, wt.t())
         nib = nm.nibble_matmul_cuda(x, wt.t())
@@ -469,8 +489,9 @@ def check_lut(gen) -> dict:
                                  f"its plain version or the nibble kernel")
         print(f"  lut ({m},{k},{n}): torch.equal to plain and to the nibble "
               f"kernel's int32", flush=True)
-    ms = plain = lib = 0.0
+    ms = plain = lib = dev_ms = lib_dev = 0.0
     n_bytes = ops = 0
+    prefill = {}
     for name, m, k, n in MM_SHAPES_DECODE + [("prefill-up", 128, 4096,
                                               11008)]:
         x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev,
@@ -480,21 +501,38 @@ def check_lut(gen) -> dict:
         t_k = cuda_ms(lambda: lm.lut_matmul_cuda(x, wt.t()))
         t_p = cuda_ms(lambda: lm.lut_matmul_plain(x, wt.t()), iters=5)
         t_l = _int_mm_ms(x, wt)
+        # device time alone (host time of each call excluded), beside the
+        # nibble kernel's and _int_mm's at the same shape
+        t_g = graph_ms(lambda: lm.lut_matmul_cuda(x, wt.t()))
+        t_gn = graph_ms(lambda: nm.nibble_matmul_cuda(x, wt.t()))
+        t_gl = _int_mm_ms(x, wt, timer=graph_ms)
         print(f"  lut {name} ({m},{k},{n}): kernel {t_k:.4f} ms, plain "
-              f"{t_p:.4f} ms, _int_mm {t_l} ms", flush=True)
+              f"{t_p:.4f} ms, _int_mm {t_l} ms; in a CUDA graph: kernel "
+              f"{t_g:.4f} ms, nibble kernel {t_gn:.4f} ms, _int_mm {t_gl} "
+              f"ms", flush=True)
         if name == "prefill-up":
+            prefill = {"prefill_ms": t_k, "prefill_graph_ms": t_g,
+                       "prefill_int_mm_ms": t_l, "prefill_int_mm_graph_ms":
+                       t_gl}
             continue
         ms += t_k
         plain += t_p
+        dev_ms += t_g
         lib = None if (lib is None or t_l is None) else lib + t_l
+        lib_dev = None if (lib_dev is None or t_gl is None) else \
+            lib_dev + t_gl
         n_bytes += m * k + k * n + 4 * m * n
         ops += 2 * m * n * k
     b, by = bound_ms(n_bytes, ops, INT8_OPS)
+    print(f"  lut decode layer: kernel {ms:.4f} ms ({dev_ms:.4f} ms in a "
+          f"CUDA graph), _int_mm {lib} ms ({lib_dev} ms in a CUDA graph), "
+          f"bound {b:.4f} ms ({by})", flush=True)
     return {"name": "lut_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/lut_matmul.cu",
             "replaces": "src/repro/kernels/lut_matmul.py:87",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "graph_ms": dev_ms, "library_graph_ms": lib_dev, **prefill,
             "shapes": "one decode layer: wq,wk,wv,wo,gate,up,down at M=4"}
 
 

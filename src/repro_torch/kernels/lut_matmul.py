@@ -4,11 +4,14 @@ Port of ``repro.kernels.lut_matmul.lut_matmul_pallas``, the paper's
 LUT-based design: the sixteen scaled copies ``v * w`` of every weight are
 precomputed (a low table over unsigned nibble values and a high table
 over signed ones with the ``<< 4`` folded in) and the activation's two
-nibble patterns select among them.  The kernel (``csrc/lut_matmul.cu``)
-builds both int16 tables per weight tile in shared memory and selects by
-indexed loads; :func:`lut_matmul_plain` computes the same selection with
-tensors.  Both return the exact int32 product, equal to the nibble
-kernel's; the dequant epilogue stays with the caller.
+nibble patterns select among them; :func:`lut_matmul_plain` computes that
+selection with tensors.  The kernel (``csrc/lut_matmul.cu``) applies the
+same identity with the roles swapped, as the paper's design tables the
+operand that is shared: at decode that is the activation, so it builds the
+two int16 tables of the activation rows in shared memory and the weight's
+nibbles select.  :func:`lut_plan` chooses its row tile and its split of K.
+Both return the exact int32 product, equal to the nibble kernel's; the
+dequant epilogue stays with the caller.
 
 :func:`lut_matmul` dispatches on the device of ``x_q``: the plain version
 for CPU tensors, the kernel for CUDA tensors (no fallback).
@@ -17,16 +20,21 @@ for CPU tensors, the kernel for CUDA tensors (no fallback).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import int_dot
 
-__all__ = ["lut_matmul", "lut_matmul_plain", "lut_matmul_cuda",
-           "lut_launches"]
+__all__ = ["lut_matmul", "lut_matmul_plain", "lut_matmul_cuda", "lut_plan",
+           "LutPlan", "lut_launches"]
 
 lut_launches = 0          # kernel launches by lut_matmul_cuda
+
+BLOCK_COLS = 256          # columns per block: BN in csrc/lut_matmul.cu
+BLOCKS_PER_SM = 8         # split K until the grid holds about this many
 
 
 def lut_matmul_plain(x_q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -44,10 +52,41 @@ def lut_matmul_plain(x_q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return int_dot(x_rec, w)
 
 
+class LutPlan(NamedTuple):
+    rows: int             # row tile of a block: 4, 8 or 16
+    k_chunk: int          # K range of one split, a multiple of 256 // rows
+    grid: tuple[int, int, int]   # (row tiles, column blocks, splits)
+
+
+@functools.lru_cache(maxsize=256)
+def lut_plan(m: int, n: int, k: int, sms: int = 132) -> LutPlan:
+    """The kernel's launch for an (m, k) x (k, n) product on a card with
+    ``sms`` SMs.  The row tile is the smallest of 4, 8, 16 that holds m
+    (capped at 16); the block's K tile is ``256 // rows``.  K is split in
+    whole tiles until the grid holds about ``BLOCKS_PER_SM * sms`` blocks:
+    split s covers ``[s * k_chunk, min(k, (s + 1) * k_chunk))``, and no
+    split is empty."""
+    rows = 4 if m <= 4 else 8 if m <= 8 else 16
+    k_tile = 256 // rows
+    row_tiles, col_blocks = _cdiv(m, rows), _cdiv(n, BLOCK_COLS)
+    want = max(1, BLOCKS_PER_SM * sms // (row_tiles * col_blocks))
+    k_chunk = _cdiv(_cdiv(k, want), k_tile) * k_tile
+    return LutPlan(rows, k_chunk, (row_tiles, col_blocks, _cdiv(k, k_chunk)))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _lib():
     fn = _build.library("lut_matmul").lut_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -75,7 +114,9 @@ def lut_matmul_cuda(x_q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if m and n:
         if k == 0:
             return out.zero_()
+        plan = lut_plan(m, n, k, _sm_count(x_q.device.index))
         err = _lib()(x_q.data_ptr(), wt.data_ptr(), out.data_ptr(), m, n, k,
+                     plan.rows, plan.k_chunk,
                      torch.cuda.current_stream(x_q.device).cuda_stream)
         _build.check(err, "lut_matmul")
         lut_launches += 1

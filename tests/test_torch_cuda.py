@@ -206,16 +206,28 @@ def test_flash_mha_backward_runs_the_kernels(cuda):
         assert _rel(a.cpu(), b) <= 2e-2
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 4096, 512), (5, 37, 22),
-                                   (128, 256, 200), (70, 64, 33)])
+@pytest.mark.parametrize("m,k,n", [
+    (4, 4096, 512), (5, 37, 22), (128, 256, 200), (70, 64, 33),
+    # the split of K and the activation tables' edges: one row, one row
+    # group, a ragged row tile, a whole prefill tile; N = 512 and N off
+    # the 256-column block; K = 11008, and K off the tile and the split
+    (1, 4096, 512), (4, 11008, 4096), (65, 4096, 4096), (128, 4096, 600),
+    (4, 4096 + 24, 512), (1, 4096 + 24, 300), (65, 11008 + 8, 260),
+    (8, 1, 1), (16, 40, 257)])
 def test_lut_kernel_equals_plain_and_nibble(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(m * n + k)
     x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda,
                       generator=g)
     wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=cuda,
                        generator=g)
-    x[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
-    wt[:2, 0] = torch.tensor([-128, 127], dtype=torch.int8)
+    x[0, :2] = torch.tensor([-128, 127][:k], dtype=torch.int8)
+    wt[:2, 0] = torch.tensor([-128, 127][:n], dtype=torch.int8)
+    # the extremes of both tables: weights -128 and 127 meet an activation
+    # of -128 in every row (t_hi[8] = (-8 << 4) * -128 = 2**14), also at
+    # the last column and the last k
+    x[:, 0] = -128
+    x[:, -1] = -128
+    wt[-2:, -1] = torch.tensor([-128, 127][-n:], dtype=torch.int8)
     before = lm.lut_launches
     got = lm.lut_matmul_cuda(x, wt.t())
     assert lm.lut_launches == before + 1

@@ -60,6 +60,59 @@ def test_lut_covers_every_int8_pair():
         got.numpy(), x.astype(np.int32) * w.astype(np.int32))
 
 
+def test_swapped_identity_covers_every_int8_pair():
+    """The kernel tables the activation and lets the weight's nibbles
+    select: ``x * w == t_lo_x[w & 15] + t_hi_x[(w >> 4) & 15]`` with
+    ``t_lo_x[v] = v * x`` and ``t_hi_x[v] = (v_signed << 4) * x``, built by
+    addition as the kernel builds them, in int16, for all 256 x 256 pairs;
+    equal to the plain version's products."""
+    vals = np.arange(-128, 128, dtype=np.int64)
+    x = vals[:, None]                               # (256, 1)
+    lo, hi = [np.zeros((256, 16), np.int64) for _ in range(2)]
+    for v in range(1, 16):                          # shifts and additions
+        lo[:, v] = lo[:, v - 1] + vals
+        hi[:, v] = -(vals << 7) if v == 8 else hi[:, v - 1] + (vals << 4)
+    assert np.abs(np.concatenate([lo, hi])).max() <= 2 ** 14
+    t_lo, t_hi = lo.astype(np.int16), hi.astype(np.int16)
+    w = vals.astype(np.int8)[None, :]               # (1, 256)
+    w_lo, w_hi = (w & 15).astype(np.int64), ((w >> 4) & 15).astype(np.int64)
+    rows = np.arange(256)[:, None]
+    got = t_lo[rows, w_lo].astype(np.int32) + t_hi[rows, w_hi]
+    want = lm.lut_matmul_plain(torch.from_numpy(x.astype(np.int8)),
+                               torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, x * vals[None, :])
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (4, 4096, 4096), (4, 4096, 512), (4, 4096, 11008), (4, 11008, 4096),
+    (1, 4096, 512), (65, 4096, 4096), (128, 4096, 11008), (128, 4096, 4096),
+    (4, 4096 + 24, 512), (5, 37, 22), (3, 1, 7), (1, 1, 1),
+    (200, 11008 + 8, 260), (7, 100000, 3)])
+@pytest.mark.parametrize("sms", [132, 1])
+def test_lut_plan_splits_cover_k_once(m, k, n, sms):
+    """The kernel's split of K (decode and prefill shapes, ragged ones):
+    every k lies in exactly one split, no split is empty, splits start on
+    the block's K tile, and the grid covers every row and column."""
+    plan = lm.lut_plan(m, n, k, sms)
+    rows, k_chunk = plan.rows, plan.k_chunk
+    assert rows in (4, 8, 16) and (m <= rows or rows == 16)
+    assert k_chunk % (256 // rows) == 0
+    row_tiles, col_blocks, splits = plan.grid
+    assert row_tiles * rows >= m > (row_tiles - 1) * rows
+    assert col_blocks * lm.BLOCK_COLS >= n > (col_blocks - 1) * lm.BLOCK_COLS
+    assert splits <= 65535 and col_blocks <= 65535
+    hits = np.zeros(k, np.int64)
+    for s in range(splits):
+        lo, hi = s * k_chunk, min(k, (s + 1) * k_chunk)
+        assert lo < hi, f"split {s} of {splits} is empty"
+        hits[lo:hi] += 1
+    np.testing.assert_array_equal(hits, 1)
+    # small grids split K: a block per SM, or one K tile per block
+    blocks = row_tiles * col_blocks * splits
+    assert blocks >= min(sms, row_tiles * col_blocks * -(-k // (256 // rows)))
+
+
 def test_quant_matmul_lut_int32_only():
     """``w_format="lut"`` keeps leading dims and returns exact int32; the
     epilogue belongs to the caller, so scales and a cast are refused."""

@@ -11,8 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
    shapes on the card and hold it against its plain PyTorch version
    (nibble and LUT matmuls: ``torch.equal``; attention forward and
    backward: stated tolerances), and time kernel, plain version and a
-   PyTorch library yardstick with CUDA events (the LUT kernel and its
-   yardsticks also in a CUDA graph: device time without host gaps).
+   PyTorch library yardstick with CUDA events (the nibble and LUT kernels
+   and their yardsticks also in a CUDA graph: device time without host
+   gaps; the nibble wrapper's host time per call too).
 3. Serve: yi-6b at full published width (random weights from a seed),
    every projection ``w8a8_nibble`` on the CUDA backend, flash prefill,
    paged decode; 8 requests through ``Engine.submit`` / ``Engine.run``.
@@ -65,6 +66,7 @@ from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import nibble_matmul as nm  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import model_init, prefill  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
@@ -110,6 +112,8 @@ MM_SHAPES_DECODE = [  # one decode layer's projections at 4 slots
     ("up", 4, 4096, 11008), ("down", 4, 11008, 4096)]
 MM_CHECK_SHAPES = [(4, 4096, 4096), (4, 4096, 512), (4, 4096, 11008),
                    (4, 11008, 4096), (128, 4096, 11008)]
+NIBBLE_CHECK_SHAPES = MM_CHECK_SHAPES + [(1, 4096, 512), (65, 4096, 4096),
+                                         (4, 4096 + 16, 4096)]
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -190,23 +194,53 @@ def _int_mm_ms(x, wt, timer=cuda_ms):
     return None
 
 
+def host_us(fn, calls=200) -> float:
+    """Host microseconds per call of ``fn``: ``calls`` calls enqueued back
+    to back (no synchronisation between them), so a call whose device work
+    is shorter than its host work is timed by its host work."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
 def check_nibble(gen) -> dict:
     dev = DEV
-    for m, k, n in MM_CHECK_SHAPES:
+    for ln in _build.build_logs.get("nibble_matmul", "").splitlines():
+        if "entry function" in ln or "registers" in ln or "spill" in ln:
+            print(f"  [nibble_matmul ptxas] {ln.strip()}")
+    # the main path's shapes, plus the kernel's edges: one row, a ragged
+    # 64-row tile, and K = 4096 + 16 (off the 128-byte stage and the split)
+    for m, k, n in NIBBLE_CHECK_SHAPES:
         x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev,
                           generator=gen)
         wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=dev,
                            generator=gen)
-        w = wt.t()
-        xs = torch.rand((m, 1), device=dev, generator=gen) * 0.01 + 1e-4
-        ws = torch.rand((1, n), device=dev, generator=gen) * 0.01 + 1e-4
         w4 = torch.randint(-8, 8, (k, n), dtype=torch.int8, device=dev,
                            generator=gen)
+        # the extreme products: -128 (the hs plane's -128) in every row at
+        # the first and last k, against -128 and 127 (int4: -8 and 7)
+        x[:, 0] = -128
+        x[:, -1] = -128
+        wt[:2, 0] = torch.tensor([-128, 127], dtype=torch.int8)
+        wt[-2:, -1] = torch.tensor([-128, 127], dtype=torch.int8)
+        w4[0, :2] = torch.tensor([-8, 7], dtype=torch.int8)
+        w4[-1, -2:] = torch.tensor([-8, 7], dtype=torch.int8)
+        w = wt.t()
         w4p = pack_int4(w4)
+        xs = torch.rand((m, 1), device=dev, generator=gen) * 0.01 + 1e-4
+        ws = torch.rand((1, n), device=dev, generator=gen) * 0.01 + 1e-4
+        f32 = torch.float32
         checks = {
             "int32": (nm.nibble_matmul_cuda(x, w), nm.nibble_matmul_plain(x, w)),
             "bf16": (nm.nibble_matmul_cuda(x, w, xs, ws),
                      nm.nibble_matmul_plain(x, w, xs, ws)),
+            "f32": (nm.nibble_matmul_cuda(x, w, xs, ws, out_dtype=f32),
+                    nm.nibble_matmul_plain(x, w, xs, ws, out_dtype=f32)),
             "int4": (nm.nibble_matmul_cuda(x, w4p, w_packed=True),
                      nm.nibble_matmul_plain(x, w4p, w_packed=True)),
         }
@@ -216,36 +250,99 @@ def check_nibble(gen) -> dict:
                 err = (got.float() - want.float()).abs().max().item()
                 raise AssertionError(f"nibble matmul {what} ({m},{k},{n}) "
                                      f"differs from plain: max err {err}")
-        print(f"  nibble ({m},{k},{n}): int32, bf16, int4 torch.equal",
-              flush=True)
-    # time one decode layer's seven projections (the main path's variant:
-    # N-major int8 weight, scaled bf16 epilogue)
-    ms = plain = lib = 0.0
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"  nibble ({m},{k},{n}) {nm.nibble_plan(m, n, k, sms)}: "
+              f"int32, bf16, f32, int4 torch.equal", flush=True)
+    # time one decode layer's seven projections with the main path's
+    # arguments (N-major int8 weight, a per-tensor activation scale, a
+    # per-column weight scale, bf16 out): in a loop (host time of each
+    # call included, as in earlier rows) and in a CUDA graph (device time)
+    ms = plain = lib = dev_ms = lib_dev = 0.0
     n_bytes = ops = 0
-    for name, m, k, n in MM_SHAPES_DECODE:
+    layer, prefill = [], {}
+    for name, m, k, n in MM_SHAPES_DECODE + [("prefill-up", 128, 4096,
+                                              11008)]:
         x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev,
                           generator=gen)
         wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=dev,
                            generator=gen)
-        xs = torch.full((m, 1), 1e-3, device=dev)
+        xs = torch.tensor(1e-3, device=dev)
         ws = torch.full((1, n), 1e-3, device=dev)
-        t_k = cuda_ms(lambda: nm.nibble_matmul_cuda(x, wt.t(), xs, ws))
+
+        def call(x=x, wt=wt, xs=xs, ws=ws):
+            return nm.nibble_matmul_cuda(x, wt.t(), xs, ws)
+
+        t_k = cuda_ms(call)
         t_p = cuda_ms(lambda: nm.nibble_matmul_plain(x, wt.t(), xs, ws),
                       iters=5)
         t_l = _int_mm_ms(x, wt)
+        t_g = graph_ms(call)
+        t_gl = _int_mm_ms(x, wt, timer=graph_ms)
         print(f"  nibble {name} ({m},{k},{n}): kernel {t_k:.4f} ms, plain "
-              f"{t_p:.4f} ms, _int_mm {t_l} ms", flush=True)
+              f"{t_p:.4f} ms, _int_mm {t_l} ms; in a CUDA graph: kernel "
+              f"{t_g:.4f} ms, _int_mm {t_gl} ms", flush=True)
+        if name == "prefill-up":
+            pb, pby = bound_ms(m * k + k * n + 2 * m * n + 4 + 4 * n,
+                               2 * m * n * k, INT8_OPS)
+            prefill = {"prefill_ms": t_k, "prefill_graph_ms": t_g,
+                       "prefill_int_mm_ms": t_l,
+                       "prefill_int_mm_graph_ms": t_gl,
+                       "prefill_bound_ms": pb}
+            print(f"  nibble prefill bound {pb:.4f} ms ({pby})", flush=True)
+            continue
+        layer.append(call)
         ms += t_k
         plain += t_p
+        dev_ms += t_g
         lib = None if (lib is None or t_l is None) else lib + t_l
-        n_bytes += m * k + k * n + 2 * m * n + 4 * m + 4 * n
+        lib_dev = None if (lib_dev is None or t_gl is None) else \
+            lib_dev + t_gl
+        n_bytes += m * k + k * n + 2 * m * n + 4 + 4 * n
         ops += 2 * m * n * k
+    layer_graph = graph_ms(lambda: [c() for c in layer], reps=5)
     b, by = bound_ms(n_bytes, ops, INT8_OPS)
+    print(f"  nibble decode layer: kernel {ms:.4f} ms ({dev_ms:.4f} ms in a "
+          f"CUDA graph per projection, {layer_graph:.4f} ms as one graph of "
+          f"the layer), _int_mm {lib} ms ({lib_dev} ms in a CUDA graph), "
+          f"bound {b:.4f} ms ({by})", flush=True)
+    # host time per call at wq's shape: the wrapper, the entry point the
+    # model calls, and the parts of a call
+    x = torch.randint(-128, 128, (4, 4096), dtype=torch.int8, device=dev,
+                      generator=gen)
+    wt = torch.randint(-128, 128, (4096, 4096), dtype=torch.int8,
+                       device=dev, generator=gen)
+    xs = torch.tensor(1e-3, device=dev)
+    ws = torch.full((1, 4096), 1e-3, device=dev)
+    x3 = x[None]                       # (batch, tokens, d) as the model's
+    o = torch.empty((4, 4096), dtype=torch.bfloat16, device=dev)
+    plan = nm.nibble_plan(4, 4096, 4096,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    fn = nm._lib()
+    args = (x.data_ptr(), wt.data_ptr(), xs.data_ptr(), 0, ws.data_ptr(), 1,
+            o.data_ptr(), 4, 4096, 4096, 0, 1, plan.rows, plan.k_chunk,
+            torch.cuda.current_stream().cuda_stream)
+    host = {
+        "nibble_matmul_cuda": host_us(lambda: nm.nibble_matmul_cuda(
+            x, wt.t(), xs, ws)),
+        "ops.quant_matmul": host_us(lambda: kops.quant_matmul(
+            x3, wt.t(), x_scale=xs, w_scale=ws,
+            out_dtype=torch.bfloat16)),
+        "C launch alone": host_us(lambda: fn(*args)),
+        "torch.empty": host_us(lambda: torch.empty(
+            (4, 4096), dtype=torch.bfloat16, device=dev)),
+        "current_stream": host_us(
+            lambda: torch.cuda.current_stream(x.device).cuda_stream),
+    }
+    print("  nibble host time per call (us): " + ", ".join(
+        f"{k_} {v:.2f}" for k_, v in host.items()), flush=True)
     return {"name": "nibble_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/nibble_matmul.cu",
             "replaces": "src/repro/kernels/nibble_matmul.py:161",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "graph_ms": dev_ms, "layer_graph_ms": layer_graph,
+            "library_graph_ms": lib_dev, **prefill, "host_us": host,
             "shapes": "one decode layer: wq,wk,wv,wo,gate,up,down at M=4"}
 
 

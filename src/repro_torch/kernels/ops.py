@@ -62,12 +62,15 @@ def quant_matmul(x_q: torch.Tensor, w: torch.Tensor, *, x_scale=None,
             raise ValueError("w_format='lut' returns exact int32: apply the "
                              "scales and the cast outside")
         return lut_matmul(mat, w).reshape(*lead, n)
-    xs = ws = None
-    if scaled:
+    if scaled and mat.device.type == "cpu":
+        # the plain version broadcasts (M, 1) and (1, N); the kernel reads
+        # a scale in place, broadcast or not, and a missing one as 1
         ones = torch.ones((), dtype=torch.float32, device=mat.device)
-        xs = _row_scale(ones if x_scale is None else x_scale, m, mat.device)
-        ws = _col_scale(ones if w_scale is None else w_scale, n, mat.device)
-    out = fused_nibble_matmul(mat, w, xs, ws, w_packed=packed,
+        x_scale = _row_scale(ones if x_scale is None else x_scale, m,
+                             mat.device)
+        w_scale = _col_scale(ones if w_scale is None else w_scale, n,
+                             mat.device)
+    out = fused_nibble_matmul(mat, w, x_scale, w_scale, w_packed=packed,
                               out_dtype=out_dtype)
     return out.reshape(*lead, n)
 

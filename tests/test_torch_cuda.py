@@ -43,16 +43,33 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 4096, 512), (5, 37, 22),
-                                   (128, 256, 200), (17, 64, 64)])
+@pytest.mark.parametrize("m,k,n", [
+    (4, 4096, 512), (5, 37, 22), (128, 256, 200), (17, 64, 64),
+    # the kernel's row tiles (8 rows with both planes in one MMA, 16, 64,
+    # 128 and a ragged 128), its split of K at decode and prefill, N off
+    # the 64-column block, and K = 4096 + 16, off the 128-byte stage and
+    # the split
+    (1, 4096, 512), (65, 4096, 4096), (4, 11008, 4096), (128, 4096, 11008),
+    (9, 4096, 200), (40, 1024, 70), (4, 4096 + 16, 4096),
+    (1, 4096 + 16, 300)])
 def test_nibble_kernel_equals_plain(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(m + k + n)
     x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda,
                       generator=g)
     w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda,
                       generator=g)
-    w4 = pack_int4(torch.randint(-8, 8, (k, n), dtype=torch.int8,
-                                 device=cuda, generator=g))
+    w4u = torch.randint(-8, 8, (k, n), dtype=torch.int8, device=cuda,
+                        generator=g)
+    # the extreme products: -128 (the hs plane's -128) in every row, at the
+    # first and last k, against weights -128 and 127 (int4: -8 and 7), also
+    # at the last columns
+    x[:, 0] = -128
+    x[:, -1] = -128
+    w[0, :2] = torch.tensor([-128, 127][:n], dtype=torch.int8)
+    w[-1, -2:] = torch.tensor([-128, 127][-n:], dtype=torch.int8)
+    w4u[0, :2] = torch.tensor([-8, 7][:n], dtype=torch.int8)
+    w4u[-1, -2:] = torch.tensor([-8, 7][-n:], dtype=torch.int8)
+    w4 = pack_int4(w4u)
     xs = torch.rand((m, 1), device=cuda, generator=g)
     ws = torch.rand((1, n), device=cuda, generator=g)
     before = nm.launches

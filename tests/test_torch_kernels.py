@@ -141,6 +141,116 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# the nibble kernel's launch plan and its split-K reduction (plain Python)
+# ---------------------------------------------------------------------------
+
+NIBBLE_DECODE = [(4, 4096, 4096), (4, 4096, 512), (4, 4096, 512),
+                 (4, 4096, 4096), (4, 4096, 11008), (4, 4096, 11008),
+                 (4, 11008, 4096)]       # yi-6b wq wk wv wo gate up down
+
+
+@pytest.mark.parametrize("m,k,n", sorted(set(NIBBLE_DECODE))
+                         + [(128, 4096, 11008)])
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_nibble_plan_splits_cover_k_once(m, k, n, sms):
+    """Every k lies in exactly one split, no split is empty, splits start
+    on the pipeline's K tile, at most one cluster of splits per tile, the
+    grid covers every row and column, and a decode projection puts a block
+    on every SM where a cluster of splits per tile allows it."""
+    plan = nm.nibble_plan(m, n, k, sms)
+    rows, k_chunk = plan.rows, plan.k_chunk
+    assert rows in (8, 16, 64) and (m <= rows or rows == 64)
+    assert k_chunk > 0 and k_chunk % nm.K_TILE == 0
+    row_tiles, col_blocks, splits = plan.grid
+    assert row_tiles * rows >= m > (row_tiles - 1) * rows
+    assert col_blocks * nm.BLOCK_COLS >= n > (col_blocks - 1) * nm.BLOCK_COLS
+    assert splits <= nm.MAX_SPLITS and col_blocks <= 65535
+    hits = np.zeros(k, np.int64)
+    for z in range(splits):
+        lo, hi = z * k_chunk, min(k, (z + 1) * k_chunk)
+        assert lo < hi, f"split {z} of {splits} is empty"
+        hits[lo:hi] += 1
+    np.testing.assert_array_equal(hits, 1)
+    if m == 4:
+        # decode: K is split until every SM has a block, or until the
+        # splits of a tile fill one cluster (N = 512: 8 x 8 blocks)
+        tiles = row_tiles * col_blocks
+        assert tiles * splits >= min(sms, tiles * nm.MAX_SPLITS)
+
+
+def _split_emulation(x, w, xs, ws, plan, out_dtype, w_packed=False):
+    """The kernel's reduction in plain tensors: one int32 partial per split
+    of K (the plain version's formula on that K range), summed, then the
+    epilogue once on the total."""
+    k = x.shape[1]
+    total = torch.zeros((x.shape[0], 2 * w.shape[1] if w_packed
+                         else w.shape[1]), dtype=torch.int32)
+    for z in range(plan.grid[2]):
+        lo, hi = z * plan.k_chunk, min(k, (z + 1) * plan.k_chunk)
+        total += nm.nibble_matmul_plain(x[:, lo:hi], w[lo:hi],
+                                        w_packed=w_packed)
+    if xs is None:
+        return total
+    return (total.to(torch.float32) * xs * ws).to(out_dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096 + 16, 64), (9, 1040, 70),
+                                   (65, 2048 + 16, 34)])
+@pytest.mark.parametrize("out", ["int32", "bf16", "f32"])
+@pytest.mark.parametrize("w_packed", [False, True])
+def test_nibble_split_k_reduction_equals_plain(m, k, n, out, w_packed):
+    r = _rng(m + k + n)
+    x = torch.from_numpy(r.integers(-128, 128, (m, k)).astype(np.int8))
+    x[:, 0] = -128                            # the hs plane's -128
+    if w_packed:
+        w4 = torch.from_numpy(r.integers(-8, 8, (k, n)).astype(np.int8))
+        w4[0, :2] = torch.tensor([-8, 7], dtype=torch.int8)
+        w = pack_int4(w4)
+    else:
+        w = torch.from_numpy(r.integers(-128, 128, (k, n)).astype(np.int8))
+        w[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
+    plan = nm.nibble_plan(m, n, k, 8)          # a small card: many splits
+    assert plan.grid[2] > 1
+    scaled = out != "int32"
+    xs = torch.from_numpy((r.random((m, 1)) * 0.01 + 1e-4)
+                          .astype(np.float32)) if scaled else None
+    ws = torch.from_numpy((r.random((1, n)) * 0.01 + 1e-4)
+                          .astype(np.float32)) if scaled else None
+    dt = {"int32": None, "bf16": torch.bfloat16, "f32": torch.float32}[out]
+    got = _split_emulation(x, w, xs, ws, plan, dt, w_packed)
+    want = nm.nibble_matmul_plain(x, w, xs, ws, w_packed=w_packed,
+                                  out_dtype=dt)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if not scaled:
+        ref = (jref.nibble_matmul_w4_ref if w_packed
+               else jref.nibble_matmul_ref)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(ref(jnp.asarray(x.numpy()),
+                                        jnp.asarray(w.numpy()))))
+
+
+def test_nibble_scales_are_read_in_place():
+    """The wrapper hands the kernel a pointer and a stride for each scale:
+    a broadcast scalar or an (M, 1) / (1, N) f32 tensor is not copied."""
+    dev = torch.device("cpu")
+    one = torch.tensor(0.5)
+    for s, size, stride in (
+            (torch.broadcast_to(one.reshape(1, 1), (6, 1)), 6, 0),
+            (one, 6, 0), (torch.ones((6, 1)), 6, 1), (torch.ones((1, 9)), 9, 1),
+            (torch.ones(9), 9, 1), (torch.ones((1, 18))[:, ::2], 9, 2)):
+        t, st = nm._scale(s, size, dev)
+        assert st == stride and t.data_ptr() == s.data_ptr()
+        read = torch.as_strided(t, (size,), (st,))     # t[i * stride]
+        want = s.reshape(-1) if s.numel() > 1 else s.reshape(1).expand(size)
+        assert torch.equal(read, want)
+    assert nm._scale(None, 6, dev) == (None, 0)
+    t, st = nm._scale(torch.ones((6, 1), dtype=torch.float64), 6, dev)
+    assert t.dtype == torch.float32 and st == 1
+    with pytest.raises(ValueError, match="broadcast"):
+        nm._scale(torch.ones(5), 6, dev)
+
+
+# ---------------------------------------------------------------------------
 # linear_apply against the reference's xla backend: bf16-exact
 # ---------------------------------------------------------------------------
 

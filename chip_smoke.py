@@ -10,10 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
    nvcc per source, in parallel), run each wrapper at its main path's
    shapes on the card and hold it against its plain PyTorch version
    (nibble and LUT matmuls: ``torch.equal``; attention forward and
-   backward: stated tolerances), and time kernel, plain version and a
-   PyTorch library yardstick with CUDA events (the nibble and LUT kernels
-   and their yardsticks also in a CUDA graph: device time without host
-   gaps; the nibble wrapper's host time per call too).
+   backward: stated tolerances, at the main paths' head width and at the
+   256-wide instance; paged decode also at a group of 32), and time
+   kernel, plain version and a PyTorch library yardstick with CUDA events
+   (the nibble and LUT kernels and their yardsticks, and the flash
+   backward's two kernels together and apart, also in a CUDA graph:
+   device time without host gaps; the nibble wrapper's host time per call
+   too).
 3. Serve: yi-6b at full published width (random weights from a seed),
    every projection ``w8a8_nibble`` on the CUDA backend, flash prefill,
    paged decode; 8 requests through ``Engine.submit`` / ``Engine.run``.
@@ -361,17 +364,21 @@ def check_flash(gen) -> dict:
     bh, group, s, d = 32, 8, 128, 128
     scale = 1.0 / math.sqrt(d)
     worst = 0.0
+    # the main path's head width, then the 256-wide instance (head_dim 256,
+    # and MLA's q/k 192 with v 128)
     cases = [dict(sq=s, window=0, softcap=0.0),
              dict(sq=100, window=0, softcap=0.0),
-             dict(sq=s, window=40, softcap=30.0)]
+             dict(sq=s, window=40, softcap=30.0),
+             dict(sq=s, window=0, softcap=0.0, d=256, dv=256),
+             dict(sq=100, window=0, softcap=0.0, d=192, dv=128)]
     for c in cases:
-        sq = c["sq"]
-        q = torch.randn((bh, sq, d), device=dev, generator=gen).bfloat16()
-        k = torch.randn((bh // group, sq, d), device=dev,
+        sq, dq_, dv_ = c["sq"], c.get("d", d), c.get("dv", d)
+        q = torch.randn((bh, sq, dq_), device=dev, generator=gen).bfloat16()
+        k = torch.randn((bh // group, sq, dq_), device=dev,
                         generator=gen).bfloat16()
-        v = torch.randn((bh // group, sq, d), device=dev,
+        v = torch.randn((bh // group, sq, dv_), device=dev,
                         generator=gen).bfloat16()
-        kw = dict(scale=scale, causal=True, window=c["window"],
+        kw = dict(scale=dq_ ** -0.5, causal=True, window=c["window"],
                   softcap=c["softcap"], group=group)
         o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
         o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
@@ -426,15 +433,31 @@ def check_paged(gen) -> dict:
     table_t = torch.as_tensor(table, device=dev)
     qpos_t = torch.as_tensor(q_pos, device=dev)
     worst = 0.0
-    for window, softcap in ((0, 0.0), (48, 0.0), (0, 30.0)):
+    # the main path's shape under three options, then head_dim 256 and a
+    # group of 32 query heads (two 16-head chunks in one launch)
+    wide = {"d=256": (kvh, g, 256), "G=32": (1, 32, d)}
+    for name, (window, softcap) in [("", (0, 0.0)), ("", (48, 0.0)),
+                                    ("", (0, 30.0)), ("d=256", (0, 0.0)),
+                                    ("G=32", (0, 30.0))]:
         kw = dict(scale=scale, window=window, softcap=softcap)
-        o = fa.paged_decode_attention_cuda(q, kp, vp, table_t, qpos_t, **kw)
-        o_p = fa.paged_decode_attention_plain(q, kp, vp, table_t, qpos_t,
+        qq, kpp, vpp = q, kp, vp
+        if name:
+            kvh_, g_, d_ = wide[name]
+            kpp, vpp = (torch.randn((num_pages, ps, kvh_, d_), device=dev,
+                                    generator=gen).bfloat16()
+                        for _ in range(2))
+            qq = torch.randn((b, kvh_, g_, d_), device=dev,
+                             generator=gen).bfloat16()
+            kw["scale"] = d_ ** -0.5
+        o = fa.paged_decode_attention_cuda(qq, kpp, vpp, table_t, qpos_t,
+                                           **kw)
+        o_p = fa.paged_decode_attention_plain(qq, kpp, vpp, table_t, qpos_t,
                                               **kw)
         torch.cuda.synchronize()
         err = (o.float() - o_p.float()).abs().max().item()
-        print(f"  paged window={window} softcap={softcap}: max|err| "
-              f"{err:.3e} (atol {ATTN_ATOL})", flush=True)
+        print(f"  paged {name or 'main shape'} window={window} "
+              f"softcap={softcap}: max|err| {err:.3e} (atol {ATTN_ATOL})",
+              flush=True)
         if not err <= ATTN_ATOL:
             raise AssertionError("paged decode disagrees with plain")
         worst = max(worst, err)
@@ -475,12 +498,70 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+def _bwd_parts(q, k, v, lse, do, dmat, **kw):
+    """The dq kernel alone and the dk/dv kernel alone, launched as
+    ``flash_attention_bwd_cuda`` launches them (head width already the
+    instance's; no counters: these launches only time the two halves)."""
+    bh, sq, d = q.shape
+    bkv, sk, dv = v.shape
+    w = fa.bwd_width(d, dv)
+    if (d, dv) != (w, w):
+        raise ValueError("time the kernels at an instance width")
+    dq = torch.empty((bh, sq, w), dtype=torch.float32, device=q.device)
+    dk, dvo = (torch.empty((bkv, sk, w), dtype=torch.float32,
+                           device=q.device) for _ in range(2))
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, dmat)]
+    fdq = fa._fn("flash_attention_bwd", "flash_attention_bwd_dq", 7, 5, 2, 2)
+    fdkv = fa._fn("flash_attention_bwd", "flash_attention_bwd_dkv", 8, 5, 2,
+                  2)
+
+    def args():                    # the current stream: a graph captures
+        return [bh, sq, sk, w, kw["group"], float(kw["scale"]),
+                float(kw.get("softcap", 0.0)), int(bool(kw["causal"])),
+                int(kw.get("window", 0)),
+                torch.cuda.current_stream(q.device).cuda_stream]
+
+    def run_dq():
+        _build.check(fdq(*ptrs, dq.data_ptr(), *args()), "bwd dq")
+
+    def run_dkv():
+        _build.check(fdkv(*ptrs, dk.data_ptr(), dvo.data_ptr(), *args()),
+                     "bwd dkv")
+
+    return run_dq, run_dkv
+
+
+def _check_bwd(q, k, v, do, kw, label) -> float:
+    """The backward kernels against the plain backward on one input, in
+    relative Frobenius norm per gradient; returns the largest |error|."""
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    dmat = (do.float() * o.float()).sum(-1)
+    got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, dmat, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, lse, do, dmat, **kw)
+    torch.cuda.synchronize()
+    errs = {n: _rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    print(f"  flash bwd {label}: rel-norm err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (bound {BWD_RTOL}); max|err| {err:.3e}", flush=True)
+    if not max(errs.values()) <= BWD_RTOL:
+        raise AssertionError(f"flash backward {label} disagrees with plain")
+    return err
+
+
 def check_flash_bwd(gen, fwd_row: dict) -> dict:
     """The backward at the training shape: qwen3-4b (32 query heads over
     8 KV heads, head_dim 128) at batch 8, seq 256.  The forward that feeds
     it is first held to its plain version at this shape too; its error is
-    folded into ``fwd_row``."""
+    folded into ``fwd_row``, and SDPA's forward time at this shape goes
+    into it as ``library_train_ms``.  Then small checks of the 256-wide
+    instance (head_dim 256, MLA's 192 / 128)."""
     dev = DEV
+    log = _build.build_logs.get("flash_attention_bwd", "")
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
+    for ln in ptxas:
+        print(f"  [flash_attention_bwd ptxas] {ln}")
     bkv, group, s, d = 64, 4, 256, 128
     bh = bkv * group
     scale = 1.0 / math.sqrt(d)
@@ -504,25 +585,30 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
                                  f"disagrees with plain")
         fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], err_o)
         fwd_row["shapes"] += f"; checked at BH={bh} group={group} S={s} {c}"
-        del o_p, lse_p
-        dmat = (do.float() * o.float()).sum(-1)
-        got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, dmat, **kw)
-        want = fa.flash_attention_bwd_plain(q, k, v, lse, do, dmat, **kw)
-        torch.cuda.synchronize()
-        errs = {n: _rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), got,
-                                                 want)}
-        err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        print(f"  flash bwd {c}: rel-norm err "
-              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-              + f" (bound {BWD_RTOL}); max|err| {err:.3e}", flush=True)
-        if not max(errs.values()) <= BWD_RTOL:
-            raise AssertionError(f"flash backward {c} disagrees with plain")
-        worst = max(worst, err)
+        del o, lse, o_p, lse_p
+        worst = max(worst, _check_bwd(q, k, v, do, kw,
+                                      f"(training shape) {c}"))
+    for dq_, dv_, s_ in ((256, 256, 200), (192, 128, 160)):
+        qs = torch.randn((16, s_, dq_), device=dev, generator=gen).bfloat16()
+        dos = torch.randn((16, s_, dv_), device=dev, generator=gen).bfloat16()
+        ks = torch.randn((4, s_, dq_), device=dev, generator=gen).bfloat16()
+        vs = torch.randn((4, s_, dv_), device=dev, generator=gen).bfloat16()
+        kw = dict(scale=dq_ ** -0.5, causal=True, group=4, window=0,
+                  softcap=0.0)
+        worst = max(worst, _check_bwd(qs, ks, vs, dos, kw,
+                                      f"(BH=16 group=4 S={s_} d={dq_} "
+                                      f"dv={dv_})"))
     kw = dict(scale=scale, causal=True, group=group)
     o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
     dmat = (do.float() * o.float()).sum(-1)
-    ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, lse, do, dmat,
-                                                     **kw))
+
+    def pair():
+        return fa.flash_attention_bwd_cuda(q, k, v, lse, do, dmat, **kw)
+
+    ms = cuda_ms(pair)
+    g_ms = graph_ms(pair)
+    run_dq, run_dkv = _bwd_parts(q, k, v, lse, do, dmat, **kw)
+    dq_ms, dkv_ms = graph_ms(run_dq), graph_ms(run_dkv)
     plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, lse, do,
                                                          dmat, **kw), iters=5)
     fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw))
@@ -541,6 +627,8 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
     t_fb = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qq, kk, vv), do4))
     t_f = cuda_ms(sdpa)
     lib = t_fb - t_f
+    fwd_row["library_train_ms"] = t_f
+    fwd_row["train_ms"] = fwd_ms
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
         + 4 * (lse.numel() + dmat.numel()) \
         + 4 * (q.numel() + k.numel() + v.numel())
@@ -548,16 +636,19 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
     flops = 10 * d * pairs
     bd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
     print(f"  flash bwd timing (BH={bh}, G={group}, S={s}, d={d}): kernels "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa fwd+bwd {t_fb:.4f} - fwd "
-          f"{t_f:.4f} = {lib:.4f} ms, bound {bd:.5f} ms ({by}, "
-          f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); flash fwd at "
-          f"this shape {fwd_ms:.4f} ms", flush=True)
+          f"{ms:.4f} ms in a loop, {g_ms:.4f} ms in a CUDA graph (dq "
+          f"{dq_ms:.4f}, dk/dv {dkv_ms:.4f}), plain {plain:.4f} ms, sdpa "
+          f"fwd+bwd {t_fb:.4f} - fwd {t_f:.4f} = {lib:.4f} ms, bound "
+          f"{bd:.5f} ms ({by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+          f"GFLOP); flash fwd at this shape {fwd_ms:.4f} ms (sdpa fwd "
+          f"{t_f:.4f})", flush=True)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:321",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "bound_ms": bd, "bound_by": by, "library_ms": lib,
-            "fwd_train_ms": fwd_ms,
+            "graph_ms": g_ms, "dq_graph_ms": dq_ms, "dkv_graph_ms": dkv_ms,
+            "fwd_train_ms": fwd_ms, "ptxas": ptxas,
             "shapes": f"BH={bh} group={group} Sq=Sk={s} d={d} causal "
                       f"(dq + dk/dv kernels)"}
 
@@ -859,8 +950,14 @@ def profile_train_step(trainer) -> dict:
           flush=True)
     for name, us in top:
         print(f"  {us / 1e3:9.2f} ms  {name[:90]}")
+    # the attention kernels of the step, wherever they rank
+    attn = {n: us / 1e3 for n, us in kernels.items()
+            if "flash_" in n or "bwd_dq_kernel" in n or "bwd_dkv_kernel" in n}
+    for name, t_ms in sorted(attn.items(), key=lambda kv: -kv[1]):
+        print(f"  attention {t_ms:9.2f} ms ({t_ms / (busy / 1e3):.2%} of "
+              f"device time)  {name[:70]}")
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "top": [(n, us / 1e3) for n, us in top]}
+            "top": [(n, us / 1e3) for n, us in top], "attention": attn}
 
 
 def check_train_grads() -> dict:

@@ -21,20 +21,22 @@
 // and the PV product broadcasts p by shuffle, so no score matrix ever
 // leaves registers.  Tiles past the causal limit and before the window
 // are skipped.  Scalar f32 FMAs, no tensor cores yet: mma/wgmma tiles are
-// later work.
+// later work.  Head dims up to 256: two instances of the kernel, MAXD =
+// 128 and 256, picked by max(d, dv); the wrapper zero-pads d and dv to
+// multiples of 8 (zero columns change neither q.k nor lse, and give zero
+// output columns, which it slices off).
 
 #include "attention_common.cuh"
 
 namespace {
 
-using attn::LDK;
-using attn::MAXD;
 using attn::TILE;
 
 constexpr int WARPS = 4;
 constexpr int RPW = 4;              // query rows per warp
 constexpr int BQ = WARPS * RPW;     // query rows per block
 
+template <int MAXD>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -42,7 +44,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int d, int dv, int group, float scale,
                  float softcap, int causal, int window) {
-  __shared__ float sQ[BQ][MAXD];
+  using Dm = attn::Dims<MAXD>;
+  using QT = typename Dm::QT;
+  constexpr int LDK = Dm::LDK;
+  __shared__ QT sQ[BQ][MAXD];
   __shared__ __align__(16) __nv_bfloat16 sK[TILE][LDK];
   __shared__ __align__(16) __nv_bfloat16 sV[TILE][LDK];
 
@@ -54,11 +59,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int i = tid; i < BQ * d; i += WARPS * 32) {
     const int r = i / d, c = i % d;
-    sQ[r][c] = (q0 + r < Sq) ? __bfloat162float(qb[(size_t)(q0 + r) * d + c])
-                             : 0.f;
+    const __nv_bfloat16 x = (q0 + r < Sq) ? qb[(size_t)(q0 + r) * d + c]
+                                          : __float2bfloat16_rn(0.f);
+    attn::put(sQ[r][c], x);
   }
 
-  attn::RowState st[RPW];
+  attn::RowState<Dm::DPL> st[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) attn::row_init(st[i]);
 
@@ -85,8 +91,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       bool valid = kpos < Sk;
       if (causal) valid = valid && kpos <= qpos;
       if (window > 0) valid = valid && (qpos - kpos < window);
-      attn::row_update(st[i], sQ[r], sK, sV, d, dv, scale, softcap, valid,
-                       lane);
+      attn::row_update<MAXD>(st[i], sQ[r], sK, sV, d, dv, scale, softcap,
+                             valid, lane);
     }
   }
 
@@ -97,7 +103,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const float l_safe = fmaxf(st[i].l, 1e-30f);
     __nv_bfloat16* orow = o + ((size_t)bh * Sq + qpos) * dv;
 #pragma unroll
-    for (int c = 0; c < attn::DPL; ++c) {
+    for (int c = 0; c < Dm::DPL; ++c) {
       const int dim = lane + 32 * c;
       if (dim < dv) orow[dim] = __float2bfloat16_rn(st[i].acc[c] / l_safe);
     }
@@ -105,22 +111,31 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-}  // namespace
-
-// q: (BH, Sq, d), k: (BH/group, Sk, d), v: (BH/group, Sk, dv), bf16,
-// contiguous; d, dv <= 128 and % 8 == 0 (checked by the Python wrapper).
-// o: (BH, Sq, dv) bf16, lse: (BH, Sq) f32.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int BH,
-                                   int Sq, int Sk, int d, int dv, int group,
-                                   float scale, float softcap, int causal,
-                                   int window, void* stream) {
+template <int MAXD>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int BH, int Sq, int Sk, int d, int dv, int group, float scale,
+           float softcap, int causal, int window, cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_fwd_kernel<<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<MAXD><<<grid, WARPS * 32, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), Sq, Sk, d, dv, group, scale, softcap, causal,
       window);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q: (BH, Sq, d), k: (BH/group, Sk, d), v: (BH/group, Sk, dv), bf16,
+// contiguous; d, dv <= 256 and % 8 == 0 (checked by the Python wrapper).
+// o: (BH, Sq, dv) bf16, lse: (BH, Sq) f32.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* o, void* lse, int BH,
+                                   int Sq, int Sk, int d, int dv, int group,
+                                   float scale, float softcap, int causal,
+                                   int window, void* stream) {
+  auto fn = (d <= 128 && dv <= 128) ? launch<128> : launch<256>;
+  return fn(q, k, v, o, lse, BH, Sq, Sk, d, dv, group, scale, softcap,
+            causal, window, static_cast<cudaStream_t>(stream));
 }

@@ -1,77 +1,261 @@
-// Flash-attention backward for Hopper (sm_90a): the training gradients.
+// Flash-attention backward for Hopper (sm_90a): the training gradients, on
+// bf16 tensor cores.
 //
-// Replaces: src/repro/kernels/flash_attention.py,
-// flash_attention_bwd_pallas (bodies _dq_kernel and _dkv_kernel, helpers
-// _recompute_p and _softcap_jac).
+// Replaces: src/repro/kernels/flash_attention.py:321,
+// flash_attention_bwd_pallas (bodies _dq_kernel :256 and _dkv_kernel :284,
+// helpers _recompute_p and _softcap_jac).
 //
 // Given q, k, v, the upstream gradient do, the forward's row log-sum-exp
 // and dmat = rowsum(do * o) (f32, computed by the wrapper), both kernels
-// recompute p = exp(s - lse) tile by tile (s the masked, softcapped,
-// scaled score) and form
-//   dp = do . v^T                     (do in bf16, f32 products)
-//   ds = p * (dp - dmat) * sech^2(s_raw / c) * scale
-//   dq = bf16(ds) . k                 (flash_bwd_dq_kernel)
-//   dv = p^T . do                     (p kept f32, do f32)
-//   dk = bf16(ds)^T . q               (flash_bwd_dkv_kernel)
+// recompute p = exp(s - lse) tile by tile and form
+//   s  = (q . k) * scale               (bf16 operands, f32 sums)
+//   s  = tanh(s / c) * c, jac = 1 - t^2 (softcap c, else jac = 1)
+//   s  = -1e30 where masked            (finite: masked p is exactly 0)
+//   dp = do . v                        (do in bf16, f32 sums)
+//   ds = p * (dp - dmat) * jac * scale
+//   dq = bf16(ds) . k                  (bwd_dq_kernel)
+//   dk = bf16(ds)^T . q                (bwd_dkv_kernel)
+//   dv = p^T . do, p kept in f32       (bwd_dkv_kernel)
 // with the reference's casts: ds is rounded to bf16 before the dq and dk
-// products, p is not rounded before the dv product.  The masked score is
-// the finite sentinel -1e30, so masked p is exactly 0.  Ragged Sq / Sk are
-// masked here (the reference pads to the 128 grid; padded rows carry
-// do = 0 and add nothing, so the two agree).
+// products, p is not rounded before the dv product.  Every product runs on
+// mma.sync.m16n8k16 bf16 with f32 accumulators; the operands are the
+// reference's own bf16 values, so only the order of the f32 sums differs.
+// The f32 p of the dv product is split as p = p_hi + p_lo, p_hi = bf16(p),
+// p_lo = bf16(p - p_hi), and both halves are multiplied by do (exact in
+// bf16) into the same f32 accumulator: |p - p_hi - p_lo| <= 2^-16 |p|.
 //
 // What bounds it on an H100: at the training shape (qwen3-4b, batch 8,
-// seq 256: BH 256, group 4, S 256, d 128) the function moves ~90 MB
-// (q, k, v, do in bf16, dq/dk/dv in f32: ~27 us at 3.35 TB/s) and does
-// 10 * d flops per unmasked (query, key) pair, ~10.8 GFLOP (~11 us at the
-// bf16 tensor-core peak), so the bound is the bytes.  This first version
-// runs scalar f32 FMAs, so it is bound by FMA throughput, far above
-// either roof.
-// Design response (first, simple version, the forward's layout): the dq
-// kernel gives each block 16 query rows of one head and loops over 32-key
-// K/V tiles up to the causal limit; the dk/dv kernel gives each block 16
-// key rows of one KV head and loops over the G query heads of its group
-// and their 32-query tiles from the causal start, so the group sum happens
-// in registers and no per-query-head (BH, Sk, d) f32 buffer exists.  Each
-// warp owns whole rows, lane j takes tile row j for the scores, and the
-// coefficient (ds or p) of row j is broadcast by shuffle for the products,
-// so no score matrix leaves registers.  Tensor-core tiles are later work.
+// seq 256: BH 256, group 4, S 256, d 128, causal) the function moves
+// 92.8 MB (q, k, v, do in bf16, lse and dmat, dq/dk/dv in f32: 0.0277 ms
+// at 3.35 TB/s) and does 10.8 GFLOP of useful bf16 work (10 d per unmasked
+// pair: 0.011 ms at 989 TFLOP/s), so the bound is the bytes.  The kernels
+// do more MMA work than that: the split dv doubles the dv product, both
+// kernels recompute s and dp (8 products of 2 d per pair where the
+// function needs 5), and diagonal tiles are computed in full and masked;
+// ~21 GFLOP in all at this shape, ~0.02 ms at the bf16 peak, more at
+// mma.sync's rate.
+//
+// Design: two kernels, no atomics, deterministic.
+// - bwd_dq_kernel: a block owns 64 query rows of one head (4 warps of 16
+//   rows) with q and do resident in shared memory, and walks the 32-key
+//   K/V tiles through a 2-stage cp.async ring.  Per tile a warp forms
+//   S = Q K^T and dP = dO V^T (16 x 32 in registers), turns them into
+//   bf16(ds) in the accumulator layout, which is the A operand layout of
+//   the next MMA, and adds dS K into its dq rows.  32-key tiles keep the
+//   block at 70 KB of shared memory and 164 registers a thread, so an SM
+//   holds 3 blocks; 64-key tiles (104 KB, 174 registers) allow 2.
+// - bwd_dkv_kernel: a block owns 64 key rows of one KV head (4 warps of 16
+//   rows) with k and v resident, and walks every query head of the group
+//   and its 32-query tiles of q, do, lse and dmat through the same ring;
+//   a warp forms S^T = K Q^T and dP^T = V dO^T, so that p^T and ds^T land
+//   in the A layout, and adds p^T dO (split) and dS^T Q into dv and dk,
+//   summed over the group in registers.
+// - Operands come from shared memory by ldmatrix (.trans for dO, Q and K
+//   where they are the B operand of a product over the walked rows); rows
+//   are padded by 16 bytes, so the eight rows of each 8x8 matrix fall in
+//   distinct banks.
+// - Tiles wholly outside the causal limit or the window are skipped; only
+//   tiles that cross the diagonal, the window's edge or a ragged end
+//   evaluate the mask.  Heavy tiles launch first: the dq grid walks query
+//   tiles from the last, the dk/dv grid key tiles from the first.
+// - Instances by head width D = 64, 128, 256 (the wrapper zero-pads d and
+//   dv to D).  At D = 256 the 16 x 256 dq, dk and dv accumulators of a
+//   warp would not fit in registers, so each row slab has two warps, one
+//   per half of the output columns, each recomputing S and dP over the
+//   full width.
+// - What holds it back now, most likely (not confirmed by hardware
+//   counters): the dk/dv kernel's 16 x 128 dk and dv
+//   accumulators take ~240 registers a thread, so an SM holds 8 of its
+//   warps, few to hide mma.sync and ldmatrix latency; wgmma (64-row
+//   warpgroup tiles, B from shared memory) is the next lever.
 
-#include "attention_common.cuh"
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
-using attn::DPL;
-using attn::LDK;
-using attn::MAXD;
-using attn::NEG_INF;
-using attn::TILE;
+constexpr float NEG_INF = -1e30f;
 
-constexpr int WARPS = 4;
-constexpr int RPW = 4;              // rows per warp
-constexpr int BR = WARPS * RPW;     // rows (queries or keys) per block
-
-// bf16 row (padded, in shared memory) . f32 row (shared, broadcast).
-__device__ __forceinline__ float dot_row(const float* a,
-                                         const __nv_bfloat16* b, int n) {
-  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(b);
-  float s = 0.f;
-  for (int i = 0; i < n / 2; ++i) {
-    const float2 f = __bfloat1622float2(b2[i]);
-    s = fmaf(a[2 * i], f.x, s);
-    s = fmaf(a[2 * i + 1], f.y, s);
-  }
-  return s;
-}
-
-// ds for one (query, key) pair from its raw dot products, the reference's
-// order of operations: p * (dp - dmat) * jac * scale.
-struct Pair {
-  float p, ds;
+// Per-instance tile sizes (the width D is picked by bwd_width in
+// kernels/flash_attention.py).  A block owns Q_ROWS query rows (dq kernel)
+// or K_ROWS key rows (dk/dv kernel), in slabs of 16 rows, one warp per
+// slab and output column half.
+template <int D>
+struct Cfg {
+  static constexpr int NSPLIT = D > 128 ? 2 : 1;  // output column halves
+  static constexpr int DO = D / NSPLIT;           // output columns a warp owns
+  static constexpr int LD = D + 8;                // padded smem row (bf16)
+  static constexpr int Q_ROWS = 64;               // query rows per dq block
+  static constexpr int K_ROWS = 64;               // key rows per dk/dv block
+  static constexpr int KT = 32;                   // keys per dq-kernel tile
+  static constexpr int QT = 32;                   // queries per dk/dv tile
+  static constexpr int DQ_THREADS = 2 * Q_ROWS * NSPLIT;   // 32 per slab
+  static constexpr int DKV_THREADS = 2 * K_ROWS * NSPLIT;
+  static constexpr int DQ_SMEM = (2 * Q_ROWS + 4 * KT) * LD * 2;
+  static constexpr int DKV_SMEM =
+      (2 * K_ROWS + 4 * QT) * LD * 2 + 4 * QT * 4;
 };
 
-__device__ __forceinline__ Pair pair_grad(float qk, float dp, float lse,
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; zero-fills when !pred (src is then
+// not read, but must still be a valid address).
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a . b for one m16n8k16 tile (bf16 in, f32 accumulate).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The A operand of a product over the 16 columns kb*16.. of a 16 x N
+// accumulator (n-tiles 2kb and 2kb+1): the accumulator layout of
+// m16n8k16 is the A layout, two n-tiles per k-step.
+template <int NT>
+__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4],
+                                           const float (&c)[NT][4], int kb) {
+  a[0] = pack(c[2 * kb][0], c[2 * kb][1]);
+  a[1] = pack(c[2 * kb][2], c[2 * kb][3]);
+  a[2] = pack(c[2 * kb + 1][0], c[2 * kb + 1][1]);
+  a[3] = pack(c[2 * kb + 1][2], c[2 * kb + 1][3]);
+}
+
+// acc (16 x N) += A rows (16 x D, row-major in smem at a_base) . B^T, with
+// B the rows b_base.. (N x D, row-major): S = Q K^T and its kin.
+template <int D, int N>
+__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4],
+                                        const __nv_bfloat16* a_base,
+                                        const __nv_bfloat16* b_base,
+                                        int lane) {
+  constexpr int LD = D + 8;
+  const uint32_t a_addr =
+      smem_u32(a_base + (lane & 15) * LD + (lane >> 4) * 8);
+  const uint32_t b_addr = smem_u32(
+      b_base + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm4(a, a_addr + kk * 32);
+#pragma unroll
+    for (int nb = 0; nb < N / 16; ++nb) {
+      uint32_t b[4];
+      ldsm4(b, b_addr + (nb * 16 * LD + kk * 16) * 2);
+      mma(acc[2 * nb], a, b[0], b[1]);
+      mma(acc[2 * nb + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x DO) += A (16 x 16, registers) . B, with B the 16 rows b_base..
+// (row-major, LD-padded) at columns col0 .. col0 + DO: dS K and its kin.
+template <int LD, int DO>
+__device__ __forceinline__ void mma_ab(float (&acc)[DO / 8][4],
+                                       const uint32_t (&a)[4],
+                                       const __nv_bfloat16* b_base, int col0,
+                                       int lane) {
+  const uint32_t b_addr =
+      smem_u32(b_base + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + col0 +
+               (lane >> 4) * 8);
+#pragma unroll
+  for (int nd = 0; nd < DO / 16; ++nd) {
+    uint32_t b[4];
+    ldsm4t(b, b_addr + nd * 32);
+    mma(acc[2 * nd], a, b[0], b[1]);
+    mma(acc[2 * nd + 1], a, b[2], b[3]);
+  }
+}
+
+// The same for two A operands against one B (the hi and lo halves of p):
+// acc += a0 . B + a1 . B, each B fragment loaded once.
+template <int LD, int DO>
+__device__ __forceinline__ void mma_ab2(float (&acc)[DO / 8][4],
+                                        const uint32_t (&a0)[4],
+                                        const uint32_t (&a1)[4],
+                                        const __nv_bfloat16* b_base,
+                                        int col0, int lane) {
+  const uint32_t b_addr =
+      smem_u32(b_base + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + col0 +
+               (lane >> 4) * 8);
+#pragma unroll
+  for (int nd = 0; nd < DO / 16; ++nd) {
+    uint32_t b[4];
+    ldsm4t(b, b_addr + nd * 32);
+    mma(acc[2 * nd], a0, b[0], b[1]);
+    mma(acc[2 * nd + 1], a0, b[2], b[3]);
+    mma(acc[2 * nd], a1, b[0], b[1]);
+    mma(acc[2 * nd + 1], a1, b[2], b[3]);
+  }
+}
+
+// Async copy of `rows` D-wide bf16 rows from src (row stride D) into an
+// LD-padded shared tile; rows at or past `valid` are zero-filled.
+template <int D, int NTHREADS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int rows,
+                                          int valid, int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int i = tid; i < rows * CPR; i += NTHREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool in = r < valid;
+    cp16(dst + r * (D + 8) + c, in ? src + (size_t)r * D + c : src, in);
+  }
+}
+
+// One score element: p and ds from the raw dot products, the reference's
+// order of operations.
+__device__ __forceinline__ void pair_grad(float qk, float dp, float lse,
                                           float dmat, float scale,
-                                          float softcap, bool valid) {
+                                          float softcap, bool valid,
+                                          float& p, float& ds) {
   float s = qk * scale;
   float jac = 1.f;
   if (softcap > 0.f) {
@@ -80,259 +264,355 @@ __device__ __forceinline__ Pair pair_grad(float qk, float dp, float lse,
     jac = 1.f - t * t;
   }
   if (!valid) s = NEG_INF;
-  Pair r;
-  r.p = expf(s - lse);
-  r.ds = r.p * (dp - dmat) * jac * scale;
-  return r;
+  p = expf(s - lse);
+  ds = p * (dp - dmat) * jac * scale;
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ bool pair_valid(int qpos, int kpos, int Sq,
+                                           int Sk, int causal, int window) {
+  bool v = qpos < Sq && kpos < Sk;
+  if (causal) v = v && kpos <= qpos;
+  if (window > 0) v = v && (qpos - kpos < window);
+  return v;
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dmat, float* __restrict__ dq,
-                    int Sq, int Sk, int d, int dv, int group, float scale,
-                    float softcap, int causal, int window) {
-  __shared__ float sQ[BR][MAXD];
-  __shared__ float sDO[BR][MAXD];
-  __shared__ __align__(16) __nv_bfloat16 sK[TILE][LDK];
-  __shared__ __align__(16) __nv_bfloat16 sV[TILE][LDK];
+// ---------------------------------------------------------------------------
+// dq: a block owns ROWS query rows of one head and walks the K/V tiles.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::DQ_THREADS)
+bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ dmat,
+              float* __restrict__ dq, int Sq, int Sk, int group, float scale,
+              float softcap, int causal, int window) {
+  using C = Cfg<D>;
+  constexpr int LD = C::LD, KT = C::KT, DO = C::DO, ROWS = C::Q_ROWS;
+  constexpr int NT = C::DQ_THREADS, SLABS = ROWS / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sDO = sQ + ROWS * LD;
+  __nv_bfloat16* sK = sDO + ROWS * LD;     // [2][KT][LD]
+  __nv_bfloat16* sV = sK + 2 * KT * LD;    // [2][KT][LD]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BR;
-  const __nv_bfloat16* qb = q + (size_t)bh * Sq * d;
-  const __nv_bfloat16* dob = dout + (size_t)bh * Sq * dv;
-  const __nv_bfloat16* kb = k + (size_t)(bh / group) * Sk * d;
-  const __nv_bfloat16* vb = v + (size_t)(bh / group) * Sk * dv;
+  const int wr = warp % SLABS, wc = warp / SLABS;  // row slab, column half
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // last tile first
+  const __nv_bfloat16* qb = q + ((size_t)bh * Sq + q0) * D;
+  const __nv_bfloat16* dob = dout + ((size_t)bh * Sq + q0) * D;
+  const __nv_bfloat16* kb = k + (size_t)(bh / group) * Sk * D;
+  const __nv_bfloat16* vb = v + (size_t)(bh / group) * Sk * D;
 
-  for (int i = tid; i < BR * MAXD; i += WARPS * 32) {
-    const int r = i / MAXD, c = i % MAXD;
-    const bool in = q0 + r < Sq;
-    sQ[r][c] = (in && c < d) ? __bfloat162float(qb[(size_t)(q0 + r) * d + c])
-                             : 0.f;
-    sDO[r][c] = (in && c < dv)
-                    ? __bfloat162float(dob[(size_t)(q0 + r) * dv + c])
-                    : 0.f;
-  }
-  float row_lse[RPW], row_dmat[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int qpos = q0 + warp + WARPS * i;
-    row_lse[i] = qpos < Sq ? lse[(size_t)bh * Sq + qpos] : 0.f;
-    row_dmat[i] = qpos < Sq ? dmat[(size_t)bh * Sq + qpos] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[i][c] = 0.f;
-  }
-
-  const int q_last = min(q0 + BR, Sq) - 1;
+  const int q_last = min(q0 + ROWS, Sq) - 1;
   const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
   int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  kv_begin = (kv_begin / TILE) * TILE;
+  kv_begin = (kv_begin / KT) * KT;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT
+                                        : 0;
 
-  for (int kt = kv_begin; kt < kv_end; kt += TILE) {
-    __syncthreads();                 // previous tile fully consumed
-    for (int r = warp; r < TILE; r += WARPS) {
-      const int kp = kt + r;
-      attn::load_row(sK[r], kp < Sk ? kb + (size_t)kp * d : nullptr, d, lane);
-      attn::load_row(sV[r], kp < Sk ? vb + (size_t)kp * dv : nullptr, dv,
-                     lane);
+  load_rows<D, NT>(sQ, qb, ROWS, Sq - q0, tid);
+  load_rows<D, NT>(sDO, dob, ROWS, Sq - q0, tid);
+  auto load_kv = [&](int stage, int kt) {
+    load_rows<D, NT>(sK + stage * KT * LD, kb + (size_t)kt * D, KT, Sk - kt,
+                     tid);
+    load_rows<D, NT>(sV + stage * KT * LD, vb + (size_t)kt * D, KT, Sk - kt,
+                     tid);
+  };
+  if (n_tiles > 0) load_kv(0, kv_begin);
+  cp_commit();
+
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + wr * 16 + g;          // this thread's rows r0, r0 + 8
+  float row_lse[2], row_dm[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    row_lse[h] = r < Sq ? lse[(size_t)bh * Sq + r] : 0.f;
+    row_dm[h] = r < Sq ? dmat[(size_t)bh * Sq + r] : 0.f;
+  }
+  float acc[DO / 8][4];
+#pragma unroll
+  for (int n = 0; n < DO / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kt = kv_begin + j * KT;
+    if (j + 1 < n_tiles) load_kv((j + 1) & 1, kt + KT);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* cK = sK + (j & 1) * KT * LD;
+    const __nv_bfloat16* cV = sV + (j & 1) * KT * LD;
+
+    float s[KT / 8][4], dp[KT / 8][4];
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    mma_abt<D, KT>(s, sQ + wr * 16 * LD, cK, lane);
+    mma_abt<D, KT>(dp, sDO + wr * 16 * LD, cV, lane);
+
+    const bool edge = (causal && kt + KT - 1 > q0) ||
+                      (window > 0 && q_last - kt >= window) ||
+                      kt + KT > Sk || q0 + ROWS > Sq;
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const bool valid =
+            !edge || pair_valid(r0 + 8 * h, kt + n * 8 + 2 * t + (e & 1), Sq,
+                                Sk, causal, window);
+        float p, ds;
+        pair_grad(s[n][e], dp[n][e], row_lse[h], row_dm[h], scale, softcap,
+                  valid, p, ds);
+        s[n][e] = ds;                 // packed to bf16 below: bf16(ds)
+      }
+#pragma unroll
+    for (int kb2 = 0; kb2 < KT / 16; ++kb2) {
+      uint32_t a[4];
+      a_from_acc(a, s, kb2);
+      mma_ab<LD, DO>(acc, a, cK + kb2 * 16 * LD, wc * DO, lane);
+    }
+    __syncthreads();                  // stage (j & 1) is reloaded at j + 2
+  }
+  cp_wait<0>();
+
+  float* out = dq + (size_t)bh * Sq * D + wc * DO + 2 * t;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < DO / 8; ++n)
+      *reinterpret_cast<float2*>(out + (size_t)r * D + n * 8) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv: a block owns ROWS key rows of one KV head and walks the group's
+// query heads and their query tiles; dk and dv sum in registers.
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::DKV_THREADS)
+bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ dmat,
+               float* __restrict__ dk, float* __restrict__ dvo, int Sq,
+               int Sk, int group, float scale, float softcap, int causal,
+               int window) {
+  using C = Cfg<D>;
+  constexpr int LD = C::LD, QT = C::QT, DO = C::DO, ROWS = C::K_ROWS;
+  constexpr int NT = C::DKV_THREADS, SLABS = ROWS / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sV = sK + ROWS * LD;
+  __nv_bfloat16* sQ = sV + ROWS * LD;      // [2][QT][LD]
+  __nv_bfloat16* sDO = sQ + 2 * QT * LD;   // [2][QT][LD]
+  float* sL = reinterpret_cast<float*>(sDO + 2 * QT * LD);  // [2][QT]
+  float* sD = sL + 2 * QT;                                   // [2][QT]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp % SLABS, wc = warp / SLABS;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * ROWS;        // first key tile first
+  const int k_last = min(k0 + ROWS, Sk) - 1;
+  const int q_begin = causal ? (k0 / QT) * QT : 0;
+  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+  const int n_q = q_end > q_begin ? (q_end - q_begin + QT - 1) / QT : 0;
+  const int n_iter = group * n_q;
+
+  load_rows<D, NT>(sK, k + ((size_t)bkv * Sk + k0) * D, ROWS, Sk - k0, tid);
+  load_rows<D, NT>(sV, v + ((size_t)bkv * Sk + k0) * D, ROWS, Sk - k0, tid);
+  auto load_q = [&](int stage, int it) {
+    const int bh = bkv * group + it / n_q;
+    const int qt = q_begin + (it % n_q) * QT;
+    const size_t row0 = (size_t)bh * Sq + qt;
+    load_rows<D, NT>(sQ + stage * QT * LD, q + row0 * D, QT, Sq - qt, tid);
+    load_rows<D, NT>(sDO + stage * QT * LD, dout + row0 * D, QT, Sq - qt,
+                     tid);
+    if (tid < QT) {
+      const bool in = qt + tid < Sq;
+      cp4(sL + stage * QT + tid, in ? lse + row0 + tid : lse, in);
+      cp4(sD + stage * QT + tid, in ? dmat + row0 + tid : dmat, in);
+    }
+  };
+  if (n_iter > 0) load_q(0, 0);
+  cp_commit();
+
+  const int g = lane >> 2, t = lane & 3;
+  const int kr0 = k0 + wr * 16 + g;         // this thread's keys kr0, kr0 + 8
+  float acc_k[DO / 8][4], acc_v[DO / 8][4];
+#pragma unroll
+  for (int n = 0; n < DO / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int qt = q_begin + (it % n_q) * QT;
+    if (it + 1 < n_iter) load_q((it + 1) & 1, it + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* cQ = sQ + (it & 1) * QT * LD;
+    const __nv_bfloat16* cDO = sDO + (it & 1) * QT * LD;
+    const float* cL = sL + (it & 1) * QT;
+    const float* cD = sD + (it & 1) * QT;
+
+    float s[QT / 8][4], dp[QT / 8][4];   // S^T and dP^T: 16 keys x QT
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    mma_abt<D, QT>(s, sK + wr * 16 * LD, cQ, lane);
+    mma_abt<D, QT>(dp, sV + wr * 16 * LD, cDO, lane);
+
+    const bool edge = (causal && qt < k0 + ROWS - 1) ||
+                      (window > 0 && qt + QT - 1 - k0 >= window) ||
+                      qt + QT > Sq || k0 + ROWS > Sk;
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t + (e & 1);   // query column in the tile
+        const bool valid =
+            !edge || pair_valid(qt + c, kr0 + 8 * (e >> 1), Sq, Sk, causal,
+                                window);
+        float p, ds;
+        pair_grad(s[n][e], dp[n][e], cL[c], cD[c], scale, softcap, valid, p,
+                  ds);
+        s[n][e] = p;                  // p^T, f32
+        dp[n][e] = ds;                // ds^T, packed to bf16 below
+      }
+#pragma unroll
+    for (int kb2 = 0; kb2 < QT / 16; ++kb2) {
+      // dv += p^T dO, p split into bf16 hi + lo
+      uint32_t a_hi[4], a_lo[4];
+      a_from_acc(a_hi, s, kb2);
+      float lo[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          lo[h][e] = s[2 * kb2 + h][e] - bf16_round(s[2 * kb2 + h][e]);
+      a_lo[0] = pack(lo[0][0], lo[0][1]);
+      a_lo[1] = pack(lo[0][2], lo[0][3]);
+      a_lo[2] = pack(lo[1][0], lo[1][1]);
+      a_lo[3] = pack(lo[1][2], lo[1][3]);
+      mma_ab2<LD, DO>(acc_v, a_hi, a_lo, cDO + kb2 * 16 * LD, wc * DO,
+                      lane);
+      // dk += bf16(ds)^T Q
+      uint32_t a[4];
+      a_from_acc(a, dp, kb2);
+      mma_ab<LD, DO>(acc_k, a, cQ + kb2 * 16 * LD, wc * DO, lane);
     }
     __syncthreads();
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp + WARPS * i;
-      const int qpos = q0 + r;
-      if (qpos >= Sq) continue;      // warp-uniform
-      const int kpos = kt + lane;
-      bool valid = kpos < Sk;
-      if (causal) valid = valid && kpos <= qpos;
-      if (window > 0) valid = valid && (qpos - kpos < window);
-      const Pair g = pair_grad(dot_row(sQ[r], sK[lane], d),
-                               dot_row(sDO[r], sV[lane], dv), row_lse[i],
-                               row_dmat[i], scale, softcap, valid);
-      const float dsb = round_bf16(g.ds);
-#pragma unroll 4
-      for (int j = 0; j < TILE; ++j) {
-        const float dsj = __shfl_sync(0xffffffffu, dsb, j);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const int dim = lane + 32 * c;
-          if (dim < d)
-            acc[i][c] = fmaf(dsj, __bfloat162float(sK[j][dim]), acc[i][c]);
-        }
-      }
-    }
   }
+  cp_wait<0>();
 
+  const size_t base = (size_t)bkv * Sk * D + wc * DO + 2 * t;
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int qpos = q0 + warp + WARPS * i;
-    if (qpos >= Sq) continue;
-    float* row = dq + ((size_t)bh * Sq + qpos) * d;
+  for (int h = 0; h < 2; ++h) {
+    const int r = kr0 + 8 * h;
+    if (r >= Sk) continue;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int dim = lane + 32 * c;
-      if (dim < d) row[dim] = acc[i][c];
+    for (int n = 0; n < DO / 8; ++n) {
+      const size_t off = base + (size_t)r * D + n * 8;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dvo + off) =
+          make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
     }
   }
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dmat, float* __restrict__ dk,
-                     float* __restrict__ dvo, int Sq, int Sk, int d, int dv,
-                     int group, float scale, float softcap, int causal,
-                     int window) {
-  __shared__ float sKr[BR][MAXD];
-  __shared__ float sVr[BR][MAXD];
-  __shared__ __align__(16) __nv_bfloat16 sQ[TILE][LDK];
-  __shared__ __align__(16) __nv_bfloat16 sDO[TILE][LDK];
-  __shared__ float sL[TILE], sD[TILE];
+template <typename K>
+int set_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bkv = blockIdx.y, k0 = blockIdx.x * BR;
-  const __nv_bfloat16* kb = k + (size_t)bkv * Sk * d;
-  const __nv_bfloat16* vb = v + (size_t)bkv * Sk * dv;
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* dmat, void* dq, int BH, int Sq,
+              int Sk, int group, float scale, float softcap, int causal,
+              int window, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static const int attr = set_smem(bwd_dq_kernel<D>, C::DQ_SMEM);
+  if (attr != 0) return attr;
+  dim3 grid(BH, (Sq + C::Q_ROWS - 1) / C::Q_ROWS);
+  bwd_dq_kernel<D><<<grid, C::DQ_THREADS, C::DQ_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dmat),
+      static_cast<float*>(dq), Sq, Sk, group, scale, softcap, causal, window);
+  return (int)cudaGetLastError();
+}
 
-  for (int i = tid; i < BR * MAXD; i += WARPS * 32) {
-    const int r = i / MAXD, c = i % MAXD;
-    const bool in = k0 + r < Sk;
-    sKr[r][c] = (in && c < d) ? __bfloat162float(kb[(size_t)(k0 + r) * d + c])
-                              : 0.f;
-    sVr[r][c] = (in && c < dv)
-                    ? __bfloat162float(vb[(size_t)(k0 + r) * dv + c])
-                    : 0.f;
-  }
-  float acc_k[RPW][DPL], acc_v[RPW][DPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  const int k_last = min(k0 + BR, Sk) - 1;
-  const int q_begin = causal ? (k0 / TILE) * TILE : 0;
-  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
-
-  for (int g = 0; g < group; ++g) {
-    const int bh = bkv * group + g;
-    const __nv_bfloat16* qb = q + (size_t)bh * Sq * d;
-    const __nv_bfloat16* dob = dout + (size_t)bh * Sq * dv;
-    for (int qt = q_begin; qt < q_end; qt += TILE) {
-      __syncthreads();               // previous tile fully consumed
-      for (int r = warp; r < TILE; r += WARPS) {
-        const int qp = qt + r;
-        attn::load_row(sQ[r], qp < Sq ? qb + (size_t)qp * d : nullptr, d,
-                       lane);
-        attn::load_row(sDO[r], qp < Sq ? dob + (size_t)qp * dv : nullptr, dv,
-                       lane);
-      }
-      if (tid < TILE) {
-        const int qp = qt + tid;
-        sL[tid] = qp < Sq ? lse[(size_t)bh * Sq + qp] : 0.f;
-        sD[tid] = qp < Sq ? dmat[(size_t)bh * Sq + qp] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const int r = warp + WARPS * i;
-        const int kpos = k0 + r;
-        if (kpos >= Sk) continue;    // warp-uniform
-        const int qpos = qt + lane;
-        bool valid = qpos < Sq;
-        if (causal) valid = valid && kpos <= qpos;
-        if (window > 0) valid = valid && (qpos - kpos < window);
-        const Pair pg = pair_grad(dot_row(sKr[r], sQ[lane], d),
-                                  dot_row(sVr[r], sDO[lane], dv), sL[lane],
-                                  sD[lane], scale, softcap, valid);
-        const float dsb = round_bf16(pg.ds);
-#pragma unroll 4
-        for (int j = 0; j < TILE; ++j) {
-          const float pj = __shfl_sync(0xffffffffu, pg.p, j);
-          const float dsj = __shfl_sync(0xffffffffu, dsb, j);
-#pragma unroll
-          for (int c = 0; c < DPL; ++c) {
-            const int dim = lane + 32 * c;
-            if (dim < dv)
-              acc_v[i][c] = fmaf(pj, __bfloat162float(sDO[j][dim]),
-                                 acc_v[i][c]);
-            if (dim < d)
-              acc_k[i][c] = fmaf(dsj, __bfloat162float(sQ[j][dim]),
-                                 acc_k[i][c]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int kpos = k0 + warp + WARPS * i;
-    if (kpos >= Sk) continue;
-    float* krow = dk + ((size_t)bkv * Sk + kpos) * d;
-    float* vrow = dvo + ((size_t)bkv * Sk + kpos) * dv;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int dim = lane + 32 * c;
-      if (dim < d) krow[dim] = acc_k[i][c];
-      if (dim < dv) vrow[dim] = acc_v[i][c];
-    }
-  }
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* dmat, void* dk, void* dv, int BH,
+               int Sq, int Sk, int group, float scale, float softcap,
+               int causal, int window, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static const int attr = set_smem(bwd_dkv_kernel<D>, C::DKV_SMEM);
+  if (attr != 0) return attr;
+  dim3 grid(BH / group, (Sk + C::K_ROWS - 1) / C::K_ROWS);
+  bwd_dkv_kernel<D><<<grid, C::DKV_THREADS, C::DKV_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dmat),
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, group, scale,
+      softcap, causal, window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (BH, Sq, d), k: (BH/group, Sk, d), v: (BH/group, Sk, dv),
-// dout: (BH, Sq, dv), bf16, contiguous; lse, dmat: (BH, Sq) f32;
-// d, dv <= 128 and % 8 == 0 (checked by the Python wrapper).
-// dq: (BH, Sq, d) f32.
+// q: (BH, Sq, D), k, v: (BH/group, Sk, D), dout: (BH, Sq, D), bf16,
+// contiguous, with D = 64, 128 or 256 (the wrapper zero-pads d and dv to
+// it); lse, dmat: (BH, Sq) f32.  dq: (BH, Sq, D) f32.  Returns
+// cudaErrorInvalidValue for another D.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* dmat,
-                                      void* dq, int BH, int Sq, int Sk,
-                                      int d, int dv, int group, float scale,
-                                      float softcap, int causal, int window,
-                                      void* stream) {
-  dim3 grid((Sq + BR - 1) / BR, BH);
-  flash_bwd_dq_kernel<<<grid, WARPS * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dmat),
-      static_cast<float*>(dq), Sq, Sk, d, dv, group, scale, softcap, causal,
-      window);
-  return (int)cudaGetLastError();
+                                      void* dq, int BH, int Sq, int Sk, int D,
+                                      int group, float scale, float softcap,
+                                      int causal, int window, void* stream) {
+  auto fn = D == 64 ? launch_dq<64>
+            : D == 128 ? launch_dq<128>
+            : D == 256 ? launch_dq<256> : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(q, k, v, dout, lse, dmat, dq, BH, Sq, Sk, group, scale, softcap,
+            causal, window, static_cast<cudaStream_t>(stream));
 }
 
-// Same inputs; dk: (BH/group, Sk, d), dv: (BH/group, Sk, dv) f32, already
-// summed over the group.
+// Same inputs; dk, dv: (BH/group, Sk, D) f32, already summed over the
+// group.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* dmat,
-                                       void* dk, void* dv_out, int BH,
-                                       int Sq, int Sk, int d, int dv,
-                                       int group, float scale, float softcap,
-                                       int causal, int window, void* stream) {
-  dim3 grid((Sk + BR - 1) / BR, BH / group);
-  flash_bwd_dkv_kernel<<<grid, WARPS * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dmat),
-      static_cast<float*>(dk), static_cast<float*>(dv_out), Sq, Sk, d, dv,
-      group, scale, softcap, causal, window);
-  return (int)cudaGetLastError();
+                                       void* dk, void* dv_out, int BH, int Sq,
+                                       int Sk, int D, int group, float scale,
+                                       float softcap, int causal, int window,
+                                       void* stream) {
+  auto fn = D == 64 ? launch_dkv<64>
+            : D == 128 ? launch_dkv<128>
+            : D == 256 ? launch_dkv<256> : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(q, k, v, dout, lse, dmat, dk, dv_out, BH, Sq, Sk, group, scale,
+            softcap, causal, window, static_cast<cudaStream_t>(stream));
 }

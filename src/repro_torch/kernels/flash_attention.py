@@ -11,6 +11,13 @@ recomputes ``p`` from the saved log-sum-exp with the reference's casts.
 The plain versions compute the same functions densely over all keys (no
 blocking), so kernel and plain agree to float rounding, not bit for bit.
 
+Head dims: the kernels take d, dv <= 256.  The wrappers zero-pad them (to
+multiples of 8 for the forward and paged decode, to the backward
+instance's width ``bwd_width(d, dv)``) and slice the outputs
+back; zero columns change neither ``q . k`` nor the log-sum-exp, and give
+zero output columns.  The reference pads to 128 instead, to the same
+effect.
+
 Dispatch is by device: plain version for CPU tensors, kernel for CUDA
 tensors (no fallback).
 """
@@ -28,10 +35,12 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "paged_decode_attention_plain", "paged_decode_attention_cuda",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_cuda", "fwd_launches", "paged_launches",
-           "bwd_dq_launches", "bwd_dkv_launches"]
+           "bwd_dq_launches", "bwd_dkv_launches", "bwd_width",
+           "pad_heads"]
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128          # the kernels keep one head row per warp lane set
+MAX_HEAD_DIM = 256          # the kernels' widest instance
+BWD_WIDTHS = (64, 128, 256)  # head widths of the backward's instances
 
 fwd_launches = 0            # launches by flash_attention_fwd_cuda
 paged_launches = 0          # launches by paged_decode_attention_cuda
@@ -84,9 +93,32 @@ def _scores(q, kk, *, scale, causal, window, softcap):
 
 
 def _check_heads(d, dv):
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or d % 8 or dv % 8:
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"head dims d={d}, dv={dv} must be <= "
-                         f"{MAX_HEAD_DIM} and multiples of 8 for the kernel")
+                         f"{MAX_HEAD_DIM} for the kernel")
+
+
+def pad_heads(t, width):
+    """Zero-pad the last dim of ``t`` to ``width`` (no copy when it is
+    already that wide)."""
+    extra = width - t.shape[-1]
+    return torch.nn.functional.pad(t, (0, extra)) if extra else t
+
+
+def _round8(n):
+    return -(-n // 8) * 8
+
+
+def bwd_width(d, dv):
+    """Head width of the backward kernel instance for head dims d, dv:
+    the narrowest of ``BWD_WIDTHS`` that holds both (the wrapper
+    zero-pads q, k, v and do to it)."""
+    need = max(d, dv)
+    for width in BWD_WIDTHS:
+        if need <= width:
+            return width
+    raise ValueError(f"head dims d={d}, dv={dv} must be <= "
+                     f"{BWD_WIDTHS[-1]} for the kernel")
 
 
 def _fn(lib_name, sym, n_ptr, n_int_before, n_float, n_int_after):
@@ -110,15 +142,18 @@ def _bf16_cuda(*ts):
 def flash_attention_fwd_cuda(q, k, v, *, scale, causal=True, window=0,
                              softcap=0.0, group=1):
     """Launch ``csrc/flash_attention.cu`` (same contract as the plain
-    version; bf16 inputs, head dims <= 128)."""
+    version; bf16 inputs, head dims <= 256, zero-padded to multiples of
+    8)."""
     global fwd_launches
     q, k, v = _bf16_cuda(q, k, v)
-    bh, sq, d = q.shape
-    bkv, sk, dv = v.shape
-    if bh != bkv * group or k.shape[:2] != (bkv, sk) or k.shape[2] != d:
+    bh, sq, d_in = q.shape
+    bkv, sk, dv_in = v.shape
+    if bh != bkv * group or k.shape[:2] != (bkv, sk) or k.shape[2] != d_in:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} and group {group} disagree")
-    _check_heads(d, dv)
+    _check_heads(d_in, dv_in)
+    d, dv = _round8(d_in), _round8(dv_in)
+    q, k, v = pad_heads(q, d), pad_heads(k, d), pad_heads(v, dv)
     o = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if bh and sq:
@@ -129,7 +164,7 @@ def flash_attention_fwd_cuda(q, k, v, *, scale, causal=True, window=0,
                  torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, "flash_attention_fwd")
         fwd_launches += 1
-    return o, lse
+    return o[..., :dv_in], lse
 
 
 def flash_attention_fwd(q, k, v, *, scale, causal=True, window=0,
@@ -179,7 +214,7 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, dmat, *, scale, causal=True,
                              window=0, softcap=0.0, group=1):
     """Launch the two kernels of ``csrc/flash_attention_bwd.cu`` (same
     contract as the plain version; bf16 q/k/v/do, f32 lse/dmat, head dims
-    <= 128)."""
+    <= 256, zero-padded to the instance's width)."""
     global bwd_dq_launches, bwd_dkv_launches
     q, k, v, do = _bf16_cuda(q, k, v, do)
     bh, sq, d = q.shape
@@ -189,29 +224,30 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, dmat, *, scale, causal=True,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, do {tuple(do.shape)} and "
                          f"group {group} disagree")
-    _check_heads(d, dv)
+    w = bwd_width(d, dv)
     lse, dmat = (t.to(device=q.device, dtype=torch.float32).contiguous()
                  for t in (lse, dmat))
     if lse.shape != (bh, sq) or dmat.shape != (bh, sq):
         raise ValueError(f"lse {tuple(lse.shape)} / dmat "
                          f"{tuple(dmat.shape)} must be {(bh, sq)}")
-    dq = torch.empty((bh, sq, d), dtype=torch.float32, device=q.device)
-    dk = torch.empty((bkv, sk, d), dtype=torch.float32, device=q.device)
-    dvo = torch.empty((bkv, sk, dv), dtype=torch.float32, device=q.device)
+    dq = torch.empty((bh, sq, w), dtype=torch.float32, device=q.device)
+    dk = torch.empty((bkv, sk, w), dtype=torch.float32, device=q.device)
+    dvo = torch.empty((bkv, sk, w), dtype=torch.float32, device=q.device)
     if not (bh and sq and sk):
-        return dq.zero_(), dk.zero_(), dvo.zero_()
+        return dq.zero_()[..., :d], dk.zero_()[..., :d], dvo.zero_()[..., :dv]
+    q, k, v, do = (pad_heads(t, w) for t in (q, k, v, do))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [t.data_ptr() for t in (q, k, v, do, lse, dmat)]
-    args = [bh, sq, sk, d, dv, group, float(scale), float(softcap),
+    args = [bh, sq, sk, w, group, float(scale), float(softcap),
             int(bool(causal)), int(window), stream]
-    fn = _fn("flash_attention_bwd", "flash_attention_bwd_dq", 7, 6, 2, 2)
+    fn = _fn("flash_attention_bwd", "flash_attention_bwd_dq", 7, 5, 2, 2)
     _build.check(fn(*ptrs, dq.data_ptr(), *args), "flash_attention_bwd_dq")
     bwd_dq_launches += 1
-    fn = _fn("flash_attention_bwd", "flash_attention_bwd_dkv", 8, 6, 2, 2)
+    fn = _fn("flash_attention_bwd", "flash_attention_bwd_dkv", 8, 5, 2, 2)
     _build.check(fn(*ptrs, dk.data_ptr(), dvo.data_ptr(), *args),
                  "flash_attention_bwd_dkv")
     bwd_dkv_launches += 1
-    return dq, dk, dvo
+    return dq[..., :d], dk[..., :d], dvo[..., :dv]
 
 
 def flash_attention_bwd(q, k, v, lse, do, dmat, *, scale, causal=True,
@@ -254,14 +290,16 @@ def paged_decode_attention_plain(q, k_pool, v_pool, table, q_pos, *, scale,
 def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, *, scale,
                                 window=0, softcap=0.0):
     """Launch ``csrc/paged_decode.cu`` (same contract as the plain
-    version; bf16, head dims <= 128, G <= 16)."""
+    version; bf16, head dims <= 256, zero-padded to multiples of 8; any
+    group size G, one launch)."""
     global paged_launches
     q, k_pool, v_pool = _bf16_cuda(q, k_pool, v_pool)
-    b, kvh, g, d = q.shape
-    _, ps, _, dv = v_pool.shape
-    if g > 16:
-        raise ValueError(f"group size {g} exceeds the kernel's 16")
-    _check_heads(d, dv)
+    b, kvh, g, d_in = q.shape
+    _, ps, _, dv_in = v_pool.shape
+    _check_heads(d_in, dv_in)
+    d, dv = _round8(d_in), _round8(dv_in)
+    q, k_pool = pad_heads(q, d), pad_heads(k_pool, d)
+    v_pool = pad_heads(v_pool, dv)
     table = table.to(device=q.device, dtype=torch.int32).contiguous()
     q_pos = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
@@ -273,7 +311,7 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, *, scale,
                  int(window), torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, "paged_decode_attention")
         paged_launches += 1
-    return o
+    return o[..., :dv_in]
 
 
 def paged_decode_attention(q, k_pool, v_pool, table, q_pos, *, scale,

@@ -7,7 +7,8 @@ function over the flash forward and backward) and ``paged_flash_decode``
 wraps the decode kernel, both in the reference's layouts.  Every wrapper
 runs its plain version for CPU tensors and its CUDA kernel for CUDA
 tensors; ragged shapes are masked inside the kernels instead of padded to
-a 128 grid (the results are the same).
+a 128 grid, and head dims are zero-padded only as far as the kernels need
+(the results are the same).
 """
 
 from __future__ import annotations
@@ -47,8 +48,11 @@ def quant_matmul(x_q: torch.Tensor, w: torch.Tensor, *, x_scale=None,
     (..., N); with scales (``x_scale`` broadcastable to (M, 1), ``w_scale``
     to (1, N)) the result is ``(acc * x_scale) * w_scale`` in
     ``out_dtype`` (bf16 by default), an epilogue the nibble kernel runs
-    itself.  "lut" takes no scales and returns exact int32 (the
-    LUT-selection kernel); its caller applies the epilogue."""
+    itself.  "lut" runs the LUT-selection kernel, whose result is exact
+    int32; the reference's epilogue follows it here: with scales,
+    ``(float(acc) * x_scale) * w_scale`` in f32, cast to ``out_dtype``
+    (bf16 by default); with no scales and an ``out_dtype``, the cast
+    alone."""
     if w_format not in W_FORMATS:
         raise ValueError(f"w_format must be one of {W_FORMATS}: {w_format}")
     lead = x_q.shape[:-1]
@@ -58,10 +62,17 @@ def quant_matmul(x_q: torch.Tensor, w: torch.Tensor, *, x_scale=None,
     n = 2 * w.shape[1] if packed else w.shape[1]
     scaled = x_scale is not None or w_scale is not None
     if w_format == "lut":
-        if scaled or out_dtype is not None:
-            raise ValueError("w_format='lut' returns exact int32: apply the "
-                             "scales and the cast outside")
-        return lut_matmul(mat, w).reshape(*lead, n)
+        out = lut_matmul(mat, w)
+        if scaled:
+            out = out.to(torch.float32)
+            if x_scale is not None:
+                out = out * _row_scale(x_scale, m, out.device)
+            if w_scale is not None:
+                out = out * _col_scale(w_scale, n, out.device)
+            out = out.to(torch.bfloat16 if out_dtype is None else out_dtype)
+        elif out_dtype is not None:
+            out = out.to(out_dtype)
+        return out.reshape(*lead, n)
     if scaled and mat.device.type == "cpu":
         # the plain version broadcasts (M, 1) and (1, N); the kernel reads
         # a scale in place, broadcast or not, and a missing one as 1

@@ -111,10 +111,13 @@ def test_linear_cuda_route_equals_torch_route(cuda, mode):
 
 
 FLASH_CASES = [
-    dict(bkv=2, group=2, s=13, d=16, window=0, softcap=0.0),
-    dict(bkv=1, group=4, s=40, d=32, window=7, softcap=0.0),
-    dict(bkv=2, group=1, s=9, d=8, window=0, softcap=20.0),
-    dict(bkv=4, group=8, s=128, d=128, window=0, softcap=0.0),
+    dict(bkv=2, group=2, s=13, d=16, dv=16, window=0, softcap=0.0),
+    dict(bkv=1, group=4, s=40, d=32, dv=32, window=7, softcap=0.0),
+    dict(bkv=2, group=1, s=9, d=8, dv=8, window=0, softcap=20.0),
+    dict(bkv=4, group=8, s=128, d=128, dv=128, window=0, softcap=0.0),
+    # the 256-wide instance: MLA's q/k 192 with v 128, and head_dim 256
+    dict(bkv=2, group=2, s=70, d=192, dv=128, window=0, softcap=0.0),
+    dict(bkv=2, group=4, s=100, d=256, dv=256, window=33, softcap=30.0),
 ]
 
 
@@ -126,7 +129,7 @@ def test_flash_kernel_matches_plain(cuda, case):
                     generator=g).bfloat16()
     k = torch.randn((case["bkv"], case["s"], case["d"]), device=cuda,
                     generator=g).bfloat16()
-    v = torch.randn((case["bkv"], case["s"], case["d"]), device=cuda,
+    v = torch.randn((case["bkv"], case["s"], case["dv"]), device=cuda,
                     generator=g).bfloat16()
     kw = dict(scale=case["d"] ** -0.5, window=case["window"],
               softcap=case["softcap"], group=case["group"])
@@ -134,6 +137,7 @@ def test_flash_kernel_matches_plain(cuda, case):
     o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
     assert fa.fwd_launches == before + 1
     o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    assert o.shape == o_p.shape
     torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
                                rtol=0)
     torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=0)
@@ -154,16 +158,26 @@ def _paged_inputs(seed, b=3, kvh=2, g=4, d=32, ps=4, per_slot=5):
     return q, kp, vp, table, q_pos
 
 
+# (kvh, G, d): today's shape; a group of 32 (two chunks of 16 query heads
+# in one launch), a ragged group of 20, head_dim 256, and d = 100 (padded)
+PAGED_SHAPES = [(2, 4, 32), (1, 32, 128), (2, 20, 64), (2, 8, 256),
+                (2, 4, 100)]
+
+
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (6, 0.0), (0, 15.0)])
-def test_paged_kernel_matches_plain(cuda, window, softcap):
+def test_paged_kernel_matches_plain(cuda, window, softcap, shape):
+    kvh, g, d = shape
     q, kp, vp, table, q_pos = (torch.from_numpy(a).to(cuda)
-                               for a in _paged_inputs(window))
+                               for a in _paged_inputs(window, kvh=kvh, g=g,
+                                                      d=d))
     q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
     kw = dict(scale=0.25, window=window, softcap=softcap)
     before = fa.paged_launches
     o = fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos, **kw)
     assert fa.paged_launches == before + 1
     o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
+    assert o.shape == o_p.shape
     torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
                                rtol=0)
 
@@ -173,11 +187,26 @@ def _rel(a, b):
 
 
 BWD_CASES = [
-    dict(bkv=2, group=2, s=13, d=16, window=0, softcap=0.0),
-    dict(bkv=1, group=4, s=70, d=32, window=7, softcap=0.0),
-    dict(bkv=2, group=1, s=9, d=8, window=0, softcap=20.0),
-    dict(bkv=2, group=4, s=256, d=128, window=0, softcap=0.0),
-    dict(bkv=2, group=4, s=200, d=128, window=64, softcap=30.0),
+    dict(bkv=2, group=2, s=13, d=16, dv=16, window=0, softcap=0.0),
+    dict(bkv=1, group=4, s=70, d=32, dv=32, window=7, softcap=0.0),
+    dict(bkv=2, group=1, s=9, d=8, dv=8, window=0, softcap=20.0),
+    dict(bkv=2, group=4, s=256, d=128, dv=128, window=0, softcap=0.0),
+    dict(bkv=2, group=4, s=200, d=128, dv=128, window=64, softcap=30.0),
+    # each instance width (64, 128 with d padded from 100, 256), MLA's
+    # 192 / 128, one query row, a ragged tile, group 8, and the training
+    # head width under a window and a softcap at S = 256.  The one-row
+    # case attends (not causally) to 33 keys: at Sq = Sk = 1 the softmax
+    # is constant, dq and dk are 0 in exact arithmetic, and both sides
+    # would hold only the rounding noise of dp - dmat.
+    dict(bkv=2, group=4, s=130, d=64, dv=64, window=0, softcap=0.0),
+    dict(bkv=2, group=2, s=97, d=100, dv=100, window=0, softcap=0.0),
+    dict(bkv=2, group=2, s=90, d=192, dv=128, window=0, softcap=0.0),
+    dict(bkv=2, group=2, s=150, d=256, dv=256, window=40, softcap=20.0),
+    dict(bkv=2, group=4, s=1, sk=33, causal=False, d=128, dv=128, window=0,
+         softcap=0.0),
+    dict(bkv=2, group=4, s=65, d=128, dv=128, window=0, softcap=0.0),
+    dict(bkv=1, group=8, s=128, d=128, dv=128, window=0, softcap=0.0),
+    dict(bkv=2, group=4, s=256, d=128, dv=128, window=64, softcap=30.0),
 ]
 
 
@@ -185,13 +214,17 @@ BWD_CASES = [
 def test_flash_bwd_kernel_matches_plain(cuda, case):
     bh = case["bkv"] * case["group"]
     g = torch.Generator(device=cuda).manual_seed(case["s"] + case["d"])
-    s, d = case["s"], case["d"]
-    q, do = (torch.randn((bh, s, d), device=cuda, generator=g).bfloat16()
-             for _ in range(2))
-    k, v = (torch.randn((case["bkv"], s, d), device=cuda,
-                        generator=g).bfloat16() for _ in range(2))
+    s, d, dv = case["s"], case["d"], case["dv"]
+    sk = case.get("sk", s)
+    q = torch.randn((bh, s, d), device=cuda, generator=g).bfloat16()
+    do = torch.randn((bh, s, dv), device=cuda, generator=g).bfloat16()
+    k = torch.randn((case["bkv"], sk, d), device=cuda,
+                    generator=g).bfloat16()
+    v = torch.randn((case["bkv"], sk, dv), device=cuda,
+                    generator=g).bfloat16()
     kw = dict(scale=d ** -0.5, window=case["window"],
-              softcap=case["softcap"], group=case["group"])
+              softcap=case["softcap"], group=case["group"],
+              causal=case.get("causal", True))
     o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
     dmat = (do.float() * o.float()).sum(-1)
     before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
@@ -264,3 +297,30 @@ def test_linear_lut_cuda_route_equals_nibble(cuda):
                                               backend="torch"))
     assert torch.equal(got, tlin.linear_apply(params, x, mode="w8a8_nibble",
                                               backend="cuda"))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(x_scale=0.013), dict(w_scale="cols"), dict(x_scale="rows",
+                                                    w_scale="cols"),
+    dict(x_scale="rows", w_scale="cols", out_dtype=torch.float32),
+    dict(out_dtype=torch.float32)])
+def test_quant_matmul_lut_scaled_equals_torch_route(cuda, kw):
+    """``w_format="lut"`` with scales or an ``out_dtype`` on the card (the
+    LUT kernel, then the reference's epilogue) equals the same call on
+    the CPU (the plain version, the same epilogue)."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randint(-128, 128, (2, 3, 64), dtype=torch.int8, generator=g)
+    w = torch.randint(-128, 128, (64, 48), dtype=torch.int8, generator=g)
+    named = {"rows": torch.rand((6, 1), generator=g) * 0.02 + 1e-3,
+             "cols": torch.rand(48, generator=g) * 0.02 + 1e-3}
+    kw = {k_: named.get(v_, v_) if isinstance(v_, str) else v_
+          for k_, v_ in kw.items()}
+    want = ops.quant_matmul(x, w, w_format="lut", **kw)
+    before = lm.lut_launches
+    got = ops.quant_matmul(
+        x.to(cuda), w.to(cuda), w_format="lut",
+        **{k_: v_.to(cuda) if torch.is_tensor(v_) else v_
+           for k_, v_ in kw.items()})
+    assert lm.lut_launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)

@@ -112,17 +112,17 @@ def test_quant_matmul_scaled_epilogue_exact(w_format, out_dtype):
 
 
 def test_quant_matmul_lut_not_ported():
-    """Named for when "lut" raised here.  It now holds what the LUT format
-    still refuses: scales (its result is exact int32 and the caller applies
-    the epilogue), and an unknown format raises.  test_torch_lut.py holds
-    the LUT product itself to the reference."""
+    """Named for when "lut" raised here.  The LUT format now returns exact
+    int32 unscaled and, given a scale, the reference's epilogue (bf16 by
+    default); only an unknown format raises.  test_torch_lut.py holds the
+    LUT product and every epilogue case to the reference."""
     x = torch.ones((2, 16), dtype=torch.int8)
     out = ops.quant_matmul(x, torch.ones((16, 8), dtype=torch.int8),
                            w_format="lut")
     assert out.dtype == torch.int32 and bool((out == 16).all())
-    with pytest.raises(ValueError, match="int32"):
-        ops.quant_matmul(x, torch.ones((16, 8), dtype=torch.int8),
-                         x_scale=torch.tensor(0.5), w_format="lut")
+    out = ops.quant_matmul(x, torch.ones((16, 8), dtype=torch.int8),
+                           x_scale=torch.tensor(0.5), w_format="lut")
+    assert out.dtype == torch.bfloat16 and bool((out == 8).all())
     with pytest.raises(ValueError):
         ops.quant_matmul(x, torch.zeros((16, 8), dtype=torch.int8),
                          w_format="int2")

@@ -114,8 +114,14 @@ def test_lut_plan_splits_cover_k_once(m, k, n, sms):
 
 
 def test_quant_matmul_lut_int32_only():
-    """``w_format="lut"`` keeps leading dims and returns exact int32; the
-    epilogue belongs to the caller, so scales and a cast are refused."""
+    """``w_format="lut"`` keeps leading dims and returns exact int32 when
+    given no scales and no ``out_dtype``.  With either scale, both, or an
+    ``out_dtype`` alone it returns the reference's epilogue
+    (``repro.kernels.ops.quant_matmul``'s "lut" branch: ``float(acc) *
+    x_scale * w_scale`` in f32, cast to ``out_dtype`` or bf16; with no
+    scales only the cast), computed here with ``jnp`` from the exact
+    product, since the reference's LUT Pallas kernel cannot run under
+    this JAX.  Bit-equal: the same f32 arithmetic."""
     r = np.random.default_rng(4)
     x = r.integers(-128, 128, (2, 3, 45)).astype(np.int8)
     w = r.integers(-128, 128, (45, 30)).astype(np.int8)
@@ -125,11 +131,40 @@ def test_quant_matmul_lut_int32_only():
                            w_format="lut")
     assert got.dtype == torch.int32 and got.shape == (2, 3, 30)
     np.testing.assert_array_equal(got.numpy().reshape(6, 30), want)
-    for kw in (dict(x_scale=torch.tensor(0.013)),
-               dict(w_scale=torch.ones(30)), dict(out_dtype=torch.float32)):
-        with pytest.raises(ValueError, match="int32"):
-            ops.quant_matmul(torch.from_numpy(x), torch.from_numpy(w),
-                             w_format="lut", **kw)
+    xs = r.random((6, 1)).astype(np.float32) * 0.02 + 1e-3
+    ws = r.random(30).astype(np.float32) * 0.02 + 1e-3
+    cases = [
+        (dict(x_scale=0.013), dict(xs=0.013)),
+        (dict(x_scale=xs), dict(xs=xs)),
+        (dict(w_scale=ws), dict(ws=ws)),
+        (dict(x_scale=xs, w_scale=ws), dict(xs=xs, ws=ws)),
+        (dict(x_scale=xs, w_scale=ws, out_dtype=torch.float32),
+         dict(xs=xs, ws=ws, dt=jnp.float32)),
+        (dict(out_dtype=torch.float32), dict(dt=jnp.float32)),
+        (dict(out_dtype=torch.bfloat16), dict(dt=jnp.bfloat16)),
+    ]
+    for kw, ref in cases:
+        acc = jnp.asarray(want)
+        if "xs" in ref or "ws" in ref:
+            acc = acc.astype(jnp.float32)
+            if "xs" in ref:
+                acc = acc * jnp.broadcast_to(jnp.asarray(
+                    ref["xs"], jnp.float32).reshape(-1)[:, None], (6, 1))
+            if "ws" in ref:
+                acc = acc * jnp.broadcast_to(jnp.asarray(
+                    ref["ws"], jnp.float32).reshape(-1)[None, :], (1, 30))
+            acc = acc.astype(ref.get("dt", jnp.bfloat16))
+        else:
+            acc = acc.astype(ref["dt"])
+        tkw = {key: (torch.from_numpy(val) if isinstance(val, np.ndarray)
+                     else val) for key, val in kw.items()}
+        got = ops.quant_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                               w_format="lut", **tkw)
+        assert got.shape == (2, 3, 30), kw
+        assert str(got.dtype).split(".")[-1] == str(acc.dtype), kw
+        np.testing.assert_array_equal(
+            got.float().numpy().reshape(6, 30),
+            np.asarray(acc.astype(jnp.float32)), err_msg=str(kw))
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])

@@ -6,17 +6,20 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off for
    matmuls and cuDNN.
-2. Kernels: build the five CUDA sources in ``src/repro_torch/csrc`` (one
+2. Kernels: build the six CUDA sources in ``src/repro_torch/csrc`` (one
    nvcc per source, in parallel), run each wrapper at its main path's
    shapes on the card and hold it against its plain PyTorch version
    (nibble and LUT matmuls: ``torch.equal``; attention forward and
    backward: stated tolerances, at the main paths' head width and at the
-   256-wide instance; paged decode also at a group of 32), and time
-   kernel, plain version and a PyTorch library yardstick with CUDA events
-   (the nibble and LUT kernels and their yardsticks, and the flash
+   256-wide instance; the forward also without the causal mask; paged
+   decode also at a group of 32), and time kernel, plain version and a
+   PyTorch library yardstick with CUDA events (the nibble and LUT kernels,
+   the flash forward at the prefill and training shapes, and the flash
    backward's two kernels together and apart, also in a CUDA graph:
    device time without host gaps; the nibble wrapper's host time per call
-   too).
+   too).  The f32 routes of the three attention entry points
+   (``csrc/attention_f32.cu``) are held to their plain versions at small
+   shapes, each showing its own launch counter.
 3. Serve: yi-6b at full published width (random weights from a seed),
    every projection ``w8a8_nibble`` on the CUDA backend, flash prefill,
    paged decode; 8 requests through ``Engine.submit`` / ``Engine.run``.
@@ -92,6 +95,10 @@ BF16_FLOPS = 989e12
 # final max, so outputs (|o| < ~1, bf16 ulp <= 2**-8) differ by a few ulp
 ATTN_ATOL = 2e-2
 LSE_ATOL = 1e-3
+# the f32 attention routes vs their plain versions: the same f32 function
+# (no rounding of p or ds), only the order of the f32 sums differs; absolute
+# on o and lse, relative Frobenius norm on the gradients
+F32_TOL = 1e-4
 # full-width prefill logits, kernel path vs plain path: the nibble kernel is
 # bit-exact, but flash vs chunked attention round differently, which over
 # 32 layers flips some int8 activation roundings; bound relative to the
@@ -359,27 +366,91 @@ def _sdpa_gqa(q, k, v, **kw):
             q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), **kw)
 
 
+def _ptxas(name: str) -> list:
+    """The ptxas lines of one library's build: entry, registers, spills."""
+    lines = [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
+             if "entry function" in ln or "registers" in ln or "spill" in ln]
+    for ln in lines:
+        print(f"  [{name} ptxas] {ln}")
+    return lines
+
+
+def _fwd_bound(bh, group, s, d):
+    """Bytes (q, k, v, o in bf16, lse in f32) and useful causal FLOPs of
+    the flash forward at one shape; the bound and what bounds it."""
+    n_bytes = 2 * (2 * bh * s * d + 2 * (bh // group) * s * d) + 4 * bh * s
+    flops = 2 * 2 * bh * (s * (s + 1) // 2) * d
+    return bound_ms(n_bytes, flops, BF16_FLOPS), n_bytes, flops
+
+
+def _time_fwd(q, k, v, kw, heads):
+    """The forward kernel and SDPA's forward (GQA, ``heads`` query heads
+    per sequence) at one shape, each in a loop and in a CUDA graph."""
+    bh, s, d = q.shape
+    nb = bh // heads
+    q4 = q.reshape(nb, heads, s, d)
+    k4, v4 = (t.reshape(nb, -1, s, t.shape[-1]) for t in (k, v))
+
+    def kernel():
+        return fa.flash_attention_fwd_cuda(q, k, v, **kw)
+
+    def sdpa():
+        return _sdpa_gqa(q4, k4, v4, is_causal=True, scale=kw["scale"])
+
+    return {"ms": cuda_ms(kernel), "graph_ms": graph_ms(kernel),
+            "library_ms": cuda_ms(sdpa), "library_graph_ms": graph_ms(sdpa)}
+
+
+def _fwd_scaling(gen) -> dict:
+    """The forward and SDPA's forward (device time, CUDA graphs) at three
+    shapes of 1024 blocks of 64 query rows (group 4, d 128, causal) that
+    walk 1, 2.5 and 8.5 K/V tiles per block on average: the per-block cost
+    against the per-tile rate."""
+    out = {}
+    for bh, s in ((1024, 64), (256, 256), (64, 1024)):
+        q = torch.randn((bh, s, 128), device=DEV, generator=gen).bfloat16()
+        k, v = (torch.randn((bh // 4, s, 128), device=DEV, generator=gen)
+                .bfloat16() for _ in range(2))
+        kw = dict(scale=128 ** -0.5, causal=True, group=4)
+        q4, k4, v4 = (t.reshape(bh // 32, -1, s, 128) for t in (q, k, v))
+        out[f"BH={bh} S={s}"] = (
+            graph_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw)),
+            graph_ms(lambda: _sdpa_gqa(q4, k4, v4, is_causal=True,
+                                       scale=kw["scale"])))
+    print("  flash fwd scaling (1024 blocks of 64 rows), graph ms kernel / "
+          "sdpa: " + ", ".join(f"{n} {a:.4f} / {b:.4f}"
+                               for n, (a, b) in out.items()), flush=True)
+    return out
+
+
 def check_flash(gen) -> dict:
     dev = DEV
+    ptxas = _ptxas("flash_attention")
     bh, group, s, d = 32, 8, 128, 128
     scale = 1.0 / math.sqrt(d)
     worst = 0.0
-    # the main path's head width, then the 256-wide instance (head_dim 256,
-    # and MLA's q/k 192 with v 128)
+    # the main path's head width (two 64-row query tiles, the second
+    # ragged at Sq 100), then the 256-wide instance (head_dim 256, and
+    # MLA's q/k 192 with v 128), then no causal mask, Sq != Sk, and rows
+    # with no key in their window (q >= Sk + window - 1: o is the mean of
+    # all values, lse -1e30, as in the reference)
     cases = [dict(sq=s, window=0, softcap=0.0),
              dict(sq=100, window=0, softcap=0.0),
              dict(sq=s, window=40, softcap=30.0),
              dict(sq=s, window=0, softcap=0.0, d=256, dv=256),
-             dict(sq=100, window=0, softcap=0.0, d=192, dv=128)]
+             dict(sq=100, window=0, softcap=0.0, d=192, dv=128),
+             dict(sq=100, sk=s, window=0, softcap=0.0, causal=False),
+             dict(sq=100, sk=40, window=20, softcap=0.0, causal=False)]
     for c in cases:
         sq, dq_, dv_ = c["sq"], c.get("d", d), c.get("dv", d)
+        sk = c.get("sk", sq)
         q = torch.randn((bh, sq, dq_), device=dev, generator=gen).bfloat16()
-        k = torch.randn((bh // group, sq, dq_), device=dev,
+        k = torch.randn((bh // group, sk, dq_), device=dev,
                         generator=gen).bfloat16()
-        v = torch.randn((bh // group, sq, dv_), device=dev,
+        v = torch.randn((bh // group, sk, dv_), device=dev,
                         generator=gen).bfloat16()
-        kw = dict(scale=dq_ ** -0.5, causal=True, window=c["window"],
-                  softcap=c["softcap"], group=group)
+        kw = dict(scale=dq_ ** -0.5, causal=c.get("causal", True),
+                  window=c["window"], softcap=c["softcap"], group=group)
         o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
         o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -394,22 +465,21 @@ def check_flash(gen) -> dict:
     k = torch.randn((bh // group, s, d), device=dev, generator=gen).bfloat16()
     v = torch.randn((bh // group, s, d), device=dev, generator=gen).bfloat16()
     kw = dict(scale=scale, causal=True, group=group)
-    ms = cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw))
+    t = _time_fwd(q, k, v, kw, heads=32)
     plain = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw))
-    q4, k4, v4 = (t[None] for t in (q, k, v))
-    lib = cuda_ms(lambda: _sdpa_gqa(q4, k4, v4, is_causal=True, scale=scale))
-    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + bh * s * d) + 4 * bh * s
-    pairs = s * (s + 1) // 2
-    flops = 2 * 2 * bh * pairs * d
-    b, by = bound_ms(n_bytes, flops, BF16_FLOPS)
-    print(f"  flash timing (BH={bh}, G={group}, S={s}, d={d}): kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
-          f"{b:.5f} ms ({by})", flush=True)
+    (b, by), _, _ = _fwd_bound(bh, group, s, d)
+    print(f"  flash timing (BH={bh}, G={group}, S={s}, d={d}): "
+          f"kernel {t['ms']:.4f} ms, graph {t['graph_ms']:.4f} ms, plain "
+          f"{plain:.4f} ms, sdpa {t['library_ms']:.4f} ms, graph "
+          f"{t['library_graph_ms']:.4f} ms, bound {b:.5f} ms ({by})",
+          flush=True)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:90",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "max_abs_err": worst, "ms": t["ms"], "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": t["library_ms"],
+            "graph_ms": t["graph_ms"],
+            "library_graph_ms": t["library_graph_ms"], "ptxas": ptxas,
             "shapes": f"BH={bh} group={group} Sq=Sk={s} d={d} causal"}
 
 
@@ -553,15 +623,12 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
     """The backward at the training shape: qwen3-4b (32 query heads over
     8 KV heads, head_dim 128) at batch 8, seq 256.  The forward that feeds
     it is first held to its plain version at this shape too; its error is
-    folded into ``fwd_row``, and SDPA's forward time at this shape goes
-    into it as ``library_train_ms``.  Then small checks of the 256-wide
-    instance (head_dim 256, MLA's 192 / 128)."""
+    folded into ``fwd_row``, and its times at this shape (loop and CUDA
+    graph, beside SDPA's forward both ways) and bound go into it as
+    ``train_*``.  Then small checks of the 256-wide instance (head_dim
+    256, MLA's 192 / 128)."""
     dev = DEV
-    log = _build.build_logs.get("flash_attention_bwd", "")
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "entry function" in ln or "registers" in ln or "spill" in ln]
-    for ln in ptxas:
-        print(f"  [flash_attention_bwd ptxas] {ln}")
+    ptxas = _ptxas("flash_attention_bwd")
     bkv, group, s, d = 64, 4, 256, 128
     bh = bkv * group
     scale = 1.0 / math.sqrt(d)
@@ -611,7 +678,20 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
     dq_ms, dkv_ms = graph_ms(run_dq), graph_ms(run_dkv)
     plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, lse, do,
                                                          dmat, **kw), iters=5)
-    fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw))
+    t = _time_fwd(q, k, v, kw, heads=32)
+    (fb, fby), fbytes, fflops = _fwd_bound(bh, group, s, d)
+    fwd_row.update(train_ms=t["ms"], train_graph_ms=t["graph_ms"],
+                   library_train_ms=t["library_ms"],
+                   library_train_graph_ms=t["library_graph_ms"],
+                   train_bound_ms=fb)
+    scaling = _fwd_scaling(gen)
+    fwd_row["scaling_graph_ms"] = scaling
+    print(f"  flash fwd timing (training shape, BH={bh}, G={group}, S={s}, "
+          f"d={d}): kernel {t['ms']:.4f} "
+          f"ms, graph {t['graph_ms']:.4f} ms; sdpa (GQA) {t['library_ms']:.4f}"
+          f" ms, graph {t['library_graph_ms']:.4f} ms; bound {fb:.5f} ms "
+          f"({fby}, {fbytes / 1e6:.1f} MB, {fflops / 1e9:.2f} GFLOP)",
+          flush=True)
     # yardstick: SDPA forward + backward with the KV heads expanded, minus
     # SDPA's forward alone
     b = bkv // 8
@@ -627,8 +707,6 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
     t_fb = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qq, kk, vv), do4))
     t_f = cuda_ms(sdpa)
     lib = t_fb - t_f
-    fwd_row["library_train_ms"] = t_f
-    fwd_row["train_ms"] = fwd_ms
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
         + 4 * (lse.numel() + dmat.numel()) \
         + 4 * (q.numel() + k.numel() + v.numel())
@@ -640,17 +718,100 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
           f"{dq_ms:.4f}, dk/dv {dkv_ms:.4f}), plain {plain:.4f} ms, sdpa "
           f"fwd+bwd {t_fb:.4f} - fwd {t_f:.4f} = {lib:.4f} ms, bound "
           f"{bd:.5f} ms ({by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
-          f"GFLOP); flash fwd at this shape {fwd_ms:.4f} ms (sdpa fwd "
-          f"{t_f:.4f})", flush=True)
+          f"GFLOP)", flush=True)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:321",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "bound_ms": bd, "bound_by": by, "library_ms": lib,
             "graph_ms": g_ms, "dq_graph_ms": dq_ms, "dkv_graph_ms": dkv_ms,
-            "fwd_train_ms": fwd_ms, "ptxas": ptxas,
+            "ptxas": ptxas,
             "shapes": f"BH={bh} group={group} Sq=Sk={s} d={d} causal "
                       f"(dq + dk/dv kernels)"}
+
+
+def check_attention_f32(gen) -> dict:
+    """The f32 routes of the three attention entry points (the SIMT kernels
+    of ``csrc/attention_f32.cu``) against their plain versions at small
+    shapes: forward (causal with window and softcap, the 256-wide instance,
+    no causal mask), paged decode (a group of 20 over two head chunks) and
+    the backward.  Each route's own counter must show one launch per call
+    and the bf16 counters none."""
+    dev = DEV
+    _ptxas("attention_f32")
+    errs = {}
+
+    def counted(names, fn):
+        before = {attr: getattr(fa, attr)
+                  for mod, attr in COUNTERS.values() if mod is fa}
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: getattr(fa, n) - before[n] for n in before}
+        want = {n: int(n in names) for n in before}
+        if got != want:
+            raise AssertionError(f"f32 route launches {got}, expected {want}")
+        return out
+
+    for name, (bkv, group, s, sk, d, dv, causal, window, softcap) in {
+            "fwd": (2, 4, 100, 100, 128, 128, True, 40, 30.0),
+            "fwd d=256": (2, 2, 70, 70, 256, 256, True, 0, 0.0),
+            "fwd 192/128 non-causal": (2, 2, 50, 90, 192, 128, False, 0,
+                                       0.0),
+            "fwd no key in window": (2, 2, 100, 40, 128, 128, False, 20,
+                                     0.0),
+            "bwd": (2, 4, 130, 130, 128, 128, True, 64, 20.0),
+            "bwd d=256": (2, 2, 70, 70, 256, 256, True, 0, 0.0)}.items():
+        q = torch.randn((bkv * group, s, d), device=dev, generator=gen)
+        k = torch.randn((bkv, sk, d), device=dev, generator=gen)
+        v = torch.randn((bkv, sk, dv), device=dev, generator=gen)
+        kw = dict(scale=d ** -0.5, causal=causal, window=window,
+                  softcap=softcap, group=group)
+        if name.startswith("fwd"):
+            o, lse = counted(("fwd_f32_launches",),
+                             lambda: fa.flash_attention_fwd_cuda(q, k, v,
+                                                                 **kw))
+            o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            errs[name] = max((o - o_p).abs().max().item(),
+                             (lse - lse_p).abs().max().item())
+            what = "max|o, lse err|"
+        else:
+            do = torch.randn((bkv * group, s, dv), device=dev, generator=gen)
+            o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            dmat = (do * o).sum(-1)
+            got = counted(("bwd_f32_dq_launches", "bwd_f32_dkv_launches"),
+                          lambda: fa.flash_attention_bwd_cuda(
+                              q, k, v, lse, do, dmat, **kw))
+            want = fa.flash_attention_bwd_plain(q, k, v, lse, do, dmat, **kw)
+            errs[name] = max(_rel(a, b) for a, b in zip(got, want))
+            what = "rel-norm err of dq, dk, dv"
+        print(f"  f32 {name} (BKV={bkv} group={group} Sq={s} Sk={sk} d={d} "
+              f"dv={dv} causal={causal} window={window} softcap={softcap}): "
+              f"{what} {errs[name]:.3e} (tol {F32_TOL})", flush=True)
+    rng = np.random.default_rng(1)
+    b, kvh, g, d, ps, per_slot = 3, 2, 20, 128, 16, 6
+    num_pages = b * per_slot + 1
+    kp, vp = (torch.randn((num_pages, ps, kvh, d), device=dev, generator=gen)
+              for _ in range(2))
+    q = torch.randn((b, kvh, g, d), device=dev, generator=gen)
+    q_pos = rng.integers(0, per_slot * ps, b).astype(np.int32)
+    perm = rng.permutation(np.arange(1, num_pages)).reshape(b, per_slot)
+    table = np.zeros((b, per_slot), np.int32)
+    for i in range(b):
+        table[i, :q_pos[i] // ps + 1] = perm[i, :q_pos[i] // ps + 1]
+    args = (q, kp, vp, torch.as_tensor(table, device=dev),
+            torch.as_tensor(q_pos, device=dev))
+    kw = dict(scale=d ** -0.5, window=48, softcap=30.0)
+    o = counted(("paged_f32_launches",),
+                lambda: fa.paged_decode_attention_cuda(*args, **kw))
+    errs["paged"] = (o - fa.paged_decode_attention_plain(*args, **kw)) \
+        .abs().max().item()
+    print(f"  f32 paged (B={b} KVH={kvh} G={g} d={d} window=48 softcap=30): "
+          f"max|err| {errs['paged']:.3e} (tol {F32_TOL})", flush=True)
+    bad = {n: e for n, e in errs.items() if not e <= F32_TOL}
+    if bad:
+        raise AssertionError(f"f32 attention routes disagree with plain: "
+                             f"{bad}")
+    return errs
 
 
 def check_lut(gen) -> dict:
@@ -731,6 +892,10 @@ COUNTERS = {
     "flash_attention_bwd_dq": (fa, "bwd_dq_launches"),
     "flash_attention_bwd_dkv": (fa, "bwd_dkv_launches"),
     "lut_matmul": (lm, "lut_launches"),
+    "flash_attention_fwd_f32": (fa, "fwd_f32_launches"),
+    "paged_decode_attention_f32": (fa, "paged_f32_launches"),
+    "flash_attention_bwd_dq_f32": (fa, "bwd_f32_dq_launches"),
+    "flash_attention_bwd_dkv_f32": (fa, "bwd_f32_dkv_launches"),
 }
 
 
@@ -749,6 +914,19 @@ def require_launched(counts: dict, names) -> None:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+
+
+F32_ROUTES = ("flash_attention_fwd_f32", "paged_decode_attention_f32",
+              "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32")
+
+
+def require_no_f32(counts: dict) -> None:
+    """The model paths feed bf16: an f32 route launched there would be a
+    path that fell onto the slow SIMT kernels."""
+    used = {n: counts[n] for n in F32_ROUTES if counts[n]}
+    if used:
+        raise AssertionError(f"f32 attention routes launched on a bf16 "
+                             f"main path: {used}")
 
 
 def phase_serve() -> dict:
@@ -802,6 +980,7 @@ def phase_serve() -> dict:
         print(f"  request {i} first tokens: {done[i].tokens[:8]}")
     require_launched(counts, ("nibble_matmul", "flash_attention_fwd",
                               "paged_decode_attention"))
+    require_no_f32(counts)
 
     # the first request's prefill: kernel path vs plain path
     p = prompts[0]
@@ -862,6 +1041,7 @@ def phase_lut_serve(params, prompts, n_req=4, n_new=16,
           f"tok/s; launches {counts}", flush=True)
     require_launched(counts, ("lut_matmul", "flash_attention_fwd",
                               "paged_decode_attention"))
+    require_no_f32(counts)
     if counts["nibble_matmul"]:
         raise AssertionError("the lut path launched the nibble kernel")
     same = sum(a == b for a, b in zip(got, want))
@@ -921,6 +1101,7 @@ def phase_train(profile: bool) -> dict:
     require_launched(counts, ("flash_attention_fwd",
                               "flash_attention_bwd_dq",
                               "flash_attention_bwd_dkv"))
+    require_no_f32(counts)
     out = {"counts": counts, "history": history, "wall_s": wall,
            "tok_s": tok_s, "peak_bytes": peak, "n_params": n_params}
     if profile:
@@ -956,8 +1137,12 @@ def profile_train_step(trainer) -> dict:
     for name, t_ms in sorted(attn.items(), key=lambda kv: -kv[1]):
         print(f"  attention {t_ms:9.2f} ms ({t_ms / (busy / 1e3):.2%} of "
               f"device time)  {name[:70]}")
+    fwd = sum(t_ms for n, t_ms in attn.items() if "flash_fwd" in n)
+    print(f"  flash forward: {fwd:.2f} ms of {busy / 1e3:.1f} ms device "
+          f"time ({fwd / (busy / 1e3):.2%})", flush=True)
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "top": [(n, us / 1e3) for n, us in top], "attention": attn}
+            "top": [(n, us / 1e3) for n, us in top], "attention": attn,
+            "flash_fwd_ms": fwd}
 
 
 def check_train_grads() -> dict:
@@ -1051,6 +1236,7 @@ def main() -> int:
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = [check_nibble(gen), check_flash(gen), check_paged(gen)]
     rows += [check_flash_bwd(gen, rows[1]), check_lut(gen)]
+    f32 = check_attention_f32(gen)
     serve = phase_serve()
     engine, prompts = serve.pop("engine"), serve.pop("prompts")
     params = serve.pop("params")
@@ -1073,14 +1259,20 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"nvidia_smi": smi, "kernels": rows, "serve": serve,
+            json.dump({"nvidia_smi": smi, "kernels": rows,
+                       "attention_f32_errors": f32, "serve": serve,
                        "lut_serve": lut, "train": train,
                        "train_grads": grads, "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    # device times (CUDA graphs) and the forward's training shape, where a
+    # row has them
+    extra = ("graph_ms", "library_graph_ms", "train_ms", "train_graph_ms",
+             "library_train_ms", "library_train_graph_ms", "train_bound_ms")
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,20 @@
-// Shared pieces of the two attention kernels (flash_attention.cu,
-// paged_decode.cu): a key/value tile of 32 rows in shared memory and the
-// per-warp online-softmax update of one query row against it.  The head
-// dim bound MAXD is a template parameter; each kernel has two instances,
-// 128 and 256, and its C entry picks one by max(d, dv).
+// The SIMT attention code: a key/value tile of 32 rows in shared memory,
+// the per-warp online-softmax update of one query row against it, and the
+// paged-decode kernel built from them.  Templated on the element type T:
+// paged_decode.cu instantiates bf16, attention_f32.cu f32 (its forward
+// kernel uses the same row update).  The head dim bound MAXD is a template
+// parameter; each kernel has two instances, 128 and 256, and its C entry
+// picks one by max(d, dv).
 //
 // Numerics follow the reference kernels in
-// src/repro/kernels/flash_attention.py: f32 scores (bf16 inputs, f32
+// src/repro/kernels/flash_attention.py: f32 scores (T inputs, f32
 // products), scale after the dot, optional tanh softcap, masked scores
 // set to the finite sentinel -1e30 (never -inf: when a row's first tiles
 // are fully masked, exp(-1e30 - -1e30) = 1 is accumulated and later wiped
 // by corr = exp(-1e30 - m) = 0; -inf would give NaN there), f32 running
-// max / denominator / accumulator, and p cast to bf16 before the PV
-// product while the denominator sums the f32 p.
+// max / denominator / accumulator, and p cast to T (v's dtype) before the
+// PV product while the denominator sums the f32 p.  In f32 no value is
+// rounded: only the order of the f32 sums differs from the reference.
 
 #pragma once
 
@@ -26,30 +29,48 @@ namespace attn {
 constexpr float NEG_INF = -1e30f;
 constexpr int TILE = 32;          // keys per tile: one per lane
 
-// Per-instance sizes for head dims <= MAXD (checked by the wrapper).  At
-// 128 the query rows stay f32 in shared memory; at 256 they are held in
-// bf16 (q is bf16 already, so the products are the same) so that sQ, sK
-// and sV fit the 48 KB of static shared memory (8 + 2 x 16.1 KB).
-template <int MAXD>
+// Per-instance sizes for head dims <= MAXD (checked by the wrapper).  The
+// query rows stay f32 in shared memory, except bf16 ones at 256, held in
+// bf16 (the products are the same).  The tiles live in dynamic shared
+// memory (smem_bytes): f32 rows of 256 need ~80 KB.
+template <int MAXD, typename T>
 struct Dims {
   static constexpr int DPL = MAXD / 32;  // output dims per lane
-  static constexpr int LDK = MAXD + 2;   // padded bf16 row: an odd number
-                                         // of words, so lane j reading row
-                                         // j hits bank j (no conflict)
-  using QT = typename std::conditional<(MAXD <= 128), float,
-                                       __nv_bfloat16>::type;
+  // padded row: an odd number of 32-bit words, so lane j reading row j
+  // hits bank j (no conflict)
+  static constexpr int LDK = MAXD + (sizeof(T) == 2 ? 2 : 1);
+  using QT = typename std::conditional<(MAXD <= 128 || sizeof(T) == 4),
+                                       float, T>::type;
+  static constexpr int smem_bytes(int q_rows) {
+    return q_rows * MAXD * (int)sizeof(QT) + 2 * TILE * LDK * (int)sizeof(T);
+  }
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-// Store a bf16 query element into a shared row of either type.
+// Store a query element into a shared row of either type.
 __device__ __forceinline__ void put(float& dst, __nv_bfloat16 x) {
   dst = __bfloat162float(x);
 }
+__device__ __forceinline__ void put(float& dst, float x) { dst = x; }
 __device__ __forceinline__ void put(__nv_bfloat16& dst, __nv_bfloat16 x) {
   dst = x;
+}
+
+// p as the PV product takes it: cast to the value dtype.
+__device__ __forceinline__ float cast_p(float p, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(p));
+}
+__device__ __forceinline__ float cast_p(float p, float) { return p; }
+
+// Elements 2i and 2i + 1 of a shared row, as f32.
+__device__ __forceinline__ float2 pair_at(const __nv_bfloat16* row, int i) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(row)[i]);
+}
+__device__ __forceinline__ float2 pair_at(const float* row, int i) {
+  return make_float2(row[2 * i], row[2 * i + 1]);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -65,16 +86,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Copy one d-wide bf16 row (d % 8 == 0, 16-byte aligned) into a padded
-// shared row, or zeros when src is null.  Called by all lanes of a warp
-// with lane-strided 8-element chunks.
-__device__ __forceinline__ void load_row(__nv_bfloat16* dst,
-                                         const __nv_bfloat16* src, int d,
+// Copy one d-wide row (d % 8 == 0, 16-byte aligned) into a padded shared
+// row (4-byte aligned), or zeros when src is null.  Called by all lanes of
+// a warp with lane-strided 16-byte chunks.
+template <typename T>
+__device__ __forceinline__ void load_row(T* dst, const T* src, int d,
                                          int lane) {
-  for (int c = lane * 8; c < d; c += 32 * 8) {
+  constexpr int CH = 16 / sizeof(T);   // elements per 16-byte chunk
+  for (int c = lane * CH; c < d; c += 32 * CH) {
     uint4 v = make_uint4(0, 0, 0, 0);
     if (src != nullptr) v = *reinterpret_cast<const uint4*>(src + c);
-    uint32_t* o = reinterpret_cast<uint32_t*>(dst + c);  // 4-byte aligned
+    uint32_t* o = reinterpret_cast<uint32_t*>(dst + c);
     o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
   }
 }
@@ -92,20 +114,18 @@ __device__ __forceinline__ void row_init(RowState<DPL>& st) {
   for (int c = 0; c < DPL; ++c) st.acc[c] = 0.f;
 }
 
-// One query row (in shared memory, d wide) against the current tile.
-// `valid` says whether this lane's key is unmasked for the row.
-template <int MAXD, typename QT = typename Dims<MAXD>::QT>
+// One query row (in shared memory, d wide) against the current tile: sK
+// and sV hold TILE rows of stride LDK.  `valid` says whether this lane's
+// key is unmasked for the row.
+template <int MAXD, typename T, typename QT>
 __device__ __forceinline__ void row_update(
-    RowState<Dims<MAXD>::DPL>& st, const QT* q,
-    const __nv_bfloat16 (*sK)[Dims<MAXD>::LDK],
-    const __nv_bfloat16 (*sV)[Dims<MAXD>::LDK], int d, int dv, float scale,
-    float softcap, bool valid, int lane) {
-  constexpr int DPL = Dims<MAXD>::DPL;
-  const __nv_bfloat162* krow =
-      reinterpret_cast<const __nv_bfloat162*>(sK[lane]);
+    RowState<Dims<MAXD, T>::DPL>& st, const QT* q, const T* sK, const T* sV,
+    int d, int dv, float scale, float softcap, bool valid, int lane) {
+  constexpr int DPL = Dims<MAXD, T>::DPL, LDK = Dims<MAXD, T>::LDK;
+  const T* krow = sK + lane * LDK;
   float s = 0.f;
   for (int i = 0; i < d / 2; ++i) {
-    const float2 kf = __bfloat1622float2(krow[i]);
+    const float2 kf = pair_at(krow, i);
     s = fmaf(to_f32(q[2 * i]), kf.x, s);
     s = fmaf(to_f32(q[2 * i + 1]), kf.y, s);
   }
@@ -117,7 +137,7 @@ __device__ __forceinline__ void row_update(
   const float p = expf(s - m_new);
   const float corr = expf(st.m - m_new);
   st.l = st.l * corr + warp_sum(p);
-  const float pb = __bfloat162float(__float2bfloat16_rn(p));
+  const float pb = cast_p(p, T());
 #pragma unroll
   for (int c = 0; c < DPL; ++c) st.acc[c] *= corr;
 #pragma unroll 4
@@ -126,11 +146,164 @@ __device__ __forceinline__ void row_update(
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int dim = lane + 32 * c;
-      if (dim < dv) st.acc[c] = fmaf(pj, __bfloat162float(sV[j][dim]),
+      if (dim < dv) st.acc[c] = fmaf(pj, to_f32(sV[j * LDK + dim]),
                                      st.acc[c]);
     }
   }
   st.m = m_new;
+}
+
+__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16_rn(x);
+}
+
+template <typename K>
+int set_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// ---------------------------------------------------------------------------
+// Paged decode: one query per slot against shared K/V page pools, walking
+// the page table itself.
+//
+// Replaces: src/repro/kernels/flash_attention.py:182,
+// paged_decode_attention_pallas (body _paged_decode_kernel), where the TPU
+// scalar-prefetches the table into BlockSpec index maps; here each block
+// reads table[b, pos / page_size] itself.
+//
+// Computes, for slot b and KV head h, the G grouped query heads' attention
+// over cache positions <= q_pos[b] (optional sliding window and tanh
+// softcap), online softmax in f32 with p cast to T for PV.  Rows past a
+// slot's live length resolve to the trash page and are masked.
+//
+// What bounds it on an H100: the KV bytes, (q_pos + 1) rows x KVH x
+// (d + dv) x 2 bytes per slot at 3.35 TB/s in bf16; the arithmetic is ~1
+// FLOP per byte.  Design response (first, simple version): one block per
+// (KV head, slot) so the G = 8 query heads of a group share every K/V row
+// loaded (the cache is read once, not G times); 32-row tiles gathered
+// through the table into shared memory; the walk stops at q_pos[b].  In
+// the reference kernel every later page is fully masked and contributes
+// exp(-1e30 - m) = 0 to l and acc, so skipping those pages leaves the
+// result unchanged.  Any group size: a third grid dimension walks chunks
+// of 16 query heads (one launch per call; a group above 16 reads its K/V
+// rows once per chunk).  Not yet done: splitting long caches over several
+// blocks (flash-decoding) to fill more than B x KVH SMs.
+// ---------------------------------------------------------------------------
+
+constexpr int PAGED_WARPS = 4;
+constexpr int PAGED_RPW = 4;                      // query heads per warp
+constexpr int PAGED_GC = PAGED_WARPS * PAGED_RPW; // query heads per block
+
+template <int MAXD, typename T>
+__global__ void __launch_bounds__(PAGED_WARPS * 32)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
+                    const T* __restrict__ vpool,
+                    const int* __restrict__ table,
+                    const int* __restrict__ q_pos, T* __restrict__ o,
+                    int KVH, int G, int d, int dv, int page_size,
+                    int max_pages, float scale, float softcap, int window) {
+  using Dm = Dims<MAXD, T>;
+  using QT = typename Dm::QT;
+  constexpr int LDK = Dm::LDK, GC = PAGED_GC, RPW = PAGED_RPW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  QT* sQ = reinterpret_cast<QT*>(smem);                 // [GC][MAXD]
+  T* sK = reinterpret_cast<T*>(sQ + GC * MAXD);         // [TILE][LDK]
+  T* sV = sK + TILE * LDK;                              // [TILE][LDK]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y, g0 = blockIdx.z * GC;
+  const int gn = min(GC, G - g0);   // query heads of this chunk
+  const int qp = q_pos[b];
+  const T* qb = q + (((size_t)b * KVH + h) * G + g0) * d;
+  const int* row = table + (size_t)b * max_pages;
+
+  for (int i = tid; i < gn * d; i += PAGED_WARPS * 32)
+    put(sQ[(i / d) * MAXD + i % d], qb[i]);
+
+  RowState<Dm::DPL> st[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) row_init(st[i]);
+
+  const int n_keys = min(qp + 1, max_pages * page_size);
+  int k_begin = window > 0 ? max(0, qp - window + 1) : 0;
+  k_begin = (k_begin / TILE) * TILE;
+
+  for (int kt = k_begin; kt < n_keys; kt += TILE) {
+    __syncthreads();
+    for (int r = warp; r < TILE; r += PAGED_WARPS) {
+      const int pos = kt + r;
+      const T* ksrc = nullptr;
+      const T* vsrc = nullptr;
+      if (pos < n_keys) {
+        const size_t base =
+            ((size_t)row[pos / page_size] * page_size + pos % page_size) *
+                KVH + h;
+        ksrc = kpool + base * d;
+        vsrc = vpool + base * dv;
+      }
+      load_row(sK + r * LDK, ksrc, d, lane);
+      load_row(sV + r * LDK, vsrc, dv, lane);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int gq = warp + PAGED_WARPS * i;
+      if (gq >= gn) continue;        // warp-uniform
+      const int kpos = kt + lane;
+      bool valid = kpos < n_keys;    // n_keys <= q_pos + 1: causal
+      if (window > 0) valid = valid && (qp - kpos < window);
+      row_update<MAXD, T>(st[i], sQ + gq * MAXD, sK, sV, d, dv, scale,
+                          softcap, valid, lane);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    const int gq = warp + PAGED_WARPS * i;
+    if (gq >= gn) continue;
+    const float l_safe = fmaxf(st[i].l, 1e-30f);
+    T* orow = o + (((size_t)b * KVH + h) * G + g0 + gq) * dv;
+#pragma unroll
+    for (int c = 0; c < Dm::DPL; ++c) {
+      const int dim = lane + 32 * c;
+      if (dim < dv) store(orow + dim, st[i].acc[c] / l_safe);
+    }
+  }
+}
+
+template <int MAXD, typename T>
+int paged_launch(const void* q, const void* kpool, const void* vpool,
+                 const void* table, const void* q_pos, void* o, int B,
+                 int KVH, int G, int d, int dv, int page_size, int max_pages,
+                 float scale, float softcap, int window,
+                 cudaStream_t stream) {
+  constexpr int smem = Dims<MAXD, T>::smem_bytes(PAGED_GC);
+  static const int attr = set_smem(paged_decode_kernel<MAXD, T>, smem);
+  if (attr != 0) return attr;
+  dim3 grid(KVH, B, (G + PAGED_GC - 1) / PAGED_GC);
+  paged_decode_kernel<MAXD, T><<<grid, PAGED_WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kpool),
+      static_cast<const T*>(vpool), static_cast<const int*>(table),
+      static_cast<const int*>(q_pos), static_cast<T*>(o), KVH, G, d, dv,
+      page_size, max_pages, scale, softcap, window);
+  return (int)cudaGetLastError();
+}
+
+// The C entry of either dtype: q (B, KVH, G, d); pools (P, page_size, KVH,
+// d / dv); table (B, max_pages) int32; q_pos (B,) int32; o (B, KVH, G, dv).
+// All contiguous; d, dv <= 256 and % 8 == 0 (checked in Python); any G.
+template <typename T>
+int paged_decode(const void* q, const void* kpool, const void* vpool,
+                 const void* table, const void* q_pos, void* o, int B,
+                 int KVH, int G, int d, int dv, int page_size, int max_pages,
+                 float scale, float softcap, int window, void* stream) {
+  auto fn = (d <= 128 && dv <= 128) ? paged_launch<128, T>
+                                    : paged_launch<256, T>;
+  return fn(q, kpool, vpool, table, q_pos, o, B, KVH, G, d, dv, page_size,
+            max_pages, scale, softcap, window,
+            static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace attn

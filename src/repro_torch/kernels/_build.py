@@ -32,8 +32,11 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "lut_matmul": "lut_matmul.cu",
+    "attention_f32": "attention_f32.cu",
 }
-_HEADERS = ("attention_common.cuh",)
+# every header a source includes: their bytes are part of each library's
+# hash, so an edit to a header alone rebuilds the libraries
+_HEADERS = ("attention_common.cuh", "mma_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,21 +2,29 @@
 plain versions.
 
 Ports of ``repro.kernels.flash_attention.flash_attention_fwd_pallas``,
-``flash_attention_bwd_pallas`` and ``paged_decode_attention_pallas``.  The
-forward kernels (``csrc/flash_attention.cu``, ``csrc/paged_decode.cu``)
-run an online softmax in f32 with the finite ``-1e30`` mask sentinel and
-cast ``p`` to the value dtype before the PV product.  The backward
-(``csrc/flash_attention_bwd.cu``: a dq kernel and a dk/dv kernel)
+``flash_attention_bwd_pallas`` and ``paged_decode_attention_pallas``.
+Each entry point takes q, k, v (and do) all in bf16 or all in f32, as
+the reference does, and has a route per dtype:
+
+* bf16: the forward (``csrc/flash_attention.cu``) and the backward
+  (``csrc/flash_attention_bwd.cu``: a dq kernel and a dk/dv kernel) on
+  bf16 tensor cores (``mma.sync``), paged decode (``csrc/paged_decode.cu``)
+  on CUDA cores;
+* f32: SIMT kernels (``csrc/attention_f32.cu``) that compute the
+  reference's f32 function: no rounding of p before PV or of ds before
+  the dq / dk products.
+
+All run an online softmax in f32 with the finite ``-1e30`` mask sentinel
+and cast ``p`` to the value dtype before the PV product; the backward
 recomputes ``p`` from the saved log-sum-exp with the reference's casts.
 The plain versions compute the same functions densely over all keys (no
 blocking), so kernel and plain agree to float rounding, not bit for bit.
 
-Head dims: the kernels take d, dv <= 256.  The wrappers zero-pad them (to
-multiples of 8 for the forward and paged decode, to the backward
-instance's width ``bwd_width(d, dv)``) and slice the outputs
-back; zero columns change neither ``q . k`` nor the log-sum-exp, and give
-zero output columns.  The reference pads to 128 instead, to the same
-effect.
+Head dims: the kernels take d, dv <= 256.  The wrappers zero-pad them (the
+tensor-core kernels to their instance's width ``bwd_width(d, dv)``, the
+SIMT ones to multiples of 8) and slice the outputs back; zero columns
+change neither ``q . k`` nor the log-sum-exp, and give zero output
+columns.  The reference pads to 128 instead, to the same effect.
 
 Dispatch is by device: plain version for CPU tensors, kernel for CUDA
 tensors (no fallback).
@@ -35,17 +43,25 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "paged_decode_attention_plain", "paged_decode_attention_cuda",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_cuda", "fwd_launches", "paged_launches",
-           "bwd_dq_launches", "bwd_dkv_launches", "bwd_width",
-           "pad_heads"]
+           "bwd_dq_launches", "bwd_dkv_launches", "fwd_f32_launches",
+           "paged_f32_launches", "bwd_f32_dq_launches",
+           "bwd_f32_dkv_launches", "bwd_width", "attn_dtype", "pad_heads"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256          # the kernels' widest instance
-BWD_WIDTHS = (64, 128, 256)  # head widths of the backward's instances
+BWD_WIDTHS = (64, 128, 256)  # head widths of the tensor-core instances
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
-fwd_launches = 0            # launches by flash_attention_fwd_cuda
-paged_launches = 0          # launches by paged_decode_attention_cuda
-bwd_dq_launches = 0         # dq-kernel launches by flash_attention_bwd_cuda
-bwd_dkv_launches = 0        # dk/dv-kernel launches by the same
+# launches by the wrappers, per kernel: the bf16 routes ...
+fwd_launches = 0            # flash_attention_fwd_cuda (tensor cores)
+paged_launches = 0          # paged_decode_attention_cuda
+bwd_dq_launches = 0         # flash_attention_bwd_cuda, dq kernel
+bwd_dkv_launches = 0        # the same, dk/dv kernel
+# ... and the f32 routes (csrc/attention_f32.cu)
+fwd_f32_launches = 0
+paged_f32_launches = 0
+bwd_f32_dq_launches = 0
+bwd_f32_dkv_launches = 0
 
 
 def _softmax_pv(s, v, out_dtype):
@@ -110,9 +126,9 @@ def _round8(n):
 
 
 def bwd_width(d, dv):
-    """Head width of the backward kernel instance for head dims d, dv:
-    the narrowest of ``BWD_WIDTHS`` that holds both (the wrapper
-    zero-pads q, k, v and do to it)."""
+    """Head width of the tensor-core instance for head dims d, dv (the
+    backward's and the bf16 forward's): the narrowest of ``BWD_WIDTHS``
+    that holds both (the wrappers zero-pad q, k, v and do to it)."""
     need = max(d, dv)
     for width in BWD_WIDTHS:
         if need <= width:
@@ -131,39 +147,67 @@ def _fn(lib_name, sym, n_ptr, n_int_before, n_float, n_int_after):
     return fn
 
 
-def _bf16_cuda(*ts):
+def attn_dtype(*ts):
+    """The one dtype of the attention operands ``ts`` (q, k, v and do):
+    bf16 or f32, each dtype with its own route.  A mix, or another dtype,
+    raises ``TypeError``."""
+    dtypes = {t.dtype for t in ts}
+    if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
+        raise TypeError(f"q, k, v (and do) must be all bf16 or all f32, "
+                        f"got {[t.dtype for t in ts]}")
+    return dtypes.pop()
+
+
+def _cuda_operands(*ts):
+    """(dtype, contiguous operands) of CUDA tensors of one kernel dtype."""
     for t in ts:
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
-            raise TypeError(f"bf16 CUDA tensors expected, got {t.dtype} on "
+        if t.device.type != "cuda":
+            raise TypeError(f"CUDA tensors expected, got {t.dtype} on "
                             f"{t.device}")
-    return [t.contiguous() for t in ts]
+    return attn_dtype(*ts), [t.contiguous() for t in ts]
+
+
+def _stream(t):
+    # torch.cuda.current_stream(dev).cuda_stream, without building a
+    # Stream object per call
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def flash_attention_fwd_cuda(q, k, v, *, scale, causal=True, window=0,
                              softcap=0.0, group=1):
-    """Launch ``csrc/flash_attention.cu`` (same contract as the plain
-    version; bf16 inputs, head dims <= 256, zero-padded to multiples of
-    8)."""
-    global fwd_launches
-    q, k, v = _bf16_cuda(q, k, v)
+    """Launch the forward (same contract as the plain version; head dims
+    <= 256).  bf16: ``csrc/flash_attention.cu`` on tensor cores, heads
+    zero-padded to the instance width ``bwd_width(d, dv)``.  f32: ``csrc/attention_f32.cu``, heads zero-padded to multiples of
+    8."""
+    global fwd_launches, fwd_f32_launches
+    dtype, (q, k, v) = _cuda_operands(q, k, v)
     bh, sq, d_in = q.shape
     bkv, sk, dv_in = v.shape
     if bh != bkv * group or k.shape[:2] != (bkv, sk) or k.shape[2] != d_in:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} and group {group} disagree")
     _check_heads(d_in, dv_in)
-    d, dv = _round8(d_in), _round8(dv_in)
+    if dtype == torch.bfloat16:
+        d = dv = bwd_width(d_in, dv_in)
+    else:
+        d, dv = _round8(d_in), _round8(dv_in)
     q, k, v = pad_heads(q, d), pad_heads(k, d), pad_heads(v, dv)
     o = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if bh and sq:
-        fn = _fn("flash_attention", "flash_attention_fwd", 5, 6, 2, 2)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), bh, sq, sk, d, dv, group, float(scale),
-                 float(softcap), int(bool(causal)), int(window),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr())
+        opts = (float(scale), float(softcap), int(bool(causal)), int(window),
+                _stream(q))
+        if dtype == torch.bfloat16:
+            fn = _fn("flash_attention", "flash_attention_fwd", 5, 5, 2, 2)
+            err = fn(*ptrs, bh, sq, sk, d, group, *opts)
+            fwd_launches += 1
+        else:
+            fn = _fn("attention_f32", "flash_attention_fwd_f32", 5, 6, 2, 2)
+            err = fn(*ptrs, bh, sq, sk, d, dv, group, *opts)
+            fwd_f32_launches += 1
         _build.check(err, "flash_attention_fwd")
-        fwd_launches += 1
     return o[..., :dv_in], lse
 
 
@@ -212,11 +256,14 @@ def flash_attention_bwd_plain(q, k, v, lse, do, dmat, *, scale, causal=True,
 
 def flash_attention_bwd_cuda(q, k, v, lse, do, dmat, *, scale, causal=True,
                              window=0, softcap=0.0, group=1):
-    """Launch the two kernels of ``csrc/flash_attention_bwd.cu`` (same
-    contract as the plain version; bf16 q/k/v/do, f32 lse/dmat, head dims
-    <= 256, zero-padded to the instance's width)."""
+    """Launch the backward's dq and dk/dv kernels (same contract as the
+    plain version; f32 lse/dmat, head dims <= 256).  bf16 q/k/v/do:
+    ``csrc/flash_attention_bwd.cu`` on tensor cores, heads zero-padded to
+    the instance's width; f32: ``csrc/attention_f32.cu``, heads
+    zero-padded to multiples of 8."""
     global bwd_dq_launches, bwd_dkv_launches
-    q, k, v, do = _bf16_cuda(q, k, v, do)
+    global bwd_f32_dq_launches, bwd_f32_dkv_launches
+    dtype, (q, k, v, do) = _cuda_operands(q, k, v, do)
     bh, sq, d = q.shape
     bkv, sk, dv = v.shape
     if (bh != bkv * group or k.shape != (bkv, sk, d)
@@ -224,29 +271,45 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, dmat, *, scale, causal=True,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, do {tuple(do.shape)} and "
                          f"group {group} disagree")
-    w = bwd_width(d, dv)
+    if dtype == torch.bfloat16:
+        wq = wv = bwd_width(d, dv)
+    else:
+        _check_heads(d, dv)
+        wq, wv = _round8(d), _round8(dv)
     lse, dmat = (t.to(device=q.device, dtype=torch.float32).contiguous()
                  for t in (lse, dmat))
     if lse.shape != (bh, sq) or dmat.shape != (bh, sq):
         raise ValueError(f"lse {tuple(lse.shape)} / dmat "
                          f"{tuple(dmat.shape)} must be {(bh, sq)}")
-    dq = torch.empty((bh, sq, w), dtype=torch.float32, device=q.device)
-    dk = torch.empty((bkv, sk, w), dtype=torch.float32, device=q.device)
-    dvo = torch.empty((bkv, sk, w), dtype=torch.float32, device=q.device)
+    dq = torch.empty((bh, sq, wq), dtype=torch.float32, device=q.device)
+    dk = torch.empty((bkv, sk, wq), dtype=torch.float32, device=q.device)
+    dvo = torch.empty((bkv, sk, wv), dtype=torch.float32, device=q.device)
     if not (bh and sq and sk):
         return dq.zero_()[..., :d], dk.zero_()[..., :d], dvo.zero_()[..., :dv]
-    q, k, v, do = (pad_heads(t, w) for t in (q, k, v, do))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    q, k = pad_heads(q, wq), pad_heads(k, wq)
+    v, do = pad_heads(v, wv), pad_heads(do, wv)
     ptrs = [t.data_ptr() for t in (q, k, v, do, lse, dmat)]
-    args = [bh, sq, sk, w, group, float(scale), float(softcap),
-            int(bool(causal)), int(window), stream]
-    fn = _fn("flash_attention_bwd", "flash_attention_bwd_dq", 7, 5, 2, 2)
-    _build.check(fn(*ptrs, dq.data_ptr(), *args), "flash_attention_bwd_dq")
-    bwd_dq_launches += 1
-    fn = _fn("flash_attention_bwd", "flash_attention_bwd_dkv", 8, 5, 2, 2)
-    _build.check(fn(*ptrs, dk.data_ptr(), dvo.data_ptr(), *args),
+    opts = [float(scale), float(softcap), int(bool(causal)), int(window),
+            _stream(q)]
+    if dtype == torch.bfloat16:
+        shape = [bh, sq, sk, wq, group]
+        lib, suffix = "flash_attention_bwd", ""
+    else:
+        shape = [bh, sq, sk, wq, wv, group]
+        lib, suffix = "attention_f32", "_f32"
+    n = len(shape)
+    fn = _fn(lib, "flash_attention_bwd_dq" + suffix, 7, n, 2, 2)
+    _build.check(fn(*ptrs, dq.data_ptr(), *shape, *opts),
+                 "flash_attention_bwd_dq")
+    fn = _fn(lib, "flash_attention_bwd_dkv" + suffix, 8, n, 2, 2)
+    _build.check(fn(*ptrs, dk.data_ptr(), dvo.data_ptr(), *shape, *opts),
                  "flash_attention_bwd_dkv")
-    bwd_dkv_launches += 1
+    if dtype == torch.bfloat16:
+        bwd_dq_launches += 1
+        bwd_dkv_launches += 1
+    else:
+        bwd_f32_dq_launches += 1
+        bwd_f32_dkv_launches += 1
     return dq[..., :d], dk[..., :d], dvo[..., :dv]
 
 
@@ -289,11 +352,12 @@ def paged_decode_attention_plain(q, k_pool, v_pool, table, q_pos, *, scale,
 
 def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, *, scale,
                                 window=0, softcap=0.0):
-    """Launch ``csrc/paged_decode.cu`` (same contract as the plain
-    version; bf16, head dims <= 256, zero-padded to multiples of 8; any
-    group size G, one launch)."""
-    global paged_launches
-    q, k_pool, v_pool = _bf16_cuda(q, k_pool, v_pool)
+    """Launch paged decode (same contract as the plain version; head dims
+    <= 256, zero-padded to multiples of 8; any group size G, one launch):
+    ``csrc/paged_decode.cu`` for bf16, ``csrc/attention_f32.cu`` for
+    f32."""
+    global paged_launches, paged_f32_launches
+    dtype, (q, k_pool, v_pool) = _cuda_operands(q, k_pool, v_pool)
     b, kvh, g, d_in = q.shape
     _, ps, _, dv_in = v_pool.shape
     _check_heads(d_in, dv_in)
@@ -304,13 +368,20 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, *, scale,
     q_pos = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
     if b and kvh:
-        fn = _fn("paged_decode", "paged_decode_attention", 6, 7, 2, 1)
+        if dtype == torch.bfloat16:
+            fn = _fn("paged_decode", "paged_decode_attention", 6, 7, 2, 1)
+        else:
+            fn = _fn("attention_f32", "paged_decode_attention_f32", 6, 7, 2,
+                     1)
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  table.data_ptr(), q_pos.data_ptr(), o.data_ptr(), b, kvh, g,
                  d, dv, ps, table.shape[1], float(scale), float(softcap),
-                 int(window), torch.cuda.current_stream(q.device).cuda_stream)
+                 int(window), _stream(q))
         _build.check(err, "paged_decode_attention")
-        paged_launches += 1
+        if dtype == torch.bfloat16:
+            paged_launches += 1
+        else:
+            paged_f32_launches += 1
     return o[..., :dv_in]
 
 

@@ -11,6 +11,8 @@ dims up to 256, any d, zero-padded) and any paged group size.
   at G = 32, with the tolerances of test_torch_kernels.py and
   test_torch_train.py (f32 1e-5; bf16 outputs atol 2e-2, bf16 gradients
   2e-2 relative norm).
+* Rows with no key in their window: the plain forward averages all
+  values with lse -1e30, as the reference kernel does.
 * The dv product's split of p into bf16 hi + lo halves (the backward
   kernel's design) stays within 1e-4 relative norm of the f32 product.
 * ``bwd_width``: the backward's instance is the narrowest that holds d
@@ -164,6 +166,43 @@ def test_flash_mha_wide_heads_match_reference(w, dtype):
                                        err_msg=f"d{name}")
         else:
             assert _rel(g, ref) <= BF16_GRAD_RTOL, (name, _rel(g, ref))
+
+
+@pytest.mark.parametrize("causal,sq,sk,window", [(False, 100, 40, 20),
+                                                  (True, 60, 40, 8)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_forward_matches_reference_on_rows_with_no_key(causal, sq, sk,
+                                                             window, dtype):
+    """Rows with no key in their window (q >= Sk + window - 1): the
+    reference kernel (interpret-mode Pallas, blocks dividing Sq and Sk)
+    averages all Sk values there, with lse -1e30, and so does the plain
+    version that the CUDA kernels are held to."""
+    from repro.kernels.flash_attention import flash_attention_fwd_pallas
+    r = _rng(sq + window)
+    q = r.standard_normal((4, sq, 16)).astype(np.float32)
+    k, v = (r.standard_normal((2, sk, 16)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(scale=0.25, causal=causal, window=window, softcap=0.0,
+              group=2)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    jo, jlse = flash_attention_fwd_pallas(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), bq=20, bk=40,
+        interpret=True, **kw)
+    o, lse = fa.flash_attention_fwd_plain(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), **kw)
+    jo = np.asarray(jo.astype(jnp.float32))
+    jlse = np.asarray(jlse)
+    no_key = np.arange(sq) >= sk + window - 1
+    assert no_key.any() and (jlse[:, no_key] == np.float32(-1e30)).all()
+    np.testing.assert_array_equal(lse.numpy()[:, no_key], jlse[:, no_key])
+    np.testing.assert_allclose(lse.numpy(), jlse, atol=F32_TOL, rtol=0)
+    atol = F32_TOL if dtype == "f32" else BF16_ATOL
+    np.testing.assert_allclose(o.float().numpy(), jo, atol=atol)
+    mean = np.asarray(jnp.asarray(v, jdt).astype(jnp.float32)).mean(1)
+    np.testing.assert_allclose(jo[:, no_key],
+                               np.repeat(mean, 2, 0)[:, None].repeat(
+                                   no_key.sum(), 1), atol=atol)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

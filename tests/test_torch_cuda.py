@@ -12,6 +12,9 @@ bf16 against the kernel's running max, the plain version's final max;
 plain backward in relative Frobenius norm per gradient (both accumulate
 in f32 from the same bf16 inputs, in another order; a rounding of ds to
 bf16 can flip by one ulp where the two f32 values straddle a midpoint).
+The f32 attention routes round nothing, so only the order of the f32
+sums differs from the plain versions: F32_TOL = 1e-4 (absolute on o and
+lse, relative Frobenius norm on the gradients).
 """
 
 import numpy as np
@@ -31,6 +34,7 @@ pytestmark = pytest.mark.cuda
 
 BF16_ATOL = 2e-2
 BWD_RTOL = 1e-3
+F32_TOL = 1e-4
 
 
 @pytest.fixture
@@ -118,29 +122,96 @@ FLASH_CASES = [
     # the 256-wide instance: MLA's q/k 192 with v 128, and head_dim 256
     dict(bkv=2, group=2, s=70, d=192, dv=128, window=0, softcap=0.0),
     dict(bkv=2, group=4, s=100, d=256, dv=256, window=33, softcap=30.0),
+    # the tensor-core forward's 64-row query tiles: a ragged last tile
+    # (Sq 100 and 20), a window with softcap, no causal mask (Sq != Sk),
+    # and the training shape with and without window and softcap
+    dict(bkv=4, group=8, s=100, d=128, dv=128, window=0, softcap=0.0),
+    dict(bkv=4, group=8, s=20, d=128, dv=128, window=0, softcap=0.0),
+    dict(bkv=4, group=8, s=256, d=128, dv=128, window=40, softcap=30.0),
+    dict(bkv=2, group=4, s=77, sk=130, causal=False, d=128, dv=128,
+         window=0, softcap=0.0),
+    dict(bkv=2, group=2, s=64, sk=200, causal=False, d=256, dv=256,
+         window=0, softcap=20.0),
+    dict(bkv=64, group=4, s=256, d=128, dv=128, window=0, softcap=0.0),
+    dict(bkv=64, group=4, s=256, d=128, dv=128, window=64, softcap=30.0),
+    # rows with no key in their window (q >= Sk + window - 1): o is the
+    # mean of all Sk values and lse -1e30, as in the reference
+    dict(bkv=2, group=2, s=100, sk=40, causal=False, d=128, dv=128,
+         window=20, softcap=0.0),
 ]
+
+
+def _flash_inputs(case, dtype):
+    bh = case["bkv"] * case["group"]
+    g = torch.Generator(device="cuda").manual_seed(case["s"])
+    sk = case.get("sk", case["s"])
+    q = torch.randn((bh, case["s"], case["d"]), device="cuda", generator=g)
+    k = torch.randn((case["bkv"], sk, case["d"]), device="cuda", generator=g)
+    v = torch.randn((case["bkv"], sk, case["dv"]), device="cuda",
+                    generator=g)
+    kw = dict(scale=case["d"] ** -0.5, window=case["window"],
+              softcap=case["softcap"], group=case["group"],
+              causal=case.get("causal", True))
+    return q.to(dtype), k.to(dtype), v.to(dtype), kw
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, case):
-    bh = case["bkv"] * case["group"]
-    g = torch.Generator(device=cuda).manual_seed(case["s"])
-    q = torch.randn((bh, case["s"], case["d"]), device=cuda,
-                    generator=g).bfloat16()
-    k = torch.randn((case["bkv"], case["s"], case["d"]), device=cuda,
-                    generator=g).bfloat16()
-    v = torch.randn((case["bkv"], case["s"], case["dv"]), device=cuda,
-                    generator=g).bfloat16()
-    kw = dict(scale=case["d"] ** -0.5, window=case["window"],
-              softcap=case["softcap"], group=case["group"])
-    before = fa.fwd_launches
+    q, k, v, kw = _flash_inputs(case, torch.bfloat16)
+    before = (fa.fwd_launches, fa.fwd_f32_launches)
     o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
-    assert fa.fwd_launches == before + 1
+    assert (fa.fwd_launches, fa.fwd_f32_launches) == (before[0] + 1,
+                                                      before[1])
     o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
-    assert o.shape == o_p.shape
+    assert o.shape == o_p.shape and o.dtype == torch.bfloat16
     torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
                                rtol=0)
     torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("width", fa.BWD_WIDTHS)
+def test_flash_kernel_every_instance(cuda, width):
+    """Each head-width instance of the tensor-core forward, launched
+    through its C entry, against the plain version: a ragged Sq (75: the
+    second 64-row tile holds 11 rows), a window and a softcap."""
+    q, k, v, kw = _flash_inputs(dict(bkv=2, group=2, s=75, d=width,
+                                     dv=width, window=30, softcap=25.0),
+                                torch.bfloat16)
+    bh, sq, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=cuda)
+    fn = fa._fn("flash_attention", "flash_attention_fwd", 5, 5, 2, 2)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), bh, sq, k.shape[1], width, kw["group"],
+             kw["scale"], kw["softcap"], 1, kw["window"],
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
+                               rtol=0)
+    torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=0)
+
+
+F32_FLASH_CASES = [FLASH_CASES[i] for i in (0, 1, 2, 3, 4, 5, 9, 13)]
+
+
+@pytest.mark.parametrize("case", F32_FLASH_CASES)
+def test_flash_f32_route_matches_plain(cuda, case):
+    q, k, v, kw = _flash_inputs(case, torch.float32)
+    before = (fa.fwd_launches, fa.fwd_f32_launches)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    assert (fa.fwd_launches, fa.fwd_f32_launches) == (before[0],
+                                                      before[1] + 1)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    assert o.shape == o_p.shape and o.dtype == torch.float32
+    torch.testing.assert_close(o, o_p, atol=F32_TOL, rtol=0)
+    torch.testing.assert_close(lse, lse_p, atol=F32_TOL, rtol=0)
+
+
+def test_flash_refuses_mixed_dtypes(cuda):
+    q, k, v, kw = _flash_inputs(FLASH_CASES[0], torch.float32)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention_fwd_cuda(q, k.bfloat16(), v, **kw)
 
 
 def _paged_inputs(seed, b=3, kvh=2, g=4, d=32, ps=4, per_slot=5):
@@ -180,6 +251,24 @@ def test_paged_kernel_matches_plain(cuda, window, softcap, shape):
     assert o.shape == o_p.shape
     torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 32), (1, 32, 128), (2, 8, 256),
+                                   (2, 4, 100)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (6, 15.0)])
+def test_paged_f32_route_matches_plain(cuda, window, softcap, shape):
+    kvh, g, d = shape
+    q, kp, vp, table, q_pos = (torch.from_numpy(a).to(cuda)
+                               for a in _paged_inputs(window + 1, kvh=kvh,
+                                                      g=g, d=d))
+    kw = dict(scale=0.25, window=window, softcap=softcap)
+    before = (fa.paged_launches, fa.paged_f32_launches)
+    o = fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos, **kw)
+    assert (fa.paged_launches, fa.paged_f32_launches) == (before[0],
+                                                          before[1] + 1)
+    o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
+    assert o.shape == o_p.shape and o.dtype == torch.float32
+    torch.testing.assert_close(o, o_p, atol=F32_TOL, rtol=0)
 
 
 def _rel(a, b):
@@ -235,6 +324,66 @@ def test_flash_bwd_kernel_matches_plain(cuda, case):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.shape == b.shape and a.dtype == torch.float32
         assert _rel(a, b) <= BWD_RTOL, (name, _rel(a, b))
+
+
+F32_BWD_CASES = [BWD_CASES[i] for i in (0, 1, 2, 3, 4, 7, 8, 9, 10)]
+
+
+@pytest.mark.parametrize("case", F32_BWD_CASES)
+def test_flash_bwd_f32_route_matches_plain(cuda, case):
+    bh = case["bkv"] * case["group"]
+    g = torch.Generator(device=cuda).manual_seed(case["s"] + case["d"])
+    s, d, dv = case["s"], case["d"], case["dv"]
+    sk = case.get("sk", s)
+    q = torch.randn((bh, s, d), device=cuda, generator=g)
+    do = torch.randn((bh, s, dv), device=cuda, generator=g)
+    k = torch.randn((case["bkv"], sk, d), device=cuda, generator=g)
+    v = torch.randn((case["bkv"], sk, dv), device=cuda, generator=g)
+    kw = dict(scale=d ** -0.5, window=case["window"],
+              softcap=case["softcap"], group=case["group"],
+              causal=case.get("causal", True))
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    dmat = (do * o).sum(-1)
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches,
+              fa.bwd_f32_dq_launches, fa.bwd_f32_dkv_launches)
+    got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, dmat, **kw)
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches, fa.bwd_f32_dq_launches,
+            fa.bwd_f32_dkv_launches) == (before[0], before[1], before[2] + 1,
+                                         before[3] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, lse, do, dmat, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _rel(a, b) <= F32_TOL, (name, _rel(a, b))
+
+
+def test_flash_mha_f32_forward_and_gradient(cuda):
+    """``ops.flash_mha`` in f32 on the card (the f32 forward and backward
+    kernels) against the same call on the CPU (the plain versions)."""
+    r = np.random.default_rng(3)
+    q = r.standard_normal((8, 50, 64)).astype(np.float32)
+    k, v = (r.standard_normal((2, 50, 64)).astype(np.float32)
+            for _ in range(2))
+    w = r.standard_normal((8, 50, 64)).astype(np.float32)
+    args = (0.125, True, 9, 20.0, 4)
+
+    def run(device):
+        leaves = [torch.from_numpy(a).to(device).requires_grad_(True)
+                  for a in (q, k, v)]
+        o = ops.flash_mha(*leaves, *args)
+        loss = (o * torch.from_numpy(w).to(device)).sum()
+        return [o.detach().cpu()] + [t.cpu() for t in
+                                     torch.autograd.grad(loss, leaves)]
+
+    before = (fa.fwd_f32_launches, fa.bwd_f32_dq_launches,
+              fa.bwd_f32_dkv_launches)
+    got = run(cuda)
+    assert (fa.fwd_f32_launches, fa.bwd_f32_dq_launches,
+            fa.bwd_f32_dkv_launches) == tuple(b + 1 for b in before)
+    want = run("cpu")
+    torch.testing.assert_close(got[0], want[0], atol=F32_TOL, rtol=0)
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert a.dtype == torch.float32
+        assert _rel(a, b) <= F32_TOL, (name, _rel(a, b))
 
 
 def test_flash_mha_backward_runs_the_kernels(cuda):

@@ -14,12 +14,16 @@ Phases (any failure exits non-zero and prints no result line):
    256-wide instance; the forward also without the causal mask; paged
    decode also at a group of 32), and time kernel, plain version and a
    PyTorch library yardstick with CUDA events (the nibble and LUT kernels,
-   the flash forward at the prefill and training shapes, and the flash
-   backward's two kernels together and apart, also in a CUDA graph:
-   device time without host gaps; the nibble wrapper's host time per call
-   too).  The f32 routes of the three attention entry points
-   (``csrc/attention_f32.cu``) are held to their plain versions at small
-   shapes, each showing its own launch counter.
+   the flash forward at the prefill and training shapes, the flash
+   backward's two kernels together and apart, and paged decode, also in a
+   CUDA graph: device time without host gaps; the nibble and paged
+   wrappers' host time per call too).  Paged decode is also checked at
+   4096 rows a slot (many splits, a window across them) and at page size
+   4, and times a scaling line (1, 160, 1024 and 4096 live rows a slot,
+   each call on pools that are cold in L2).  The backward is also held
+   on rows with no key in their window.  The f32 routes of the three
+   attention entry points (``csrc/attention_f32.cu``) are held to their
+   plain versions at small shapes, each showing its own launch counter.
 3. Serve: yi-6b at full published width (random weights from a seed),
    every projection ``w8a8_nibble`` on the CUDA backend, flash prefill,
    paged decode; 8 requests through ``Engine.submit`` / ``Engine.run``.
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import math
 import os
@@ -483,83 +488,205 @@ def check_flash(gen) -> dict:
             "shapes": f"BH={bh} group={group} Sq=Sk={s} d={d} causal"}
 
 
-def check_paged(gen) -> dict:
-    dev = DEV
-    b, kvh, g, d, ps, per_slot = 4, 4, 8, 128, 16, 16
+def _paged_inputs(gen, rng, b, kvh, g, d, ps, per_slot, q_pos=None,
+                  n_sets=1):
+    """``n_sets`` pairs of random bf16 pools (one page per slot and table
+    entry, plus the trash page 0), a query, a page table through a random
+    permutation (trash page past each slot's live length) and q_pos (drawn
+    with ``rng`` unless given)."""
     num_pages = b * per_slot + 1
-    scale = 1.0 / math.sqrt(d)
-    rng = np.random.default_rng(0)
-    kp = torch.randn((num_pages, ps, kvh, d), device=dev,
-                     generator=gen).bfloat16()
-    vp = torch.randn((num_pages, ps, kvh, d), device=dev,
-                     generator=gen).bfloat16()
-    q = torch.randn((b, kvh, g, d), device=dev, generator=gen).bfloat16()
-    q_pos = rng.integers(0, per_slot * ps, b).astype(np.int32)
+    pools = [tuple(torch.randn((num_pages, ps, kvh, d), device=DEV,
+                               generator=gen).bfloat16() for _ in range(2))
+             for _ in range(n_sets)]
+    q = torch.randn((b, kvh, g, d), device=DEV, generator=gen).bfloat16()
+    if q_pos is None:
+        q_pos = rng.integers(0, per_slot * ps, b).astype(np.int32)
+    q_pos = np.asarray(q_pos, np.int32)
     perm = rng.permutation(np.arange(1, num_pages)).reshape(b, per_slot)
     table = np.zeros((b, per_slot), np.int32)      # trash page 0 past live
     for i in range(b):
-        live = q_pos[i] // ps + 1
+        live = min(per_slot, q_pos[i] // ps + 1)
         table[i, :live] = perm[i, :live]
-    table_t = torch.as_tensor(table, device=dev)
-    qpos_t = torch.as_tensor(q_pos, device=dev)
+    return (q, pools, torch.as_tensor(table, device=DEV),
+            torch.as_tensor(q_pos, device=DEV))
+
+
+def _paged_bytes(q, table, q_pos, ps, dv):
+    """Bytes paged decode must move (the live K/V rows once, q and o, the
+    table and q_pos) and the live rows."""
+    b, kvh, g, d = q.shape
+    rows = int((q_pos.long() + 1).clamp(max=table.shape[1] * ps).sum())
+    return 2 * (rows * kvh * (d + dv) + b * kvh * g * (d + dv)) \
+        + 4 * table.numel() + 4 * b, rows
+
+
+def _paged_sdpa(q, kp, vp, table, q_pos, scale):
+    """The yardstick: gather the table's pages (as the plain version
+    does) and run SDPA with the causal-by-position mask."""
+    b, kvh, g, d = q.shape
+    ps, dv = kp.shape[1], vp.shape[-1]
+    L = table.shape[1] * ps
+    mask = (torch.arange(L, device=DEV)[None, :]
+            <= q_pos[:, None].long())[:, None, None, :]
+    idx = table.long()
+
+    def fn():
+        kk = kp[idx].reshape(b, L, kvh, d).transpose(1, 2)
+        vv = vp[idx].reshape(b, L, kvh, dv).transpose(1, 2)
+        return _sdpa_gqa(q.reshape(b, kvh * g, 1, d), kk, vv, attn_mask=mask,
+                         scale=scale)
+    return fn
+
+
+def _paged_graph(q, pools, table, q_pos, scale):
+    """Graph times (ms) of the kernel and of the SDPA yardstick, each call
+    on the next of ``pools`` in turn, so that every call finds its K/V
+    rows cold in L2, as each layer's decode step does."""
+    kernel = [lambda kp=kp, vp=vp: fa.paged_decode_attention_cuda(
+        q, kp, vp, table, q_pos, scale=scale) for kp, vp in pools]
+    sdpa = [_paged_sdpa(q, kp, vp, table, q_pos, scale) for kp, vp in pools]
+    reps = max(20, len(pools))
+
+    def cycle(fns):
+        turn = itertools.count()
+        return lambda: fns[next(turn) % len(fns)]()
+    return graph_ms(cycle(kernel), reps), graph_ms(cycle(sdpa), reps)
+
+
+def _sets_for(num_pages, ps, kvh, d):
+    """Pool pairs whose bytes together exceed the 50 MB L2 twice over."""
+    return max(1, math.ceil(100e6 / (2 * num_pages * ps * kvh * d * 2)))
+
+
+def _paged_scaling(gen) -> dict:
+    """Graph times of the kernel and of the yardstick at B 4, KVH 4, G 8,
+    d 128, page 16 with every slot at 160 (the serve run's max_len), 1024
+    and 4096 (yi-6b's published context) live rows, beside the bound; and
+    first at one live row a slot (the fixed cost of a call)."""
+    b, kvh, g, d, ps = 4, 4, 8, 128, 16
+    rng = np.random.default_rng(2)
+    out = {}
+    # first the fixed cost: one live row a slot in a table of 160
+    for live, cap in ((1, 160), (160, 160), (1024, 1024), (4096, 4096)):
+        per_slot = cap // ps
+        n_sets = _sets_for(b * per_slot + 1, ps, kvh, d)
+        q, pools, table, q_pos = _paged_inputs(gen, rng, b, kvh, g, d, ps,
+                                               per_slot,
+                                               q_pos=[live - 1] * b,
+                                               n_sets=n_sets)
+        n_bytes, rows = _paged_bytes(q, table, q_pos, ps, d)
+        bd, _ = bound_ms(n_bytes, 4 * rows * kvh * g * d, BF16_FLOPS)
+        t_k, t_s = _paged_graph(q, pools, table, q_pos, d ** -0.5)
+        plan = fa.paged_plan(cap, b, kvh, g, _sms())
+        out[f"live={live}"] = {"graph_ms": t_k, "library_graph_ms": t_s,
+                               "bound_ms": bd, "pool_sets": n_sets,
+                               "splits": plan.n_split}
+        del q, pools
+    print("  paged scaling (B 4, KVH 4, G 8, d 128, page 16; every slot at "
+          "the live rows; graph ms kernel / sdpa over gathered pages / "
+          "bound): " + ", ".join(
+              f"{n} {r['graph_ms']:.4f} / {r['library_graph_ms']:.4f} / "
+              f"{r['bound_ms']:.5f}" for n, r in out.items()), flush=True)
+    return out
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def check_paged(gen) -> dict:
+    ptxas = _ptxas("paged_decode")
+    b, kvh, g, d, ps, per_slot = 4, 4, 8, 128, 16, 16
+    scale = 1.0 / math.sqrt(d)
+    rng = np.random.default_rng(0)
+    q, pools, table_t, qpos_t = _paged_inputs(gen, rng, b, kvh, g, d, ps,
+                                              per_slot)
+    kp, vp = pools[0]
     worst = 0.0
-    # the main path's shape under three options, then head_dim 256 and a
-    # group of 32 query heads (two 16-head chunks in one launch)
+    # the main path's shape under three options, then head_dim 256, a group
+    # of 32 query heads (two 16-head chunks in one launch), a long cache
+    # (4096 rows a slot) with q_pos on the first tile, mid-cache and on the
+    # table's last row under a window, and page size 4 (the reference
+    # serve_bench's)
     wide = {"d=256": (kvh, g, 256), "G=32": (1, 32, d)}
-    for name, (window, softcap) in [("", (0, 0.0)), ("", (48, 0.0)),
-                                    ("", (0, 30.0)), ("d=256", (0, 0.0)),
-                                    ("G=32", (0, 30.0))]:
+    cases = [("", (0, 0.0)), ("", (48, 0.0)), ("", (0, 30.0)),
+             ("d=256", (0, 0.0)), ("G=32", (0, 30.0)),
+             ("4096 rows", (0, 0.0)), ("4096 rows", (700, 0.0)),
+             ("page 4", (0, 0.0)), ("page 4", (50, 20.0))]
+    for name, (window, softcap) in cases:
         kw = dict(scale=scale, window=window, softcap=softcap)
-        qq, kpp, vpp = q, kp, vp
-        if name:
+        qq, kpp, vpp, tt, pp = q, kp, vp, table_t, qpos_t
+        if name in wide:
             kvh_, g_, d_ = wide[name]
-            kpp, vpp = (torch.randn((num_pages, ps, kvh_, d_), device=dev,
-                                    generator=gen).bfloat16()
+            kpp, vpp = (torch.randn((b * per_slot + 1, ps, kvh_, d_),
+                                    device=DEV, generator=gen).bfloat16()
                         for _ in range(2))
-            qq = torch.randn((b, kvh_, g_, d_), device=dev,
+            qq = torch.randn((b, kvh_, g_, d_), device=DEV,
                              generator=gen).bfloat16()
             kw["scale"] = d_ ** -0.5
-        o = fa.paged_decode_attention_cuda(qq, kpp, vpp, table_t, qpos_t,
-                                           **kw)
-        o_p = fa.paged_decode_attention_plain(qq, kpp, vpp, table_t, qpos_t,
-                                              **kw)
+        elif name == "4096 rows":
+            qq, ((kpp, vpp),), tt, pp = _paged_inputs(
+                gen, rng, b, kvh, g, d, ps, 256, q_pos=[3, 2000, 4095, 3333])
+        elif name == "page 4":
+            qq, ((kpp, vpp),), tt, pp = _paged_inputs(gen, rng, b, kvh, g, d,
+                                                      4, 40)
+        o = fa.paged_decode_attention_cuda(qq, kpp, vpp, tt, pp, **kw)
+        o_p = fa.paged_decode_attention_plain(qq, kpp, vpp, tt, pp, **kw)
         torch.cuda.synchronize()
         err = (o.float() - o_p.float()).abs().max().item()
+        plan = fa.paged_plan(tt.shape[1] * kpp.shape[1], *qq.shape[:3],
+                             _sms())
         print(f"  paged {name or 'main shape'} window={window} "
-              f"softcap={softcap}: max|err| {err:.3e} (atol {ATTN_ATOL})",
+              f"softcap={softcap} (q_pos {pp.tolist()}, capacity "
+              f"{tt.shape[1] * kpp.shape[1]}, {plan.n_split} splits of "
+              f"{plan.span}): max|err| {err:.3e} (atol {ATTN_ATOL})",
               flush=True)
         if not err <= ATTN_ATOL:
             raise AssertionError("paged decode disagrees with plain")
         worst = max(worst, err)
     kw = dict(scale=scale)
-    ms = cuda_ms(lambda: fa.paged_decode_attention_cuda(q, kp, vp, table_t,
-                                                        qpos_t, **kw))
+
+    def call():
+        return fa.paged_decode_attention_cuda(q, kp, vp, table_t, qpos_t,
+                                              **kw)
+
+    ms = cuda_ms(call)
     plain = cuda_ms(lambda: fa.paged_decode_attention_plain(
         q, kp, vp, table_t, qpos_t, **kw))
-    L = per_slot * ps
-    mask = (torch.arange(L, device=dev)[None, :]
-            <= qpos_t[:, None].long())[:, None, None, :]
-
-    def lib_fn():
-        kk = kp[table_t.long()].reshape(b, L, kvh, d).transpose(1, 2)
-        vv = vp[table_t.long()].reshape(b, L, kvh, d).transpose(1, 2)
-        qq = q.reshape(b, kvh * g, 1, d)
-        return _sdpa_gqa(qq, kk, vv, attn_mask=mask, scale=scale)
-
-    lib = cuda_ms(lib_fn)
-    rows = int((q_pos + 1).sum())
-    n_bytes = 2 * (rows * kvh * 2 * d + 2 * q.numel()) + 4 * table.size + 4 * b
-    flops = 2 * 2 * rows * kvh * g * d
-    bd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    lib = cuda_ms(_paged_sdpa(q, kp, vp, table_t, qpos_t, scale))
+    # host time per call: the wrapper and its parts
+    o = torch.empty((b, kvh, g, d), dtype=torch.bfloat16, device=DEV)
+    plan = fa.paged_plan(per_slot * ps, b, kvh, g, _sms())
+    fn = fa._fn("paged_decode", "paged_decode_attention", 6, 7, 2, 3)
+    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table_t.data_ptr(),
+            qpos_t.data_ptr(), o.data_ptr(), b, kvh, g, d, d, ps, per_slot,
+            scale, 0.0, 0, plan.n_split, plan.span,
+            torch.cuda.current_stream().cuda_stream)
+    host = {"paged_decode_attention_cuda": host_us(call),
+            "C launch alone": host_us(lambda: fn(*args)),
+            "paged_plan": host_us(lambda: fa.paged_plan(
+                per_slot * ps, b, kvh, g, _sms()))}
+    sets = _paged_inputs(gen, np.random.default_rng(0), b, kvh, g, d, ps,
+                         per_slot,
+                         n_sets=_sets_for(kp.shape[0], ps, kvh, d))[1]
+    g_ms, lib_g = _paged_graph(q, sets, table_t, qpos_t, scale)
+    del sets
+    n_bytes, rows = _paged_bytes(q, table_t, qpos_t, ps, d)
+    bd, by = bound_ms(n_bytes, 4 * rows * kvh * g * d, BF16_FLOPS)
     print(f"  paged timing (B={b}, KVH={kvh}, G={g}, d={d}, live rows "
-          f"{rows}): kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa over "
-          f"gathered pages {lib:.4f} ms, bound {bd:.5f} ms ({by})",
+          f"{rows}): kernel {ms:.4f} ms, graph {g_ms:.4f} ms, plain "
+          f"{plain:.4f} ms, sdpa over gathered pages {lib:.4f} ms, graph "
+          f"{lib_g:.4f} ms, bound {bd:.5f} ms ({by}); host time per call "
+          f"(us): " + ", ".join(f"{k_} {v:.2f}" for k_, v in host.items()),
           flush=True)
+    scaling = _paged_scaling(gen)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode.cu",
             "replaces": "src/repro/kernels/flash_attention.py:182",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "bound_ms": bd, "bound_by": by, "library_ms": lib,
+            "graph_ms": g_ms, "library_graph_ms": lib_g, "host_us": host,
+            "scaling_graph_ms": scaling, "ptxas": ptxas,
             "shapes": f"B={b} KVH={kvh} G={g} d={d} page_size={ps} "
                       f"{per_slot} pages/slot"}
 
@@ -665,6 +792,19 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
         worst = max(worst, _check_bwd(qs, ks, vs, dos, kw,
                                       f"(BH=16 group=4 S={s_} d={dq_} "
                                       f"dv={dv_})"))
+    # rows with no key in their window (q >= Sk + window - 1): lse -1e30,
+    # p = 1 on every key, as in the reference
+    for causal, sq_, sk_, window in ((False, 100, 40, 20), (True, 60, 40, 8)):
+        qs, dos = (torch.randn((16, sq_, d), device=dev, generator=gen)
+                   .bfloat16() for _ in range(2))
+        ks, vs = (torch.randn((4, sk_, d), device=dev, generator=gen)
+                  .bfloat16() for _ in range(2))
+        kw = dict(scale=scale, causal=causal, group=4, window=window,
+                  softcap=0.0)
+        worst = max(worst, _check_bwd(qs, ks, vs, dos, kw,
+                                      f"no key in window (BH=16 group=4 "
+                                      f"Sq={sq_} Sk={sk_} causal={causal} "
+                                      f"window={window})"))
     kw = dict(scale=scale, causal=True, group=group)
     o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
     dmat = (do.float() * o.float()).sum(-1)
@@ -760,7 +900,9 @@ def check_attention_f32(gen) -> dict:
             "fwd no key in window": (2, 2, 100, 40, 128, 128, False, 20,
                                      0.0),
             "bwd": (2, 4, 130, 130, 128, 128, True, 64, 20.0),
-            "bwd d=256": (2, 2, 70, 70, 256, 256, True, 0, 0.0)}.items():
+            "bwd d=256": (2, 2, 70, 70, 256, 256, True, 0, 0.0),
+            "bwd no key in window": (2, 2, 100, 40, 128, 128, False, 20,
+                                     0.0)}.items():
         q = torch.randn((bkv * group, s, d), device=dev, generator=gen)
         k = torch.randn((bkv, sk, d), device=dev, generator=gen)
         v = torch.randn((bkv, sk, dv), device=dev, generator=gen)
@@ -1216,8 +1358,13 @@ def phase_profile(engine, prompts, n_new=32) -> dict:
           f"{1 - busy / wall_us:.3f}", flush=True)
     for name, us in top:
         print(f"  {us / 1e3:9.2f} ms  {name[:90]}")
+    # the paged decode kernel, wherever it ranks
+    paged = {n: us / 1e3 for n, us in kernels.items() if "paged_decode" in n}
+    for name, t_ms in paged.items():
+        print(f"  paged decode {t_ms:9.2f} ms ({t_ms / (busy / 1e3):.2%} of "
+              f"device time)  {name[:70]}", flush=True)
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "top": [(n, us / 1e3) for n, us in top]}
+            "top": [(n, us / 1e3) for n, us in top], "paged": paged}
 
 
 def main() -> int:

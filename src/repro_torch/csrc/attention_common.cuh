@@ -1,28 +1,25 @@
-// The SIMT attention code: a key/value tile of 32 rows in shared memory,
-// the per-warp online-softmax update of one query row against it, and the
-// paged-decode kernel built from them.  Templated on the element type T:
-// paged_decode.cu instantiates bf16, attention_f32.cu f32 (its forward
-// kernel uses the same row update).  The head dim bound MAXD is a template
+// The f32 SIMT attention code: a key/value tile of 32 f32 rows in shared
+// memory, the per-warp online-softmax update of one query row against it,
+// and the paged-decode kernel built from them.  attention_f32.cu includes
+// it (its forward kernel uses the same row update); the bf16 routes run on
+// tensor cores (mma_common.cuh).  The head dim bound MAXD is a template
 // parameter; each kernel has two instances, 128 and 256, and its C entry
 // picks one by max(d, dv).
 //
 // Numerics follow the reference kernels in
-// src/repro/kernels/flash_attention.py: f32 scores (T inputs, f32
-// products), scale after the dot, optional tanh softcap, masked scores
-// set to the finite sentinel -1e30 (never -inf: when a row's first tiles
-// are fully masked, exp(-1e30 - -1e30) = 1 is accumulated and later wiped
-// by corr = exp(-1e30 - m) = 0; -inf would give NaN there), f32 running
-// max / denominator / accumulator, and p cast to T (v's dtype) before the
-// PV product while the denominator sums the f32 p.  In f32 no value is
-// rounded: only the order of the f32 sums differs from the reference.
+// src/repro/kernels/flash_attention.py on f32 inputs: f32 scores and
+// products, scale after the dot, optional tanh softcap, masked scores set
+// to the finite sentinel -1e30 (never -inf: when a row's first tiles are
+// fully masked, exp(-1e30 - -1e30) = 1 is accumulated and later wiped by
+// corr = exp(-1e30 - m) = 0; -inf would give NaN there), f32 running max /
+// denominator / accumulator, and p not rounded before PV (the reference's
+// p.astype(v.dtype) keeps it f32).  No value is rounded: only the order of
+// the f32 sums differs from the reference.
 
 #pragma once
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace attn {
 
@@ -30,48 +27,18 @@ constexpr float NEG_INF = -1e30f;
 constexpr int TILE = 32;          // keys per tile: one per lane
 
 // Per-instance sizes for head dims <= MAXD (checked by the wrapper).  The
-// query rows stay f32 in shared memory, except bf16 ones at 256, held in
-// bf16 (the products are the same).  The tiles live in dynamic shared
-// memory (smem_bytes): f32 rows of 256 need ~80 KB.
-template <int MAXD, typename T>
+// tiles live in dynamic shared memory (smem_bytes): rows of 256 need
+// ~80 KB.
+template <int MAXD>
 struct Dims {
   static constexpr int DPL = MAXD / 32;  // output dims per lane
   // padded row: an odd number of 32-bit words, so lane j reading row j
   // hits bank j (no conflict)
-  static constexpr int LDK = MAXD + (sizeof(T) == 2 ? 2 : 1);
-  using QT = typename std::conditional<(MAXD <= 128 || sizeof(T) == 4),
-                                       float, T>::type;
+  static constexpr int LDK = MAXD + 1;
   static constexpr int smem_bytes(int q_rows) {
-    return q_rows * MAXD * (int)sizeof(QT) + 2 * TILE * LDK * (int)sizeof(T);
+    return (q_rows * MAXD + 2 * TILE * LDK) * (int)sizeof(float);
   }
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-// Store a query element into a shared row of either type.
-__device__ __forceinline__ void put(float& dst, __nv_bfloat16 x) {
-  dst = __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float& dst, float x) { dst = x; }
-__device__ __forceinline__ void put(__nv_bfloat16& dst, __nv_bfloat16 x) {
-  dst = x;
-}
-
-// p as the PV product takes it: cast to the value dtype.
-__device__ __forceinline__ float cast_p(float p, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
-__device__ __forceinline__ float cast_p(float p, float) { return p; }
-
-// Elements 2i and 2i + 1 of a shared row, as f32.
-__device__ __forceinline__ float2 pair_at(const __nv_bfloat16* row, int i) {
-  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(row)[i]);
-}
-__device__ __forceinline__ float2 pair_at(const float* row, int i) {
-  return make_float2(row[2 * i], row[2 * i + 1]);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -86,14 +53,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Copy one d-wide row (d % 8 == 0, 16-byte aligned) into a padded shared
-// row (4-byte aligned), or zeros when src is null.  Called by all lanes of
-// a warp with lane-strided 16-byte chunks.
-template <typename T>
-__device__ __forceinline__ void load_row(T* dst, const T* src, int d,
+// Copy one d-wide f32 row (d % 8 == 0, 16-byte aligned) into a padded
+// shared row (4-byte aligned), or zeros when src is null.  Called by all
+// lanes of a warp with lane-strided 16-byte chunks.
+__device__ __forceinline__ void load_row(float* dst, const float* src, int d,
                                          int lane) {
-  constexpr int CH = 16 / sizeof(T);   // elements per 16-byte chunk
-  for (int c = lane * CH; c < d; c += 32 * CH) {
+  for (int c = lane * 4; c < d; c += 32 * 4) {
     uint4 v = make_uint4(0, 0, 0, 0);
     if (src != nullptr) v = *reinterpret_cast<const uint4*>(src + c);
     uint32_t* o = reinterpret_cast<uint32_t*>(dst + c);
@@ -117,17 +82,17 @@ __device__ __forceinline__ void row_init(RowState<DPL>& st) {
 // One query row (in shared memory, d wide) against the current tile: sK
 // and sV hold TILE rows of stride LDK.  `valid` says whether this lane's
 // key is unmasked for the row.
-template <int MAXD, typename T, typename QT>
+template <int MAXD>
 __device__ __forceinline__ void row_update(
-    RowState<Dims<MAXD, T>::DPL>& st, const QT* q, const T* sK, const T* sV,
-    int d, int dv, float scale, float softcap, bool valid, int lane) {
-  constexpr int DPL = Dims<MAXD, T>::DPL, LDK = Dims<MAXD, T>::LDK;
-  const T* krow = sK + lane * LDK;
+    RowState<Dims<MAXD>::DPL>& st, const float* q, const float* sK,
+    const float* sV, int d, int dv, float scale, float softcap, bool valid,
+    int lane) {
+  constexpr int DPL = Dims<MAXD>::DPL, LDK = Dims<MAXD>::LDK;
+  const float* krow = sK + lane * LDK;
   float s = 0.f;
   for (int i = 0; i < d / 2; ++i) {
-    const float2 kf = pair_at(krow, i);
-    s = fmaf(to_f32(q[2 * i]), kf.x, s);
-    s = fmaf(to_f32(q[2 * i + 1]), kf.y, s);
+    s = fmaf(q[2 * i], krow[2 * i], s);
+    s = fmaf(q[2 * i + 1], krow[2 * i + 1], s);
   }
   s *= scale;
   if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
@@ -137,25 +102,18 @@ __device__ __forceinline__ void row_update(
   const float p = expf(s - m_new);
   const float corr = expf(st.m - m_new);
   st.l = st.l * corr + warp_sum(p);
-  const float pb = cast_p(p, T());
 #pragma unroll
   for (int c = 0; c < DPL; ++c) st.acc[c] *= corr;
 #pragma unroll 4
   for (int j = 0; j < TILE; ++j) {
-    const float pj = __shfl_sync(0xffffffffu, pb, j);
+    const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int dim = lane + 32 * c;
-      if (dim < dv) st.acc[c] = fmaf(pj, to_f32(sV[j * LDK + dim]),
-                                     st.acc[c]);
+      if (dim < dv) st.acc[c] = fmaf(pj, sV[j * LDK + dim], st.acc[c]);
     }
   }
   st.m = m_new;
-}
-
-__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16_rn(x);
 }
 
 template <typename K>
@@ -165,62 +123,56 @@ int set_smem(K kernel, int bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Paged decode: one query per slot against shared K/V page pools, walking
-// the page table itself.
+// Paged decode on f32 q and pools: one query per slot against shared K/V
+// page pools, walking the page table itself.
 //
-// Replaces: src/repro/kernels/flash_attention.py:182,
+// Replaces, for f32 inputs: src/repro/kernels/flash_attention.py:182,
 // paged_decode_attention_pallas (body _paged_decode_kernel), where the TPU
 // scalar-prefetches the table into BlockSpec index maps; here each block
-// reads table[b, pos / page_size] itself.
+// reads table[b, pos / page_size] itself.  The bf16 route is
+// paged_decode.cu (split over the cache, tensor cores).
 //
 // Computes, for slot b and KV head h, the G grouped query heads' attention
 // over cache positions <= q_pos[b] (optional sliding window and tanh
-// softcap), online softmax in f32 with p cast to T for PV.  Rows past a
-// slot's live length resolve to the trash page and are masked.
-//
-// What bounds it on an H100: the KV bytes, (q_pos + 1) rows x KVH x
-// (d + dv) x 2 bytes per slot at 3.35 TB/s in bf16; the arithmetic is ~1
-// FLOP per byte.  Design response (first, simple version): one block per
-// (KV head, slot) so the G = 8 query heads of a group share every K/V row
-// loaded (the cache is read once, not G times); 32-row tiles gathered
-// through the table into shared memory; the walk stops at q_pos[b].  In
-// the reference kernel every later page is fully masked and contributes
-// exp(-1e30 - m) = 0 to l and acc, so skipping those pages leaves the
-// result unchanged.  Any group size: a third grid dimension walks chunks
-// of 16 query heads (one launch per call; a group above 16 reads its K/V
-// rows once per chunk).  Not yet done: splitting long caches over several
-// blocks (flash-decoding) to fill more than B x KVH SMs.
+// softcap), online softmax in f32.  Rows past a slot's live length resolve
+// to the trash page and are masked.  Design (simple; no model path feeds
+// f32 to the card): one block per (KV head, slot, chunk of 16 query heads)
+// so the heads of a group share every K/V row loaded; 32-row tiles
+// gathered through the table into shared memory; the walk stops at
+// q_pos[b].  In the reference kernel every later page is fully masked and
+// contributes exp(-1e30 - m) = 0 to l and acc, so skipping those pages
+// leaves the result unchanged.
 // ---------------------------------------------------------------------------
 
 constexpr int PAGED_WARPS = 4;
 constexpr int PAGED_RPW = 4;                      // query heads per warp
 constexpr int PAGED_GC = PAGED_WARPS * PAGED_RPW; // query heads per block
 
-template <int MAXD, typename T>
+template <int MAXD>
 __global__ void __launch_bounds__(PAGED_WARPS * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                    const T* __restrict__ vpool,
+paged_decode_kernel(const float* __restrict__ q,
+                    const float* __restrict__ kpool,
+                    const float* __restrict__ vpool,
                     const int* __restrict__ table,
-                    const int* __restrict__ q_pos, T* __restrict__ o,
+                    const int* __restrict__ q_pos, float* __restrict__ o,
                     int KVH, int G, int d, int dv, int page_size,
                     int max_pages, float scale, float softcap, int window) {
-  using Dm = Dims<MAXD, T>;
-  using QT = typename Dm::QT;
+  using Dm = Dims<MAXD>;
   constexpr int LDK = Dm::LDK, GC = PAGED_GC, RPW = PAGED_RPW;
   extern __shared__ __align__(16) unsigned char smem[];
-  QT* sQ = reinterpret_cast<QT*>(smem);                 // [GC][MAXD]
-  T* sK = reinterpret_cast<T*>(sQ + GC * MAXD);         // [TILE][LDK]
-  T* sV = sK + TILE * LDK;                              // [TILE][LDK]
+  float* sQ = reinterpret_cast<float*>(smem);   // [GC][MAXD]
+  float* sK = sQ + GC * MAXD;                   // [TILE][LDK]
+  float* sV = sK + TILE * LDK;                  // [TILE][LDK]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.x, b = blockIdx.y, g0 = blockIdx.z * GC;
   const int gn = min(GC, G - g0);   // query heads of this chunk
   const int qp = q_pos[b];
-  const T* qb = q + (((size_t)b * KVH + h) * G + g0) * d;
+  const float* qb = q + (((size_t)b * KVH + h) * G + g0) * d;
   const int* row = table + (size_t)b * max_pages;
 
   for (int i = tid; i < gn * d; i += PAGED_WARPS * 32)
-    put(sQ[(i / d) * MAXD + i % d], qb[i]);
+    sQ[(i / d) * MAXD + i % d] = qb[i];
 
   RowState<Dm::DPL> st[RPW];
 #pragma unroll
@@ -234,8 +186,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     __syncthreads();
     for (int r = warp; r < TILE; r += PAGED_WARPS) {
       const int pos = kt + r;
-      const T* ksrc = nullptr;
-      const T* vsrc = nullptr;
+      const float* ksrc = nullptr;
+      const float* vsrc = nullptr;
       if (pos < n_keys) {
         const size_t base =
             ((size_t)row[pos / page_size] * page_size + pos % page_size) *
@@ -254,8 +206,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       const int kpos = kt + lane;
       bool valid = kpos < n_keys;    // n_keys <= q_pos + 1: causal
       if (window > 0) valid = valid && (qp - kpos < window);
-      row_update<MAXD, T>(st[i], sQ + gq * MAXD, sK, sV, d, dv, scale,
-                          softcap, valid, lane);
+      row_update<MAXD>(st[i], sQ + gq * MAXD, sK, sV, d, dv, scale, softcap,
+                       valid, lane);
     }
   }
 
@@ -264,45 +216,45 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     const int gq = warp + PAGED_WARPS * i;
     if (gq >= gn) continue;
     const float l_safe = fmaxf(st[i].l, 1e-30f);
-    T* orow = o + (((size_t)b * KVH + h) * G + g0 + gq) * dv;
+    float* orow = o + (((size_t)b * KVH + h) * G + g0 + gq) * dv;
 #pragma unroll
     for (int c = 0; c < Dm::DPL; ++c) {
       const int dim = lane + 32 * c;
-      if (dim < dv) store(orow + dim, st[i].acc[c] / l_safe);
+      if (dim < dv) orow[dim] = st[i].acc[c] / l_safe;
     }
   }
 }
 
-template <int MAXD, typename T>
-int paged_launch(const void* q, const void* kpool, const void* vpool,
-                 const void* table, const void* q_pos, void* o, int B,
+template <int MAXD>
+int paged_launch(const float* q, const float* kpool, const float* vpool,
+                 const int* table, const int* q_pos, float* o, int B,
                  int KVH, int G, int d, int dv, int page_size, int max_pages,
                  float scale, float softcap, int window,
                  cudaStream_t stream) {
-  constexpr int smem = Dims<MAXD, T>::smem_bytes(PAGED_GC);
-  static const int attr = set_smem(paged_decode_kernel<MAXD, T>, smem);
+  constexpr int smem = Dims<MAXD>::smem_bytes(PAGED_GC);
+  static const int attr = set_smem(paged_decode_kernel<MAXD>, smem);
   if (attr != 0) return attr;
   dim3 grid(KVH, B, (G + PAGED_GC - 1) / PAGED_GC);
-  paged_decode_kernel<MAXD, T><<<grid, PAGED_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kpool),
-      static_cast<const T*>(vpool), static_cast<const int*>(table),
-      static_cast<const int*>(q_pos), static_cast<T*>(o), KVH, G, d, dv,
-      page_size, max_pages, scale, softcap, window);
+  paged_decode_kernel<MAXD><<<grid, PAGED_WARPS * 32, smem, stream>>>(
+      q, kpool, vpool, table, q_pos, o, KVH, G, d, dv, page_size, max_pages,
+      scale, softcap, window);
   return (int)cudaGetLastError();
 }
 
-// The C entry of either dtype: q (B, KVH, G, d); pools (P, page_size, KVH,
-// d / dv); table (B, max_pages) int32; q_pos (B,) int32; o (B, KVH, G, dv).
-// All contiguous; d, dv <= 256 and % 8 == 0 (checked in Python); any G.
-template <typename T>
-int paged_decode(const void* q, const void* kpool, const void* vpool,
-                 const void* table, const void* q_pos, void* o, int B,
-                 int KVH, int G, int d, int dv, int page_size, int max_pages,
-                 float scale, float softcap, int window, void* stream) {
-  auto fn = (d <= 128 && dv <= 128) ? paged_launch<128, T>
-                                    : paged_launch<256, T>;
-  return fn(q, kpool, vpool, table, q_pos, o, B, KVH, G, d, dv, page_size,
-            max_pages, scale, softcap, window,
+// q (B, KVH, G, d); pools (P, page_size, KVH, d / dv); table (B,
+// max_pages) int32; q_pos (B,) int32; o (B, KVH, G, dv); f32 but the
+// indices.  All contiguous; d, dv <= 256 and % 8 == 0 (checked in Python);
+// any G.
+inline int paged_decode(const void* q, const void* kpool, const void* vpool,
+                        const void* table, const void* q_pos, void* o, int B,
+                        int KVH, int G, int d, int dv, int page_size,
+                        int max_pages, float scale, float softcap,
+                        int window, void* stream) {
+  auto fn = (d <= 128 && dv <= 128) ? paged_launch<128> : paged_launch<256>;
+  return fn(static_cast<const float*>(q), static_cast<const float*>(kpool),
+            static_cast<const float*>(vpool), static_cast<const int*>(table),
+            static_cast<const int*>(q_pos), static_cast<float*>(o), B, KVH,
+            G, d, dv, page_size, max_pages, scale, softcap, window,
             static_cast<cudaStream_t>(stream));
 }
 

@@ -49,7 +49,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ lse, int Sq, int Sk, int d, int dv,
                      int group, float scale, float softcap, int causal,
                      int window) {
-  using Dm = attn::Dims<MAXD, float>;
+  using Dm = attn::Dims<MAXD>;
   constexpr int LDK = Dm::LDK;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);   // [BR][MAXD]
@@ -98,8 +98,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       bool valid = kpos < Sk;
       if (causal) valid = valid && kpos <= qpos;
       if (window > 0) valid = valid && (qpos - kpos < window);
-      attn::row_update<MAXD, float>(st[i], sQ + r * MAXD, sK, sV, d, dv,
-                                    scale, softcap, valid, lane);
+      attn::row_update<MAXD>(st[i], sQ + r * MAXD, sK, sV, d, dv, scale,
+                             softcap, valid, lane);
     }
   }
 
@@ -164,7 +164,7 @@ __device__ __forceinline__ void load_block(float* dst, const float* src,
 
 template <int MAXD>
 constexpr int bwd_smem() {
-  return (2 * BR * MAXD + 2 * TILE * attn::Dims<MAXD, float>::LDK +
+  return (2 * BR * MAXD + 2 * TILE * attn::Dims<MAXD>::LDK +
           2 * TILE) * 4;
 }
 
@@ -178,7 +178,7 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ dmat, float* __restrict__ dq,
                   int Sq, int Sk, int d, int dv, int group, float scale,
                   float softcap, int causal, int window) {
-  using Dm = attn::Dims<MAXD, float>;
+  using Dm = attn::Dims<MAXD>;
   constexpr int LDK = Dm::LDK, DPL = Dm::DPL;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);   // [BR][MAXD]
@@ -207,6 +207,9 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_last = min(q0 + BR, Sq) - 1;
   const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
   int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // a row with no key in its window has lse -1e30 and p = 1 on every key,
+  // as in the reference: its block walks every tile (kv_end is Sk then)
+  if (window > 0 && q_last >= Sk + window - 1) kv_begin = 0;
   kv_begin = (kv_begin / TILE) * TILE;
 
   for (int kt = kv_begin; kt < kv_end; kt += TILE) {
@@ -269,7 +272,7 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    float* __restrict__ dvo, int Sq, int Sk, int d, int dv,
                    int group, float scale, float softcap, int causal,
                    int window) {
-  using Dm = attn::Dims<MAXD, float>;
+  using Dm = attn::Dims<MAXD>;
   constexpr int LDK = Dm::LDK, DPL = Dm::DPL;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sKr = reinterpret_cast<float*>(smem);  // [BR][MAXD]
@@ -292,7 +295,11 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int k_last = min(k0 + BR, Sk) - 1;
   const int q_begin = causal ? (k0 / TILE) * TILE : 0;
-  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+  // rows q >= Sk + window - 1 see no key in their window and take p = 1
+  // on every key (the reference's lse -1e30): every key block walks them
+  const bool no_key_rows = window > 0 && Sq > Sk + window - 1;
+  const int q_end =
+      window > 0 && !no_key_rows ? min(Sq, k_last + window) : Sq;
 
   for (int g = 0; g < group; ++g) {
     const int bh = bkv * group + g;
@@ -363,7 +370,7 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
                float* lse, int BH, int Sq, int Sk, int d, int dv, int group,
                float scale, float softcap, int causal, int window,
                cudaStream_t stream) {
-  constexpr int smem = attn::Dims<MAXD, float>::smem_bytes(BR);
+  constexpr int smem = attn::Dims<MAXD>::smem_bytes(BR);
   static const int attr = attn::set_smem(flash_fwd_f32_kernel<MAXD>, smem);
   if (attr != 0) return attr;
   dim3 grid((Sq + BR - 1) / BR, BH);
@@ -430,9 +437,9 @@ extern "C" int paged_decode_attention_f32(const void* q, const void* kpool,
                                           int page_size, int max_pages,
                                           float scale, float softcap,
                                           int window, void* stream) {
-  return attn::paged_decode<float>(q, kpool, vpool, table, q_pos, o, B, KVH,
-                                   G, d, dv, page_size, max_pages, scale,
-                                   softcap, window, stream);
+  return attn::paged_decode(q, kpool, vpool, table, q_pos, o, B, KVH, G, d,
+                            dv, page_size, max_pages, scale, softcap,
+                            window, stream);
 }
 
 // q: (BH, Sq, d), k: (BH/group, Sk, d), v: (BH/group, Sk, dv),

@@ -97,12 +97,6 @@ struct Cfg {
       (2 * K_ROWS + 4 * QT) * LD * 2 + 4 * QT * 4;
 };
 
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -181,6 +175,10 @@ bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int q_last = min(q0 + ROWS, Sq) - 1;
   const int kv_end = causal ? min(Sk, q_last + 1) : Sk;
   int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // a row with no key in its window (q >= Sk + window - 1) has lse -1e30
+  // and p = 1 on every key, as in the reference: its block walks every
+  // tile (kv_end is Sk then; the tiles before the window are edge tiles)
+  if (window > 0 && q_last >= Sk + window - 1) kv_begin = 0;
   kv_begin = (kv_begin / KT) * KT;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + KT - 1) / KT
                                         : 0;
@@ -298,7 +296,11 @@ bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   const int k0 = blockIdx.y * ROWS;        // first key tile first
   const int k_last = min(k0 + ROWS, Sk) - 1;
   const int q_begin = causal ? (k0 / QT) * QT : 0;
-  const int q_end = window > 0 ? min(Sq, k_last + window) : Sq;
+  // rows q >= Sk + window - 1 see no key in their window and take p = 1
+  // on every key (the reference's lse -1e30): every key block walks them
+  const bool no_key_rows = window > 0 && Sq > Sk + window - 1;
+  const int q_end =
+      window > 0 && !no_key_rows ? min(Sq, k_last + window) : Sq;
   const int n_q = q_end > q_begin ? (q_end - q_begin + QT - 1) / QT : 0;
   const int n_iter = group * n_q;
 

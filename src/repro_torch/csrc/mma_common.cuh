@@ -1,7 +1,7 @@
 // Tile machinery of the tensor-core attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): cp.async copies into 16-byte-padded shared rows,
-// ldmatrix operand loads, mma.sync.m16n8k16 bf16 products with f32
-// accumulators, and the attention mask.
+// flash_attention_bwd.cu, paged_decode.cu): cp.async copies into
+// 16-byte-padded shared rows, ldmatrix operand loads, mma.sync.m16n8k16
+// bf16 products with f32 accumulators, and the attention mask.
 //
 // Layouts.  A tile of D-wide bf16 rows sits in shared memory with a row
 // stride of LD = D + 8 elements: the 16 extra bytes put the eight rows of
@@ -32,6 +32,13 @@ __device__ __forceinline__ void cp16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(pred ? 16 : 0));
+}
+
+// The same for 4 bytes (an f32 or an int32).
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_commit() {

@@ -6,10 +6,11 @@ Ports of ``repro.kernels.flash_attention.flash_attention_fwd_pallas``,
 Each entry point takes q, k, v (and do) all in bf16 or all in f32, as
 the reference does, and has a route per dtype:
 
-* bf16: the forward (``csrc/flash_attention.cu``) and the backward
-  (``csrc/flash_attention_bwd.cu``: a dq kernel and a dk/dv kernel) on
-  bf16 tensor cores (``mma.sync``), paged decode (``csrc/paged_decode.cu``)
-  on CUDA cores;
+* bf16: the forward (``csrc/flash_attention.cu``), the backward
+  (``csrc/flash_attention_bwd.cu``: a dq kernel and a dk/dv kernel) and
+  paged decode (``csrc/paged_decode.cu``: split over the cache by
+  :func:`paged_plan`, the splits summed in a thread-block cluster) on
+  bf16 tensor cores (``mma.sync``);
 * f32: SIMT kernels (``csrc/attention_f32.cu``) that compute the
   reference's f32 function: no rounding of p before PV or of ds before
   the dq / dk products.
@@ -21,10 +22,12 @@ The plain versions compute the same functions densely over all keys (no
 blocking), so kernel and plain agree to float rounding, not bit for bit.
 
 Head dims: the kernels take d, dv <= 256.  The wrappers zero-pad them (the
-tensor-core kernels to their instance's width ``bwd_width(d, dv)``, the
-SIMT ones to multiples of 8) and slice the outputs back; zero columns
-change neither ``q . k`` nor the log-sum-exp, and give zero output
-columns.  The reference pads to 128 instead, to the same effect.
+flash kernels to their instance's width ``bwd_width(d, dv)``, paged decode
+and the SIMT kernels to multiples of 8, which copies no pool at any config
+of the repo: paged decode zero-fills its instance's missing columns in its
+loads) and slice the outputs back; zero columns change neither ``q . k``
+nor the log-sum-exp, and give zero output columns.  The reference pads to
+128 instead, to the same effect.
 
 Dispatch is by device: plain version for CPU tensors, kernel for CUDA
 tensors (no fallback).
@@ -33,10 +36,13 @@ tensors (no fallback).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.lut_matmul import _cdiv, _sm_count
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_fwd_cuda", "paged_decode_attention",
@@ -45,7 +51,8 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd_cuda", "fwd_launches", "paged_launches",
            "bwd_dq_launches", "bwd_dkv_launches", "fwd_f32_launches",
            "paged_f32_launches", "bwd_f32_dq_launches",
-           "bwd_f32_dkv_launches", "bwd_width", "attn_dtype", "pad_heads"]
+           "bwd_f32_dkv_launches", "bwd_width", "attn_dtype", "pad_heads",
+           "paged_plan", "PagedPlan"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256          # the kernels' widest instance
@@ -350,12 +357,47 @@ def paged_decode_attention_plain(q, k_pool, v_pool, table, q_pos, *, scale,
     return o
 
 
+PAGED_TILE = 64           # cache positions per block tile (16 a warp)
+PAGED_HEADS = 16          # query heads per chunk: the MMA's 16 rows
+PAGED_BLOCKS_PER_SM = 2   # split until the grid holds about this many
+PAGED_MAX_SPLITS = 8      # the splits of one chunk form one block cluster
+
+
+class PagedPlan(NamedTuple):
+    n_split: int          # blocks per (slot, KV head, head chunk)
+    span: int             # cache positions per split, a multiple of 64
+    grid: tuple[int, int, int]   # (splits, B x KVH, head chunks)
+
+
+@functools.lru_cache(maxsize=256)
+def paged_plan(capacity: int, b: int, kvh: int, g: int,
+               sms: int = 132) -> PagedPlan:
+    """The bf16 paged kernel's launch for a table of ``capacity`` cache
+    positions a slot (max_pages x page_size), ``b`` slots, ``kvh`` KV heads
+    and ``g`` query heads per KV head on a card with ``sms`` SMs: host-known
+    shapes only, never q_pos, so planning reads nothing from the device.
+    The cache is split into whole ``PAGED_TILE`` tiles until the grid holds
+    about ``PAGED_BLOCKS_PER_SM * sms`` blocks, into at most
+    ``PAGED_MAX_SPLITS`` splits (one cluster per chunk): split s covers
+    positions ``[s * span, min(capacity, (s + 1) * span))``, and no split
+    is empty."""
+    chunks = _cdiv(g, PAGED_HEADS)
+    tiles = max(1, _cdiv(capacity, PAGED_TILE))
+    want = min(PAGED_MAX_SPLITS, tiles,
+               max(1, _cdiv(PAGED_BLOCKS_PER_SM * sms, b * kvh * chunks)))
+    span_tiles = _cdiv(tiles, want)
+    n_split = _cdiv(tiles, span_tiles)
+    return PagedPlan(n_split, span_tiles * PAGED_TILE,
+                     (n_split, b * kvh, chunks))
+
+
 def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, *, scale,
                                 window=0, softcap=0.0):
     """Launch paged decode (same contract as the plain version; head dims
-    <= 256, zero-padded to multiples of 8; any group size G, one launch):
-    ``csrc/paged_decode.cu`` for bf16, ``csrc/attention_f32.cu`` for
-    f32."""
+    <= 256, padded to multiples of 8; any group size G; one launch).
+    bf16: ``csrc/paged_decode.cu``, split over the cache as
+    :func:`paged_plan` says; q and the pools are read in place (16-byte
+    aligned, as every allocation is).  f32: ``csrc/attention_f32.cu``."""
     global paged_launches, paged_f32_launches
     dtype, (q, k_pool, v_pool) = _cuda_operands(q, k_pool, v_pool)
     b, kvh, g, d_in = q.shape
@@ -367,21 +409,29 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, table, q_pos, *, scale,
     table = table.to(device=q.device, dtype=torch.int32).contiguous()
     q_pos = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
     o = torch.empty((b, kvh, g, dv), dtype=q.dtype, device=q.device)
-    if b and kvh:
-        if dtype == torch.bfloat16:
-            fn = _fn("paged_decode", "paged_decode_attention", 6, 7, 2, 1)
-        else:
-            fn = _fn("attention_f32", "paged_decode_attention_f32", 6, 7, 2,
-                     1)
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 table.data_ptr(), q_pos.data_ptr(), o.data_ptr(), b, kvh, g,
-                 d, dv, ps, table.shape[1], float(scale), float(softcap),
-                 int(window), _stream(q))
-        _build.check(err, "paged_decode_attention")
-        if dtype == torch.bfloat16:
-            paged_launches += 1
-        else:
-            paged_f32_launches += 1
+    if not (b and kvh and g):
+        return o[..., :dv_in]
+    args = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            table.data_ptr(), q_pos.data_ptr(), o.data_ptr(), b, kvh, g, d,
+            dv, ps, table.shape[1], float(scale), float(softcap),
+            int(window)]
+    if dtype == torch.bfloat16:
+        if any(p % 16 for p in args[:3]):
+            raise ValueError("paged decode reads q and the pools in place "
+                             "by 16-byte copies: they must be 16-byte "
+                             "aligned")
+        if k_pool.shape[0] * ps * kvh >= 2 ** 31:
+            raise ValueError("paged decode indexes pool rows in 32 bits")
+        plan = paged_plan(table.shape[1] * ps, b, kvh, g,
+                          _sm_count(q.device.index))
+        fn = _fn("paged_decode", "paged_decode_attention", 6, 7, 2, 3)
+        _build.check(fn(*args, plan.n_split, plan.span, _stream(q)),
+                     "paged_decode_attention")
+        paged_launches += 1
+    else:
+        fn = _fn("attention_f32", "paged_decode_attention_f32", 6, 7, 2, 1)
+        _build.check(fn(*args, _stream(q)), "paged_decode_attention_f32")
+        paged_f32_launches += 1
     return o[..., :dv_in]
 
 

@@ -12,7 +12,9 @@ dims up to 256, any d, zero-padded) and any paged group size.
   test_torch_train.py (f32 1e-5; bf16 outputs atol 2e-2, bf16 gradients
   2e-2 relative norm).
 * Rows with no key in their window: the plain forward averages all
-  values with lse -1e30, as the reference kernel does.
+  values with lse -1e30, as the reference kernel does, and the plain
+  backward takes p = 1 on every key there, as the reference backward
+  does.
 * The dv product's split of p into bf16 hi + lo halves (the backward
   kernel's design) stays within 1e-4 relative norm of the f32 product.
 * ``bwd_width``: the backward's instance is the narrowest that holds d
@@ -203,6 +205,60 @@ def test_plain_forward_matches_reference_on_rows_with_no_key(causal, sq, sk,
     np.testing.assert_allclose(jo[:, no_key],
                                np.repeat(mean, 2, 0)[:, None].repeat(
                                    no_key.sum(), 1), atol=atol)
+
+
+@pytest.mark.parametrize("causal,sq,sk,window", [(False, 100, 40, 20),
+                                                  (True, 60, 40, 8)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_backward_matches_reference_on_rows_with_no_key(causal, sq, sk,
+                                                              window, dtype):
+    """Rows with no key in their window (q >= Sk + window - 1) have lse
+    -1e30, so the reference backward (interpret-mode Pallas, blocks
+    dividing Sq and Sk) recomputes p = 1 on every key there, and those
+    rows add to dq, dk and dv.  The plain backward, which the CUDA kernels
+    are held to, gives the same gradients (f32 1e-5; bf16 2e-2 relative
+    norm, as the gradients above)."""
+    from repro.kernels.flash_attention import (flash_attention_bwd_pallas,
+                                               flash_attention_fwd_pallas)
+    r = _rng(sq + window + 1)
+    group = 2
+    q, do = (r.standard_normal((4, sq, 16)).astype(np.float32)
+             for _ in range(2))
+    k, v = (r.standard_normal((2, sk, 16)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(scale=0.25, causal=causal, window=window, softcap=0.0,
+              group=group)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    jo, jlse = flash_attention_fwd_pallas(jq, jk, jv, bq=20, bk=40,
+                                          interpret=True, **kw)
+    jdq, jdk_h, jdv_h = flash_attention_bwd_pallas(
+        jq, jk, jv, jo, jlse, jdo, bq=20, bk=40, interpret=True, **kw)
+    jdk = np.asarray(jdk_h).reshape(2, group, sk, 16).sum(1)
+    jdv = np.asarray(jdv_h).reshape(2, group, sk, 16).sum(1)
+    jdq = np.asarray(jdq)
+    no_key = np.arange(sq) >= sk + window - 1
+    assert no_key.any() and (np.asarray(jlse)[:, no_key] == -1e30).all()
+    # those rows carry gradient in the reference: the case is not vacuous
+    assert np.abs(jdq[:, no_key]).max() > 0.1
+    o32 = np.asarray(jo.astype(jnp.float32))
+    dmat = (np.asarray(jdo.astype(jnp.float32)) * o32).sum(-1)
+    got = fa.flash_attention_bwd_plain(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+        torch.from_numpy(np.array(jlse)),
+        torch.from_numpy(do).to(tdt), torch.from_numpy(dmat), **kw)
+    for name, g, ref in zip(("dq", "dk", "dv"), got, (jdq, jdk, jdv)):
+        g = g.numpy()
+        assert g.shape == ref.shape, name
+        if dtype == "f32":
+            np.testing.assert_allclose(g, ref, atol=F32_TOL, rtol=F32_TOL,
+                                       err_msg=name)
+        else:
+            assert _rel(g, ref) <= BF16_GRAD_RTOL, (name, _rel(g, ref))
+        if name == "dq":
+            assert _rel(g[:, no_key], ref[:, no_key]) <= (
+                F32_TOL if dtype == "f32" else BF16_GRAD_RTOL)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -214,13 +214,16 @@ def test_flash_refuses_mixed_dtypes(cuda):
         fa.flash_attention_fwd_cuda(q, k.bfloat16(), v, **kw)
 
 
-def _paged_inputs(seed, b=3, kvh=2, g=4, d=32, ps=4, per_slot=5):
+def _paged_inputs(seed, b=3, kvh=2, g=4, d=32, ps=4, per_slot=5,
+                  q_pos=None):
     r = np.random.default_rng(seed)
     num_pages = b * per_slot + 1
     kp = r.standard_normal((num_pages, ps, kvh, d)).astype(np.float32)
     vp = r.standard_normal((num_pages, ps, kvh, d)).astype(np.float32)
     q = r.standard_normal((b, kvh, g, d)).astype(np.float32)
-    q_pos = r.integers(0, per_slot * ps, b).astype(np.int32)
+    if q_pos is None:
+        q_pos = r.integers(0, per_slot * ps, b)
+    q_pos = np.asarray(q_pos, np.int32)
     perm = r.permutation(np.arange(1, num_pages)).reshape(b, per_slot)
     table = np.zeros((b, per_slot), np.int32)       # trash page past live
     for i in range(b):
@@ -230,18 +233,33 @@ def _paged_inputs(seed, b=3, kvh=2, g=4, d=32, ps=4, per_slot=5):
 
 
 # (kvh, G, d): today's shape; a group of 32 (two chunks of 16 query heads
-# in one launch), a ragged group of 20, head_dim 256, and d = 100 (padded)
+# in one launch), a ragged group of 20, head_dim 256, d = 100 (padded) and
+# d = 72 (no multiple of 16: the loads zero-fill the instance's columns)
 PAGED_SHAPES = [(2, 4, 32), (1, 32, 128), (2, 20, 64), (2, 8, 256),
-                (2, 4, 100)]
+                (2, 4, 100), (2, 4, 72)]
+# (page size, pages a slot, q_pos): 20 positions, one split (q_pos drawn);
+# 1024 positions in pages of 16 and 400 in pages of 4, many splits
+# (paged_plan), with q_pos in the first tile, on the table's last row and
+# mid-cache; 8192 one-row pages, whose splits span more table entries
+# than the kernel holds at once (it reloads them a window at a time)
+PAGED_CACHES = [(4, 5, None), (16, 64, [3, 1023, 517]),
+                (4, 100, [399, 2, 250]), (1, 8192, [8191, 5000, 700])]
 
 
+@pytest.mark.parametrize("cache", PAGED_CACHES)
 @pytest.mark.parametrize("shape", PAGED_SHAPES)
-@pytest.mark.parametrize("window,softcap", [(0, 0.0), (6, 0.0), (0, 15.0)])
-def test_paged_kernel_matches_plain(cuda, window, softcap, shape):
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (6, 0.0), (0, 15.0),
+                                            (150, 10.0)])
+def test_paged_kernel_matches_plain(cuda, window, softcap, shape, cache):
+    """The bf16 kernel against its plain version; a window of 150 crosses
+    the split boundaries of the long caches."""
     kvh, g, d = shape
+    ps, per_slot, q_pos = cache
     q, kp, vp, table, q_pos = (torch.from_numpy(a).to(cuda)
                                for a in _paged_inputs(window, kvh=kvh, g=g,
-                                                      d=d))
+                                                      d=d, ps=ps,
+                                                      per_slot=per_slot,
+                                                      q_pos=q_pos))
     q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
     kw = dict(scale=0.25, window=window, softcap=softcap)
     before = fa.paged_launches
@@ -249,6 +267,35 @@ def test_paged_kernel_matches_plain(cuda, window, softcap, shape):
     assert fa.paged_launches == before + 1
     o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
     assert o.shape == o_p.shape
+    torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
+                               rtol=0)
+
+
+def test_paged_kernel_reads_the_pools_in_place(cuda):
+    """One call allocates its output and nothing near the pools' size: the
+    pools are not padded or copied (d = 72 is no MMA width, the kernel
+    zero-fills the missing columns itself)."""
+    b, kvh, g, d, ps, per_slot = 4, 8, 4, 72, 16, 256
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    kp, vp = (torch.randn((b * per_slot + 1, ps, kvh, d), device=cuda,
+                          generator=gen).bfloat16() for _ in range(2))
+    q = torch.randn((b, kvh, g, d), device=cuda, generator=gen).bfloat16()
+    table = torch.arange(1, b * per_slot + 1, device=cuda,
+                         dtype=torch.int32).reshape(b, per_slot)
+    q_pos = torch.tensor([4095, 100, 2047, 0], device=cuda,
+                         dtype=torch.int32)
+    fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos, scale=0.1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = fa.paged_launches
+    o = fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos, scale=0.1)
+    torch.cuda.synchronize()
+    assert fa.paged_launches == before + 1
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown < kp.numel() * kp.element_size() // 100, grown
+    o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos,
+                                          scale=0.1)
     torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
                                rtol=0)
 
@@ -296,6 +343,11 @@ BWD_CASES = [
     dict(bkv=2, group=4, s=65, d=128, dv=128, window=0, softcap=0.0),
     dict(bkv=1, group=8, s=128, d=128, dv=128, window=0, softcap=0.0),
     dict(bkv=2, group=4, s=256, d=128, dv=128, window=64, softcap=30.0),
+    # rows with no key in their window (q >= Sk + window - 1): lse -1e30,
+    # so p = 1 on every key there, and those rows add to dq, dk and dv
+    dict(bkv=2, group=2, s=100, sk=40, causal=False, d=128, dv=128,
+         window=20, softcap=0.0),
+    dict(bkv=2, group=2, s=60, sk=40, d=64, dv=64, window=8, softcap=0.0),
 ]
 
 
@@ -326,7 +378,8 @@ def test_flash_bwd_kernel_matches_plain(cuda, case):
         assert _rel(a, b) <= BWD_RTOL, (name, _rel(a, b))
 
 
-F32_BWD_CASES = [BWD_CASES[i] for i in (0, 1, 2, 3, 4, 7, 8, 9, 10)]
+F32_BWD_CASES = [BWD_CASES[i]
+                 for i in (0, 1, 2, 3, 4, 7, 8, 9, 10, 13, 14)]
 
 
 @pytest.mark.parametrize("case", F32_BWD_CASES)

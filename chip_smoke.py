@@ -15,8 +15,8 @@ Phases (any failure exits non-zero and prints no result line):
    decode also at a group of 32), and time kernel, plain version and a
    PyTorch library yardstick with CUDA events (the nibble and LUT kernels,
    the flash forward at the prefill and training shapes, the flash
-   backward's two kernels together and apart, and paged decode, also in a
-   CUDA graph: device time without host gaps; the nibble and paged
+   backward's two kernels together and apart (SDPA's backward too), and
+   paged decode, also in a CUDA graph: device time without host gaps; the nibble and paged
    wrappers' host time per call too).  Paged decode is also checked at
    4096 rows a slot (many splits, a window across them) and at page size
    4, and times a scaling line (1, 160, 1024 and 4096 live rows a slot,
@@ -31,11 +31,24 @@ Phases (any failure exits non-zero and prints no result line):
    kernel of the path must have launched.  Then the first request's
    prefill runs through the plain path (``quant_backend="torch"``,
    ``attn_impl="chunked"``) and its logits are held to the kernel path's.
-4. LUT serve: the same weights with ``quant_mode="lut"`` (the LUT-selection
+4. Workload: the same weights through ``run_timed_workload`` (the
+   launcher's timed driver) over an overcommitted paged pool
+   (``alloc_mode="incremental"``, 1 trash + 18 allocatable pages of 16
+   rows against 4 slots x 12 worst-case pages): a bursty stream of 16
+   requests x 64 new tokens with a priority mix and aging.  Every stream
+   must be complete and in the vocabulary, with at least one preemption,
+   no leaked page, one signature per stage and the nibble, flash-forward
+   and paged kernels launched (counters zeroed just before, read just
+   after).  Prints TTFT and ITL percentiles beside the card's name and
+   power limit.  Then, in ``quant_mode="dense"`` at full width cut to 4
+   layers, the same uniform overcommitted workload through the
+   incremental pool and through an uncontended ``reserve`` pool must give
+   equal greedy streams, token for token, with preemptions in the first.
+5. LUT serve: the same weights with ``quant_mode="lut"`` (the LUT-selection
    kernel), 4 of the requests x 16 new tokens; the greedy streams must
    equal, token for token, what ``w8a8_nibble`` serves for the same
    requests (both compute the same int32 product and epilogue).
-5. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
+6. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
    (forward, remat recompute and the backward kernels), remat, batch 8 x
    seq 256, 4 AdamW steps through ``Trainer.run`` on ``SyntheticLM``
    data; losses must be finite and the flash forward, dq and dk/dv
@@ -80,7 +93,8 @@ from repro_torch.kernels import nibble_matmul as nm  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import model_init, prefill  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
-from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.serve import (Engine, ServeConfig,  # noqa: E402
+                                pages_needed, run_timed_workload)
 from repro_torch.train import TrainConfig  # noqa: E402
 from repro_torch.train.step import (accumulate_grads,  # noqa: E402
                                     make_loss_fn)
@@ -151,8 +165,14 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
 def graph_ms(fn, reps=20) -> float:
     """Device milliseconds of one ``fn`` call: ``reps`` calls captured in
     one CUDA graph and replayed, so no host time falls between them (the
-    median of 5 timed replays after one warm-up)."""
-    fn()
+    median of 5 timed replays after one warm-up).  The warm-up calls run
+    on a side stream, as PyTorch's capture of autograd's backward asks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -844,9 +864,14 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qq, kk, vv, is_causal=True, scale=scale)
 
-    t_fb = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qq, kk, vv), do4))
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qq, kk, vv), do4)
+
+    t_fb = cuda_ms(sdpa_fwd_bwd)
     t_f = cuda_ms(sdpa)
     lib = t_fb - t_f
+    g_fb, g_f = graph_ms(sdpa_fwd_bwd), graph_ms(sdpa)
+    lib_graph = g_fb - g_f
     n_bytes = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) \
         + 4 * (lse.numel() + dmat.numel()) \
         + 4 * (q.numel() + k.numel() + v.numel())
@@ -856,7 +881,8 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
     print(f"  flash bwd timing (BH={bh}, G={group}, S={s}, d={d}): kernels "
           f"{ms:.4f} ms in a loop, {g_ms:.4f} ms in a CUDA graph (dq "
           f"{dq_ms:.4f}, dk/dv {dkv_ms:.4f}), plain {plain:.4f} ms, sdpa "
-          f"fwd+bwd {t_fb:.4f} - fwd {t_f:.4f} = {lib:.4f} ms, bound "
+          f"fwd+bwd {t_fb:.4f} - fwd {t_f:.4f} = {lib:.4f} ms (in a CUDA "
+          f"graph {g_fb:.4f} - {g_f:.4f} = {lib_graph:.4f} ms), bound "
           f"{bd:.5f} ms ({by}, {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
           f"GFLOP)", flush=True)
     return {"name": "flash_attention_bwd", "route": "cuda",
@@ -864,7 +890,8 @@ def check_flash_bwd(gen, fwd_row: dict) -> dict:
             "replaces": "src/repro/kernels/flash_attention.py:321",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "bound_ms": bd, "bound_by": by, "library_ms": lib,
-            "graph_ms": g_ms, "dq_graph_ms": dq_ms, "dkv_graph_ms": dkv_ms,
+            "graph_ms": g_ms, "library_graph_ms": lib_graph,
+            "dq_graph_ms": dq_ms, "dkv_graph_ms": dkv_ms,
             "ptxas": ptxas,
             "shapes": f"BH={bh} group={group} Sq=Sk={s} d={d} causal "
                       f"(dq + dk/dv kernels)"}
@@ -1149,6 +1176,104 @@ def phase_serve() -> dict:
             "params": params}
 
 
+def _check_streams(streams: dict, n_new: int, vocab: int) -> None:
+    for n, toks in streams.items():
+        if len(toks) != n_new or not all(0 <= x < vocab for x in toks):
+            raise AssertionError(f"request {n}: bad stream {toks}")
+
+
+def phase_workload(params, smi: str) -> dict:
+    """The serve phase's weights through the launcher's timed driver over
+    an overcommitted incremental pool (bursty arrivals, priority mix,
+    aging), then a dense bit-match check of preemption at 4 layers."""
+    cfg = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    n_req, n_new, prefill_len, slots = 16, 64, 128, 4
+    worst = pages_needed(prefill_len + n_new - 1, cfg.page_size)
+    num_pages = 1 + worst * 3 // 2       # the trash page + 1.5 worst cases
+    scfg = ServeConfig(batch=slots, max_len=prefill_len + n_new,
+                       prefill_len=prefill_len, decode_chunk=8,
+                       priority_aging_s=1.0, alloc_mode="incremental",
+                       num_pages=num_pages)
+    print(f"workload: {cfg.name} full width, all {cfg.n_layers} layers, "
+          f"w8a8_nibble on the CUDA backend, flash attention; paged pool "
+          f"page {cfg.page_size}, {num_pages} pages (1 trash + "
+          f"{num_pages - 1}) against {slots} slots x {worst} worst-case "
+          f"pages, alloc_mode=incremental; bursty, {n_req} requests x "
+          f"{n_new} new tokens, stagger 0.05 s, priority mix 0.25, aging "
+          f"1.0 s", flush=True)
+    t_phase = time.perf_counter()
+    engine = Engine(cfg, params, scfg, device=DEV)
+    reset_counts()
+    r = run_timed_workload(engine, cfg.vocab_size, requests=n_req,
+                           prompt_budget=prefill_len, new_tokens=n_new,
+                           stagger_s=0.05, seed=0, priority_mix=0.25,
+                           arrival_mode="bursty", collect_streams=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    streams = r.pop("streams")
+    print(f"  result ({smi}): {json.dumps(r)}", flush=True)
+    print(f"  ttft p50 {r['ttft_p50_ms']} ms, p99 {r['ttft_p99_ms']} ms; "
+          f"itl p50 {r['itl_p50_ms']} ms, p99 {r['itl_p99_ms']} ms; "
+          f"{r['tok_per_s']} tok/s; occupancy {r['occupancy']}, "
+          f"concurrency {r['concurrency']}, preemptions "
+          f"{r['preemptions']} ({smi})", flush=True)
+    print(f"  launches in the workload run (warm-up included): {counts}",
+          flush=True)
+    _check_streams(streams, n_new, cfg.vocab_size)
+    if r["preemptions"] < 1:
+        raise AssertionError("the overcommitted pool preempted nobody")
+    if engine.leaked_pages():
+        raise AssertionError(f"{engine.leaked_pages()} pages leaked")
+    if r["compile_counts"] != {"prefill": 1, "decode_chunk": 1}:
+        raise AssertionError(f"stage signatures {r['compile_counts']}")
+    require_launched(counts, ("nibble_matmul", "flash_attention_fwd",
+                              "paged_decode_attention"))
+    require_no_f32(counts)
+    del engine
+
+    # preemption's bit-match, where rows do not depend on each other
+    n_layers = 4
+    dcfg = cfg.replace(quant_mode="dense", n_layers=n_layers)
+    dparams = {**params, "layers": params["layers"][:n_layers]}
+
+    def serve(alloc_mode, pages):
+        eng = Engine(dcfg, dparams, ServeConfig(
+            batch=slots, max_len=prefill_len + n_new,
+            prefill_len=prefill_len, decode_chunk=8, alloc_mode=alloc_mode,
+            num_pages=pages), device=DEV)
+        res = run_timed_workload(eng, cfg.vocab_size, requests=8,
+                                 prompt_budget=prefill_len,
+                                 new_tokens=n_new, seed=1,
+                                 collect_streams=True)
+        torch.cuda.synchronize()
+        _check_streams(res["streams"], n_new, cfg.vocab_size)
+        if eng.leaked_pages():
+            raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+        return res
+
+    inc = serve("incremental", num_pages)
+    ref = serve("reserve", None)
+    same = sum(inc["streams"][n] == ref["streams"][n] for n in ref["streams"])
+    print(f"  dense bit-match ({dcfg.name} full width cut to {n_layers} "
+          f"layers, uniform, 8 requests x {n_new}): incremental pool "
+          f"({num_pages} pages) {inc['preemptions']} preemptions, "
+          f"{inc['tok_per_s']} tok/s; reserve pool ({ref['pool_pages']} "
+          f"pages) {ref['preemptions']} preemptions; streams equal "
+          f"{same}/8 ({smi})", flush=True)
+    if inc["preemptions"] < 1:
+        raise AssertionError("the dense check preempted nobody")
+    if same != len(ref["streams"]):
+        raise AssertionError("a preempted dense stream differs from the "
+                             "uncontended one")
+    print(f"  workload phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"counts": counts, "result": r,
+            "bitmatch": {"preemptions": inc["preemptions"],
+                         "streams_equal": same}}
+
+
 def phase_lut_serve(params, prompts, n_req=4, n_new=16,
                     prefill_len=128) -> dict:
     """The serve phase's model and settings in ``quant_mode="lut"``: the
@@ -1392,6 +1517,9 @@ def main() -> int:
     if args.profile:
         serve["profile"] = phase_profile(engine, prompts)
     del engine
+    workload = phase_workload(params, smi)
+    for r in rows[:3]:
+        r["workload_launches"] = workload["counts"][r["name"]]
     lut = phase_lut_serve(params, prompts)
     rows[4]["launches"] = lut["counts"]["lut_matmul"]
     del params
@@ -1408,16 +1536,17 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "kernels": rows,
                        "attention_f32_errors": f32, "serve": serve,
-                       "lut_serve": lut, "train": train,
+                       "workload": workload, "lut_serve": lut, "train": train,
                        "train_grads": grads, "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # device times (CUDA graphs) and the forward's training shape, where a
-    # row has them
+    # device times (CUDA graphs), the forward's training shape and the
+    # workload phase's launches, where a row has them
     extra = ("graph_ms", "library_graph_ms", "train_ms", "train_graph_ms",
-             "library_train_ms", "library_train_graph_ms", "train_bound_ms")
+             "library_train_ms", "library_train_graph_ms", "train_bound_ms",
+             "workload_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

@@ -1,8 +1,14 @@
-"""Serving: the continuous-batching engine and its page bookkeeping."""
+"""Serving: the continuous-batching engine, its page bookkeeping and the
+timed workload driver."""
 
 from repro_torch.serve.engine import Engine, Request, ServeConfig  # noqa: F401
 from repro_torch.serve.paging import (  # noqa: F401
     PageAllocator,
     PageTable,
     pages_needed,
+)
+from repro_torch.serve.workload import (  # noqa: F401
+    WorkloadDraw,
+    draw_workload,
+    run_timed_workload,
 )

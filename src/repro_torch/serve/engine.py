@@ -1,4 +1,4 @@
-"""Slot-based continuous-batching serve engine (core slice of
+"""Slot-based continuous-batching serve engine (port of
 ``repro.serve.engine``).
 
 Each batch slot is an independent sequence sharing one model:
@@ -14,17 +14,26 @@ Each batch slot is an independent sequence sharing one model:
   on already-written rows, or paged, on the trash page) - the batch
   composition stays what the reference engine runs, which matters
   because the w8a8 activation scale is taken over the whole batch.
-* **Paged KV cache** with ``alloc_mode="reserve"``: admission books a
-  request's worst-case pages from a ``PageAllocator`` and defers
-  (backpressure) when the pool cannot cover them.
+* **Paged KV cache.**  ``alloc_mode="reserve"`` books a request's
+  worst-case pages at admission and defers (backpressure) when the pool
+  cannot cover them; ``alloc_mode="incremental"`` books the prompt pages
+  plus the first decode page and tops a slot up before any chunk whose
+  writes would cross its last page, so ``num_pages`` may sit below the
+  sum of worst cases (overcommit).
+* **Preemption.**  When a top-up finds the pool dry, or a strictly
+  stronger arrival (aging-adjusted priority) finds no slot or no pages,
+  the weakest runner is evicted: its pages go back to the pool, its table
+  row to the trash page, and the request re-enters the queue carrying its
+  tokens.  On re-admission the prompt is prefilled again and the stored
+  tokens are teacher-forced back through the decode chunk, so a greedy
+  stream resumes exactly as an uninterrupted one wherever rows do not
+  depend on each other (``quant_mode="dense"``).
 * **Priority queue** with optional aging, as in the reference.
 
 Not ported yet (the knobs raise ``NotImplementedError``): sampling with
 ``temperature > 0`` (the reference draws from threefry keys that no other
-framework reproduces), incremental allocation and preemption, prefix
-caching, speculative decoding, chunked / grouped prefill, the host swap
-tier and tensor parallelism.  The reference's compile counters have no
-counterpart: PyTorch runs eagerly.
+framework reproduces), prefix caching, speculative decoding, chunked /
+grouped prefill, the host swap tier and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -61,7 +70,16 @@ class ServeConfig:
     #   zero-padded to it); 0 = prefill at exact prompt length
     decode_chunk: int = 8             # greedy steps per decode chunk
     priority_aging_s: float = 0.0     # seconds per +1 effective priority
-    alloc_mode: str = "reserve"       # paged page accounting
+    #   (queued and running requests alike: it also gates preemption)
+    alloc_mode: str = "reserve"       # paged page accounting: "reserve"
+    #   (worst case at admission) or "incremental" (live pages, top-up
+    #   per chunk, evict-and-resume when the pool runs dry)
+    # serving-time overrides of the model config; None keeps its value
+    quant_mode: str | None = None
+    quant_backend: str | None = None
+    cache_mode: str | None = None
+    page_size: int | None = None
+    num_pages: int | None = None
     # reference knobs outside this slice: non-default values raise
     prefix_cache: bool = False
     spec_decode: bool = False
@@ -78,6 +96,14 @@ _UNPORTED = (("temperature", 0.0), ("prefix_cache", False),
              ("mesh_shape", None))
 
 
+def _apply_overrides(cfg: ModelConfig, scfg: ServeConfig) -> ModelConfig:
+    updates = {f: getattr(scfg, f) for f in ("quant_mode", "quant_backend",
+                                             "cache_mode", "page_size",
+                                             "num_pages")
+               if getattr(scfg, f) is not None}
+    return cfg.replace(**updates) if updates else cfg
+
+
 @dataclasses.dataclass
 class Request:
     """One generation request (host-side bookkeeping)."""
@@ -89,9 +115,11 @@ class Request:
     tokens: list = dataclasses.field(default_factory=list)
     t_first: float = -1.0             # time to first token (from run t0)
     t_done: float = -1.0
-    t_tokens: list = dataclasses.field(default_factory=list)
-    cache_rows: int = 0               # cache rows reserved for the request
+    t_tokens: list = dataclasses.field(default_factory=list)  # emission
+    #   times; replayed tokens keep their original stamps
+    cache_rows: int = 0               # peak cache rows held for the request
     truncated: bool = False           # max_new_tokens cut to fit max_len
+    preemptions: int = 0              # times evicted mid-stream and resumed
 
 
 class _PriorityQueue:
@@ -112,7 +140,8 @@ class _PriorityQueue:
         self._seq += 1
 
     def effective(self, req: Request, now: float) -> int:
-        """Aging-adjusted priority."""
+        """Aging-adjusted priority (the same measure ranks runners for
+        eviction, so equal-priority requests never evict each other)."""
         if self.aging_s <= 0:
             return req.priority
         return req.priority + int(max(0.0, now - req.arrival)
@@ -154,8 +183,31 @@ class _PriorityQueue:
         return req
 
 
+class _StageCounter:
+    """Distinct call signatures of one engine stage: the shape and dtype
+    of each tensor argument, the type name of any other.  Stands in for
+    the reference's ``_CountingJit``.  PyTorch compiles nothing here, but a
+    stage that keeps one signature is one a CUDA graph captured once can
+    replay, so the count pins the same contract: a warm engine reads
+    ``{"prefill": 1, "decode_chunk": 1}`` across request mixes, page
+    recyclings and preemptions (given a fixed ``prefill_len``)."""
+
+    def __init__(self):
+        self._keys: set = set()
+
+    def record(self, *args) -> None:
+        self._keys.add(tuple(
+            (tuple(a.shape), str(a.dtype)) if isinstance(a, torch.Tensor)
+            else (type(a).__name__,) for a in args))
+
+    @property
+    def count(self) -> int:
+        return len(self._keys)
+
+
 class Engine:
-    """Continuous-batching greedy engine over a dense or paged KV cache.
+    """Continuous-batching greedy engine over a dense or paged KV cache,
+    with incremental page allocation and evict-and-resume preemption.
     ``params`` come from ``model_init`` or ``load_jax_params`` on the
     same device; ``device`` defaults to CUDA and raises without a card."""
 
@@ -167,10 +219,7 @@ class Engine:
                 raise NotImplementedError(
                     f"ServeConfig.{field}={getattr(scfg, field)!r} is not "
                     f"ported yet (ROADMAP queue 1)")
-        if scfg.alloc_mode == "incremental":
-            raise NotImplementedError("alloc_mode='incremental' (and "
-                                      "preemption) is not ported yet")
-        if scfg.alloc_mode != "reserve":
+        if scfg.alloc_mode not in ("reserve", "incremental"):
             raise ValueError(f"alloc_mode must be 'reserve' or "
                              f"'incremental', got {scfg.alloc_mode!r}")
         if scfg.prefill_len > scfg.max_len:
@@ -179,10 +228,16 @@ class Engine:
         if scfg.decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got "
                              f"{scfg.decode_chunk}")
-        self.cfg, self.params, self.scfg = cfg, params, scfg
-        self._paged = cfg.cache_mode == "paged"
+        self.cfg = _apply_overrides(cfg, scfg)
+        self.params, self.scfg = params, scfg
+        self._paged = self.cfg.cache_mode == "paged"
+        self._incremental = scfg.alloc_mode == "incremental"
+        if self._incremental and not self._paged:
+            raise ValueError("alloc_mode='incremental' requires "
+                             "cache_mode='paged' (the dense slab has no "
+                             "pages to grow)")
         if self._paged:
-            ps = cfg.page_size
+            ps = self.cfg.page_size
             if ps < 1:
                 raise ValueError(f"page_size must be >= 1, got {ps}")
             if scfg.max_len % ps:
@@ -190,13 +245,16 @@ class Engine:
                                  f"multiple of page_size {ps}")
             self._page_size = ps
             self._max_pages = scfg.max_len // ps
-            self._num_pages = cfg.num_pages or scfg.batch * self._max_pages + 1
-            self.cfg = cfg.replace(num_pages=self._num_pages)
-        elif cfg.cache_mode != "dense":
+            self._num_pages = (self.cfg.num_pages
+                               or scfg.batch * self._max_pages + 1)
+            self.cfg = self.cfg.replace(num_pages=self._num_pages)
+        elif self.cfg.cache_mode != "dense":
             raise ValueError(f"cache_mode must be 'dense' or 'paged', got "
-                             f"{cfg.cache_mode!r}")
+                             f"{self.cfg.cache_mode!r}")
         self._caches = init_caches(self.cfg, scfg.batch, scfg.max_len,
                                    device=self.device)
+        self._stages = {"prefill": _StageCounter(),
+                        "decode_chunk": _StageCounter()}
         self._next_id = 0
         self.reset()
 
@@ -205,8 +263,9 @@ class Engine:
     # ------------------------------------------------------------------
 
     def reset(self) -> None:
-        """Clear queue and slots (cache buffers are kept: stale rows are
-        never attended before their next owner rewrites them)."""
+        """Clear queue, slots and counters (cache buffers and stage
+        counters are kept: stale rows are never attended before their
+        next owner rewrites them)."""
         b = self.scfg.batch
         self._queue = _PriorityQueue(self.scfg.priority_aging_s)
         self._slots: list[Request | None] = [None] * b
@@ -215,8 +274,15 @@ class Engine:
         self._active = np.zeros((b,), bool)
         self._remaining = np.zeros((b,), np.int32)
         self._finished: dict[int, Request] = {}
+        # teacher-forcing lanes: a resumed request's stored tokens, waiting
+        # to be replayed through the decode chunk
+        self._slot_forced: list[list[int]] = [[] for _ in range(b)]
         self.prefill_tokens = 0
         self.decode_chunks = 0
+        self.preemptions = 0
+        self._stat_samples = 0
+        self._stat_running = 0
+        self._stat_in_use = 0
         self._t0 = time.perf_counter()
         if self._paged:
             self.allocator = PageAllocator(self._num_pages, reserved=1)
@@ -225,11 +291,68 @@ class Engine:
                                         reserved=1)
             self._slot_pages: list[list[int] | None] = [None] * b
 
+    @property
+    def compile_counts(self) -> dict:
+        """Distinct call signatures per stage (see ``_StageCounter``); a
+        warm engine reads ``{"prefill": 1, "decode_chunk": 1}``."""
+        return {name: c.count for name, c in self._stages.items()}
+
+    @property
+    def stats(self) -> dict:
+        """Scheduling counters since the last ``reset``, under the
+        reference's keys: ``preemptions``, ``occupancy`` (mean fraction of
+        allocatable pool pages in use, sampled at each decode chunk; 0 in
+        dense mode), ``concurrency`` (mean admitted requests per chunk) and
+        ``pool_pages``.  Keys of mechanisms not ported yet (prefix cache,
+        speculative decoding, waves, host swap) read 0."""
+        n = max(1, self._stat_samples)
+        occ = (self._stat_in_use / (n * self.allocator.capacity)
+               if self._paged else 0.0)
+        out = {"preemptions": self.preemptions,
+               "occupancy": occ,
+               "concurrency": self._stat_running / n,
+               "pool_pages": self.allocator.num_pages if self._paged else 0,
+               "prefix_hits": 0,
+               "prefix_hit_rate": 0.0,
+               "prefill_tokens": self.prefill_tokens,
+               "cow_copies": 0,
+               "prefix_pages": 0,
+               "spec_rounds": 0,
+               "acceptance_rate": 0.0,
+               "tokens_per_step": 0.0,
+               "spec_rollback_pages": 0,
+               "prefill_waves": 0,
+               "decode_chunks": self.decode_chunks}
+        out.update(dict.fromkeys(
+            ("swap_out", "swap_in", "replay_steps_saved", "host_pages",
+             "prefix_cold_pages", "prefix_cold_hits", "prefix_demotions"),
+            0))
+        return out
+
+    @property
+    def cache_token_bytes(self) -> int:
+        """KV-cache bytes per cached token, summed over every layer's K
+        and V; times a request's ``cache_rows`` is its cache footprint."""
+        rows = (self._num_pages * self._page_size if self._paged
+                else self.scfg.batch * self.scfg.max_len)
+        total = sum(t.numel() * t.element_size()
+                    for layer in self._caches for t in layer.values())
+        return total // rows
+
     def _pages_for(self, req: Request) -> int:
         """Worst-case pages: prompt rows plus one row per decode step but
         the last (whose token is sampled, never written back)."""
         return pages_needed(len(req.prompt) + req.max_new_tokens - 1,
                             self._page_size)
+
+    def _alloc_pages_for(self, req: Request) -> int:
+        """Pages booked at admission: the worst case in reserve mode; the
+        prompt pages plus the first decode page in incremental mode (the
+        rest arrive by top-up, for resumed requests while they replay)."""
+        if not self._incremental:
+            return self._pages_for(req)
+        rows = len(req.prompt) + (1 if req.max_new_tokens > 1 else 0)
+        return pages_needed(rows, self._page_size)
 
     def validate(self, prompt, max_new_tokens: int):
         """Returns ``(prompt, clamped_new_tokens, truncated)`` or raises."""
@@ -258,7 +381,8 @@ class Engine:
     def submit(self, prompt, max_new_tokens: int, arrival: float = 0.0,
                priority: int = 0) -> int:
         """Queue one request; returns its id.  ``arrival`` is seconds from
-        ``run()`` start; ``priority`` orders admission (higher first)."""
+        ``run()`` start; ``priority`` orders admission and preemption
+        (higher first)."""
         prompt, clamped, truncated = self.validate(prompt, max_new_tokens)
         req = Request(id=self._next_id, prompt=prompt,
                       max_new_tokens=clamped, arrival=arrival,
@@ -273,42 +397,111 @@ class Engine:
 
     def _can_admit(self, req: Request) -> bool:
         return (not self._paged
-                or self.allocator.can_alloc(self._pages_for(req)))
+                or self.allocator.can_alloc(self._alloc_pages_for(req)))
+
+    def _pick_victim(self, now: float, below: int | None = None
+                     ) -> int | None:
+        """Slot of the weakest runner (lowest effective priority, then the
+        youngest); with ``below``, only runners strictly weaker."""
+        best, best_key = None, None
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            eff = self._queue.effective(req, now)
+            if below is not None and eff >= below:
+                continue
+            key = (eff, -req.arrival, -req.id)
+            if best_key is None or key < best_key:
+                best, best_key = slot, key
+        return best
+
+    def _evict(self, slot: int) -> None:
+        """Preempt a runner: its pages go back to the pool and its table
+        row to the trash page (before any new owner gets the pages, so
+        the slot's frozen decode writes cannot reach them), and the
+        request is requeued carrying every token generated so far."""
+        req = self._slots[slot]
+        if self._slot_forced[slot]:
+            # evicted mid-replay: splice the unreplayed tail back
+            req.tokens.extend(self._slot_forced[slot])
+            self._slot_forced[slot] = []
+        if self._paged and self._slot_pages[slot] is not None:
+            self.allocator.free(self._slot_pages[slot])
+            self._slot_pages[slot] = None
+            self.page_table.clear(slot)
+        self._slots[slot] = None
+        self._active[slot] = False
+        req.preemptions += 1
+        self.preemptions += 1
+        self._queue.push(req)
+
+    def _evictable_pages(self, now: float, cutoff: int) -> int:
+        """Pages the pool would hold after evicting every runner strictly
+        below ``cutoff``: the bound both preemption paths check first, so
+        no runner is evicted for an arrival that still would not fit.
+        (No page is shared yet: the prefix cache is not ported.)"""
+        return self.allocator.available + sum(
+            len(self._slot_pages[s] or ()) for s, r in enumerate(self._slots)
+            if r is not None and self._queue.effective(r, now) < cutoff)
 
     def _admit(self, now: float) -> None:
-        """Admit arrived requests into free slots, best priority first.
-        Where the reference would preempt a strictly weaker runner for a
-        blocked arrival, this slice raises: preemption is not ported."""
+        """Admit arrived requests into free slots, best effective priority
+        first; a strictly stronger arrival blocked on a slot or on pages
+        preempts the weakest runner(s)."""
         while True:
             free = next((s for s in range(self.scfg.batch)
                          if self._slots[s] is None), None)
             cand = self._queue.peek(now)
             if cand is None:
                 return
-            blocked = free is None or not self._can_admit(cand)
-            if blocked:
-                cutoff = self._queue.effective(cand, now)
-                if any(r is not None
-                       and self._queue.effective(r, now) < cutoff
-                       for r in self._slots):
-                    raise NotImplementedError(
-                        "a higher-priority arrival would preempt a running "
-                        "request; preemption is not ported yet")
-                return
+            cutoff = self._queue.effective(cand, now)
+            if free is None:
+                # evict for the slot only if the arrival's pages are
+                # coverable too
+                if self._paged and (self._evictable_pages(now, cutoff)
+                                    < self._alloc_pages_for(cand)):
+                    return
+                victim = self._pick_victim(now, below=cutoff)
+                if victim is None:
+                    return
+                self._evict(victim)
+                continue
             req = self._queue.pop(now, admit=self._can_admit)
+            if req is None:
+                # backpressured on pages: evict strictly weaker runners
+                # until the pool covers it, if it can
+                if (self._evictable_pages(now, cutoff)
+                        < self._alloc_pages_for(cand)):
+                    return
+                while not self._can_admit(cand):
+                    victim = self._pick_victim(now, below=cutoff)
+                    if victim is None:
+                        return
+                    self._evict(victim)
+                req = self._queue.pop(now, admit=self._can_admit)
+                if req is None:
+                    return
             self._place(free, req)
 
     def _place(self, slot: int, req: Request) -> None:
-        """Prefill a request alone into a free slot and commit its first
-        (greedy) token."""
+        """Prefill a request alone into a free slot.  A fresh request
+        commits its first (greedy) token; a resumed one keeps its stored
+        first token and queues the rest on the slot's forcing lane."""
         p_len = int(req.prompt.size)
+        resumed = bool(req.tokens)
         pad_len = self.scfg.prefill_len or p_len
+        row = None
         if self._paged:
-            pages = self.allocator.alloc(self._pages_for(req))
+            pages = self.allocator.alloc(self._alloc_pages_for(req))
+            if pages is None:         # _can_admit vouched for this
+                raise RuntimeError("page pool changed between admission "
+                                   "check and placement")
             self.page_table.assign(slot, pages)
             self._slot_pages[slot] = pages
-            req.cache_rows = len(pages) * self._page_size
+            req.cache_rows = max(req.cache_rows, len(pages) * self._page_size)
             grow_to = -(-pad_len // self._page_size) * self._page_size
+            row = torch.as_tensor(self.page_table.row(slot),
+                                  device=self.device)
         else:
             req.cache_rows = self.scfg.max_len
             grow_to = self.scfg.max_len
@@ -316,18 +509,23 @@ class Engine:
                              device=self.device)
         padded[0, :p_len] = torch.as_tensor(req.prompt, device=self.device)
         self.prefill_tokens += p_len
+        self._stages["prefill"].record(padded, row)
         logits, one = prefill(self.params, self.cfg, padded, max_len=grow_to,
                               logits_index=p_len - 1)
         if self._paged:
-            merge_slot_paged_caches(self._caches, one, slot,
-                                    torch.as_tensor(self.page_table.row(slot),
-                                                    device=self.device))
+            merge_slot_paged_caches(self._caches, one, slot, row)
         else:
             merge_slot_caches(self._caches, one, slot)
-        tok = int(torch.argmax(logits[0, -1]))
-        req.tokens.append(tok)
-        req.t_first = time.perf_counter() - self._t0
-        req.t_tokens.append(req.t_first)
+        if resumed:
+            tok = req.tokens[0]
+            self._slot_forced[slot] = req.tokens[1:]
+            req.tokens = [tok]
+        else:
+            self._slot_forced[slot] = []
+            tok = int(torch.argmax(logits[0, -1]))
+            req.tokens.append(tok)
+            req.t_first = time.perf_counter() - self._t0
+            req.t_tokens.append(req.t_first)
         if (req.max_new_tokens <= 1
                 or (self.scfg.eos_id >= 0 and tok == self.scfg.eos_id)):
             self._finish(req, slot)
@@ -341,6 +539,7 @@ class Engine:
     def _finish(self, req: Request, slot: int) -> None:
         req.t_done = time.perf_counter() - self._t0
         self._finished[req.id] = req
+        self._slot_forced[slot] = []
         if self._paged and self._slot_pages[slot] is not None:
             # the departing slot's row re-points at the trash page, so its
             # frozen decode writes cannot touch the pages' next owner
@@ -348,11 +547,42 @@ class Engine:
             self._slot_pages[slot] = None
             self.page_table.clear(slot)
 
+    def _top_up(self, now: float) -> None:
+        """Incremental mode: before a chunk, grow every active slot whose
+        writes would cross its last page; when the pool is dry, evict the
+        weakest runner (possibly the needy slot itself, which then resumes
+        once pages free up)."""
+        for slot in range(self.scfg.batch):
+            req = self._slots[slot]
+            if req is None or not self._active[slot]:
+                continue
+            steps = min(self.scfg.decode_chunk, int(self._remaining[slot]))
+            need = pages_needed(int(self._positions[slot]) + steps,
+                                self._page_size)
+            while need > self.page_table.live_len(slot):
+                got = self.allocator.alloc(
+                    need - self.page_table.live_len(slot))
+                if got is not None:
+                    self.page_table.extend(slot, got)
+                    self._slot_pages[slot].extend(got)
+                    req.cache_rows = max(
+                        req.cache_rows,
+                        len(self._slot_pages[slot]) * self._page_size)
+                    break
+                # never None: this slot is running, hence a candidate
+                victim = self._pick_victim(now)
+                self._evict(victim)
+                if victim == slot:
+                    break
+
     @torch.no_grad()
-    def _decode_chunk(self):
+    def _decode_chunk(self, forced: np.ndarray):
         """``decode_chunk`` greedy steps on the device; inactive slots are
-        frozen and emit -1.  Returns the host copies of the chunk state
-        and the (steps, B) emitted tokens and validity."""
+        frozen and emit -1.  ``forced`` (steps, B) holds replayed tokens
+        (-1 = none): where set, the stored token replaces the argmax, so a
+        resumed request rebuilds the KV of its uninterrupted run.  Returns
+        the host copies of the chunk state and the (steps, B) emitted
+        tokens and validity."""
         dev = self.device
         token = torch.as_tensor(self._token, device=dev).long()
         positions = torch.as_tensor(self._positions, device=dev).long()
@@ -360,13 +590,17 @@ class Engine:
         remaining = torch.as_tensor(self._remaining, device=dev)
         table = (torch.as_tensor(self.page_table.asarray(), device=dev)
                  if self._paged else None)
+        forced = torch.as_tensor(forced, device=dev).long()
+        self._stages["decode_chunk"].record(token, positions, active,
+                                            remaining, table, forced)
         max_pos = self.scfg.max_len - 1
         toks, valid = [], []
-        for _ in range(self.scfg.decode_chunk):
+        for t in range(self.scfg.decode_chunk):
             logits, _ = decode_step(self.params, self.cfg, token,
                                     self._caches, positions,
                                     page_table=table)
             nxt = torch.argmax(logits[:, -1], dim=-1)
+            nxt = torch.where(forced[t] >= 0, forced[t], nxt)
             toks.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
             valid.append(active)
             remaining = remaining - active.to(remaining.dtype)
@@ -383,10 +617,26 @@ class Engine:
                 torch.stack(toks).cpu().numpy(),
                 torch.stack(valid).cpu().numpy())
 
-    def _run_chunk(self) -> None:
+    def _run_chunk(self, now: float) -> None:
+        if self._incremental:
+            self._top_up(now)
+            if not self._active.any():
+                return                # top-up evicted the last runner
+        b, nsteps = self.scfg.batch, self.scfg.decode_chunk
+        forced = np.full((nsteps, b), -1, np.int32)
+        for slot in range(b):
+            buf = self._slot_forced[slot]
+            if buf and self._slots[slot] is not None:
+                n = min(nsteps, len(buf))
+                forced[:n, slot] = buf[:n]
+                del buf[:n]
+        self._stat_samples += 1
+        self._stat_running += sum(r is not None for r in self._slots)
+        if self._paged:
+            self._stat_in_use += self.allocator.in_use
         self.decode_chunks += 1
         (self._token, self._positions, self._active, self._remaining,
-         toks, valid) = self._decode_chunk()
+         toks, valid) = self._decode_chunk(forced)
         tnow = time.perf_counter() - self._t0
         for slot, req in enumerate(self._slots):
             if req is None:
@@ -396,7 +646,9 @@ class Engine:
                     break
                 tok = int(toks[t, slot])
                 req.tokens.append(tok)
-                req.t_tokens.append(tnow)
+                if len(req.t_tokens) < len(req.tokens):
+                    # replayed tokens keep their original stamps
+                    req.t_tokens.append(tnow)
                 if (len(req.tokens) >= req.max_new_tokens
                         or (self.scfg.eos_id >= 0
                             and tok == self.scfg.eos_id)):
@@ -427,6 +679,9 @@ class Engine:
                 return True
             if nxt > now:
                 return True           # arrived during this _admit window
+            # an arrived request went unadmitted with every slot idle: an
+            # idle engine holds no pages, so this is a leak or an
+            # unsatisfiable request, not backpressure
             detail = ""
             if self._paged:
                 detail = (f" ({self.allocator.in_use} pages still in use, "
@@ -436,7 +691,7 @@ class Engine:
                 f"serve scheduler stalled: {len(self._queue)} arrived "
                 f"request(s) cannot be admitted with all slots "
                 f"idle{detail}")
-        self._run_chunk()
+        self._run_chunk(time.perf_counter() - self._t0)
         return True
 
     def drain(self) -> dict[int, Request]:
@@ -455,3 +710,30 @@ class Engine:
     def leaked_pages(self) -> int:
         """Pages still held after a drained run (0 in dense mode)."""
         return self.allocator.in_use if self._paged else 0
+
+    def generate(self, prompts, n_new: int) -> torch.Tensor:
+        """prompts: (B, S) ints -> (B, S + n_new) int32 tokens on the
+        engine's device.  Lockstep wrapper over submit/run: B must equal
+        the slot count and every request decodes exactly ``n_new`` tokens
+        (build the engine with ``eos_id=-1``; an early EOS raises)."""
+        prompts = np.asarray(torch.as_tensor(prompts).cpu(), np.int32)
+        b, s = prompts.shape
+        if b != self.scfg.batch:
+            raise ValueError(f"prompts batch {b} != ServeConfig.batch "
+                             f"{self.scfg.batch}")
+        if s + n_new > self.scfg.max_len:
+            raise ValueError(f"prompt_len {s} + n_new {n_new} exceeds "
+                             f"max_len {self.scfg.max_len}")
+        self.reset()
+        ids = [self.submit(prompts[i], n_new) for i in range(b)]
+        done = self.run()
+        short = [i for i in ids if len(done[i].tokens) != n_new]
+        if short:
+            raise RuntimeError(
+                f"generate() needs rectangular output but request(s) "
+                f"{short} stopped at eos_id={self.scfg.eos_id} before "
+                f"emitting n_new={n_new} tokens; use submit()/run() for "
+                f"ragged workloads or build the engine with eos_id=-1")
+        gen = np.stack([np.asarray(done[i].tokens, np.int32) for i in ids])
+        return torch.as_tensor(np.concatenate([prompts, gen], axis=1),
+                               device=self.device)

@@ -71,7 +71,7 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize("field,value", [
     ("temperature", 0.7), ("prefix_cache", True), ("spec_decode", True),
     ("prefill_chunk", 4), ("admit_group", 2), ("swap_mode", "host"),
-    ("tp", 2), ("mesh_shape", (1, 2)), ("alloc_mode", "incremental")])
+    ("tp", 2), ("mesh_shape", (1, 2))])
 def test_unported_serve_knobs_raise(field, value):
     cfg = reduced(get_config("yi-6b")).replace(cache_mode="paged",
                                                page_size=4)

@@ -1,0 +1,92 @@
+"""The port's serving launcher on the CPU (reduced yi-6b, plain kernel
+versions): lockstep batch generation, the uniform and bursty timed
+workloads, an overcommitted incremental pool that must preempt, the
+``--verify`` re-run, and a ``NotImplementedError`` for every flag of a
+mechanism the port does not run yet."""
+
+import pytest
+import torch
+
+from repro_torch.launch import serve
+
+torch.set_num_threads(1)
+
+BASE = ["--device", "cpu", "--arch", "yi-6b", "--batch", "2",
+        "--prompt-len", "8", "--new-tokens", "6", "--requests", "5"]
+OVERCOMMIT = ["--cache-mode", "paged", "--page-size", "4",
+              "--alloc-mode", "incremental", "--num-pages", "6"]
+
+
+def _main(capsys, *extra):
+    assert serve.main(BASE + list(extra)) == 0
+    return capsys.readouterr().out
+
+
+def test_batch_workload(capsys):
+    out = _main(capsys, "--quant", "w8a8_nibble")
+    assert "workload=batch" in out
+    assert "{'prefill': 1, 'decode_chunk': 1}" in out
+    assert "sample token ids" in out
+
+
+@pytest.mark.parametrize("workload", ["uniform", "bursty"])
+def test_request_workloads(capsys, workload):
+    out = _main(capsys, "--workload", workload, "--stagger-ms", "2",
+                "--cache-mode", "paged", "--page-size", "4",
+                "--priority-mix", "0.4")
+    assert f"workload={workload}" in out
+    assert "ttft p50=" in out and "itl p50=" in out
+    assert "priority split" in out
+    assert "compilations: {'prefill': 1, 'decode_chunk': 1}" in out
+
+
+def _run_requests(monkeypatch, workload, *extra):
+    """``main``'s request path; returns the driver's result and engine."""
+    seen = {}
+    orig = serve.run_requests
+
+    def spy(args, cfg, engine):
+        seen["engine"] = engine
+        seen["r"] = orig(args, cfg, engine)
+        return seen["r"]
+
+    monkeypatch.setattr(serve, "run_requests", spy)
+    assert serve.main(BASE + ["--workload", workload] + list(extra)) == 0
+    return seen["r"], seen["engine"]
+
+
+@pytest.mark.parametrize("workload", ["uniform", "bursty"])
+def test_overcommitted_incremental_pool_preempts(monkeypatch, capsys,
+                                                 workload):
+    # 2 slots x 4 pages worst case against 5 allocatable; arrivals at 0
+    r, engine = _run_requests(monkeypatch, workload, "--stagger-ms", "0",
+                              "--new-tokens", "8", *OVERCOMMIT)
+    assert r["preemptions"] >= 1
+    assert r["pool_pages"] == 6
+    assert r["tokens"] == 5 * 8
+    assert engine.leaked_pages() == 0
+    out = capsys.readouterr().out
+    assert f"preemptions {r['preemptions']}" in out
+
+
+def test_verify_passes(capsys):
+    out = _main(capsys, "--workload", "uniform", "--verify", *OVERCOMMIT)
+    assert "verify: 5 streams bit-match" in out
+
+
+@pytest.mark.parametrize("flag", [
+    ["--prefix-cache"], ["--prefix-cache-pages", "4"], ["--spec-decode"],
+    ["--spec-k", "2"], ["--spec-quant", "w8a8_nibble"],
+    ["--prefill-chunk", "4"], ["--admit-group", "2"],
+    ["--swap-mode", "host"], ["--host-pages", "8"], ["--tp", "2"],
+    ["--dp", "2"], ["--mesh", "1x2"], ["--predict"],
+    ["--autotune", "max-tok-s"], ["--ttft-slo-ms", "100"],
+    ["--temperature", "0.7"]], ids=lambda f: f[0])
+def test_unported_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(BASE + ["--workload", "uniform"] + flag)
+
+
+def test_torch_backend_needs_the_cpu():
+    with pytest.raises(SystemExit, match="--device cpu"):
+        serve.main(["--device", "cuda", "--quant-backend", "torch"])

@@ -44,11 +44,27 @@ Phases (any failure exits non-zero and prints no result line):
    layers, the same uniform overcommitted workload through the
    incremental pool and through an uncontended ``reserve`` pool must give
    equal greedy streams, token for token, with preemptions in the first.
-5. LUT serve: the same weights with ``quant_mode="lut"`` (the LUT-selection
+5. Prefix cache and host swap: the same weights and the workload phase's
+   pool and traffic, with ``prefix_cache=True``, ``swap_mode="host"`` and
+   ``shared_prefix=0.75`` (a 64-token shared head, 4 pages).  Every
+   stream must be complete, with preemptions, swap-outs all swapped back
+   in, replayed steps saved, prefix hits, zero device and host leaks after
+   the index is released, one signature per stage, nibble and paged
+   launches and no flash-forward launch (the context prefill attends in
+   plain PyTorch, as the reference's does).  Printed beside the workload
+   phase's replay-only numbers.  Then, dense at full width cut to 4
+   layers: the workload phase's uniform check through the overcommitted
+   pool with the host swap must equal the reserve pool's streams 8/8 in
+   fewer decode chunks than the replay run; and 8 shared-prefix requests
+   plus one 128-token prompt submitted twice (copy-on-write) through one
+   prefix-cache engine must equal each request served alone through a
+   fresh one, with ``prefill_tokens`` equal to the prompt tokens minus
+   the rows ``hash_chunks`` says were cached.
+6. LUT serve: the same weights with ``quant_mode="lut"`` (the LUT-selection
    kernel), 4 of the requests x 16 new tokens; the greedy streams must
    equal, token for token, what ``w8a8_nibble`` serves for the same
    requests (both compute the same int32 product and epilogue).
-6. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
+7. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
    (forward, remat recompute and the backward kernels), remat, batch 8 x
    seq 256, 4 AdamW steps through ``Trainer.run`` on ``SyntheticLM``
    data; losses must be finite and the flash forward, dq and dk/dv
@@ -94,7 +110,8 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import model_init, prefill  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import (Engine, ServeConfig,  # noqa: E402
-                                pages_needed, run_timed_workload)
+                                draw_workload, hash_chunks, pages_needed,
+                                run_timed_workload)
 from repro_torch.train import TrainConfig  # noqa: E402
 from repro_torch.train.step import (accumulate_grads,  # noqa: E402
                                     make_loss_fn)
@@ -1255,6 +1272,8 @@ def phase_workload(params, smi: str) -> dict:
 
     inc = serve("incremental", num_pages)
     ref = serve("reserve", None)
+    dense_runs = {"ref_streams": ref["streams"],
+                  "replay_decode_chunks": inc["decode_chunks"]}
     same = sum(inc["streams"][n] == ref["streams"][n] for n in ref["streams"])
     print(f"  dense bit-match ({dcfg.name} full width cut to {n_layers} "
           f"layers, uniform, 8 requests x {n_new}): incremental pool "
@@ -1271,7 +1290,197 @@ def phase_workload(params, smi: str) -> dict:
           flush=True)
     return {"counts": counts, "result": r,
             "bitmatch": {"preemptions": inc["preemptions"],
-                         "streams_equal": same}}
+                         "streams_equal": same}, "dense_runs": dense_runs}
+
+
+def _cached_rows(prompts, page_size) -> list:
+    """Rows a prefix cache that never reclaims serves from cache, per
+    prompt in submission order: the longest run of already-indexed chunk
+    keys (``hash_chunks``), one row less where it covers the whole prompt
+    (its last token runs again, into a copy-on-write page)."""
+    seen, out = set(), []
+    for p in prompts:
+        keys = hash_chunks(p, page_size)
+        hits = next((j for j, k in enumerate(keys) if k not in seen),
+                    len(keys))
+        rows = hits * page_size
+        out.append(rows - 1 if rows == len(p) else rows)
+        seen.update(keys)
+    return out
+
+
+def phase_prefix_swap(params, smi: str, workload: dict) -> dict:
+    """The workload phase's pool and bursty traffic with the prefix cache
+    and the host swap on (75% of prompts share a 64-token head), then two
+    dense bit-match checks at 4 layers: swap-resume against the reserve
+    pool, and prefix hits and copy-on-write against solo misses."""
+    cfg = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    n_req, n_new, prefill_len, slots = 16, 64, 128, 4
+    num_pages = workload["result"]["pool_pages"]
+    scfg = ServeConfig(batch=slots, max_len=prefill_len + n_new,
+                       prefill_len=prefill_len, decode_chunk=8,
+                       priority_aging_s=1.0, alloc_mode="incremental",
+                       num_pages=num_pages, prefix_cache=True,
+                       swap_mode="host")
+    print(f"prefix+swap: {cfg.name} full width, all {cfg.n_layers} layers, "
+          f"w8a8_nibble on the CUDA backend; the workload phase's pool "
+          f"({num_pages} pages of {cfg.page_size}, incremental) with "
+          f"prefix_cache=True, swap_mode=host; bursty, {n_req} requests x "
+          f"{n_new} new tokens, shared_prefix 0.75 (a {prefill_len // 2}-"
+          f"token head), priority mix 0.25, aging 1.0 s", flush=True)
+    t_phase = time.perf_counter()
+    engine = Engine(cfg, params, scfg, device=DEV)
+    reset_counts()
+    r = run_timed_workload(engine, cfg.vocab_size, requests=n_req,
+                           prompt_budget=prefill_len, new_tokens=n_new,
+                           stagger_s=0.05, seed=0, priority_mix=0.25,
+                           shared_prefix=0.75, arrival_mode="bursty",
+                           collect_streams=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    streams = r.pop("streams")
+    st = engine.stats
+    prompt_tokens = r["workload_shape"]["prompt_tokens"]
+    base = workload["result"]
+    print(f"  result ({smi}): {json.dumps(r)}", flush=True)
+    print(f"  {r['tok_per_s']} tok/s (replay-only workload phase "
+          f"{base['tok_per_s']}); ttft p50 {r['ttft_p50_ms']} / p99 "
+          f"{r['ttft_p99_ms']} ms ({base['ttft_p50_ms']} / "
+          f"{base['ttft_p99_ms']}); itl p50 {r['itl_p50_ms']} / p99 "
+          f"{r['itl_p99_ms']} ms ({base['itl_p50_ms']} / "
+          f"{base['itl_p99_ms']}); {r['prefill_tokens']} tokens prefilled "
+          f"for {prompt_tokens} prompt tokens (replay-only "
+          f"{base['prefill_tokens']}); {r['decode_chunks']} decode chunks "
+          f"({base['decode_chunks']}); {r['preemptions']} preemptions "
+          f"({base['preemptions']}) ({smi})", flush=True)
+    print(f"  swap out {st['swap_out']}, in {st['swap_in']}, replay steps "
+          f"saved {st['replay_steps_saved']}, host pool {st['host_pages']} "
+          f"pages; prefix hits {st['prefix_hits']}, hit rate "
+          f"{st['prefix_hit_rate']:.3f}, cow {st['cow_copies']}, index "
+          f"{st['prefix_pages']} pages, demotions {st['prefix_demotions']}, "
+          f"cold hits {st['prefix_cold_hits']}", flush=True)
+    print(f"  launches in the run (warm-up included): {counts}", flush=True)
+    _check_streams(streams, n_new, cfg.vocab_size)
+    if r["preemptions"] < 1 or st["swap_out"] < 1:
+        raise AssertionError("the overcommitted pool swapped nobody out")
+    if st["swap_in"] != st["swap_out"] or st["replay_steps_saved"] < 1:
+        raise AssertionError(f"swap out {st['swap_out']}, in "
+                             f"{st['swap_in']}, saved "
+                             f"{st['replay_steps_saved']}")
+    if st["prefix_hits"] < 1 or not st["prefix_hit_rate"] > 0:
+        raise AssertionError("no prefix hit on shared heads")
+    engine.release_prefix_cache()
+    if engine.leaked_pages() or engine.host_pool.in_use:
+        raise AssertionError(f"{engine.leaked_pages()} pages leaked "
+                             f"({engine.host_pool.in_use} on the host)")
+    if r["compile_counts"] != {"prefill": 1, "decode_chunk": 1}:
+        raise AssertionError(f"stage signatures {r['compile_counts']}")
+    require_launched(counts, ("nibble_matmul", "paged_decode_attention"))
+    if counts["flash_attention_fwd"]:
+        raise AssertionError("the prefix engine launched the flash "
+                             "forward (its context prefill is plain)")
+    require_no_f32(counts)
+    del engine
+
+    n_layers = 4
+    dcfg = cfg.replace(quant_mode="dense", n_layers=n_layers)
+    dparams = {**params, "layers": params["layers"][:n_layers]}
+
+    def dense_engine(**kw):
+        return Engine(dcfg, dparams, ServeConfig(
+            batch=slots, max_len=prefill_len + n_new,
+            prefill_len=prefill_len, decode_chunk=8, **kw), device=DEV)
+
+    # swap-resume: the workload phase's dense check with the host swap
+    eng = dense_engine(alloc_mode="incremental", num_pages=num_pages,
+                       swap_mode="host")
+    sw = run_timed_workload(eng, cfg.vocab_size, requests=8,
+                            prompt_budget=prefill_len, new_tokens=n_new,
+                            seed=1, collect_streams=True)
+    torch.cuda.synchronize()
+    ref = workload["dense_runs"]
+    same_sw = sum(sw["streams"][n] == ref["ref_streams"][n]
+                  for n in ref["ref_streams"])
+    print(f"  dense swap bit-match ({n_layers} layers, uniform, 8 requests "
+          f"x {n_new}): {sw['preemptions']} preemptions, swap in "
+          f"{sw['swap_in']}, {sw['replay_steps_saved']} replay steps saved, "
+          f"{sw['decode_chunks']} decode chunks (replay run "
+          f"{ref['replay_decode_chunks']}), {sw['prefill_tokens']} tokens "
+          f"prefilled; streams equal to the reserve pool's {same_sw}/8 "
+          f"({smi})", flush=True)
+    eng.release_prefix_cache()
+    if eng.leaked_pages():
+        raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+    if same_sw != 8 or sw["swap_in"] < 1:
+        raise AssertionError("a swapped dense stream differs from the "
+                             "uncontended one, or nothing swapped in")
+    if not sw["decode_chunks"] < ref["replay_decode_chunks"]:
+        raise AssertionError("the swap saved no decode chunk")
+
+    # prefix hits and copy-on-write against solo misses (a pool large
+    # enough that the index never reclaims)
+    draw = draw_workload(cfg.vocab_size, requests=8,
+                         prompt_budget=prefill_len, new_tokens=n_new,
+                         seed=1, shared_prefix=0.75)
+    twice = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, prefill_len).astype(np.int32)
+    prompts = list(draw.prompts) + [twice, twice]
+    big = slots * pages_needed(prefill_len + n_new, cfg.page_size) \
+        + len(prompts) * prefill_len // cfg.page_size + 1
+    eng = dense_engine(prefix_cache=True, num_pages=big)
+
+    def serve_all(engine, batch):
+        ids = [engine.submit(p, n_new) for p in batch]
+        done = engine.run()
+        torch.cuda.synchronize()
+        return [done[i].tokens for i in ids]
+
+    got = serve_all(eng, prompts)
+    pst = eng.stats
+    cached = _cached_rows(prompts, cfg.page_size)
+    want_prefill = sum(len(p) for p in prompts) - sum(cached)
+    solo = []
+    for p in prompts:
+        eng.reset()                  # a fresh index: every request misses
+        solo += serve_all(eng, [p])
+    eng.release_prefix_cache()
+    if eng.leaked_pages():
+        raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+    plain = serve_all(dense_engine(), prompts)
+    same_pf = sum(a == b for a, b in zip(got, solo))
+    same_plain = sum(a == b for a, b in zip(got, plain))
+    print(f"  dense prefix bit-match ({n_layers} layers, {len(prompts)} "
+          f"requests, 8 with shared_prefix 0.75 seed 1 and one 128-token "
+          f"prompt twice): hits {pst['prefix_hits']}, cow "
+          f"{pst['cow_copies']}, prefill tokens {pst['prefill_tokens']} "
+          f"(hash_chunks says {want_prefill}: {sum(len(p) for p in prompts)}"
+          f" prompt tokens - {sum(cached)} cached rows); streams equal to "
+          f"solo misses {same_pf}/{len(prompts)}; equal to a prefix-off "
+          f"engine's (flash prefill, not required) {same_plain}/"
+          f"{len(prompts)} ({smi})", flush=True)
+    if same_pf != len(prompts) or pst["cow_copies"] < 1:
+        raise AssertionError("a prefix-hit stream differs from its solo "
+                             "miss, or no copy-on-write fired")
+    if pst["prefill_tokens"] != want_prefill:
+        raise AssertionError(f"prefilled {pst['prefill_tokens']} tokens, "
+                             f"expected {want_prefill}")
+    wall = time.perf_counter() - t_phase
+    print(f"  prefix+swap phase {wall:.1f} s", flush=True)
+    return {"counts": counts, "result": r, "stats": st,
+            "dense_swap": {k: sw[k] for k in (
+                "preemptions", "swap_out", "swap_in", "replay_steps_saved",
+                "decode_chunks", "prefill_tokens", "tok_per_s")}
+            | {"streams_equal": same_sw,
+               "replay_decode_chunks": ref["replay_decode_chunks"]},
+            "dense_prefix": {"prefix_hits": pst["prefix_hits"],
+                             "cow_copies": pst["cow_copies"],
+                             "prefill_tokens": pst["prefill_tokens"],
+                             "expected_prefill_tokens": want_prefill,
+                             "streams_equal": same_pf,
+                             "equal_to_prefix_off": same_plain},
+            "wall_s": wall}
 
 
 def phase_lut_serve(params, prompts, n_req=4, n_new=16,
@@ -1520,6 +1729,10 @@ def main() -> int:
     workload = phase_workload(params, smi)
     for r in rows[:3]:
         r["workload_launches"] = workload["counts"][r["name"]]
+    prefix_swap = phase_prefix_swap(params, smi, workload)
+    del workload["dense_runs"]
+    for r in rows[:3]:
+        r["prefix_swap_launches"] = prefix_swap["counts"][r["name"]]
     lut = phase_lut_serve(params, prompts)
     rows[4]["launches"] = lut["counts"]["lut_matmul"]
     del params
@@ -1536,17 +1749,18 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "kernels": rows,
                        "attention_f32_errors": f32, "serve": serve,
-                       "workload": workload, "lut_serve": lut, "train": train,
+                       "workload": workload, "prefix_swap": prefix_swap,
+                       "lut_serve": lut, "train": train,
                        "train_grads": grads, "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # device times (CUDA graphs), the forward's training shape and the
-    # workload phase's launches, where a row has them
+    # workload and prefix+swap phases' launches, where a row has them
     extra = ("graph_ms", "library_graph_ms", "train_ms", "train_graph_ms",
              "library_train_ms", "library_train_graph_ms", "train_bound_ms",
-             "workload_launches")
+             "workload_launches", "prefix_swap_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

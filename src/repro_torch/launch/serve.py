@@ -22,6 +22,15 @@ preemption; ``--num-pages`` may sit below the sum of worst cases):
         --prompt-len 128 --new-tokens 64 --requests 16 \\
         --quant w8a8_nibble
 
+Shared system prompts through the prefix cache, and host swap-resume on
+an overcommitted pool:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --workload bursty --cache-mode paged --page-size 16 \
+        --alloc-mode incremental --num-pages 19 --prompt-len 128 \
+        --new-tokens 64 --requests 16 --prefix-cache --shared-prefix 0.75 \
+        --swap-mode host
+
 ``--reduced`` (the default) runs the arch's smoke-scale variant, ``--full``
 its published widths and depth; weights are random, from seed 0.  It runs
 on the CUDA device, every projection through the CUDA kernels
@@ -47,15 +56,11 @@ from repro_torch.serve import Engine, ServeConfig, run_timed_workload
 # flag -> (default, where ROADMAP.md places the work that ports it)
 _UNPORTED_FLAGS = {
     "temperature": (0.0, "reference caveats, sampled streams"),
-    "prefix_cache": (False, "queue 1 item 3, the prefix cache"),
-    "prefix_cache_pages": (0, "queue 1 item 3, the prefix cache"),
     "spec_decode": (False, "queue 1 item 3, speculative decoding"),
     "spec_k": (4, "queue 1 item 3, speculative decoding"),
     "spec_quant": (None, "queue 1 item 3, speculative decoding"),
     "prefill_chunk": (0, "queue 1 item 3, chunked prefill"),
     "admit_group": (1, "queue 1 item 3, grouped admission"),
-    "swap_mode": ("off", "queue 1 item 3, the host swap"),
-    "host_pages": (0, "queue 1 item 3, the host swap"),
     "tp": (1, "queue 1 item 5, scale-out"),
     "dp": (1, "queue 1 item 5, scale-out"),
     "mesh": (None, "queue 1 item 5, scale-out"),
@@ -78,8 +83,9 @@ def _check_ported(args) -> None:
                          "through the CUDA kernels (use --device cpu)")
 
 
-def _build(args):
-    """Build the engine for ``args``."""
+def _build(args, reference=False):
+    """Build the engine for ``args``; ``reference=True`` builds the
+    replay-only baseline (``swap_mode="off"``) from the same flags."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -98,7 +104,11 @@ def _build(args):
                        quant_backend=args.quant_backend,
                        cache_mode=args.cache_mode,
                        page_size=args.page_size,
-                       num_pages=args.num_pages or None)
+                       num_pages=args.num_pages or None,
+                       prefix_cache=args.prefix_cache,
+                       prefix_cache_pages=args.prefix_cache_pages,
+                       swap_mode="off" if reference else args.swap_mode,
+                       host_pages=args.host_pages)
     return cfg, params, Engine(cfg, params, scfg, device=args.device)
 
 
@@ -141,21 +151,23 @@ def _run_workload(args, cfg, engine, collect_streams=False):
 
 
 def _check_leaks(args, engine):
-    """Every page must be back in the allocator after a drain."""
+    """Every page, device and host, must be back once the prefix index
+    lets go."""
     if args.cache_mode != "paged":
         return
+    engine.release_prefix_cache()
     leaked = engine.leaked_pages()
     if leaked:
         raise SystemExit(f"page leak: {leaked} page(s) still booked "
-                         f"after drain")
+                         f"after drain + prefix-cache release")
 
 
 def _verify(args, cfg, r):
     """Re-run the identical workload on a reference build and demand
     token-for-token equality (greedy streams).  The reference's baseline
-    is single-device with every tail-latency mechanism off; none of those
-    is ported, so the baseline is a second build from the same flags."""
-    cfg_ref, _, ref = _build(args)
+    is single-device with every tail-latency mechanism off: here the host
+    swap (the prefix cache stays, as in the reference)."""
+    cfg_ref, _, ref = _build(args, reference=True)
     ref_r = _run_workload(args, cfg_ref, ref, collect_streams=True)
     _check_leaks(args, ref)
     if r["streams"] != ref_r["streams"]:
@@ -195,6 +207,13 @@ def run_requests(args, cfg, engine):
         print(f"  pool: {r['pool_pages']} pages, mean occupancy "
               f"{r['occupancy']:.0%}, mean concurrency "
               f"{r['concurrency']:.2f}, preemptions {r['preemptions']}")
+    if args.prefix_cache:
+        print(f"  prefix cache: hit rate {r['prefix_hit_rate']:.0%} of "
+              f"prompt tokens, {r['prefill_tokens']} tokens prefilled")
+    if args.swap_mode == "host":
+        print(f"  host swap: {r['swap_out']} out / {r['swap_in']} in, "
+              f"{r['replay_steps_saved']} replay steps saved, "
+              f"{r['prefix_cold_hits']} cold prefix pages promoted")
     if r["truncated"]:
         print(f"  WARNING: {r['truncated']} request(s) truncated at the "
               f"max_len budget")
@@ -274,17 +293,28 @@ def main(argv=None):
     ap.add_argument("--verify", action="store_true",
                     help="re-run the workload on the reference build and "
                          "require token-for-token stream equality")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share read-only prompt-prefix pages across "
+                         "requests (paged cache; COW on a fully covered "
+                         "prompt)")
+    ap.add_argument("--prefix-cache-pages", type=int, default=0,
+                    help="cap on pages the prefix index may pin (LRU "
+                         "reclaim; demotes to the host tier with "
+                         "--swap-mode host); 0 = uncapped")
+    ap.add_argument("--swap-mode", default="off", choices=["off", "host"],
+                    help="host = evicted requests' KV pages go to a host "
+                         "pool and come back by copy (resume without "
+                         "replay); also the prefix cache's cold tier")
+    ap.add_argument("--host-pages", type=int, default=0,
+                    help="host pool pages for --swap-mode host (0 = twice "
+                         "the device pool)")
     # the reference's flags for mechanisms not ported yet: kept so that a
     # command line written for the reference fails loudly, not silently
-    ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--prefix-cache-pages", type=int, default=0)
     ap.add_argument("--spec-decode", action="store_true")
     ap.add_argument("--spec-k", type=int, default=4)
     ap.add_argument("--spec-quant", default=None)
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--admit-group", type=int, default=1)
-    ap.add_argument("--swap-mode", default="off")
-    ap.add_argument("--host-pages", type=int, default=0)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--mesh", default=None)

@@ -1,11 +1,13 @@
 """Grouped-query attention (port of the GQA path of
-``repro.models.attention``; MLA, cross-attention, prefix-cache splicing
-and the int8 KV cache wait for later slices).
+``repro.models.attention``; MLA, cross-attention and the int8 KV cache
+wait for later slices).
 
 One implementation serves the full-sequence forward, prefill (K/V handed
-back for the cache) and decode (queries against a dense per-slot slab or
-shared page pools addressed through a page table).  Queries are grouped
-as (KV-heads x group), so head ``h`` reads KV head ``h // G``.
+back for the cache), context prefill (a prompt suffix against cached
+prefix rows, for the prefix cache) and decode (queries against a dense
+per-slot slab or shared page pools addressed through a page table).
+Queries are grouped as (KV-heads x group), so head ``h`` reads KV head
+``h // G``.
 
 Cache writes are in place: the port updates the slab / pool tensors it is
 given (the reference returns new arrays; the values are the same) and
@@ -22,7 +24,7 @@ from repro_torch.models.layers import apply_rope, rms_norm, rms_norm_init, rope
 
 __all__ = ["attn_init", "attn_apply", "attention_core", "init_kv_cache",
            "init_paged_kv_cache", "scatter_cache_rows",
-           "scatter_paged_rows", "gather_pages"]
+           "scatter_paged_rows", "scatter_prefill_rows", "gather_pages"]
 
 _NEG_INF = -2.0 ** 30
 
@@ -73,6 +75,38 @@ def gather_pages(pool, table):
     b, mp = table.shape
     g = pool[table.long()]
     return g.reshape(b, mp * pool.shape[1], *pool.shape[2:])
+
+
+def scatter_prefill_rows(pool, new, row, start):
+    """Write a prefilled segment ``new`` (1, S, ...) for global positions
+    ``start + [0, S)`` through one slot's table ``row`` (max_pages,), in
+    place.  Row-granular, so a copy-on-write tail page keeps its cached
+    rows below ``start``.  Positions past the slot's budget clamp to the
+    last logical row (pad-token garbage, on the row's trailing entry).
+    ``start`` may be a 0-d tensor: it is data, never read on the host."""
+    ps = pool.shape[1]
+    s = new.shape[1]
+    pos = torch.clamp(torch.as_tensor(start, device=pool.device)
+                      + torch.arange(s, device=pool.device),
+                      0, row.shape[0] * ps - 1)
+    page = row.long()[pos // ps]
+    pool[page, pos % ps] = new[0].to(pool.dtype)
+    return pool
+
+
+def _splice_context(ctx, new, context_start):
+    """Fixed-length prefix splice: position ``j`` takes the cached row
+    ``ctx[:, j]`` below ``context_start`` and the fresh row ``new[:, j -
+    context_start]`` at or above it.  The buffer keeps ``new``'s length,
+    so the attention downstream has the shape of an uncached prefill; with
+    ``context_start == 0`` it returns ``new``'s values bit for bit.  The
+    shift is a gather by index, so ``context_start`` stays a tensor."""
+    s = new.shape[1]
+    j = torch.arange(s, device=new.device)
+    start = torch.as_tensor(context_start, device=new.device)
+    shifted = new[:, (j - start) % s]
+    is_ctx = (j < start).reshape((1, s) + (1,) * (new.ndim - 2))
+    return torch.where(is_ctx, ctx[:, :s].to(new.dtype), shifted)
 
 
 # ---------------------------------------------------------------------------
@@ -167,13 +201,23 @@ def init_paged_kv_cache(cfg, num_pages: int, page_size: int, device) -> dict:
 
 def attn_apply(params, cfg, x, *, positions, kind: str = "full",
                cache: dict | None = None, cache_index=None,
-               return_cache: bool = False, page_table=None):
+               return_cache: bool = False, page_table=None,
+               context_start=None):
     """Returns (out, new_cache).  ``cache=None``: K/V from ``x`` (forward
     / prefill; prefill hands the post-RoPE K/V back).  With ``cache``: the
     new rows are written at ``cache_index`` (scalar or (B,) per slot) and
     the queries attend the cache; with ``page_table`` the cache is shared
     page pools, and under ``attn_impl="flash"`` a one-token step runs the
-    paged-decode kernel, which walks the table itself."""
+    paged-decode kernel, which walks the table itself.
+
+    Context prefill (the prefix cache): ``cache`` + ``page_table`` +
+    ``context_start``.  ``x`` is a prompt suffix whose queries sit at
+    ``positions`` = ``context_start + [0, S)``; the cached rows are
+    gathered through the table and spliced below the fresh K/V at the
+    buffer length S (``_splice_context``), and the plain
+    ``attention_core`` attends them, as in the reference (the flash
+    kernel is not used here).  The pools are not written: the suffix K/V
+    come back as ``new_cache`` for the caller to scatter."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     mode, backend = cfg.quant_mode, cfg.quant_backend
@@ -199,7 +243,17 @@ def attn_apply(params, cfg, x, *, positions, kind: str = "full",
 
     new_cache = cache
     paged_kernel = False
-    if cache is not None and page_table is not None:
+    if cache is not None and context_start is not None:
+        _check_kv_dtype(cfg)
+        k_full = _splice_context(gather_pages(cache["k"], page_table), k,
+                                 context_start)
+        v_full = _splice_context(gather_pages(cache["v"], page_table), v,
+                                 context_start)
+        k_pos = torch.broadcast_to(torch.arange(s, device=x.device)[None, :],
+                                   (b, s))
+        if return_cache:
+            new_cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    elif cache is not None and page_table is not None:
         _check_kv_dtype(cfg)
         for key, val in (("k", k), ("v", v)):
             scatter_paged_rows(cache[key], val, page_table, cache_index)

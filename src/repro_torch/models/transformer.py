@@ -12,8 +12,12 @@ KVH, hd)``.
 Entry points: :func:`forward` (full-sequence training logits,
 differentiable; under ``cfg.remat`` each layer is recomputed in the
 backward pass), :func:`prefill` (logits at ``logits_index`` plus the
-caches, grown to ``max_len``) and :func:`decode_step` (tokens against the
-caches at per-slot positions).  Training mode never writes a cache.
+caches, grown to ``max_len``; with ``ctx_*`` a prompt suffix against
+cached prefix rows) and :func:`decode_step` (tokens against the caches at
+per-slot positions).  Training mode never writes a cache.  The page-pool
+helpers below serve the engine's prefix cache (row scatter, the
+copy-on-write page copy) and its host tier (page payloads to and from
+CPU tensors).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from repro_torch.models.attention import (
     attn_init,
     init_kv_cache,
     init_paged_kv_cache,
+    scatter_prefill_rows,
 )
 from repro_torch.models.layers import (
     embed_apply,
@@ -42,7 +47,9 @@ from repro_torch.models.layers import (
 
 __all__ = ["model_init", "load_jax_params", "prepare_params", "forward",
            "prefill", "decode_step", "init_caches", "init_paged_caches",
-           "merge_slot_caches", "merge_slot_paged_caches"]
+           "merge_slot_caches", "merge_slot_paged_caches",
+           "scatter_prefill_paged_caches", "copy_paged_cache_page",
+           "extract_cache_pages", "insert_cache_pages"]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -135,14 +142,15 @@ def _index_tree(node: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _layer_apply(p, cfg: ModelConfig, spec, x, *, positions, cache=None,
-                 cache_index=None, mode="train", page_table=None):
+                 cache_index=None, mode="train", page_table=None,
+                 context_start=None):
     """One pre-norm attention + MLP layer; returns (x, new_cache)."""
     h = rms_norm(p["mixer_norm"], x, cfg.norm_eps)
     out, c = attn_apply(p["attn"], cfg, h, positions=positions,
                         kind=spec.attn_kind, cache=cache,
                         cache_index=cache_index,
                         return_cache=(mode == "prefill"),
-                        page_table=page_table)
+                        page_table=page_table, context_start=context_start)
     x = x + out
     h = rms_norm(p["ffn_norm"], x, cfg.norm_eps)
     x = x + mlp_apply(p["mlp"], h, act=cfg.act, quant_mode=cfg.quant_mode,
@@ -151,7 +159,8 @@ def _layer_apply(p, cfg: ModelConfig, spec, x, *, positions, cache=None,
 
 
 def _stack_apply(params, cfg: ModelConfig, x, *, positions, caches=None,
-                 cache_index=None, mode="train", page_table=None):
+                 cache_index=None, mode="train", page_table=None,
+                 context_start=None):
     """Returns (x, new_caches); caches only for prefill / decode.  In
     training with ``cfg.remat`` every layer runs under a non-reentrant
     checkpoint: only its input is kept, the rest is recomputed in the
@@ -168,7 +177,8 @@ def _stack_apply(params, cfg: ModelConfig, x, *, positions, caches=None,
             x, c = _layer_apply(p, cfg, spec, x, positions=positions,
                                 cache=None if caches is None else caches[li],
                                 cache_index=cache_index, mode=mode,
-                                page_table=page_table)
+                                page_table=page_table,
+                                context_start=context_start)
         new_caches.append(c)
     return x, (new_caches if mode in ("prefill", "decode") else None)
 
@@ -203,17 +213,30 @@ def forward(params, cfg: ModelConfig, tokens):
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
-            logits_index=None):
+            logits_index=None, ctx_caches=None, ctx_table=None,
+            ctx_start=None):
     """Run the prompt; returns (logits (B, 1, V), caches).
     ``logits_index`` (scalar or (B,)) picks the position whose logits are
     returned (default: the last), so a prompt zero-padded to a fixed slot
     budget returns its real last token's logits.  With ``max_len`` the
-    caches are zero-grown to that length."""
+    caches are zero-grown to that length.
+
+    Context prefill: with ``ctx_caches`` (the page pools), ``ctx_table``
+    (the slot's (1, max_pages) table row) and ``ctx_start`` (an int or a
+    0-d tensor), ``tokens`` is the uncached suffix of a prompt whose first
+    ``ctx_start`` rows sit in the pools.  Queries run at ``ctx_start + [0,
+    S)`` against the cached rows spliced below the fresh ones; the
+    returned caches hold the suffix rows only.  ``ctx_start == 0`` gives
+    the plain prefill's values through ``attention_core``."""
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
-    pos = torch.broadcast_to(torch.arange(s, device=x.device)[None, :],
-                             (b, s))
-    x, caches = _stack_apply(params, cfg, x, positions=pos, mode="prefill")
+    pos = torch.arange(s, device=x.device)[None, :]
+    if ctx_start is not None:
+        pos = pos + torch.as_tensor(ctx_start, device=x.device)
+    pos = torch.broadcast_to(pos, (b, s))
+    x, caches = _stack_apply(params, cfg, x, positions=pos, mode="prefill",
+                             caches=ctx_caches, page_table=ctx_table,
+                             context_start=ctx_start)
     if logits_index is None:
         x_last = x[:, -1:]
     else:
@@ -302,3 +325,78 @@ def merge_slot_paged_caches(big: list, one: list, slot: int, pages) -> list:
             rows = s_c[key][0].reshape(n_p, ps, *s_c[key].shape[2:])
             b_c[key][pages[:n_p]] = rows.to(b_c[key].dtype)
     return big
+
+
+def scatter_prefill_paged_caches(big: list, one: list, slot: int, row,
+                                 start) -> list:
+    """Row-granular dual of :func:`merge_slot_paged_caches` for the prefix
+    cache: write a context-prefilled suffix cache (rows for positions
+    ``start + [0, S)``) through one slot's table ``row`` into the pools,
+    in place.  Shared prefix pages below ``start`` are never touched."""
+    del slot                      # pools are shared; the row routes the slot
+    row = torch.as_tensor(row, device=big[0]["k"].device)
+    for b_c, s_c in zip(big, one):
+        for key in b_c:
+            scatter_prefill_rows(b_c[key], s_c[key], row, start)
+    return big
+
+
+def copy_paged_cache_page(caches: list, src, dst) -> list:
+    """Copy pool page ``src`` onto ``dst`` in every pool, in place (the
+    copy-on-write primitive: a shared tail page is duplicated into the
+    slot's private page before its first write).  ``src`` and ``dst`` may
+    be 0-d tensors, so the copy is data, not shape; the no-COW default
+    ``0, 0`` rewrites the trash page with itself."""
+    dev = caches[0]["k"].device
+    src = torch.as_tensor(src, device=dev).reshape(1).long()
+    dst = torch.as_tensor(dst, device=dev).reshape(1).long()
+    for c in caches:
+        for pool in c.values():
+            pool.index_copy_(0, dst, pool.index_select(0, src))
+    return caches
+
+
+def _pad_pages(pages, pad_to):
+    """Page ids padded with the trash page (0) to ``pad_to`` entries, so
+    every host-tier copy has one shape."""
+    pages = list(pages)
+    return pages + [0] * max(0, (pad_to or 0) - len(pages))
+
+
+def extract_cache_pages(caches: list, pages, pad_to: int | None = None
+                        ) -> list:
+    """Copy pool pages ``pages`` of every layer's K and V to host memory
+    in one transfer: one payload per page, a CPU tensor ``(2 * n_layers,
+    page_size, KVH, hd)`` (layer-major, K then V).  With
+    :func:`insert_cache_pages` a page round-trips bit for bit (swap-out and
+    prefix demotion).  ``pad_to`` pads the gather with the trash page, so
+    every call has one shape; the padded rows are dropped."""
+    pages = list(pages)
+    dev = caches[0]["k"].device
+    idx = torch.as_tensor(_pad_pages(pages, pad_to), device=dev)
+    rows = torch.stack([pool[idx] for c in caches for pool in c.values()],
+                       dim=1).cpu()
+    return [rows[j].clone() for j in range(len(pages))]
+
+
+def insert_cache_pages(caches: list, pages, payloads, pad_to: int | None = None
+                       ) -> list:
+    """Write host payloads (from :func:`extract_cache_pages`) into pool
+    pages ``pages``, in place, in one transfer (swap-in and prefix
+    promotion).  ``pad_to`` pads with zero rows written onto the trash
+    page, which no query attends."""
+    pages = list(pages)
+    if len(pages) != len(payloads):
+        raise ValueError(f"{len(pages)} pages but {len(payloads)} payloads")
+    padded = _pad_pages(pages, pad_to)
+    dev = caches[0]["k"].device
+    rows = torch.stack(list(payloads))
+    if len(padded) > len(pages):
+        rows = torch.cat([rows, rows.new_zeros(
+            (len(padded) - len(pages),) + tuple(rows.shape[1:]))])
+    rows = rows.to(dev).transpose(0, 1)
+    idx = torch.as_tensor(padded, device=dev)
+    pools = [pool for c in caches for pool in c.values()]
+    for i, pool in enumerate(pools):
+        pool[idx] = rows[i].to(pool.dtype)
+    return caches

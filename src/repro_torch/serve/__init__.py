@@ -3,8 +3,11 @@ timed workload driver."""
 
 from repro_torch.serve.engine import Engine, Request, ServeConfig  # noqa: F401
 from repro_torch.serve.paging import (  # noqa: F401
+    HostPagePool,
     PageAllocator,
     PageTable,
+    PrefixCache,
+    hash_chunks,
     pages_needed,
 )
 from repro_torch.serve.workload import (  # noqa: F401

@@ -22,7 +22,10 @@ latency definitions are the reference's:
   same mean load and draws prompt lengths from a clipped Pareto tail;
 * scheduling counters come from ``engine.stats``: ``preemptions``,
   ``occupancy`` (mean fraction of pool pages in use per decode chunk) and
-  ``concurrency`` (mean admitted requests per chunk), plus ``truncated``.
+  ``concurrency`` (mean admitted requests per chunk), the prefix cache's
+  ``prefix_hit_rate`` and ``prefill_tokens``, the host swap's
+  ``swap_out``, ``swap_in``, ``replay_steps_saved`` and
+  ``prefix_cold_hits``, plus ``truncated``.
 
 ``draw_workload`` is the reference's numpy draw, copied, so a seed gives
 the same arrays in both packages.  ``device_count`` is 1 and
@@ -211,7 +214,8 @@ def run_timed_workload(engine, vocab_size: int, *, requests: int,
     t0 = time.perf_counter()
     engine.run()
     compile_s = time.perf_counter() - t0
-    engine.reset()
+    engine.reset()           # also empties the prefix index: the timed
+    #                          run starts from a cold cache
 
     ids = [engine.submit(prompts[i], new_tokens,
                          arrival=float(arrivals[i]),

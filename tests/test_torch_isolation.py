@@ -69,9 +69,8 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("temperature", 0.7), ("prefix_cache", True), ("spec_decode", True),
-    ("prefill_chunk", 4), ("admit_group", 2), ("swap_mode", "host"),
-    ("tp", 2), ("mesh_shape", (1, 2))])
+    ("temperature", 0.7), ("spec_decode", True), ("prefill_chunk", 4),
+    ("admit_group", 2), ("tp", 2), ("mesh_shape", (1, 2))])
 def test_unported_serve_knobs_raise(field, value):
     cfg = reduced(get_config("yi-6b")).replace(cache_mode="paged",
                                                page_size=4)
@@ -79,3 +78,22 @@ def test_unported_serve_knobs_raise(field, value):
     scfg = ServeConfig(batch=2, max_len=16, **{field: value})
     with pytest.raises(NotImplementedError):
         Engine(cfg, params, scfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("prefix_cache", True),
+                                         ("swap_mode", "host")])
+def test_ported_serve_knobs_build_and_serve(field, value):
+    """The knobs this package has ported build an engine that serves on
+    the CPU (an overcommitted pool, two prompts sharing a page)."""
+    cfg = reduced(get_config("yi-6b")).replace(cache_mode="paged",
+                                               page_size=4)
+    params = model_init(cfg, device="cpu")
+    engine = Engine(cfg, params, ServeConfig(
+        batch=2, max_len=16, prefill_len=8, alloc_mode="incremental",
+        num_pages=5, **{field: value}), device="cpu")
+    ids = [engine.submit([1, 2, 3, 4, 5, 6], 8) for _ in range(2)]
+    done = engine.run()
+    assert [len(done[i].tokens) for i in ids] == [8, 8]
+    assert done[ids[0]].tokens == done[ids[1]].tokens
+    engine.release_prefix_cache()
+    assert engine.leaked_pages() == 0

@@ -1,8 +1,9 @@
 """The port's serving launcher on the CPU (reduced yi-6b, plain kernel
 versions): lockstep batch generation, the uniform and bursty timed
 workloads, an overcommitted incremental pool that must preempt, the
-``--verify`` re-run, and a ``NotImplementedError`` for every flag of a
-mechanism the port does not run yet."""
+prefix cache and the host swap, the ``--verify`` re-run, and a
+``NotImplementedError`` for every flag of a mechanism the port does not
+run yet."""
 
 import pytest
 import torch
@@ -74,11 +75,40 @@ def test_verify_passes(capsys):
     assert "verify: 5 streams bit-match" in out
 
 
+PREFIX = ["--cache-mode", "paged", "--page-size", "4", "--shared-prefix",
+          "0.75", "--prefix-cache"]
+SWAP = OVERCOMMIT + ["--stagger-ms", "0", "--new-tokens", "8",
+                     "--swap-mode", "host"]
+
+
+@pytest.mark.parametrize("flags", [
+    PREFIX, PREFIX + ["--prefix-cache-pages", "4"], SWAP,
+    SWAP + ["--host-pages", "8"]],
+    ids=["prefix-cache", "prefix-cache-pages", "swap-mode", "host-pages"])
+def test_prefix_and_swap_flags_serve(monkeypatch, capsys, flags):
+    """The prefix cache serves shared heads from cache (hit rate > 0);
+    the host swap resumes evicted requests by page copy on the
+    overcommitted pool (swap_in >= 1); both drain with zero leaks."""
+    r, engine = _run_requests(monkeypatch, "uniform", *flags)
+    out = capsys.readouterr().out
+    if "--prefix-cache" in flags:
+        assert r["prefix_hit_rate"] > 0
+        assert "prefix cache: hit rate" in out
+        cap = int(flags[-1]) if "--prefix-cache-pages" in flags else 0
+        assert engine.scfg.prefix_cache_pages == cap
+    else:
+        assert r["swap_in"] >= 1 and r["swap_in"] == r["swap_out"]
+        assert f"host swap: {r['swap_out']} out" in out
+        assert r["tokens"] == 5 * 8
+        assert engine.stats["host_pages"] == (
+            8 if "--host-pages" in flags else 2 * 5)
+    assert r["compile_counts"] == {"prefill": 1, "decode_chunk": 1}
+    assert engine.leaked_pages() == 0
+
+
 @pytest.mark.parametrize("flag", [
-    ["--prefix-cache"], ["--prefix-cache-pages", "4"], ["--spec-decode"],
-    ["--spec-k", "2"], ["--spec-quant", "w8a8_nibble"],
-    ["--prefill-chunk", "4"], ["--admit-group", "2"],
-    ["--swap-mode", "host"], ["--host-pages", "8"], ["--tp", "2"],
+    ["--spec-decode"], ["--spec-k", "2"], ["--spec-quant", "w8a8_nibble"],
+    ["--prefill-chunk", "4"], ["--admit-group", "2"], ["--tp", "2"],
     ["--dp", "2"], ["--mesh", "1x2"], ["--predict"],
     ["--autotune", "max-tok-s"], ["--ttft-slo-ms", "100"],
     ["--temperature", "0.7"]], ids=lambda f: f[0])

@@ -59,12 +59,38 @@ Phases (any failure exits non-zero and prints no result line):
    plus one 128-token prompt submitted twice (copy-on-write) through one
    prefix-cache engine must equal each request served alone through a
    fresh one, with ``prefill_tokens`` equal to the prompt tokens minus
-   the rows ``hash_chunks`` says were cached.
-6. LUT serve: the same weights with ``quant_mode="lut"`` (the LUT-selection
+   the rows ``hash_chunks`` says were cached.  Each prefix-hit stream
+   that differs from a prefix-off engine's (flash prefill there,
+   ``attention_core`` here) is held to a near-tie, as in phase 6.
+6. Spec + wave: (a) the serve phase's weights and 8 requests x 32 new
+   tokens, 4 slots, paged (page 16, incremental), flash attention: a
+   dense ``decode_chunk=1`` baseline against ``spec_decode`` with a
+   ``w8a8_nibble`` draft on the CUDA backend (``spec_k`` 4, dense
+   verify).  Prints both tok/s, the acceptance rate, tokens per round,
+   rounds and rolled-back pages; the spec run must launch the nibble,
+   flash-forward and paged kernels (counters zeroed just before, read just
+   after), no f32 route, with the stage pins ``{"prefill": 1,
+   "decode_chunk": 0, "draft": 1, "verify": 1}`` and no leak.  (b) Each
+   spec stream that differs from the baseline's is held to a near-tie: a
+   dense full-width prefill over the prompt and the common prefix gives
+   the margin ``l(baseline token) - l(spec token)`` at the first
+   divergence, which must not exceed the serve phase's logit tolerance
+   (printed beside the measured kernel-vs-plain difference).  (c) The
+   tail run: the workload phase's pool and bursty traffic in
+   ``w8a8_nibble`` with ``prefill_chunk=32``, ``admit_group=4`` and
+   ``swap_mode="host"``; TTFT, ITL, tok/s, waves, preemptions and swaps
+   beside the workload phase's; pins ``{"prefill": 0, "decode_chunk": 1,
+   "prefill_chunk": 1}``, nibble and paged launches, no flash forward (a
+   wave attends in ``attention_core``), no leak on either pool.  (d)
+   Dense at full width cut to 4 layers, ``attn_impl="chunked"`` on both
+   sides: the wave engine (chunk 32, group 4) against the monolithic one,
+   and a spec engine (``w8a8_nibble`` draft) against the non-spec one;
+   equal-stream counts printed, every divergence held to the rule of (b).
+7. LUT serve: the same weights with ``quant_mode="lut"`` (the LUT-selection
    kernel), 4 of the requests x 16 new tokens; the greedy streams must
    equal, token for token, what ``w8a8_nibble`` serves for the same
    requests (both compute the same int32 product and epilogue).
-7. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
+8. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
    (forward, remat recompute and the backward kernels), remat, batch 8 x
    seq 256, 4 AdamW steps through ``Trainer.run`` on ``SyntheticLM``
    data; losses must be finite and the flash forward, dq and dk/dv
@@ -1115,6 +1141,34 @@ def require_no_f32(counts: dict) -> None:
                              f"main path: {used}")
 
 
+def _check_streams(streams: dict, n_new: int, vocab: int) -> None:
+    for n, toks in streams.items():
+        if len(toks) != n_new or not all(0 <= x < vocab for x in toks):
+            raise AssertionError(f"request {n}: bad stream {toks}")
+
+
+def _serve_timed(engine, prompts, n_new) -> tuple:
+    """A warm-up request (first-call allocations), then ``prompts``
+    through ``submit``/``run`` with the launch counters zeroed just before
+    and read just after; every stream complete, no page leaked.  Returns
+    ``(streams, wall seconds, counts)``."""
+    engine.submit(prompts[0], 2)
+    engine.run()
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    ids = [engine.submit(p, n_new) for p in prompts]
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    streams = [done[i].tokens for i in ids]
+    _check_streams(dict(enumerate(streams)), n_new, engine.cfg.vocab_size)
+    if engine.leaked_pages():
+        raise AssertionError(f"{engine.leaked_pages()} pages leaked")
+    return streams, wall, counts
+
+
 def phase_serve() -> dict:
     cfg = get_config("yi-6b").replace(
         quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
@@ -1137,33 +1191,14 @@ def phase_serve() -> dict:
     lens = rng.integers(32, prefill_len + 1, n_req)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in lens]
-    # warm-up request (first-call allocations), not counted
-    engine.submit(prompts[0], 2)
-    engine.run()
-    torch.cuda.synchronize()
-
-    reset_counts()
-    t = time.perf_counter()
-    ids = [engine.submit(p, n_new) for p in prompts]
-    done = engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    counts = read_counts()
-
-    for i in ids:
-        toks = done[i].tokens
-        if len(toks) != n_new or not all(0 <= x < cfg.vocab_size
-                                         for x in toks):
-            raise AssertionError(f"request {i}: bad stream {toks}")
-    if engine.leaked_pages():
-        raise AssertionError(f"{engine.leaked_pages()} pages leaked")
-    n_tok = sum(len(done[i].tokens) for i in ids)
+    streams, wall, counts = _serve_timed(engine, prompts, n_new)
+    n_tok = sum(map(len, streams))
     print(f"  served {n_req} requests (prompt lengths {lens.tolist()}), "
           f"{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.2f} tok/s "
           f"({engine.decode_chunks} decode chunks)", flush=True)
     print(f"  launches in the serve run: {counts}", flush=True)
-    for i in ids[:2]:
-        print(f"  request {i} first tokens: {done[i].tokens[:8]}")
+    for i in range(2):
+        print(f"  request {i} first tokens: {streams[i][:8]}")
     require_launched(counts, ("nibble_matmul", "flash_attention_fwd",
                               "paged_decode_attention"))
     require_no_f32(counts)
@@ -1183,7 +1218,7 @@ def phase_serve() -> dict:
     print(f"  prefill logits kernel vs plain path: max|diff| {diff:.4e}, "
           f"max|logit| {ref.abs().max().item():.4f}, tolerance {tol:.4e}; "
           f"argmax {int(got.argmax())} vs {int(ref.argmax())}; first "
-          f"served token {done[ids[0]].tokens[0]}", flush=True)
+          f"served token {streams[0][0]}", flush=True)
     if not diff <= tol:
         raise AssertionError("kernel-path prefill logits disagree with the "
                              "plain path")
@@ -1191,12 +1226,6 @@ def phase_serve() -> dict:
             "decode_chunks": engine.decode_chunks, "logit_diff": diff,
             "logit_tol": tol, "engine": engine, "prompts": prompts,
             "params": params}
-
-
-def _check_streams(streams: dict, n_new: int, vocab: int) -> None:
-    for n, toks in streams.items():
-        if len(toks) != n_new or not all(0 <= x < vocab for x in toks):
-            raise AssertionError(f"request {n}: bad stream {toks}")
 
 
 def phase_workload(params, smi: str) -> dict:
@@ -1309,7 +1338,48 @@ def _cached_rows(prompts, page_size) -> list:
     return out
 
 
-def phase_prefix_swap(params, smi: str, workload: dict) -> dict:
+def divergence_margins(params, cfg, prompts, want, got) -> list:
+    """``(request, token, margin)`` for each stream of ``got`` that differs
+    from ``want``: at its first divergence ``i``, a dense ``prefill``
+    under ``cfg`` over the prompt plus ``want[:i]`` gives the logits, and
+    the margin is ``l(want[i]) - l(got[i])`` (a tie reads ~0)."""
+    out = []
+    for n, (p, w, g) in enumerate(zip(prompts, want, got)):
+        if len(w) != len(g):
+            raise AssertionError(f"request {n}: {len(g)} tokens against "
+                                 f"{len(w)}")
+        diff = [i for i in range(len(w)) if w[i] != g[i]]
+        if not diff:
+            continue
+        i = diff[0]
+        toks = np.concatenate([p, np.asarray(w[:i], np.int32)])
+        logits, _ = prefill(params, cfg, torch.as_tensor(
+            toks, device=DEV).long()[None])
+        lg = logits[0, -1].float()
+        out.append((n, i, float(lg[w[i]] - lg[g[i]])))
+    return out
+
+
+def hold_margins(label: str, margins: list, n: int, serve: dict) -> dict:
+    """Print the equal-stream count and every divergence margin beside the
+    serve phase's measured route difference; fail on a margin above its
+    tolerance (a divergence that is not a near-tie)."""
+    tol = serve["logit_tol"]
+    worst = max((m for _, _, m in margins), default=0.0)
+    print(f"  {label}: streams equal {n - len(margins)}/{n}; divergence "
+          f"margins (request, token, l(want) - l(got)) "
+          f"{[(r, i, round(m, 4)) for r, i, m in margins]}; max {worst:.4f}"
+          f" against the tolerance {tol:.4f} (the serve phase's kernel-vs-"
+          f"plain logit difference {serve['logit_diff']:.4f})", flush=True)
+    if worst > tol:
+        raise AssertionError(f"{label}: a divergence margin {worst} exceeds "
+                             f"{tol}: not a near-tie")
+    return {"streams_equal": n - len(margins), "margins": margins,
+            "max_margin": worst}
+
+
+def phase_prefix_swap(params, smi: str, workload: dict, serve: dict
+                      ) -> dict:
     """The workload phase's pool and bursty traffic with the prefix cache
     and the host swap on (75% of prompts share a 64-token head), then two
     dense bit-match checks at 4 layers: swap-resume against the reserve
@@ -1451,6 +1521,12 @@ def phase_prefix_swap(params, smi: str, workload: dict) -> dict:
     plain = serve_all(dense_engine(), prompts)
     same_pf = sum(a == b for a, b in zip(got, solo))
     same_plain = sum(a == b for a, b in zip(got, plain))
+    # the prefix-off engine prefills through the flash kernel, the prefix
+    # engine through attention_core: hold each divergence to a near-tie
+    vs_off = hold_margins(
+        "prefix-hit streams against the prefix-off engine's",
+        divergence_margins(dparams, dcfg, prompts, plain, got),
+        len(prompts), serve)
     print(f"  dense prefix bit-match ({n_layers} layers, {len(prompts)} "
           f"requests, 8 with shared_prefix 0.75 seed 1 and one 128-token "
           f"prompt twice): hits {pst['prefix_hits']}, cow "
@@ -1458,7 +1534,7 @@ def phase_prefix_swap(params, smi: str, workload: dict) -> dict:
           f"(hash_chunks says {want_prefill}: {sum(len(p) for p in prompts)}"
           f" prompt tokens - {sum(cached)} cached rows); streams equal to "
           f"solo misses {same_pf}/{len(prompts)}; equal to a prefix-off "
-          f"engine's (flash prefill, not required) {same_plain}/"
+          f"engine's (flash prefill; margins above) {same_plain}/"
           f"{len(prompts)} ({smi})", flush=True)
     if same_pf != len(prompts) or pst["cow_copies"] < 1:
         raise AssertionError("a prefix-hit stream differs from its solo "
@@ -1479,8 +1555,155 @@ def phase_prefix_swap(params, smi: str, workload: dict) -> dict:
                              "prefill_tokens": pst["prefill_tokens"],
                              "expected_prefill_tokens": want_prefill,
                              "streams_equal": same_pf,
-                             "equal_to_prefix_off": same_plain},
+                             "equal_to_prefix_off": same_plain,
+                             "prefix_off_margins": vs_off["margins"]},
             "wall_s": wall}
+
+
+SPEC_COUNTS = {"prefill": 1, "decode_chunk": 0, "draft": 1, "verify": 1}
+WAVE_COUNTS = {"prefill": 0, "decode_chunk": 1, "prefill_chunk": 1}
+
+
+def phase_spec_wave(params, smi: str, serve: dict, workload: dict) -> dict:
+    """Self-speculative decoding and the wave prefill at full width: the
+    spec pair (a dense ``decode_chunk=1`` baseline against a
+    ``w8a8_nibble`` draft with a dense verifier) on the serve phase's
+    requests, each divergence held to a near-tie; the tail run (the
+    workload phase's pool and traffic with chunked prefill, grouped
+    admission and the host swap); then dense 4-layer checks with the plain
+    attention on both sides: wave against monolithic, spec against
+    non-spec."""
+    base = get_config("yi-6b").replace(
+        quant_backend="cuda", attn_impl="flash", cache_mode="paged",
+        page_size=16)
+    prompts, n_new, prefill_len, slots = serve["prompts"], 32, 128, 4
+    kw = dict(batch=slots, max_len=prefill_len + n_new,
+              prefill_len=prefill_len, alloc_mode="incremental")
+    t_phase = time.perf_counter()
+    print(f"spec + wave: {base.name} full width, all {base.n_layers} "
+          f"layers, paged (page 16, incremental), flash attention, 4 slots;"
+          f" the serve phase's {len(prompts)} requests x {n_new} new tokens:"
+          f" a dense decode_chunk=1 baseline against spec_decode with a "
+          f"w8a8_nibble draft on the CUDA backend, spec_k 4", flush=True)
+    # (a) the spec pair
+    dense_cfg = base.replace(quant_mode="dense")
+    n_tok = len(prompts) * n_new
+    want, base_wall, _ = _serve_timed(
+        Engine(dense_cfg, params, ServeConfig(decode_chunk=1, **kw),
+               device=DEV), prompts, n_new)
+    engine = Engine(base.replace(quant_mode="w8a8_nibble"), params,
+                    ServeConfig(spec_decode=True, spec_k=4, **kw),
+                    device=DEV)
+    got, spec_wall, counts = _serve_timed(engine, prompts, n_new)
+    base_tok_s, spec_tok_s = n_tok / base_wall, n_tok / spec_wall
+    st = engine.stats
+    spec = {"baseline_tok_s": base_tok_s, "spec_tok_s": spec_tok_s,
+            "acceptance_rate": st["acceptance_rate"],
+            "tokens_per_step": st["tokens_per_step"],
+            "spec_rounds": st["spec_rounds"],
+            "spec_rollback_pages": st["spec_rollback_pages"],
+            "compile_counts": engine.compile_counts, "counts": counts}
+    print(f"  spec pair ({smi}): baseline {base_tok_s:.2f} tok/s, spec "
+          f"{spec_tok_s:.2f} tok/s; acceptance {st['acceptance_rate']:.4f}"
+          f", tokens per round {st['tokens_per_step']:.4f}, "
+          f"{st['spec_rounds']} rounds, {st['spec_rollback_pages']} pages "
+          f"rolled back; stages {engine.compile_counts}", flush=True)
+    print(f"  launches in the spec run: {counts}", flush=True)
+    if engine.compile_counts != SPEC_COUNTS:
+        raise AssertionError(f"stage signatures {engine.compile_counts}")
+    require_launched(counts, ("nibble_matmul", "flash_attention_fwd",
+                              "paged_decode_attention"))
+    require_no_f32(counts)
+    del engine
+    # (b) the tie rule for the pair
+    spec["tie"] = hold_margins(
+        "spec streams against the dense baseline's",
+        divergence_margins(params, dense_cfg, prompts, want, got),
+        len(prompts), serve)
+
+    # (c) the tail run
+    wl = workload["result"]
+    tail_cfg = base.replace(quant_mode="w8a8_nibble")
+    engine = Engine(tail_cfg, params, ServeConfig(
+        batch=slots, max_len=prefill_len + 64, prefill_len=prefill_len,
+        decode_chunk=8, priority_aging_s=1.0, alloc_mode="incremental",
+        num_pages=wl["pool_pages"], prefill_chunk=32, admit_group=4,
+        swap_mode="host"), device=DEV)
+    print(f"  tail run: the workload phase's pool ({wl['pool_pages']} pages"
+          f" of 16) and bursty traffic (16 x 64, priority mix 0.25), "
+          f"w8a8_nibble, prefill_chunk 32, admit_group 4, swap_mode host",
+          flush=True)
+    reset_counts()
+    r = run_timed_workload(engine, tail_cfg.vocab_size, requests=16,
+                           prompt_budget=prefill_len, new_tokens=64,
+                           stagger_s=0.05, seed=0, priority_mix=0.25,
+                           arrival_mode="bursty", collect_streams=True)
+    torch.cuda.synchronize()
+    tail_counts = read_counts()
+    _check_streams(r.pop("streams"), 64, tail_cfg.vocab_size)
+    tst = engine.stats
+    print(f"  tail ({smi}): {r['tok_per_s']} tok/s (workload phase "
+          f"{wl['tok_per_s']}); ttft p50 {r['ttft_p50_ms']} / p99 "
+          f"{r['ttft_p99_ms']} ms ({wl['ttft_p50_ms']} / "
+          f"{wl['ttft_p99_ms']}); itl p99 {r['itl_p99_ms']} ms "
+          f"({wl['itl_p99_ms']}); {r['prefill_waves']} waves, "
+          f"{r['decode_chunks']} decode chunks ({wl['decode_chunks']}); "
+          f"{r['preemptions']} preemptions ({wl['preemptions']}); swap out "
+          f"{tst['swap_out']}, in {tst['swap_in']}; {r['prefill_tokens']} "
+          f"tokens prefilled ({wl['prefill_tokens']})", flush=True)
+    print(f"  launches in the tail run (warm-up included): {tail_counts}",
+          flush=True)
+    if r["compile_counts"] != WAVE_COUNTS:
+        raise AssertionError(f"stage signatures {r['compile_counts']}")
+    require_launched(tail_counts, ("nibble_matmul", "paged_decode_attention"))
+    if tail_counts["flash_attention_fwd"]:
+        raise AssertionError("the wave engine launched the flash forward "
+                             "(waves attend in attention_core)")
+    require_no_f32(tail_counts)
+    if engine.leaked_pages() or engine.host_pool.in_use:
+        raise AssertionError(f"{engine.leaked_pages()} pages leaked "
+                             f"({engine.host_pool.in_use} on the host)")
+    del engine
+
+    # (d) dense 4-layer checks, attention_core on both sides
+    n_layers = 4
+    dcfg = dense_cfg.replace(n_layers=n_layers, attn_impl="chunked")
+    dparams = {**params, "layers": params["layers"][:n_layers]}
+
+    def dense_run(**over):
+        eng = Engine(dcfg, dparams, ServeConfig(**dict(kw, **over)),
+                     device=DEV)
+        ids = [eng.submit(p, n_new) for p in prompts]
+        done = eng.run()
+        torch.cuda.synchronize()
+        eng.release_prefix_cache()
+        if eng.leaked_pages():
+            raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+        return [done[i].tokens for i in ids], eng.compile_counts
+
+    mono, _ = dense_run()
+    wave, wave_pins = dense_run(prefill_chunk=32, admit_group=4)
+    plain, _ = dense_run(decode_chunk=1)
+    spec4, spec_pins = dense_run(spec_decode=True,
+                                 spec_quant_mode="w8a8_nibble")
+    if wave_pins != WAVE_COUNTS or spec_pins != SPEC_COUNTS:
+        raise AssertionError(f"4-layer stage signatures {wave_pins}, "
+                             f"{spec_pins}")
+    dense = {
+        "wave": hold_margins(
+            f"dense {n_layers}-layer wave (chunk 32, group 4) against "
+            f"monolithic", divergence_margins(dparams, dcfg, prompts, mono,
+                                              wave), len(prompts), serve),
+        "spec": hold_margins(
+            f"dense {n_layers}-layer spec (w8a8_nibble draft) against "
+            f"non-spec", divergence_margins(dparams, dcfg, prompts, plain,
+                                            spec4), len(prompts), serve)}
+    wall = time.perf_counter() - t_phase
+    print(f"  spec + wave phase {wall:.1f} s", flush=True)
+    return {"spec": spec, "tail": r, "tail_counts": tail_counts,
+            "tail_swap": {k: tst[k] for k in ("swap_out", "swap_in",
+                                              "replay_steps_saved")},
+            "dense": dense, "counts": counts, "wall_s": wall}
 
 
 def phase_lut_serve(params, prompts, n_req=4, n_new=16,
@@ -1701,10 +1924,79 @@ def phase_profile(engine, prompts, n_new=32) -> dict:
             "top": [(n, us / 1e3) for n, us in top], "paged": paged}
 
 
+def _op_device_ms(prof, name: str) -> float:
+    """Device milliseconds of the kernels launched under the CPU op
+    ``name`` (e.g. ``aten::bmm``: attention_core's einsums)."""
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.key == name:
+            us = getattr(ev, "device_time_total", None)
+            total += (ev.cuda_time_total if us is None else us)
+    return total / 1e3
+
+
+def profile_spec_wave(params, prompts) -> dict:
+    """One speculation round and one wave at full width under
+    torch.profiler (each after one unprofiled warm-up of the same stage):
+    wall time, device busy time and idle share, and the device time of
+    the nibble and paged kernels, the flash forward, the dense GEMMs
+    (``aten::mm``: projections and head), attention_core's einsums
+    (``aten::bmm``) and softmax (``aten::_softmax``)."""
+    from torch.profiler import ProfilerActivity, profile
+    base = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    kw = dict(batch=4, max_len=192, prefill_len=128,
+              alloc_mode="incremental")
+    out = {}
+    for label, over, stage in (
+            ("spec round", dict(spec_decode=True, spec_k=4),
+             lambda e: e._run_spec_round(0.0)),
+            ("wave", dict(prefill_chunk=32, admit_group=4),
+             lambda e: e._run_wave())):
+        engine = Engine(base, params, ServeConfig(**kw, **over), device=DEV)
+        for p in prompts[:4]:
+            engine.submit(p, 32)
+        engine.start()
+        engine._admit(0.0)
+        stage(engine)                 # warm-up of the stage
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            stage(engine)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        engine.run()
+        kernels = _device_times(prof)
+        busy = sum(kernels.values()) / 1e3
+        parts = {
+            "nibble": sum(us for n, us in kernels.items()
+                          if "nibble" in n) / 1e3,
+            "paged_decode": sum(us for n, us in kernels.items()
+                                if "paged_decode" in n) / 1e3,
+            "flash_fwd": sum(us for n, us in kernels.items()
+                             if "flash" in n) / 1e3,
+            "dense_gemm": _op_device_ms(prof, "aten::mm"),
+            "attn_core_einsum": _op_device_ms(prof, "aten::bmm"),
+            "attn_core_softmax": _op_device_ms(prof, "aten::_softmax")}
+        parts["other"] = busy - sum(parts.values())
+        print(f"profile {label} (4 slots, full width): wall {wall:.2f} ms, "
+              f"device busy {busy:.2f} ms, idle share "
+              f"{1 - busy / wall:.3f}; device ms "
+              + ", ".join(f"{k} {v:.3f} ({v / busy:.1%})"
+                          for k, v in parts.items()), flush=True)
+        out[label] = {"wall_ms": wall, "busy_ms": busy, "parts_ms": parts}
+        del engine
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="after serving, profile one wave of 4 requests")
+                    help="after serving, profile one wave of 4 requests; "
+                         "after the spec + wave phase, one speculation "
+                         "round and one prefill wave")
     ap.add_argument("--out", default=None, help="write details as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1729,10 +2021,18 @@ def main() -> int:
     workload = phase_workload(params, smi)
     for r in rows[:3]:
         r["workload_launches"] = workload["counts"][r["name"]]
-    prefix_swap = phase_prefix_swap(params, smi, workload)
+    prefix_swap = phase_prefix_swap(params, smi, workload, serve)
     del workload["dense_runs"]
     for r in rows[:3]:
         r["prefix_swap_launches"] = prefix_swap["counts"][r["name"]]
+    serve["prompts"] = prompts
+    spec_wave = phase_spec_wave(params, smi, serve, workload)
+    del serve["prompts"]
+    for r in rows[:3]:
+        r["spec_launches"] = spec_wave["counts"][r["name"]]
+        r["tail_launches"] = spec_wave["tail_counts"][r["name"]]
+    if args.profile:
+        spec_wave["profile"] = profile_spec_wave(params, prompts)
     lut = phase_lut_serve(params, prompts)
     rows[4]["launches"] = lut["counts"]["lut_matmul"]
     del params
@@ -1750,6 +2050,7 @@ def main() -> int:
             json.dump({"nvidia_smi": smi, "kernels": rows,
                        "attention_f32_errors": f32, "serve": serve,
                        "workload": workload, "prefix_swap": prefix_swap,
+                       "spec_wave": spec_wave,
                        "lut_serve": lut, "train": train,
                        "train_grads": grads, "torch": torch.__version__},
                       f, indent=1)
@@ -1760,7 +2061,8 @@ def main() -> int:
     # workload and prefix+swap phases' launches, where a row has them
     extra = ("graph_ms", "library_graph_ms", "train_ms", "train_graph_ms",
              "library_train_ms", "library_train_graph_ms", "train_bound_ms",
-             "workload_launches", "prefix_swap_launches")
+             "workload_launches", "prefix_swap_launches", "spec_launches",
+             "tail_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

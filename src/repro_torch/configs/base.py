@@ -18,7 +18,13 @@ import dataclasses
 import importlib
 from typing import Sequence
 
-__all__ = ["ModelConfig", "LayerSpec", "get_config", "reduced"]
+__all__ = ["ModelConfig", "LayerSpec", "QUANT_MODES", "get_config",
+           "reduced", "spec_split"]
+
+# QuantLinear execution modes a draft model may run under; the verifier
+# of a self-speculative pair is always "dense" (accepted tokens must be
+# exactly what the dense model would have emitted)
+QUANT_MODES = ("dense", "qat", "w8a8_nibble", "w4a8_nibble", "lut")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +111,20 @@ def get_config(name: str, **overrides) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     cfg: ModelConfig = mod.CONFIG
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def spec_split(cfg: ModelConfig, draft_mode: str | None = None
+               ) -> tuple[ModelConfig, ModelConfig]:
+    """``(draft_cfg, verify_cfg)`` for self-speculative decoding: two
+    execution modes over the same weights and the same KV pools.  The
+    draft keeps every serving knob of ``cfg`` under ``draft_mode``
+    (default: ``cfg.quant_mode``, the quantized deployment drafting for
+    itself); the verifier is ``cfg`` pinned to ``quant_mode="dense"``."""
+    draft = draft_mode or cfg.quant_mode
+    if draft not in QUANT_MODES:
+        raise ValueError(f"unknown draft quant mode {draft!r}; expected "
+                         f"one of {QUANT_MODES}")
+    return cfg.replace(quant_mode=draft), cfg.replace(quant_mode="dense")
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

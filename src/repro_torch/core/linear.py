@@ -66,11 +66,14 @@ def _quantize_weight(w: torch.Tensor, bits: int):
 
 def prepare_quantized(params: dict, mode: str) -> None:
     """Quantize one linear's weight for ``mode`` once, in place (adds
-    ``qt{bits}`` (out, in) int8 and ``s{bits}`` (1, out) f32)."""
+    ``qt{bits}`` (out, in) int8 and ``s{bits}`` (1, out) f32); a linear
+    that already carries ``qt{bits}`` is left as it is, and ``w`` always
+    stays (a dense verifier reads it beside a quantized draft)."""
     if mode in _INT_MODES:
         bits = weight_bits(mode)
-        params[f"qt{bits}"], params[f"s{bits}"] = _quantize_weight(
-            params["w"], bits)
+        if f"qt{bits}" not in params:
+            params[f"qt{bits}"], params[f"s{bits}"] = _quantize_weight(
+                params["w"], bits)
 
 
 def _weight(params: dict, bits: int):

@@ -31,6 +31,17 @@ an overcommitted pool:
         --new-tokens 64 --requests 16 --prefix-cache --shared-prefix 0.75 \
         --swap-mode host
 
+Self-speculative decoding (the nibble draft, a dense verifier), and the
+wave prefill (chunked prefill with grouped admission):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --workload uniform --cache-mode paged --page-size 16 \
+        --alloc-mode incremental --spec-decode --spec-k 4 \
+        --spec-quant w8a8_nibble
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --workload bursty --cache-mode paged --page-size 16 \
+        --prefill-chunk 32 --admit-group 4
+
 ``--reduced`` (the default) runs the arch's smoke-scale variant, ``--full``
 its published widths and depth; weights are random, from seed 0.  It runs
 on the CUDA device, every projection through the CUDA kernels
@@ -55,18 +66,13 @@ from repro_torch.serve import Engine, ServeConfig, run_timed_workload
 
 # flag -> (default, where ROADMAP.md places the work that ports it)
 _UNPORTED_FLAGS = {
-    "temperature": (0.0, "reference caveats, sampled streams"),
-    "spec_decode": (False, "queue 1 item 3, speculative decoding"),
-    "spec_k": (4, "queue 1 item 3, speculative decoding"),
-    "spec_quant": (None, "queue 1 item 3, speculative decoding"),
-    "prefill_chunk": (0, "queue 1 item 3, chunked prefill"),
-    "admit_group": (1, "queue 1 item 3, grouped admission"),
-    "tp": (1, "queue 1 item 5, scale-out"),
-    "dp": (1, "queue 1 item 5, scale-out"),
-    "mesh": (None, "queue 1 item 5, scale-out"),
-    "predict": (False, "queue 1 item 6, the capacity model"),
-    "autotune": (None, "queue 1 item 6, the capacity model"),
-    "ttft_slo_ms": (None, "queue 1 item 6, the capacity model"),
+    "temperature": (0.0, "queue 1 item 1, temperature sampling"),
+    "tp": (1, "queue 1 item 4, scale-out"),
+    "dp": (1, "queue 1 item 4, scale-out"),
+    "mesh": (None, "queue 1 item 4, scale-out"),
+    "predict": (False, "queue 1 item 5, the capacity model"),
+    "autotune": (None, "queue 1 item 5, the capacity model"),
+    "ttft_slo_ms": (None, "queue 1 item 5, the capacity model"),
 }
 
 
@@ -85,7 +91,9 @@ def _check_ported(args) -> None:
 
 def _build(args, reference=False):
     """Build the engine for ``args``; ``reference=True`` builds the
-    replay-only baseline (``swap_mode="off"``) from the same flags."""
+    baseline of ``--verify`` from the same flags, with every tail-latency
+    mechanism off (monolithic prefill, serialized admission, replay-only
+    resume), as the reference's launcher does."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -107,6 +115,11 @@ def _build(args, reference=False):
                        num_pages=args.num_pages or None,
                        prefix_cache=args.prefix_cache,
                        prefix_cache_pages=args.prefix_cache_pages,
+                       spec_decode=args.spec_decode,
+                       spec_k=args.spec_k,
+                       spec_quant_mode=args.spec_quant,
+                       prefill_chunk=0 if reference else args.prefill_chunk,
+                       admit_group=1 if reference else args.admit_group,
                        swap_mode="off" if reference else args.swap_mode,
                        host_pages=args.host_pages)
     return cfg, params, Engine(cfg, params, scfg, device=args.device)
@@ -203,6 +216,12 @@ def run_requests(args, cfg, engine):
           f"p99={r['ttft_p99_ms']:.0f}ms   "
           f"itl p50={r['itl_p50_ms']:.1f}ms p99={r['itl_p99_ms']:.1f}ms")
     print(f"  cache HBM/request: {r['cache_kb_per_req']:.1f} KiB")
+    if args.spec_decode:
+        print(f"  spec decode: k={args.spec_k} "
+              f"draft={args.spec_quant or args.quant} "
+              f"acceptance={r['acceptance_rate']:.0%} "
+              f"tokens/step={r['tokens_per_step']:.2f} "
+              f"rollback_pages={r['spec_rollback_pages']}")
     if args.cache_mode == "paged":
         print(f"  pool: {r['pool_pages']} pages, mean occupancy "
               f"{r['occupancy']:.0%}, mean concurrency "
@@ -210,6 +229,11 @@ def run_requests(args, cfg, engine):
     if args.prefix_cache:
         print(f"  prefix cache: hit rate {r['prefix_hit_rate']:.0%} of "
               f"prompt tokens, {r['prefill_tokens']} tokens prefilled")
+    if args.prefill_chunk or args.admit_group > 1:
+        print(f"  wave prefill: {r['prefill_waves']} waves "
+              f"(chunk={args.prefill_chunk or args.prompt_len} "
+              f"group={args.admit_group}), "
+              f"{r['decode_chunks']} decode chunks")
     if args.swap_mode == "host":
         print(f"  host swap: {r['swap_out']} out / {r['swap_in']} in, "
               f"{r['replay_steps_saved']} replay steps saved, "
@@ -308,13 +332,24 @@ def main(argv=None):
     ap.add_argument("--host-pages", type=int, default=0,
                     help="host pool pages for --swap-mode host (0 = twice "
                          "the device pool)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="self-speculative decoding: the --spec-quant "
+                         "datapath drafts, the dense one verifies (greedy "
+                         "streams equal the dense engine's)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens per speculation round")
+    ap.add_argument("--spec-quant", default=None,
+                    choices=["dense", "qat", "w8a8_nibble", "w4a8_nibble",
+                             "lut"],
+                    help="the draft's quant mode (default: --quant)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: prompt tokens per wave chunk "
+                         "(paged cache; 0 = monolithic prefill)")
+    ap.add_argument("--admit-group", type=int, default=1,
+                    help="grouped admission: prefilling requests one wave "
+                         "advances together (paged cache)")
     # the reference's flags for mechanisms not ported yet: kept so that a
     # command line written for the reference fails loudly, not silently
-    ap.add_argument("--spec-decode", action="store_true")
-    ap.add_argument("--spec-k", type=int, default=4)
-    ap.add_argument("--spec-quant", default=None)
-    ap.add_argument("--prefill-chunk", type=int, default=0)
-    ap.add_argument("--admit-group", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--mesh", default=None)

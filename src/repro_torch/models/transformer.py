@@ -345,11 +345,12 @@ def copy_paged_cache_page(caches: list, src, dst) -> list:
     """Copy pool page ``src`` onto ``dst`` in every pool, in place (the
     copy-on-write primitive: a shared tail page is duplicated into the
     slot's private page before its first write).  ``src`` and ``dst`` may
-    be 0-d tensors, so the copy is data, not shape; the no-COW default
-    ``0, 0`` rewrites the trash page with itself."""
+    be 0-d tensors, so the copy is data, not shape, or (G,) vectors of
+    pairs (a wave's lanes; every source is read before any write); the
+    no-COW default ``0, 0`` rewrites the trash page with itself."""
     dev = caches[0]["k"].device
-    src = torch.as_tensor(src, device=dev).reshape(1).long()
-    dst = torch.as_tensor(dst, device=dev).reshape(1).long()
+    src = torch.as_tensor(src, device=dev).reshape(-1).long()
+    dst = torch.as_tensor(dst, device=dev).reshape(-1).long()
     for c in caches:
         for pool in c.values():
             pool.index_copy_(0, dst, pool.index_select(0, src))

@@ -42,12 +42,27 @@ Each batch slot is an independent sequence sharing one model:
   leaf-first under pool pressure or above ``prefix_cache_pages``; with
   the host swap they are demoted to host pages and promoted back on a
   later hit.
+* **Self-speculative decoding** (``spec_decode=True``, greedy).  The
+  engine's quant knobs configure a *draft* (``spec_split``: the nibble
+  datapath by default, its int8 weights prepared once at construction)
+  that proposes ``spec_k`` tokens per slot by S = 1 decode steps; ONE
+  dense ``decode_step`` over ``[token, drafts]`` (S = k + 1) verifies
+  them.  A draft is accepted where it equals the dense argmax, so the
+  stream is the non-spec dense engine's; drafts stay on the device and
+  the round reads the host copy once.  Rejected tails roll back by
+  ``PageTable.truncate`` (incremental mode).  Prefill and verify run
+  dense.
+* **Wave prefill** (``prefill_chunk > 0`` or ``admit_group > 1``, paged).
+  Admission books pages and parks the slot as a *prefilling* lane; each
+  scheduler step advances up to ``admit_group`` lanes by one
+  ``prefill_chunk``-token chunk through one ``decode_step`` over a (G, C)
+  block at per-lane positions and table rows, before the decode chunk.
+  The monolithic prefill is then never run.
 * **Priority queue** with optional aging, as in the reference.
 
 Not ported yet (the knobs raise ``NotImplementedError``): sampling with
 ``temperature > 0`` (the reference draws from threefry keys that no other
-framework reproduces), speculative decoding, chunked / grouped prefill
-and tensor parallelism.
+framework reproduces) and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -61,7 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, spec_split
 from repro_torch.models.transformer import (
     copy_paged_cache_page,
     decode_step,
@@ -71,6 +86,7 @@ from repro_torch.models.transformer import (
     merge_slot_caches,
     merge_slot_paged_caches,
     prefill,
+    prepare_params,
     scatter_prefill_paged_caches,
 )
 from repro_torch.serve.paging import (
@@ -115,17 +131,21 @@ class ServeConfig:
     #   gets a cold tier); "off" = replay-only resume.  Paged only
     host_pages: int = 0               # host pool pages; 0 = twice the
     #   device pool's allocatable pages
-    # reference knobs outside this slice: non-default values raise
-    spec_decode: bool = False
-    prefill_chunk: int = 0
-    admit_group: int = 1
+    spec_decode: bool = False         # self-speculative decoding (greedy):
+    #   the quant knobs configure the draft, prefill and verify run dense
+    spec_k: int = 4                   # draft tokens per speculation round
+    spec_quant_mode: str | None = None  # draft mode; None = the engine's
+    #   effective quant_mode (the deployment drafts for itself)
+    prefill_chunk: int = 0            # > 0: prompts advance one chunk of
+    #   this many tokens per scheduler step (the wave program); paged only
+    admit_group: int = 1              # prefilling lanes a wave advances
+    #   together; > 1 with prefill_chunk 0 makes prefill_len the chunk
+    # reference knobs outside the port: non-default values raise
     tp: int = 1
     mesh_shape: tuple | None = None
 
 
-_UNPORTED = (("temperature", 0.0), ("spec_decode", False),
-             ("prefill_chunk", 0), ("admit_group", 1), ("tp", 1),
-             ("mesh_shape", None))
+_UNPORTED = (("temperature", 0.0), ("tp", 1), ("mesh_shape", None))
 
 
 def _apply_overrides(cfg: ModelConfig, scfg: ServeConfig) -> ModelConfig:
@@ -246,7 +266,8 @@ class _StageCounter:
 class Engine:
     """Continuous-batching greedy engine over a dense or paged KV cache,
     with incremental page allocation, evict-and-resume preemption, the
-    prefix cache and the host swap tier.
+    prefix cache, the host swap tier, self-speculative decoding and the
+    wave prefill.
     ``params`` come from ``model_init`` or ``load_jax_params`` on the
     same device; ``device`` defaults to CUDA and raises without a card."""
 
@@ -291,17 +312,31 @@ class Engine:
             raise ValueError(f"cache_mode must be 'dense' or 'paged', got "
                              f"{self.cfg.cache_mode!r}")
         self._swap = scfg.swap_mode == "host"
-        self._validate_tiers()
+        self._validate_mechanisms()
+        self._spec = scfg.spec_decode
+        self._draft_cfg = None
+        if self._spec:
+            # the quant knobs configure the draft; prefill and verify run
+            # dense.  The draft's int8 weights are prepared once, beside
+            # the bf16 ``w`` the verifier reads
+            self._draft_cfg, self.cfg = spec_split(self.cfg,
+                                                   scfg.spec_quant_mode)
+            prepare_params(params, self._draft_cfg)
+        self._wave = scfg.prefill_chunk > 0 or scfg.admit_group > 1
+        if self._wave:
+            self._wave_chunk = scfg.prefill_chunk or scfg.prefill_len
+            self._wave_group = scfg.admit_group
         self._caches = init_caches(self.cfg, scfg.batch, scfg.max_len,
                                    device=self.device)
-        self._stages = {"prefill": _StageCounter(),
-                        "decode_chunk": _StageCounter()}
+        self._stages = {name: _StageCounter() for name in (
+            "prefill", "decode_chunk", "prefill_chunk", "draft", "verify")}
         self._next_id = 0
         self.reset()
 
-    def _validate_tiers(self) -> None:
-        """The prefix cache's and the host swap's config rules (the
-        reference's checks and messages)."""
+    def _validate_mechanisms(self) -> None:
+        """The config rules of the prefix cache, the host swap,
+        speculative decoding and the wave prefill (the reference's checks
+        and messages)."""
         scfg = self.scfg
         has_mamba = any(s.mixer == "mamba" for s in self.cfg.layer_specs)
         if scfg.swap_mode not in ("off", "host"):
@@ -337,6 +372,35 @@ class Engine:
                 raise ValueError("swap_mode='host' is incompatible with "
                                  "mamba-mixer models: recurrent state is "
                                  "per-slot, not paged")
+        if scfg.spec_decode:
+            if scfg.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {scfg.spec_k}")
+            if has_mamba:
+                raise ValueError("spec_decode=True is incompatible with "
+                                 "mamba-mixer models: the multi-token "
+                                 "verify forward needs position-indexed "
+                                 "caches")
+        if scfg.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got "
+                             f"{scfg.prefill_chunk}")
+        if scfg.admit_group < 1:
+            raise ValueError(f"admit_group must be >= 1, got "
+                             f"{scfg.admit_group}")
+        if scfg.prefill_chunk > 0 or scfg.admit_group > 1:
+            if not self._paged:
+                raise ValueError("prefill_chunk/admit_group require "
+                                 "cache_mode='paged': the wave program "
+                                 "writes prompt rows through page-table "
+                                 "rows, not a dense slab")
+            if has_mamba:
+                raise ValueError("prefill_chunk/admit_group are "
+                                 "incompatible with mamba-mixer models: "
+                                 "chunk boundaries are cache positions, "
+                                 "and recurrent state has none")
+            if (scfg.prefill_chunk or scfg.prefill_len) < 1:
+                raise ValueError("admit_group > 1 with prefill_chunk=0 "
+                                 "needs prefill_len > 0 to serve as the "
+                                 "wave width")
 
     # ------------------------------------------------------------------
     # host-side state
@@ -376,6 +440,21 @@ class Engine:
         self.swap_outs = 0
         self.swap_ins = 0
         self.replay_steps_saved = 0
+        # speculative decoding: proposed / accepted count fresh drafts
+        # only, up to each round's emission clamp (replayed tokens are
+        # committed history, force-accepted)
+        self.spec_rounds = 0
+        self.spec_slot_rounds = 0
+        self.spec_tokens = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rollback_pages = 0
+        # wave prefill: dispatches, each lane's next prompt position (-1 =
+        # not prefilling) and its pending COW pair (applied with the
+        # lane's final chunk)
+        self.prefill_waves = 0
+        self._prefill_next = np.full((b,), -1, np.int64)
+        self._slot_cow: list[tuple[int, int]] = [(0, 0)] * b
         self._t0 = time.perf_counter()
         self.prefix_cache: PrefixCache | None = None
         self.host_pool: HostPagePool | None = None
@@ -399,8 +478,19 @@ class Engine:
     @property
     def compile_counts(self) -> dict:
         """Distinct call signatures per stage (see ``_StageCounter``); a
-        warm engine reads ``{"prefill": 1, "decode_chunk": 1}``."""
-        return {name: c.count for name, c in self._stages.items()}
+        stage a mode never runs reads 0.  A warm engine reads
+        ``{"prefill": 1, "decode_chunk": 1}``; with ``spec_decode``
+        ``{"prefill": 1, "decode_chunk": 0, "draft": 1, "verify": 1}``;
+        in wave mode ``{"prefill": 0, "decode_chunk": 1, "prefill_chunk":
+        1}``, and both together ``{"prefill": 0, "decode_chunk": 0,
+        "prefill_chunk": 1, "draft": 1, "verify": 1}`` (the reference's
+        keys per mode)."""
+        names = ["prefill", "decode_chunk"]
+        if self._wave:
+            names.append("prefill_chunk")
+        if self._spec:
+            names += ["draft", "verify"]
+        return {name: self._stages[name].count for name in names}
 
     @property
     def stats(self) -> dict:
@@ -416,8 +506,10 @@ class Engine:
         ``replay_steps_saved`` (decode rows restored by copy),
         ``host_pages`` (host pool size) and the cold tier's
         ``prefix_cold_pages``, ``prefix_cold_hits`` (pages promoted) and
-        ``prefix_demotions``.  The keys of mechanisms not ported yet
-        (speculative decoding, waves) read 0."""
+        ``prefix_demotions``; speculative decoding's ``spec_rounds``,
+        ``acceptance_rate`` (fresh drafts accepted over proposed),
+        ``tokens_per_step`` (tokens emitted per slot-round) and
+        ``spec_rollback_pages``; the wave's ``prefill_waves``."""
         n = max(1, self._stat_samples)
         occ = (self._stat_in_use / (n * self.allocator.capacity)
                if self._paged else 0.0)
@@ -432,11 +524,13 @@ class Engine:
                 "prefill_tokens": self.prefill_tokens,
                 "cow_copies": self.cow_copies,
                 "prefix_pages": len(pc) if pc is not None else 0,
-                "spec_rounds": 0,
-                "acceptance_rate": 0.0,
-                "tokens_per_step": 0.0,
-                "spec_rollback_pages": 0,
-                "prefill_waves": 0,
+                "spec_rounds": self.spec_rounds,
+                "acceptance_rate": (self.spec_accepted
+                                    / max(1, self.spec_proposed)),
+                "tokens_per_step": (self.spec_tokens
+                                    / max(1, self.spec_slot_rounds)),
+                "spec_rollback_pages": self.spec_rollback_pages,
+                "prefill_waves": self.prefill_waves,
                 "decode_chunks": self.decode_chunks,
                 "swap_out": self.swap_outs,
                 "swap_in": self.swap_ins,
@@ -626,7 +720,12 @@ class Engine:
             # evicted mid-replay: splice the unreplayed tail back
             req.tokens.extend(self._slot_forced[slot])
             self._slot_forced[slot] = []
-        if self._swap and req.tokens and self._slot_pages[slot]:
+        if self._wave and self._prefill_next[slot] >= 0:
+            # evicted mid-prefill: the partial chunk rows go with the
+            # pages, and the prompt restarts on re-admission
+            self._prefill_next[slot] = -1
+            self._slot_cow[slot] = (0, 0)
+        elif self._swap and req.tokens and self._slot_pages[slot]:
             # the row count is the slot's decode position, not
             # len(tokens): a mid-replay victim's spliced tokens have no
             # rows yet.  A full host pool falls back to replay.
@@ -710,29 +809,45 @@ class Engine:
                     return
             self._place(free, req)
 
-    def _prefix_place(self, slot: int, req: Request):
-        """Prefix-cache admission: map the cached prefix read-only, book
-        the remaining pages, and run the uncached suffix through the one
-        prefill stage (a miss is ``start == 0``); then index the prompt's
-        full chunks.  ``start`` and the COW pair are 0-d tensors, so miss,
-        hit and COW share one signature.  Returns the prefill logits."""
-        p_len = int(req.prompt.size)
-        keys, shared, cow_src, start, n_cold = self._prefix_plan(req)
-        shared = self.prefix_cache.acquire(keys[:len(shared)])
-        fresh = self.allocator.alloc(self._alloc_pages_for(req)
-                                     - len(shared))
-        if fresh is None:             # _can_admit vouched for this plan
+    def _book(self, n: int) -> list[int]:
+        """Allocate ``n`` pages that ``_can_admit`` vouched for."""
+        pages = self.allocator.alloc(n)
+        if pages is None:
             raise RuntimeError("page pool changed between admission "
                                "check and placement")
-        if n_cold:
-            # the first fresh pages sit right behind the hot prefix
-            self._promote_cold(keys[len(shared):len(shared) + n_cold],
-                               fresh[:n_cold])
-        cow_dst = fresh[0] if cow_src else 0
-        pages = shared + fresh
+        return pages
+
+    def _assign(self, slot: int, req: Request, pages, shared=()) -> None:
+        """Map ``pages`` as the slot's table row (``shared`` read-only)."""
         self.page_table.assign(slot, pages, shared=set(shared))
         self._slot_pages[slot] = pages
         req.cache_rows = max(req.cache_rows, len(pages) * self._page_size)
+
+    def _map_prefix(self, slot: int, req: Request):
+        """Map the longest usable cached prefix of ``req.prompt`` read-only
+        and book the remaining pages, the first of them holding promoted
+        cold chunks right behind the hot run; returns ``(start, cow_src,
+        cow_dst)``: the first uncached position and the COW page pair (0,
+        0 without COW)."""
+        keys, shared, cow_src, start, n_cold = self._prefix_plan(req)
+        shared = self.prefix_cache.acquire(keys[:len(shared)])
+        fresh = self._book(self._alloc_pages_for(req) - len(shared))
+        if n_cold:
+            self._promote_cold(keys[len(shared):len(shared) + n_cold],
+                               fresh[:n_cold])
+        self._assign(slot, req, shared + fresh, shared)
+        self._cached_prompt_tokens += start
+        self._prefix_hits += bool(shared or n_cold or cow_src)
+        return start, cow_src, fresh[0] if cow_src else 0
+
+    def _prefix_place(self, slot: int, req: Request):
+        """Prefix-cache admission: map the cached prefix and run the
+        uncached suffix through the one prefill stage (a miss is ``start
+        == 0``); then index the prompt's full chunks.  ``start`` and the
+        COW pair are 0-d tensors, so miss, hit and COW share one
+        signature.  Returns the prefill logits."""
+        p_len = int(req.prompt.size)
+        start, cow_src, cow_dst = self._map_prefix(slot, req)
         sfx_len = p_len - start
         # the splice buffer spans every key position [0, p_len), so it
         # pads to the full prompt length, not the suffix's
@@ -751,10 +866,8 @@ class Engine:
                               ctx_caches=self._caches, ctx_table=row[None],
                               ctx_start=start_t)
         scatter_prefill_paged_caches(self._caches, one, slot, row, start_t)
-        self._prefix_insert(keys, pages)
+        self._prefix_insert(req.chunk_keys, self._slot_pages[slot])
         self.prefill_tokens += sfx_len
-        self._cached_prompt_tokens += start
-        self._prefix_hits += bool(shared or n_cold or cow_src)
         self.cow_copies += bool(cow_src)
         return logits
 
@@ -766,14 +879,17 @@ class Engine:
         if req.swap_pages is not None:
             self._swap_in(slot, req)
             return
-        p_len = int(req.prompt.size)
-        resumed = bool(req.tokens)
-        self._total_prompt_tokens += p_len
+        self._total_prompt_tokens += int(req.prompt.size)
+        if self._wave:
+            self._wave_admit(slot, req)
+            return
         if self.prefix_cache is not None:
             logits = self._prefix_place(slot, req)
         else:
             logits = self._plain_place(slot, req)
-        self._commit_first(slot, req, logits, resumed)
+        # a resumed request keeps its stored first token: no read
+        first = -1 if req.tokens else int(torch.argmax(logits[0, -1]))
+        self._commit_first(slot, req, first)
 
     def _plain_place(self, slot: int, req: Request):
         """Book the pages (paged) and prefill the whole prompt; returns
@@ -782,13 +898,7 @@ class Engine:
         pad_len = self.scfg.prefill_len or p_len
         row = None
         if self._paged:
-            pages = self.allocator.alloc(self._alloc_pages_for(req))
-            if pages is None:         # _can_admit vouched for this
-                raise RuntimeError("page pool changed between admission "
-                                   "check and placement")
-            self.page_table.assign(slot, pages)
-            self._slot_pages[slot] = pages
-            req.cache_rows = max(req.cache_rows, len(pages) * self._page_size)
+            self._assign(slot, req, self._book(self._alloc_pages_for(req)))
             grow_to = -(-pad_len // self._page_size) * self._page_size
             row = torch.as_tensor(self.page_table.row(slot),
                                   device=self.device)
@@ -808,25 +918,26 @@ class Engine:
             merge_slot_caches(self._caches, one, slot)
         return logits
 
-    def _commit_first(self, slot: int, req: Request, logits,
-                      resumed: bool) -> None:
-        """After a prefill: a fresh request commits its greedy first
-        token, a resumed one keeps its stored first token and queues the
-        rest on the forcing lane; then the slot starts decoding."""
+    def _commit_first(self, slot: int, req: Request, first: int) -> None:
+        """After a prompt's last row is written (prefill or final wave
+        chunk): a fresh request commits its greedy ``first`` token, a
+        resumed one keeps its stored first token and queues the rest on
+        the forcing lane; then the slot starts decoding."""
         p_len = int(req.prompt.size)
-        if resumed:
+        if req.tokens:
             tok = req.tokens[0]
             self._slot_forced[slot] = req.tokens[1:]
             req.tokens = [tok]
         else:
             self._slot_forced[slot] = []
-            tok = int(torch.argmax(logits[0, -1]))
+            tok = first
             req.tokens.append(tok)
             req.t_first = time.perf_counter() - self._t0
             req.t_tokens.append(req.t_first)
         if (req.max_new_tokens <= 1
                 or (self.scfg.eos_id >= 0 and tok == self.scfg.eos_id)):
             self._finish(req, slot)
+            self._slots[slot] = None
         else:
             self._slots[slot] = req
             self._token[slot, 0] = tok
@@ -840,19 +951,14 @@ class Engine:
         continues at the position the eviction interrupted; tokens past
         the last row written re-enter the forcing lane."""
         p_len = int(req.prompt.size)
-        pages = self.allocator.alloc(self._alloc_pages_for(req))
-        if pages is None:             # _can_admit vouched for this
-            raise RuntimeError("page pool changed between admission "
-                               "check and placement")
+        pages = self._book(self._alloc_pages_for(req))
         n = len(req.swap_pages)
         insert_cache_pages(self._caches, pages[:n],
                            [self.host_pool.load(h) for h in req.swap_pages],
                            pad_to=self._max_pages)
         self.host_pool.free(req.swap_pages)
         req.swap_pages = None
-        self.page_table.assign(slot, pages)
-        self._slot_pages[slot] = pages
-        req.cache_rows = max(req.cache_rows, len(pages) * self._page_size)
+        self._assign(slot, req, pages)
         committed = req.swap_rows - p_len + 1
         self._slot_forced[slot] = list(req.tokens[committed:])
         req.tokens = req.tokens[:committed]
@@ -864,6 +970,93 @@ class Engine:
         self.swap_ins += 1
         self.replay_steps_saved += req.swap_rows - p_len
         req.swap_rows = 0
+
+    def _wave_admit(self, slot: int, req: Request) -> None:
+        """Wave-mode admission: book and map the request's pages (with the
+        prefix cache: shared, promoted cold and COW pages, as
+        ``_prefix_place`` maps them) but run no model code; the slot parks
+        as an inactive prefilling lane.  Its decode position parks at
+        ``max_len - 1``, past every row a prompt chunk attends, so the
+        frozen decode writes there are rewritten before anything reads
+        them."""
+        start, cow_src, cow_dst = 0, 0, 0
+        if self.prefix_cache is not None:
+            start, cow_src, cow_dst = self._map_prefix(slot, req)
+        else:
+            self._assign(slot, req, self._book(self._alloc_pages_for(req)))
+        self._slots[slot] = req
+        self._prefill_next[slot] = start
+        self._slot_cow[slot] = (cow_src, cow_dst)
+        self._slot_forced[slot] = []
+        self._token[slot, 0] = 0
+        self._positions[slot] = self.scfg.max_len - 1
+        self._active[slot] = False
+        self._remaining[slot] = 0
+
+    @torch.no_grad()
+    def _wave_step(self, tokens, lens, starts, rows, cow_src, cow_dst):
+        """The wave program: the lanes' COW page copies before any write,
+        then one ``decode_step`` over the (G, C) chunks at per-lane
+        ``starts`` through per-lane table ``rows`` (all-trash for pad
+        lanes); returns each lane's greedy token at its row ``lens - 1``
+        (the first token where the chunk completes the prompt)."""
+        args = [torch.as_tensor(a, device=self.device).long()
+                for a in (tokens, lens, starts, rows, cow_src, cow_dst)]
+        self._stages["prefill_chunk"].record(*args)
+        tokens, lens, starts, rows, cow_src, cow_dst = args
+        copy_paged_cache_page(self._caches, cow_src, cow_dst)
+        logits, _ = decode_step(self.params, self.cfg, tokens, self._caches,
+                                starts, page_table=rows)
+        last = logits[torch.arange(tokens.shape[0], device=self.device),
+                      lens - 1]
+        return torch.argmax(last, dim=-1).cpu().numpy()
+
+    def _run_wave(self) -> None:
+        """Advance up to ``admit_group`` prefilling lanes by one prompt
+        chunk each; a lane whose chunk completes its prompt commits its
+        first token and starts decoding."""
+        g, c = self._wave_group, self._wave_chunk
+        lanes = [s for s in range(self.scfg.batch)
+                 if self._prefill_next[s] >= 0][:g]
+        tokens = np.zeros((g, c), np.int64)
+        lens = np.ones((g,), np.int64)
+        starts = np.zeros((g,), np.int64)
+        rows = np.zeros((g, self._max_pages), np.int64)
+        cow = np.zeros((2, g), np.int64)
+        real = []
+        for i, s in enumerate(lanes):
+            req = self._slots[s]
+            st = int(self._prefill_next[s])
+            p_len = int(req.prompt.size)
+            n = min(c, p_len - st)
+            tokens[i, :n] = req.prompt[st:st + n]
+            lens[i], starts[i] = n, st
+            rows[i] = self.page_table.row(s)
+            if self._slot_cow[s][0] and st + n == p_len:
+                # the COW pair applies with the final chunk, the only one
+                # that writes into the duplicated tail page
+                cow[:, i] = self._slot_cow[s]
+                self.cow_copies += 1
+            real.append(n)
+            self.prefill_tokens += n
+        self.prefill_waves += 1
+        first = self._wave_step(tokens, lens, starts, rows, cow[0], cow[1])
+        for i, s in enumerate(lanes):
+            req = self._slots[s]
+            nxt = int(self._prefill_next[s]) + real[i]
+            if nxt >= int(req.prompt.size):
+                self._wave_finish(s, req, int(first[i]))
+            else:
+                self._prefill_next[s] = nxt
+
+    def _wave_finish(self, slot: int, req: Request, first: int) -> None:
+        """A lane's final chunk ran: index the prompt's pages (prefix
+        cache), then the monolithic placement's epilogue."""
+        self._prefill_next[slot] = -1
+        self._slot_cow[slot] = (0, 0)
+        if self.prefix_cache is not None:
+            self._prefix_insert(req.chunk_keys, self._slot_pages[slot])
+        self._commit_first(slot, req, first)
 
     def _finish(self, req: Request, slot: int) -> None:
         req.t_done = time.perf_counter() - self._t0
@@ -880,12 +1073,16 @@ class Engine:
         """Incremental mode: before a chunk, grow every active slot whose
         writes would cross its last page; when the pool is dry, evict the
         weakest runner (possibly the needy slot itself, which then resumes
-        once pages free up)."""
+        once pages free up).  A speculation round books the rows it may
+        make live, ``spec_k + 1``; its writes past them land on the trash
+        page and roll back."""
+        chunk_steps = (self.scfg.spec_k + 1 if self._spec
+                       else self.scfg.decode_chunk)
         for slot in range(self.scfg.batch):
             req = self._slots[slot]
             if req is None or not self._active[slot]:
                 continue
-            steps = min(self.scfg.decode_chunk, int(self._remaining[slot]))
+            steps = min(chunk_steps, int(self._remaining[slot]))
             need = pages_needed(int(self._positions[slot]) + steps,
                                 self._page_size)
             while need > self.page_table.live_len(slot):
@@ -990,19 +1187,151 @@ class Engine:
                     self._slots[slot] = None
                     break
 
+    @torch.no_grad()
+    def _spec_device(self, forced: np.ndarray, start: np.ndarray):
+        """The draft and verify stages, back to back on the device (the
+        drafts never leave it).  Draft: ``spec_k`` greedy S = 1 steps
+        under the draft config from ``start``; ``forced`` (k, B) replayed
+        tokens (-1 = none) replace the argmax; positions advance only for
+        active slots.  Verify: one dense step over ``[token, drafts]`` at
+        S = k + 1 from ``start``, rewriting those rows; a draft is
+        accepted where forced or equal to the dense argmax.  Returns the
+        host copies, read once, of ``out`` (B, k + 1) (the accepted
+        draft or the dense token, then the bonus token) and ``accept``
+        (B, k)."""
+        dev, k = self.device, self.scfg.spec_k
+        token = torch.as_tensor(self._token, device=dev).long()
+        start = torch.as_tensor(start, device=dev).long()
+        active = torch.as_tensor(self._active, device=dev)
+        table = (torch.as_tensor(self.page_table.asarray(), device=dev)
+                 if self._paged else None)
+        forced = torch.as_tensor(forced, device=dev).long()
+        self._stages["draft"].record(token, start, active, table, forced)
+        max_pos = self.scfg.max_len - 1
+        tok, positions, drafts = token, start, []
+        for t in range(k):
+            logits, _ = decode_step(self.params, self._draft_cfg, tok,
+                                    self._caches, positions,
+                                    page_table=table)
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+            nxt = torch.where(forced[t] >= 0, forced[t], nxt)
+            drafts.append(nxt)
+            positions = torch.where(
+                active, torch.clamp(positions + 1, max=max_pos), positions)
+            tok = torch.where(active[:, None], nxt[:, None], tok)
+        drafts = torch.stack(drafts, dim=1)                    # (B, k)
+        self._stages["verify"].record(token, drafts, start, table, forced)
+        logits, _ = decode_step(self.params, self.cfg,
+                                torch.cat([token, drafts], dim=1),
+                                self._caches, start, page_table=table)
+        g = torch.argmax(logits, dim=-1)                       # (B, k+1)
+        f_on = forced.t() >= 0
+        accept = f_on | (drafts == g[:, :-1])
+        out = torch.cat([torch.where(f_on, drafts, g[:, :-1]), g[:, -1:]],
+                        dim=1)
+        both = torch.cat([out, accept.long()], dim=1).cpu().numpy()
+        return both[:, :k + 1], both[:, k + 1:].astype(bool)
+
+    def _spec_rollback(self, slot: int) -> None:
+        """Roll a slot's rejected draft tail back as a page-table
+        operation: truncate the live prefix to the pages its accepted
+        rows need and free the tail (no cache row is copied).  Only
+        incremental mode books pages past the live prefix mid-stream;
+        shared prefix pages lie below the prompt's last row, so they are
+        never reached."""
+        if not self._incremental:
+            return
+        keep = pages_needed(int(self._positions[slot]), self._page_size)
+        removed = self.page_table.truncate(slot, keep)
+        if removed:
+            self.allocator.free(removed)
+            del self._slot_pages[slot][keep:]
+            self.spec_rollback_pages += len(removed)
+
+    def _run_spec_round(self, now: float) -> None:
+        """One speculation round: draft, verify, then the host walk that
+        emits each slot's accepted prefix plus the correction or bonus
+        token and rolls back what the round over-booked."""
+        if self._incremental:
+            self._top_up(now)
+            if not self._active.any():
+                return                # top-up evicted the last runner
+        b, k = self.scfg.batch, self.scfg.spec_k
+        forced = np.full((k, b), -1, np.int32)
+        for slot in range(b):
+            buf = self._slot_forced[slot]
+            if buf and self._slots[slot] is not None:
+                n = min(k, len(buf))
+                forced[:n, slot] = buf[:n]
+                del buf[:n]
+        self._stat_samples += 1
+        self._stat_running += sum(r is not None for r in self._slots)
+        if self._paged:
+            self._stat_in_use += self.allocator.in_use
+        start = self._positions.copy()
+        out, accept = self._spec_device(forced, start)
+        self.spec_rounds += 1
+        tnow = time.perf_counter() - self._t0
+        eos = self.scfg.eos_id
+        for slot in range(b):
+            req = self._slots[slot]
+            if req is None or not self._active[slot]:
+                continue
+            self.spec_slot_rounds += 1
+            r = int(self._remaining[slot])
+            e = 0
+            # a replay longer than k spills into the next round: while
+            # committed tokens remain buffered the bonus token must not
+            # be emitted (it would splice a new token into a stream the
+            # client has already seen)
+            more_forced = bool(self._slot_forced[slot])
+            for j in range(k + 1):
+                if j == k and more_forced:
+                    break
+                tok = int(out[slot, j])
+                req.tokens.append(tok)
+                if len(req.t_tokens) < len(req.tokens):
+                    # replayed tokens keep their original stamps
+                    req.t_tokens.append(tnow)
+                e += 1
+                r -= 1
+                self.spec_tokens += 1
+                if j < k and forced[j, slot] < 0:
+                    self.spec_proposed += 1
+                    self.spec_accepted += bool(accept[slot, j])
+                if (r <= 0 or (eos >= 0 and tok == eos) or j == k
+                        or not accept[slot, j]):
+                    break
+            self._positions[slot] = int(start[slot]) + e
+            self._remaining[slot] = r
+            self._token[slot, 0] = int(req.tokens[-1])
+            if (len(req.tokens) >= req.max_new_tokens
+                    or (eos >= 0 and int(req.tokens[-1]) == eos)):
+                self._finish(req, slot)
+                self._slots[slot] = None
+                self._active[slot] = False
+            elif self._paged:
+                self._spec_rollback(slot)
+
     def start(self, t0: float | None = None) -> None:
         """Anchor the run clock (arrivals and latency stamps)."""
         self._t0 = time.perf_counter() if t0 is None else t0
 
     def step(self, wait: bool = True) -> bool:
-        """Admit arrived requests, then run one decode chunk if any slot
-        is active.  Returns ``False`` once nothing is queued or running."""
+        """Admit arrived requests, advance the prefilling lanes by one wave
+        (wave mode), then run one decode chunk (or speculation round) if
+        any slot is active.  Returns ``False`` once nothing is queued or
+        running."""
         if not (len(self._queue)
                 or any(r is not None for r in self._slots)):
             return False
         now = time.perf_counter() - self._t0
         self._admit(now)
-        if not self._active.any():
+        # prefilling lanes are inactive but not idle: they progress
+        # through the wave, so neither the idle wait nor the stall check
+        # may fire while one prefills
+        prefilling = self._wave and bool((self._prefill_next >= 0).any())
+        if not self._active.any() and not prefilling:
             if not len(self._queue):
                 return False
             nxt = self._queue.next_arrival()
@@ -1025,7 +1354,14 @@ class Engine:
                 f"serve scheduler stalled: {len(self._queue)} arrived "
                 f"request(s) cannot be admitted with all slots "
                 f"idle{detail}")
-        self._run_chunk(time.perf_counter() - self._t0)
+        if prefilling:
+            self._run_wave()
+        if self._active.any():
+            now = time.perf_counter() - self._t0
+            if self._spec:
+                self._run_spec_round(now)
+            else:
+                self._run_chunk(now)
         return True
 
     def drain(self) -> dict[int, Request]:

@@ -69,8 +69,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("temperature", 0.7), ("spec_decode", True), ("prefill_chunk", 4),
-    ("admit_group", 2), ("tp", 2), ("mesh_shape", (1, 2))])
+    ("temperature", 0.7), ("tp", 2), ("mesh_shape", (1, 2))])
 def test_unported_serve_knobs_raise(field, value):
     cfg = reduced(get_config("yi-6b")).replace(cache_mode="paged",
                                                page_size=4)
@@ -80,8 +79,9 @@ def test_unported_serve_knobs_raise(field, value):
         Engine(cfg, params, scfg, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("prefix_cache", True),
-                                         ("swap_mode", "host")])
+@pytest.mark.parametrize("field,value", [
+    ("prefix_cache", True), ("swap_mode", "host"), ("spec_decode", True),
+    ("prefill_chunk", 4), ("admit_group", 2)])
 def test_ported_serve_knobs_build_and_serve(field, value):
     """The knobs this package has ported build an engine that serves on
     the CPU (an overcommitted pool, two prompts sharing a page)."""

@@ -1,9 +1,9 @@
 """The port's serving launcher on the CPU (reduced yi-6b, plain kernel
 versions): lockstep batch generation, the uniform and bursty timed
 workloads, an overcommitted incremental pool that must preempt, the
-prefix cache and the host swap, the ``--verify`` re-run, and a
-``NotImplementedError`` for every flag of a mechanism the port does not
-run yet."""
+prefix cache and the host swap, speculative decoding and the wave
+prefill, the ``--verify`` re-run, and a ``NotImplementedError`` for every
+flag of a mechanism the port does not run yet."""
 
 import pytest
 import torch
@@ -106,12 +106,48 @@ def test_prefix_and_swap_flags_serve(monkeypatch, capsys, flags):
     assert engine.leaked_pages() == 0
 
 
+SPEC = ["--cache-mode", "paged", "--page-size", "4", "--alloc-mode",
+        "incremental", "--spec-decode"]
+WAVE = ["--cache-mode", "paged", "--page-size", "4"]
+
+
+@pytest.mark.parametrize("flags", [
+    SPEC, SPEC + ["--spec-k", "2"], SPEC + ["--spec-quant", "w8a8_nibble"],
+    WAVE + ["--prefill-chunk", "4"], WAVE + ["--admit-group", "2"]],
+    ids=["spec-decode", "spec-k", "spec-quant", "prefill-chunk",
+         "admit-group"])
+def test_spec_and_wave_flags_serve(monkeypatch, capsys, flags):
+    """The spec flags build a spec engine (its report line, the spec
+    pins) and the wave flags a wave engine (its report line, the wave
+    pins); both drain every request with zero leaks and pass
+    ``--verify`` against the plain build."""
+    r, engine = _run_requests(monkeypatch, "uniform", "--verify", *flags)
+    out = capsys.readouterr().out
+    assert r["tokens"] == 5 * 6
+    assert engine.leaked_pages() == 0
+    assert "verify: 5 streams bit-match" in out
+    if "--spec-decode" in flags:
+        k = int(flags[-1]) if "--spec-k" in flags else 4
+        draft = flags[-1] if "--spec-quant" in flags else "dense"
+        assert engine.scfg.spec_k == k
+        assert engine._draft_cfg.quant_mode == draft
+        assert f"spec decode: k={k} draft={draft}" in out
+        assert r["spec"] and r["tokens_per_step"] >= 1.0
+        assert r["compile_counts"] == {"prefill": 1, "decode_chunk": 0,
+                                       "draft": 1, "verify": 1}
+    else:
+        assert f"wave prefill: {r['prefill_waves']} waves" in out
+        assert r["prefill_waves"] >= 1
+        assert r["compile_counts"] == {"prefill": 0, "decode_chunk": 1,
+                                       "prefill_chunk": 1}
+
+
 @pytest.mark.parametrize("flag", [
-    ["--spec-decode"], ["--spec-k", "2"], ["--spec-quant", "w8a8_nibble"],
-    ["--prefill-chunk", "4"], ["--admit-group", "2"], ["--tp", "2"],
-    ["--dp", "2"], ["--mesh", "1x2"], ["--predict"],
+    ["--tp", "2"], ["--dp", "2"], ["--mesh", "1x2"], ["--predict"],
     ["--autotune", "max-tok-s"], ["--ttft-slo-ms", "100"],
-    ["--temperature", "0.7"]], ids=lambda f: f[0])
+    ["--temperature", "0.7"],
+    ["--temperature", "0.7", "--spec-decode"]],
+    ids=lambda f: f[0] + ("+spec" if "--spec-decode" in f else ""))
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(BASE + ["--workload", "uniform"] + flag)

@@ -482,7 +482,13 @@ def test_resume_after_eviction_hits_own_prefix(model):
                                        alloc_mode="incremental",
                                        num_pages=5), device="cpu")
     lo = engine.submit(p_lo, 8)
-    engine.submit(p_hi, 4, arrival=0.01, priority=5)
+    # hi arrives while lo decodes (driven step by step: a timed arrival
+    # races a fast CPU, which can finish lo first)
+    engine.start()
+    engine._admit(0.0)
+    engine._run_chunk(0.0)
+    engine.submit(p_hi, 4, priority=5)
+    engine._admit(0.0)
     done = engine.run()
     assert done[lo].preemptions >= 1
     assert engine.prefill_tokens < 8 + len(p_hi) + 8

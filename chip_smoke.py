@@ -31,6 +31,21 @@ Phases (any failure exits non-zero and prints no result line):
    kernel of the path must have launched.  Then the first request's
    prefill runs through the plain path (``quant_backend="torch"``,
    ``attn_impl="chunked"``) and its logits are held to the kernel path's.
+   Every engine of every phase runs captured (the default on CUDA): it
+   must hold one CUDA graph per captured stage once warm (the decode
+   chunk; under ``spec_decode`` the draft and the verify).
+3b. Sampling + graphs: the serve requests through a ``capture=False``
+   engine against the serve phase's captured one (equal streams, each
+   divergence held to a near-tie as in phase 6, and equal launch
+   counters); host ms per decode chunk, eager and captured, the median
+   of 7 alternated chunks; temperature 0.7 on the workload phase's pool
+   and bursty traffic: dense 4-layer streams from a reserve, a replay
+   and a ``swap_mode="host"`` engine must be equal (preemptions and
+   swap-ins required), and a full-width sampled ``spec_decode`` engine
+   with the host swap must drain without a leak and with ``spec_tokens``
+   equal to the emitted tokens minus the firsts; then the sampler on the
+   card against the CPU (key words and random bits equal, tokens equal
+   off near-ties).
 4. Workload: the same weights through ``run_timed_workload`` (the
    launcher's timed driver) over an overcommitted paged pool
    (``alloc_mode="incremental"``, 1 trash + 18 allocatable pages of 16
@@ -105,6 +120,7 @@ limit as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import itertools
 import json
@@ -137,7 +153,7 @@ from repro_torch.models import model_init, prefill  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import (Engine, ServeConfig,  # noqa: E402
                                 draw_workload, hash_chunks, pages_needed,
-                                run_timed_workload)
+                                run_timed_workload, sampling)
 from repro_torch.train import TrainConfig  # noqa: E402
 from repro_torch.train.step import (accumulate_grads,  # noqa: E402
                                     make_loss_fn)
@@ -1141,6 +1157,19 @@ def require_no_f32(counts: dict) -> None:
                              f"main path: {used}")
 
 
+SPEC_CAPTURES = {"decode_chunk": 0, "draft": 1, "verify": 1}
+
+
+def require_captured(engine, label: str) -> dict:
+    """A warm engine holds one CUDA graph per captured stage: the decode
+    chunk, or under ``spec_decode`` the draft and the verify."""
+    want = SPEC_CAPTURES if engine.scfg.spec_decode else {"decode_chunk": 1}
+    got = engine.capture_counts
+    if got != want:
+        raise AssertionError(f"{label}: CUDA graphs {got}, expected {want}")
+    return got
+
+
 def _check_streams(streams: dict, n_new: int, vocab: int) -> None:
     for n, toks in streams.items():
         if len(toks) != n_new or not all(0 <= x < vocab for x in toks):
@@ -1202,6 +1231,7 @@ def phase_serve() -> dict:
     require_launched(counts, ("nibble_matmul", "flash_attention_fwd",
                               "paged_decode_attention"))
     require_no_f32(counts)
+    captures = require_captured(engine, "serve")
 
     # the first request's prefill: kernel path vs plain path
     p = prompts[0]
@@ -1224,8 +1254,218 @@ def phase_serve() -> dict:
                              "plain path")
     return {"counts": counts, "tok_s": n_tok / wall, "wall_s": wall,
             "decode_chunks": engine.decode_chunks, "logit_diff": diff,
-            "logit_tol": tol, "engine": engine, "prompts": prompts,
-            "params": params}
+            "logit_tol": tol, "captures": captures, "engine": engine,
+            "prompts": prompts, "streams": streams, "params": params}
+
+
+def time_decode_chunks(cfg, params, prompts, reps=7) -> dict:
+    """Host milliseconds per decode chunk (4 active slots, the serve
+    phase's settings) of an eager engine, a captured one and a captured
+    one sampling at temperature 0.7, each warmed by one chunk (the
+    capture), then ``reps`` chunks each in rotating order, every chunk
+    ending in its host read; medians."""
+    n_new = 8 * (reps + 2)
+    scfg = ServeConfig(batch=4, max_len=128 + n_new + (-n_new) % 16,
+                       prefill_len=128, decode_chunk=8)
+    engines = {
+        "eager": Engine(cfg, params, scfg, device=DEV, capture=False),
+        "captured": Engine(cfg, params, scfg, device=DEV),
+        "captured_sampled": Engine(cfg, params, dataclasses.replace(
+            scfg, temperature=0.7), device=DEV)}
+    for eng in engines.values():
+        for p in prompts[:4]:
+            eng.submit(p, n_new)
+        eng.start()
+        eng._admit(0.0)
+        eng._run_chunk(0.0)
+    names = list(engines)
+    runs = {name: [] for name in names}
+    for i in range(reps):
+        for name in names[i % 3:] + names[:i % 3]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engines[name]._run_chunk(0.0)
+            runs[name].append((time.perf_counter() - t) * 1e3)
+    if not all(e._active.all() for e in engines.values()):
+        raise AssertionError("a slot finished inside the timed chunks")
+    require_captured(engines["captured"], "timed chunks")
+    require_captured(engines["captured_sampled"], "timed sampled chunks")
+    return {"ms": {n: statistics.median(r) for n, r in runs.items()},
+            "runs": runs}
+
+
+def check_sampler(n_keys=64, vocab=64000) -> dict:
+    """``serve/sampling.py`` on the card against the CPU for the same f32
+    logits and keys: key words and uniform bits equal; categorical tokens
+    equal except where the CPU's top two perturbed scores lie within
+    1e-5 (the card's ``log`` may round otherwise)."""
+    keys = sampling.fold_in(sampling.prng_key(0)[None],
+                            torch.arange(n_keys))
+    sub = sampling.fold_in(keys, 7)
+    keys_equal = torch.equal(sampling.fold_in(keys.to(DEV), 7).cpu(), sub)
+    bits_equal = torch.equal(
+        sampling.random_bits(keys.to(DEV), (vocab,)).cpu(),
+        sampling.random_bits(keys, (vocab,)))
+    uniform_equal = torch.equal(sampling.uniform(sub.to(DEV)).cpu(),
+                                sampling.uniform(sub))
+    logits = torch.randn((n_keys, vocab),
+                         generator=torch.Generator().manual_seed(0)) * 3
+    want = sampling.categorical(keys, logits)
+    got = sampling.categorical(keys.to(DEV), logits.to(DEV)).cpu()
+    top2 = (sampling.gumbel(keys, (vocab,)) + logits).topk(2).values
+    near = (top2[:, 0] - top2[:, 1]) < 1e-5
+    differ = got != want
+    out = {"keys_equal": keys_equal, "bits_equal": bits_equal,
+           "uniform_equal": uniform_equal, "tokens_differ": int(differ.sum()),
+           "near_ties": int(near.sum()),
+           "differ_off_tie": int((differ & ~near).sum())}
+    print(f"  sampler card vs CPU ({n_keys} keys x {vocab}): key words "
+          f"equal {keys_equal}, random bits equal {bits_equal}, uniforms "
+          f"equal {uniform_equal}; tokens differ at {out['tokens_differ']} "
+          f"of {n_keys} ({out['near_ties']} perturbed-score gaps < 1e-5, "
+          f"{out['differ_off_tie']} differences off them)", flush=True)
+    if not (keys_equal and bits_equal and uniform_equal) \
+            or out["differ_off_tie"]:
+        raise AssertionError("the sampler on the card disagrees with the CPU")
+    return out
+
+
+def phase_graphs(params, smi: str, serve: dict) -> dict:
+    """Sampling and CUDA graphs at full width: the serve requests through
+    an eager engine against the serve phase's captured one (streams,
+    launch counters), host ms per decode chunk both ways, temperature 0.7
+    on the workload's overcommitted pool (dense 4-layer: reserve, replay
+    and swap engines draw equal streams; full width: spec with sampling
+    drains and accounts), and the sampler on the card against the CPU."""
+    cfg = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    prompts, n_new, prefill_len, slots = serve["prompts"], 32, 128, 4
+    print(f"sampling + graphs: {cfg.name} full width, all {cfg.n_layers} "
+          f"layers, w8a8_nibble on the CUDA backend, paged (page 16); the "
+          f"serve phase's {len(prompts)} requests x {n_new} through a "
+          f"capture=False engine against the serve phase's captured one",
+          flush=True)
+    t_phase = time.perf_counter()
+    # (1) eager against captured, greedy
+    eager = Engine(cfg, params, ServeConfig(
+        batch=slots, max_len=prefill_len + n_new, prefill_len=prefill_len,
+        decode_chunk=8), device=DEV, capture=False)
+    streams, eager_wall, counts = _serve_timed(eager, prompts, n_new)
+    if set(eager.capture_counts.values()) != {0}:
+        raise AssertionError(f"capture=False captured {eager.capture_counts}")
+    del eager
+    eager_tok_s = sum(map(len, streams)) / eager_wall
+    tie = hold_margins(
+        "captured streams against the eager engine's",
+        divergence_margins(params, cfg, prompts, streams, serve["streams"]),
+        len(prompts), serve)
+    print(f"  serve tok/s ({smi}): eager {eager_tok_s:.2f}, captured "
+          f"{serve['tok_s']:.2f} (the serve phase's run); launches eager "
+          f"{counts}", flush=True)
+    if counts != serve["counts"]:
+        raise AssertionError(f"launch counters differ: eager {counts}, "
+                             f"captured {serve['counts']}")
+    chunk = time_decode_chunks(cfg, params, prompts)
+    ms = chunk["ms"]
+    print(f"  host ms per decode chunk (4 slots x 8 steps, median of "
+          f"{len(chunk['runs']['eager'])} in rotation; {smi}): eager "
+          f"{ms['eager']:.3f}, captured {ms['captured']:.3f} "
+          f"({ms['eager'] / ms['captured']:.2f}x), captured at temperature "
+          f"0.7 {ms['captured_sampled']:.3f}; runs "
+          + "; ".join(f"{n} {[round(x, 2) for x in r]}"
+                      for n, r in chunk["runs"].items()), flush=True)
+
+    # (3) temperature 0.7 on the workload's pool and traffic
+    worst = pages_needed(prefill_len + 64 - 1, cfg.page_size)
+    num_pages = 1 + worst * 3 // 2
+    traffic = dict(requests=16, prompt_budget=prefill_len, new_tokens=64,
+                   stagger_s=0.05, seed=0, priority_mix=0.25,
+                   arrival_mode="bursty", collect_streams=True)
+    pool = dict(batch=slots, max_len=prefill_len + 64,
+                prefill_len=prefill_len, decode_chunk=8,
+                priority_aging_s=1.0, temperature=0.7)
+    dcfg = cfg.replace(quant_mode="dense", n_layers=4)
+    dparams = {**params, "layers": params["layers"][:4]}
+    sampled = {}
+    for label, over in (("reserve", dict(alloc_mode="reserve")),
+                        ("replay", dict(alloc_mode="incremental",
+                                        num_pages=num_pages)),
+                        ("swap", dict(alloc_mode="incremental",
+                                      num_pages=num_pages,
+                                      swap_mode="host"))):
+        eng = Engine(dcfg, dparams, ServeConfig(**pool, **over), device=DEV)
+        res = run_timed_workload(eng, cfg.vocab_size, **traffic)
+        torch.cuda.synchronize()
+        _check_streams(res["streams"], 64, cfg.vocab_size)
+        if eng.leaked_pages():
+            raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+        require_captured(eng, f"sampled dense {label}")
+        sampled[label] = res
+    same = {k: sum(sampled[k]["streams"][n] == sampled["reserve"]["streams"]
+                   [n] for n in range(16)) for k in ("replay", "swap")}
+    print(f"  sampled dense 4-layer (temperature 0.7, the workload's bursty "
+          f"16 x 64): reserve {sampled['reserve']['pool_pages']} pages, "
+          f"replay and swap {num_pages} pages with "
+          f"{sampled['replay']['preemptions']} and "
+          f"{sampled['swap']['preemptions']} preemptions (swap in "
+          f"{sampled['swap']['swap_in']}); streams equal to the reserve "
+          f"pool's: replay {same['replay']}/16, swap {same['swap']}/16 "
+          f"({smi})", flush=True)
+    if min(sampled["replay"]["preemptions"],
+           sampled["swap"]["preemptions"]) < 1 \
+            or sampled["swap"]["swap_in"] < 1:
+        raise AssertionError("the sampled overcommitted pools preempted or "
+                             "swapped nobody")
+    if same != {"replay": 16, "swap": 16}:
+        raise AssertionError("a sampled stream changed under preemption")
+    del eng
+
+    eng = Engine(cfg, params, ServeConfig(
+        **pool, alloc_mode="incremental", num_pages=num_pages,
+        spec_decode=True, spec_k=4, swap_mode="host"), device=DEV)
+    reset_counts()
+    res = run_timed_workload(eng, cfg.vocab_size, **traffic)
+    torch.cuda.synchronize()
+    spec_counts = read_counts()
+    _check_streams(res.pop("streams"), 64, cfg.vocab_size)
+    st = eng.stats
+    firsts = traffic["requests"]
+    print(f"  sampled spec at full width (temperature 0.7, w8a8_nibble "
+          f"draft, spec_k 4, the workload's pool with swap_mode host; "
+          f"{smi}): {res['tok_per_s']} tok/s, {res['preemptions']} "
+          f"preemptions, swap in {st['swap_in']}, acceptance "
+          f"{st['acceptance_rate']:.4f}, tokens per round "
+          f"{st['tokens_per_step']:.4f}, spec_tokens {eng.spec_tokens} "
+          f"(emitted {res['tokens']} - firsts {firsts}); launches "
+          f"{spec_counts}", flush=True)
+    eng.release_prefix_cache()
+    if eng.leaked_pages() or eng.host_pool.in_use:
+        raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+    if res["preemptions"] < 1:
+        raise AssertionError("the sampled spec run preempted nobody")
+    if eng.spec_tokens != res["tokens"] - firsts \
+            or not 0.0 <= st["acceptance_rate"] <= 1.0:
+        raise AssertionError("sampled spec accounting broken")
+    require_captured(eng, "sampled spec")
+    require_launched(spec_counts, ("nibble_matmul", "paged_decode_attention"))
+    require_no_f32(spec_counts)
+    res["spec_tokens"] = eng.spec_tokens
+    del eng
+
+    # (4) the sampler on the card against the CPU
+    samp = check_sampler()
+    wall = time.perf_counter() - t_phase
+    print(f"  sampling + graphs phase {wall:.1f} s", flush=True)
+    return {"eager_tok_s": eager_tok_s, "captured_tok_s": serve["tok_s"],
+            "eager_counts": counts, "tie": tie, "chunk_ms": chunk,
+            "sampled_dense": {k: {f: v[f] for f in (
+                "preemptions", "swap_in", "tok_per_s", "pool_pages")}
+                for k, v in sampled.items()} | {"streams_equal": same},
+            "sampled_spec": {f: res[f] for f in (
+                "tok_per_s", "preemptions", "acceptance_rate",
+                "tokens_per_step", "tokens", "spec_tokens")},
+            "sampler": samp, "wall_s": wall}
 
 
 def phase_workload(params, smi: str) -> dict:
@@ -1274,6 +1514,7 @@ def phase_workload(params, smi: str) -> dict:
         raise AssertionError(f"{engine.leaked_pages()} pages leaked")
     if r["compile_counts"] != {"prefill": 1, "decode_chunk": 1}:
         raise AssertionError(f"stage signatures {r['compile_counts']}")
+    r["captures"] = require_captured(engine, "workload")
     require_launched(counts, ("nibble_matmul", "flash_attention_fwd",
                               "paged_decode_attention"))
     require_no_f32(counts)
@@ -1297,6 +1538,7 @@ def phase_workload(params, smi: str) -> dict:
         _check_streams(res["streams"], n_new, cfg.vocab_size)
         if eng.leaked_pages():
             raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+        require_captured(eng, "dense 4-layer workload")
         return res
 
     inc = serve("incremental", num_pages)
@@ -1447,6 +1689,7 @@ def phase_prefix_swap(params, smi: str, workload: dict, serve: dict
                              f"({engine.host_pool.in_use} on the host)")
     if r["compile_counts"] != {"prefill": 1, "decode_chunk": 1}:
         raise AssertionError(f"stage signatures {r['compile_counts']}")
+    r["captures"] = require_captured(engine, "prefix+swap")
     require_launched(counts, ("nibble_matmul", "paged_decode_attention"))
     if counts["flash_attention_fwd"]:
         raise AssertionError("the prefix engine launched the flash "
@@ -1483,6 +1726,7 @@ def phase_prefix_swap(params, smi: str, workload: dict, serve: dict
     eng.release_prefix_cache()
     if eng.leaked_pages():
         raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+    require_captured(eng, "dense swap")
     if same_sw != 8 or sw["swap_in"] < 1:
         raise AssertionError("a swapped dense stream differs from the "
                              "uncontended one, or nothing swapped in")
@@ -1518,6 +1762,7 @@ def phase_prefix_swap(params, smi: str, workload: dict, serve: dict
     eng.release_prefix_cache()
     if eng.leaked_pages():
         raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+    require_captured(eng, "dense prefix")
     plain = serve_all(dense_engine(), prompts)
     same_pf = sum(a == b for a, b in zip(got, solo))
     same_plain = sum(a == b for a, b in zip(got, plain))
@@ -1588,9 +1833,11 @@ def phase_spec_wave(params, smi: str, serve: dict, workload: dict) -> dict:
     # (a) the spec pair
     dense_cfg = base.replace(quant_mode="dense")
     n_tok = len(prompts) * n_new
-    want, base_wall, _ = _serve_timed(
-        Engine(dense_cfg, params, ServeConfig(decode_chunk=1, **kw),
-               device=DEV), prompts, n_new)
+    baseline = Engine(dense_cfg, params, ServeConfig(decode_chunk=1, **kw),
+                      device=DEV)
+    want, base_wall, _ = _serve_timed(baseline, prompts, n_new)
+    require_captured(baseline, "spec baseline")
+    del baseline
     engine = Engine(base.replace(quant_mode="w8a8_nibble"), params,
                     ServeConfig(spec_decode=True, spec_k=4, **kw),
                     device=DEV)
@@ -1602,12 +1849,14 @@ def phase_spec_wave(params, smi: str, serve: dict, workload: dict) -> dict:
             "tokens_per_step": st["tokens_per_step"],
             "spec_rounds": st["spec_rounds"],
             "spec_rollback_pages": st["spec_rollback_pages"],
-            "compile_counts": engine.compile_counts, "counts": counts}
+            "compile_counts": engine.compile_counts, "counts": counts,
+            "captures": require_captured(engine, "spec")}
     print(f"  spec pair ({smi}): baseline {base_tok_s:.2f} tok/s, spec "
           f"{spec_tok_s:.2f} tok/s; acceptance {st['acceptance_rate']:.4f}"
           f", tokens per round {st['tokens_per_step']:.4f}, "
           f"{st['spec_rounds']} rounds, {st['spec_rollback_pages']} pages "
-          f"rolled back; stages {engine.compile_counts}", flush=True)
+          f"rolled back; stages {engine.compile_counts}, CUDA graphs "
+          f"{engine.capture_counts} (both engines captured)", flush=True)
     print(f"  launches in the spec run: {counts}", flush=True)
     if engine.compile_counts != SPEC_COUNTS:
         raise AssertionError(f"stage signatures {engine.compile_counts}")
@@ -1655,6 +1904,7 @@ def phase_spec_wave(params, smi: str, serve: dict, workload: dict) -> dict:
           flush=True)
     if r["compile_counts"] != WAVE_COUNTS:
         raise AssertionError(f"stage signatures {r['compile_counts']}")
+    r["captures"] = require_captured(engine, "tail")
     require_launched(tail_counts, ("nibble_matmul", "paged_decode_attention"))
     if tail_counts["flash_attention_fwd"]:
         raise AssertionError("the wave engine launched the flash forward "
@@ -1679,6 +1929,7 @@ def phase_spec_wave(params, smi: str, serve: dict, workload: dict) -> dict:
         eng.release_prefix_cache()
         if eng.leaked_pages():
             raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+        require_captured(eng, "dense 4-layer spec/wave")
         return [done[i].tokens for i in ids], eng.compile_counts
 
     mono, _ = dense_run()
@@ -1724,6 +1975,7 @@ def phase_lut_serve(params, prompts, n_req=4, n_new=16,
         torch.cuda.synchronize()
         if engine.leaked_pages():
             raise AssertionError(f"{engine.leaked_pages()} pages leaked")
+        require_captured(engine, f"{cfg.quant_mode} serve")
         return [done[i].tokens for i in ids]
 
     want = serve(base)
@@ -1924,69 +2176,158 @@ def phase_profile(engine, prompts, n_new=32) -> dict:
             "top": [(n, us / 1e3) for n, us in top], "paged": paged}
 
 
-def _op_device_ms(prof, name: str) -> float:
-    """Device milliseconds of the kernels launched under the CPU op
-    ``name`` (e.g. ``aten::bmm``: attention_core's einsums)."""
-    total = 0.0
-    for ev in prof.key_averages():
-        if ev.key == name:
-            us = getattr(ev, "device_time_total", None)
-            total += (ev.cuda_time_total if us is None else us)
-    return total / 1e3
+# PyTorch ops whose kernels a profile row splits out: a kernel launched
+# under one of them (in an eager run, where every kernel has a CPU op
+# above it) is classed by its device name in every row, so a captured
+# row, whose kernels have no CPU op above them, gets its eager row's split
+_OP_CLASSES = {"aten::mm": "dense_gemm", "aten::bmm": "attn_core_einsum",
+               "aten::_softmax": "attn_core_softmax"}
+
+
+def _learn_kernel_classes(prof, classes: dict) -> None:
+    """Add to ``classes`` (kernel name -> set of classes) the kernels that
+    ran under an op of ``_OP_CLASSES`` in this profile."""
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        op = ev
+        while op is not None and op.name not in _OP_CLASSES:
+            op = op.cpu_parent
+        if op is not None:
+            for k in ev.kernels:
+                classes.setdefault(k.name, set()).add(_OP_CLASSES[op.name])
+
+
+def _kernel_class(name: str, classes: dict) -> str:
+    if "nibble" in name:
+        return "nibble"
+    if "paged_decode" in name:
+        return "paged_decode"
+    if "flash" in name:
+        return "flash_fwd"
+    return "+".join(sorted(classes.get(name, ()))) or "other"
+
+
+class _TimedGraph:
+    """A captured stage's CUDA graph with CUDA events around each replay:
+    the device span of the graph's kernels and the gaps between them."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.events = []
+
+    def replay(self):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        self.graph.replay()
+        b.record()
+        self.events.append((a, b))
+
+    def span_ms(self) -> float:
+        """Device ms of the replays since the last read (after a sync)."""
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events.clear()
+        return ms
 
 
 def profile_spec_wave(params, prompts) -> dict:
-    """One speculation round and one wave at full width under
-    torch.profiler (each after one unprofiled warm-up of the same stage):
-    wall time, device busy time and idle share, and the device time of
-    the nibble and paged kernels, the flash forward, the dense GEMMs
-    (``aten::mm``: projections and head), attention_core's einsums
-    (``aten::bmm``) and softmax (``aten::_softmax``)."""
+    """One decode chunk and one speculation round, each eager and
+    captured, and one wave, at full width (each after one unprofiled
+    warm-up of the same stage, which captures its graphs).  Each stage
+    but the wave runs once more unprofiled for its host wall time, with
+    CUDA events around every graph replay in that same call (a lower
+    bound of the idle share: the span holds the gaps inside the graph),
+    then once under torch.profiler: wall time, device busy time and
+    idle share, and the device time of the nibble and paged kernels, the
+    flash forward, the dense GEMMs (``aten::mm``: projections and head),
+    attention_core's einsums (``aten::bmm``) and softmax
+    (``aten::_softmax``), each classed by device kernel name as the eager
+    runs launch them (``_learn_kernel_classes``)."""
     from torch.profiler import ProfilerActivity, profile
     base = get_config("yi-6b").replace(
         quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
         cache_mode="paged", page_size=16)
     kw = dict(batch=4, max_len=192, prefill_len=128,
               alloc_mode="incremental")
-    out = {}
-    for label, over, stage in (
-            ("spec round", dict(spec_decode=True, spec_k=4),
-             lambda e: e._run_spec_round(0.0)),
-            ("wave", dict(prefill_chunk=32, admit_group=4),
-             lambda e: e._run_wave())):
-        engine = Engine(base, params, ServeConfig(**kw, **over), device=DEV)
+    out, classes = {}, {}
+
+    def chunk(e):
+        e._run_chunk(0.0)
+
+    def spec(e):
+        e._run_spec_round(0.0)
+
+    def wave(e):
+        e._run_wave()
+
+    for label, over, stage, capture in (
+            ("decode chunk, eager", {}, chunk, False),
+            ("decode chunk, captured", {}, chunk, True),
+            ("spec round, eager", dict(spec_decode=True, spec_k=4), spec,
+             False),
+            ("spec round, captured", dict(spec_decode=True, spec_k=4), spec,
+             True),
+            ("wave", dict(prefill_chunk=32, admit_group=4), wave, None)):
+        engine = Engine(base, params, ServeConfig(**kw, **over), device=DEV,
+                        capture=capture)
         for p in prompts[:4]:
             engine.submit(p, 32)
         engine.start()
         engine._admit(0.0)
         stage(engine)                 # warm-up of the stage
         torch.cuda.synchronize()
+        graphs = []
+        for st in engine._stages.values():
+            for bufs in getattr(st, "_buffers", {}).values():
+                if bufs.graph is not None:
+                    bufs.graph = _TimedGraph(bufs.graph)
+                    graphs.append(bufs.graph)
+        res = {}
+        if stage is not wave:
+            t = time.perf_counter()
+            stage(engine)
+            torch.cuda.synchronize()
+            res["unprofiled_wall_ms"] = (time.perf_counter() - t) * 1e3
+            if graphs:
+                res["unprofiled_graph_span_ms"] = sum(g.span_ms()
+                                                      for g in graphs)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             stage(engine)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
+        if graphs:
+            res["graph_span_ms"] = sum(g.span_ms() for g in graphs)
         engine.run()
+        _learn_kernel_classes(prof, classes)
         kernels = _device_times(prof)
         busy = sum(kernels.values()) / 1e3
-        parts = {
-            "nibble": sum(us for n, us in kernels.items()
-                          if "nibble" in n) / 1e3,
-            "paged_decode": sum(us for n, us in kernels.items()
-                                if "paged_decode" in n) / 1e3,
-            "flash_fwd": sum(us for n, us in kernels.items()
-                             if "flash" in n) / 1e3,
-            "dense_gemm": _op_device_ms(prof, "aten::mm"),
-            "attn_core_einsum": _op_device_ms(prof, "aten::bmm"),
-            "attn_core_softmax": _op_device_ms(prof, "aten::_softmax")}
-        parts["other"] = busy - sum(parts.values())
-        print(f"profile {label} (4 slots, full width): wall {wall:.2f} ms, "
-              f"device busy {busy:.2f} ms, idle share "
-              f"{1 - busy / wall:.3f}; device ms "
+        parts = dict.fromkeys(("nibble", "paged_decode", "flash_fwd",
+                               "dense_gemm", "attn_core_einsum",
+                               "attn_core_softmax"), 0.0)
+        for name, us in kernels.items():
+            cls = _kernel_class(name, classes)
+            parts[cls] = parts.get(cls, 0.0) + us / 1e3
+        parts["other"] = parts.pop("other", 0.0)
+        line = (f"profile {label} (4 slots, full width): wall {wall:.2f} ms, "
+                f"device busy {busy:.2f} ms, idle share "
+                f"{1 - busy / wall:.3f}")
+        if "graph_span_ms" in res:
+            line += (f", graph span {res['graph_span_ms']:.2f} ms "
+                     f"(busy {busy / res['graph_span_ms']:.1%} of it)")
+        if "unprofiled_wall_ms" in res:
+            line += (f"; unprofiled, same engine: wall "
+                     f"{res['unprofiled_wall_ms']:.2f} ms")
+        if "unprofiled_graph_span_ms" in res:
+            span, w = res["unprofiled_graph_span_ms"], res["unprofiled_wall_ms"]
+            line += (f", graph span {span:.2f} ms, idle share outside the "
+                     f"graphs' span {1 - span / w:.3f}")
+        print(line + "; device ms "
               + ", ".join(f"{k} {v:.3f} ({v / busy:.1%})"
                           for k, v in parts.items()), flush=True)
-        out[label] = {"wall_ms": wall, "busy_ms": busy, "parts_ms": parts}
+        out[label] = {"wall_ms": wall, "busy_ms": busy, "parts_ms": parts,
+                      **res}
         del engine
     return out
 
@@ -1995,8 +2336,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="after serving, profile one wave of 4 requests; "
-                         "after the spec + wave phase, one speculation "
-                         "round and one prefill wave")
+                         "after the spec + wave phase, one decode chunk "
+                         "and one speculation round (each eager and "
+                         "captured) and one prefill wave")
     ap.add_argument("--out", default=None, help="write details as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2018,6 +2360,9 @@ def main() -> int:
     if args.profile:
         serve["profile"] = phase_profile(engine, prompts)
     del engine
+    serve["prompts"] = prompts
+    graphs = phase_graphs(params, smi, serve)
+    del serve["prompts"], serve["streams"]
     workload = phase_workload(params, smi)
     for r in rows[:3]:
         r["workload_launches"] = workload["counts"][r["name"]]
@@ -2050,7 +2395,7 @@ def main() -> int:
             json.dump({"nvidia_smi": smi, "kernels": rows,
                        "attention_f32_errors": f32, "serve": serve,
                        "workload": workload, "prefix_swap": prefix_swap,
-                       "spec_wave": spec_wave,
+                       "spec_wave": spec_wave, "graphs": graphs,
                        "lut_serve": lut, "train": train,
                        "train_grads": grads, "torch": torch.__version__},
                       f, indent=1)

@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import lut_matmul as _lm
+from repro_torch.kernels import nibble_matmul as _nm
 from repro_torch.kernels.flash_attention import (
     flash_attention_bwd,
     flash_attention_fwd,
@@ -23,9 +26,32 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.lut_matmul import lut_matmul
 from repro_torch.kernels.nibble_matmul import fused_nibble_matmul
 
-__all__ = ["quant_matmul", "flash_mha", "paged_flash_decode", "W_FORMATS"]
+__all__ = ["quant_matmul", "flash_mha", "paged_flash_decode", "W_FORMATS",
+           "LAUNCH_COUNTERS", "launch_counts", "add_launch_counts"]
 
 W_FORMATS = ("int8", "int4_packed", "lut")
+
+# every wrapper's launch counter, ``(module, attribute)``.  A wrapper
+# counts in Python, which a CUDA graph's replay does not run, so whoever
+# replays a graph adds the counts its capture recorded
+# (``serve.engine._CapturedStage``)
+LAUNCH_COUNTERS = tuple((mod, name) for mod, names in (
+    (_nm, ("launches",)),
+    (_lm, ("lut_launches",)),
+    (_fa, ("fwd_launches", "paged_launches", "bwd_dq_launches",
+           "bwd_dkv_launches", "fwd_f32_launches", "paged_f32_launches",
+           "bwd_f32_dq_launches", "bwd_f32_dkv_launches"))) for name in names)
+
+
+def launch_counts() -> list[int]:
+    """The counters of :data:`LAUNCH_COUNTERS`, in order."""
+    return [getattr(mod, name) for mod, name in LAUNCH_COUNTERS]
+
+
+def add_launch_counts(delta) -> None:
+    """Add ``delta`` (one int per counter of :data:`LAUNCH_COUNTERS`)."""
+    for (mod, name), d in zip(LAUNCH_COUNTERS, delta):
+        setattr(mod, name, getattr(mod, name) + d)
 
 
 def _row_scale(s, m, device):

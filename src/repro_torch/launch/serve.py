@@ -42,6 +42,11 @@ wave prefill (chunked prefill with grouped admission):
         --workload bursty --cache-mode paged --page-size 16 \
         --prefill-chunk 32 --admit-group 4
 
+``--temperature 0.7`` samples (any workload, also with ``--spec-decode``)
+under the reference's index-derived keys; ``--verify`` needs greedy
+streams.  On the card the decode chunk (the draft and the verify under
+``--spec-decode``) replays from CUDA graphs.
+
 ``--reduced`` (the default) runs the arch's smoke-scale variant, ``--full``
 its published widths and depth; weights are random, from seed 0.  It runs
 on the CUDA device, every projection through the CUDA kernels
@@ -66,7 +71,6 @@ from repro_torch.serve import Engine, ServeConfig, run_timed_workload
 
 # flag -> (default, where ROADMAP.md places the work that ports it)
 _UNPORTED_FLAGS = {
-    "temperature": (0.0, "queue 1 item 1, temperature sampling"),
     "tp": (1, "queue 1 item 4, scale-out"),
     "dp": (1, "queue 1 item 4, scale-out"),
     "mesh": (None, "queue 1 item 4, scale-out"),
@@ -105,6 +109,7 @@ def _build(args, reference=False):
         max_len += (-max_len) % args.page_size
     scfg = ServeConfig(batch=args.batch,
                        max_len=max_len,
+                       temperature=args.temperature,
                        prefill_len=args.prompt_len,
                        decode_chunk=args.decode_chunk,
                        priority_aging_s=args.priority_aging_s,
@@ -143,7 +148,8 @@ def run_batch(args, cfg, engine):
     print(f"arch={cfg.name} quant={args.quant} backend={args.quant_backend} "
           f"device={engine.device} workload=batch")
     print(f"  compile+warmup: {t_compile:.2f}s   "
-          f"(compilations: {engine.compile_counts})")
+          f"(compilations: {engine.compile_counts}, CUDA graphs: "
+          f"{engine.capture_counts})")
     print(f"  steady-state:   {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s, batch={args.batch})")
     print("  sample token ids:", out[0, -16:].tolist())
@@ -180,6 +186,9 @@ def _verify(args, cfg, r):
     token-for-token equality (greedy streams).  The reference's baseline
     is single-device with every tail-latency mechanism off: here the host
     swap (the prefix cache stays, as in the reference)."""
+    if args.temperature > 0:
+        raise SystemExit("--verify needs greedy streams "
+                         "(--temperature 0)")
     cfg_ref, _, ref = _build(args, reference=True)
     ref_r = _run_workload(args, cfg_ref, ref, collect_streams=True)
     _check_leaks(args, ref)
@@ -207,7 +216,8 @@ def run_requests(args, cfg, engine):
           f"per-engine mesh {tuple(r['mesh_shape'])}, "
           f"dp_replicas={r['dp_replicas']}")
     print(f"  compile+warmup: {r['compile_s']:.2f}s   "
-          f"(compilations: {r['compile_counts']})")
+          f"(compilations: {r['compile_counts']}, CUDA graphs: "
+          f"{engine.capture_counts})")
     print(f"  steady-state:   {r['tokens']} tokens in {r['wall_s']:.2f}s "
           f"({r['tok_per_s']:.1f} tok/s)")
     print(f"  request latency p50={r['req_p50_ms']:.0f}ms "
@@ -265,9 +275,11 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32,
                     help="slot prompt budget (requests pad up to this)")
     ap.add_argument("--new-tokens", type=int, default=32)
-    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; > 0 samples from logits / "
+                         "temperature (index-derived keys, base seed 0)")
     ap.add_argument("--decode-chunk", type=int, default=8,
-                    help="greedy steps per decode chunk")
+                    help="decode steps per decode chunk")
     ap.add_argument("--workload", default="batch",
                     choices=["batch", "uniform", "staggered", "bursty"],
                     help="batch = lockstep generate; uniform/staggered/"

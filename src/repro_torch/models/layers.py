@@ -31,8 +31,9 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6):
 def rope(positions: torch.Tensor, head_dim: int, theta: float = 10_000.0):
     """(sin, cos) tables in f32 for integer positions, (..., head_dim//2)."""
     half = head_dim // 2
+    # a fill, not a host-to-device copy, so a CUDA graph can capture it
     freqs = torch.pow(
-        torch.tensor(theta, dtype=torch.float32, device=positions.device),
+        torch.full((), theta, dtype=torch.float32, device=positions.device),
         -torch.arange(0, half, dtype=torch.float32, device=positions.device)
         / half)
     angles = positions.to(torch.float32)[..., None] * freqs

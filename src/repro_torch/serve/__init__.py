@@ -1,7 +1,12 @@
 """Serving: the continuous-batching engine, its page bookkeeping and the
 timed workload driver."""
 
-from repro_torch.serve.engine import Engine, Request, ServeConfig  # noqa: F401
+from repro_torch.serve.engine import (  # noqa: F401
+    Engine,
+    Request,
+    ServeConfig,
+    make_serve_step,
+)
 from repro_torch.serve.paging import (  # noqa: F401
     HostPagePool,
     PageAllocator,

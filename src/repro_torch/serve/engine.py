@@ -8,12 +8,25 @@ Each batch slot is an independent sequence sharing one model:
   caches are copied into the slot's row of the dense slab or, paged, into
   the pool pages its table row maps.  Pad-token rows are harmless: decode
   overwrites row ``p`` before any query attends to it.
-* **Decode chunks.**  ``decode_chunk`` greedy steps run back to back on
-  the device at per-slot positions.  Slots that are idle or finished keep
-  running *frozen* on their last token and position (their rewrites land
-  on already-written rows, or paged, on the trash page) - the batch
-  composition stays what the reference engine runs, which matters
-  because the w8a8 activation scale is taken over the whole batch.
+* **Decode chunks.**  ``decode_chunk`` steps run back to back on the
+  device at per-slot positions, each token the argmax (``temperature``
+  0) or a draw from ``logits / temperature``.  Slots that are idle or
+  finished keep running *frozen* on their last token and position (their
+  rewrites land on already-written rows, or paged, on the trash page) -
+  the batch composition stays what the reference engine runs, which
+  matters because the w8a8 activation scale is taken over the whole
+  batch.
+* **Sampling** (``serve/sampling.py``).  Token ``i`` of request ``r`` is
+  drawn under ``fold_in(fold_in(base_key, r.id), i)``, the reference's
+  threefry keys computed bit for bit, never a generator state threaded
+  through the loop: a draw depends on (request, stream index) alone, so
+  sampled streams, like greedy ones, resume exactly after a preemption.
+* **CUDA graphs.**  On the card the decode chunk, and with speculative
+  decoding the draft and the verify, are captured once per signature
+  (``_CapturedStage``) and replayed: the host copies the chunk's state
+  into static buffers, replays one graph and reads the outputs back once
+  (``capture_counts``).  Prefill, context prefill and the wave run
+  eagerly.
 * **Paged KV cache.**  ``alloc_mode="reserve"`` books a request's
   worst-case pages at admission and defers (backpressure) when the pool
   cannot cover them; ``alloc_mode="incremental"`` books the prompt pages
@@ -25,9 +38,9 @@ Each batch slot is an independent sequence sharing one model:
   the weakest runner is evicted: its pages go back to the pool, its table
   row to the trash page, and the request re-enters the queue carrying its
   tokens.  On re-admission the prompt is prefilled again and the stored
-  tokens are teacher-forced back through the decode chunk, so a greedy
-  stream resumes exactly as an uninterrupted one wherever rows do not
-  depend on each other (``quant_mode="dense"``).
+  tokens are teacher-forced back through the decode chunk, so a stream,
+  greedy or sampled, resumes exactly as an uninterrupted one wherever
+  rows do not depend on each other (``quant_mode="dense"``).
 * **Host swap** (``swap_mode="host"``).  Eviction copies the victim's
   live pages to a ``HostPagePool`` (CPU tensors), and re-admission copies
   them back into fresh pages: a page copy instead of a re-prefill and a
@@ -42,16 +55,17 @@ Each batch slot is an independent sequence sharing one model:
   leaf-first under pool pressure or above ``prefix_cache_pages``; with
   the host swap they are demoted to host pages and promoted back on a
   later hit.
-* **Self-speculative decoding** (``spec_decode=True``, greedy).  The
-  engine's quant knobs configure a *draft* (``spec_split``: the nibble
-  datapath by default, its int8 weights prepared once at construction)
-  that proposes ``spec_k`` tokens per slot by S = 1 decode steps; ONE
-  dense ``decode_step`` over ``[token, drafts]`` (S = k + 1) verifies
-  them.  A draft is accepted where it equals the dense argmax, so the
-  stream is the non-spec dense engine's; drafts stay on the device and
-  the round reads the host copy once.  Rejected tails roll back by
-  ``PageTable.truncate`` (incremental mode).  Prefill and verify run
-  dense.
+* **Self-speculative decoding** (``spec_decode=True``).  The engine's
+  quant knobs configure a *draft* (``spec_split``: the nibble datapath
+  by default, its int8 weights prepared once at construction) that
+  proposes ``spec_k`` tokens per slot by S = 1 decode steps; ONE dense
+  ``decode_step`` over ``[token, drafts]`` (S = k + 1) verifies them
+  (``spec_accept``).  Greedy, a draft is accepted where it equals the
+  dense argmax, so the stream is the non-spec dense engine's; sampled,
+  rejection sampling keeps the dense model's distribution.  Drafts and
+  their distributions stay on the device and the round reads the host
+  copy once.  Rejected tails roll back by ``PageTable.truncate``
+  (incremental mode).  Prefill and verify run dense.
 * **Wave prefill** (``prefill_chunk > 0`` or ``admit_group > 1``, paged).
   Admission books pages and parks the slot as a *prefilling* lane; each
   scheduler step advances up to ``admit_group`` lanes by one
@@ -60,9 +74,8 @@ Each batch slot is an independent sequence sharing one model:
   The monolithic prefill is then never run.
 * **Priority queue** with optional aging, as in the reference.
 
-Not ported yet (the knobs raise ``NotImplementedError``): sampling with
-``temperature > 0`` (the reference draws from threefry keys that no other
-framework reproduces) and tensor parallelism.
+Not ported yet (the knobs raise ``NotImplementedError``): tensor
+parallelism and the device mesh.
 """
 
 from __future__ import annotations
@@ -77,6 +90,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, spec_split
+from repro_torch.kernels.ops import add_launch_counts, launch_counts
 from repro_torch.models.transformer import (
     copy_paged_cache_page,
     decode_step,
@@ -96,19 +110,27 @@ from repro_torch.serve.paging import (
     PrefixCache,
     pages_needed,
 )
+from repro_torch.serve.sampling import (
+    as_key,
+    draft_sample,
+    fold_in,
+    sample,
+    spec_accept,
+)
 
-__all__ = ["ServeConfig", "Request", "Engine"]
+__all__ = ["ServeConfig", "Request", "Engine", "make_serve_step"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     batch: int                        # concurrent decode slots
     max_len: int                      # per-slot cache budget (tokens)
-    temperature: float = 0.0          # 0 = greedy (the only ported mode)
+    temperature: float = 0.0          # 0 = greedy; > 0 samples from
+    #   logits / temperature under index-derived keys
     eos_id: int = -1                  # -1 = length-only stopping
     prefill_len: int = 0              # slot prompt budget (prompts are
     #   zero-padded to it); 0 = prefill at exact prompt length
-    decode_chunk: int = 8             # greedy steps per decode chunk
+    decode_chunk: int = 8             # decode steps per decode chunk
     priority_aging_s: float = 0.0     # seconds per +1 effective priority
     #   (queued and running requests alike: it also gates preemption)
     alloc_mode: str = "reserve"       # paged page accounting: "reserve"
@@ -131,7 +153,7 @@ class ServeConfig:
     #   gets a cold tier); "off" = replay-only resume.  Paged only
     host_pages: int = 0               # host pool pages; 0 = twice the
     #   device pool's allocatable pages
-    spec_decode: bool = False         # self-speculative decoding (greedy):
+    spec_decode: bool = False         # self-speculative decoding:
     #   the quant knobs configure the draft, prefill and verify run dense
     spec_k: int = 4                   # draft tokens per speculation round
     spec_quant_mode: str | None = None  # draft mode; None = the engine's
@@ -145,7 +167,7 @@ class ServeConfig:
     mesh_shape: tuple | None = None
 
 
-_UNPORTED = (("temperature", 0.0), ("tp", 1), ("mesh_shape", None))
+_UNPORTED = (("tp", 1), ("mesh_shape", None))
 
 
 def _apply_overrides(cfg: ModelConfig, scfg: ServeConfig) -> ModelConfig:
@@ -154,6 +176,29 @@ def _apply_overrides(cfg: ModelConfig, scfg: ServeConfig) -> ModelConfig:
                                              "num_pages")
                if getattr(scfg, f) is not None}
     return cfg.replace(**updates) if updates else cfg
+
+
+def make_serve_step(cfg: ModelConfig, scfg: ServeConfig) -> Callable:
+    """``serve_step(params, caches, token, index, rng) -> (next_token,
+    caches)``: one decode step over a dense cache, greedy or sampled
+    (port of the reference's ``make_serve_step``).  ``index`` is a scalar
+    or (B,) per-slot positions; ``rng`` is one key (an int seed or a JAX
+    key's two words) whose noise covers the whole (B, V) batch, as the
+    reference's unbatched ``categorical`` draws it.  Paged caches need a
+    page table per step, which this entry point does not carry: use
+    ``Engine``."""
+    cfg = _apply_overrides(cfg, scfg)
+    if cfg.cache_mode == "paged":
+        raise ValueError("make_serve_step does not support "
+                         "cache_mode='paged' (no page-table plumbing); "
+                         "use Engine for the paged cache")
+
+    def serve_step(params, caches, token, index, rng):
+        logits, caches = decode_step(params, cfg, token, caches, index)
+        key = as_key(rng).to(logits.device)
+        return sample(logits[:, -1], key, scfg.temperature)[:, None], caches
+
+    return serve_step
 
 
 @dataclasses.dataclass
@@ -243,37 +288,157 @@ class _PriorityQueue:
 
 class _StageCounter:
     """Distinct call signatures of one engine stage: the shape and dtype
-    of each tensor argument, the type name of any other.  Stands in for
-    the reference's ``_CountingJit``.  PyTorch compiles nothing here, but a
-    stage that keeps one signature is one a CUDA graph captured once can
-    replay, so the count pins the same contract: a warm engine reads
-    ``{"prefill": 1, "decode_chunk": 1}`` across request mixes, page
-    recyclings and preemptions (given a fixed ``prefill_len``)."""
+    of each tensor or array argument, the type name of any other.  Stands
+    in for the reference's ``_CountingJit``: a stage that keeps one
+    signature is one a CUDA graph captured once can replay, so the count
+    pins the same contract: a warm engine reads ``{"prefill": 1,
+    "decode_chunk": 1}`` across request mixes, page recyclings and
+    preemptions (given a fixed ``prefill_len``)."""
 
     def __init__(self):
         self._keys: set = set()
 
-    def record(self, *args) -> None:
-        self._keys.add(tuple(
-            (tuple(a.shape), str(a.dtype)) if isinstance(a, torch.Tensor)
-            else (type(a).__name__,) for a in args))
+    def record(self, *args) -> tuple:
+        key = tuple(
+            (tuple(a.shape), str(a.dtype))
+            if isinstance(a, (torch.Tensor, np.ndarray))
+            else (type(a).__name__,) for a in args)
+        self._keys.add(key)
+        return key
 
     @property
     def count(self) -> int:
         return len(self._keys)
 
 
+@dataclasses.dataclass
+class _StageBuffers:
+    """One signature of a ``_CapturedStage``: its static inputs, and once
+    captured, its graph, outputs and kernel launches per replay."""
+    args: list                  # device buffers (array inputs) or tensors
+    staging: list               # host buffer per array input, else None
+    graph: object = None        # torch.cuda.CUDAGraph
+    outputs: object = None
+    launches: list | None = None
+
+
+class _CapturedStage(_StageCounter):
+    """An engine stage run from static device buffers and, with
+    ``capture``, replayed from CUDA graphs: the port's ``_CountingJit``.
+    ``fn`` takes the stage's inputs as tensors and returns its outputs on
+    the device, reading nothing back to the host.
+
+    A call records its signature, copies each numpy input into that
+    signature's device buffer (through pinned staging on the card, without
+    blocking) and passes tensor inputs (an earlier captured stage's
+    outputs) as they are.  With ``capture``, the first call of a
+    signature runs ``fn`` once eagerly on a side stream (the warm-up
+    ``torch.cuda.graphs`` asks for) and captures it, and the call returns
+    the warm-up's result in the graph's output tensors; later calls
+    replay the graph.  So a call runs the stage once, captured or not.
+    Otherwise ``fn`` runs eagerly on the buffers.
+    The caller reads the outputs back: a stage's one host read, which also
+    orders the next call's staging writes after this call's copies.
+
+    A graph holds raw pointers, so the weights, the caches and these
+    buffers keep their storage for the engine's life (the caches are
+    written in place, never rebound).  The kernel wrappers count their
+    launches in Python, which a replay does not run: the counts a capture
+    recorded are added on every replay and withdrawn for the capture
+    itself, which launches nothing."""
+
+    def __init__(self, fn, device: torch.device, capture: bool):
+        super().__init__()
+        self._fn = fn
+        self._device = device
+        self._capture = capture
+        self._buffers: dict[tuple, _StageBuffers] = {}
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured (one per signature on the card, else 0)."""
+        return sum(b.graph is not None for b in self._buffers.values())
+
+    def _new_buffers(self, args) -> _StageBuffers:
+        pin = self._device.type == "cuda"
+        bufs, staging = [], []
+        for a in args:
+            if isinstance(a, np.ndarray):
+                host = torch.from_numpy(np.zeros(a.shape, a.dtype))
+                buf = host.to(self._device)
+                staging.append(host.pin_memory() if pin else buf)
+            else:
+                buf = a
+                staging.append(None)
+            bufs.append(buf)
+        return _StageBuffers(bufs, staging)
+
+    def __call__(self, *args):
+        key = self.record(*args)
+        st = self._buffers.get(key)
+        if st is None:
+            st = self._buffers[key] = self._new_buffers(args)
+        for i, a in enumerate(args):
+            host = st.staging[i]
+            if host is not None:
+                host.numpy()[...] = a
+                if host is not st.args[i]:
+                    st.args[i].copy_(host, non_blocking=True)
+            elif not self._capture:
+                st.args[i] = a
+            elif a is not st.args[i]:
+                raise RuntimeError("a captured stage's tensor input is not "
+                                   "the tensor it was captured with")
+        if not self._capture:
+            return self._fn(*st.args)
+        if st.graph is None:
+            self._capture_graph(st)
+        else:
+            st.graph.replay()
+            add_launch_counts(st.launches)
+        return st.outputs
+
+    def _capture_graph(self, st: _StageBuffers) -> None:
+        stream = torch.cuda.current_stream(self._device)
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            warm = self._fn(*st.args)       # launches for real, counted
+        stream.wait_stream(side)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            st.outputs = self._fn(*st.args)
+        st.launches = [a - b for a, b in zip(launch_counts(), before)]
+        add_launch_counts([-n for n in st.launches])
+        st.graph = graph
+        outs = st.outputs if isinstance(st.outputs, tuple) else (st.outputs,)
+        for out, w in zip(outs, warm if isinstance(warm, tuple) else (warm,)):
+            out.copy_(w)
+
+
 class Engine:
-    """Continuous-batching greedy engine over a dense or paged KV cache,
-    with incremental page allocation, evict-and-resume preemption, the
-    prefix cache, the host swap tier, self-speculative decoding and the
-    wave prefill.
+    """Continuous-batching engine (greedy or sampled) over a dense or
+    paged KV cache, with incremental page allocation, evict-and-resume
+    preemption, the prefix cache, the host swap tier, self-speculative
+    decoding and the wave prefill.
     ``params`` come from ``model_init`` or ``load_jax_params`` on the
-    same device; ``device`` defaults to CUDA and raises without a card."""
+    same device; ``device`` defaults to CUDA and raises without a card.
+    ``capture`` replays the decode chunk (draft and verify under
+    ``spec_decode``) from CUDA graphs: ``None`` captures on CUDA and runs
+    eagerly on the CPU; ``False`` runs eagerly on the card (the eager
+    side of a comparison).  ``True`` is kept apart from ``None`` so that
+    asking for graphs on the CPU raises instead of running eagerly: the
+    hot path has no silent fallback."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, *,
-                 device="cuda"):
+                 device="cuda", capture: bool | None = None):
         self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
+        if capture and not on_card:
+            raise ValueError("capture=True needs a CUDA device: CUDA "
+                             "graphs replay on the card only")
+        self._capture = on_card if capture is None else bool(capture)
         for field, default in _UNPORTED:
             if getattr(scfg, field) != default:
                 raise NotImplementedError(
@@ -328,8 +493,13 @@ class Engine:
             self._wave_group = scfg.admit_group
         self._caches = init_caches(self.cfg, scfg.batch, scfg.max_len,
                                    device=self.device)
-        self._stages = {name: _StageCounter() for name in (
-            "prefill", "decode_chunk", "prefill_chunk", "draft", "verify")}
+        self._stages = {"prefill": _StageCounter(),
+                        "prefill_chunk": _StageCounter()}
+        for name, fn in (("decode_chunk", self._chunk_body),
+                         ("draft", self._draft_body),
+                         ("verify", self._verify_body)):
+            self._stages[name] = _CapturedStage(fn, self.device,
+                                                self._capture)
         self._next_id = 0
         self.reset()
 
@@ -406,11 +576,18 @@ class Engine:
     # host-side state
     # ------------------------------------------------------------------
 
-    def reset(self) -> None:
-        """Clear queue, slots and counters (cache buffers and stage
-        counters are kept: stale rows are never attended before their
-        next owner rewrites them)."""
+    def reset(self, rng=None) -> None:
+        """Clear queue, slots and counters (cache buffers, stage counters
+        and captured graphs are kept: stale rows are never attended before
+        their next owner rewrites them).  ``rng`` sets the base key of
+        this run's sampled streams (an int seed or a JAX key's two uint32
+        words; default seed 0, as the reference's ``PRNGKey(0)``): request
+        ``r``'s key is ``fold_in(base, r.id)``, and its token ``i`` is
+        drawn under ``fold_in(request_key, i)``."""
         b = self.scfg.batch
+        self._base_key = as_key(0 if rng is None else rng)
+        self._req_keys: dict[int, np.ndarray] = {}
+        self._slot_keys = np.zeros((b, 2), np.int64)
         self._queue = _PriorityQueue(self.scfg.priority_aging_s)
         self._slots: list[Request | None] = [None] * b
         self._token = np.zeros((b, 1), np.int32)
@@ -491,6 +668,16 @@ class Engine:
         if self._spec:
             names += ["draft", "verify"]
         return {name: self._stages[name].count for name in names}
+
+    @property
+    def capture_counts(self) -> dict:
+        """CUDA graphs captured per captured stage (one per signature): a
+        warm engine on the card reads ``{"decode_chunk": 1}``, with
+        ``spec_decode`` ``{"decode_chunk": 0, "draft": 1, "verify": 1}``;
+        every stage reads 0 on the CPU and with ``capture=False``."""
+        names = ["decode_chunk"] + (["draft", "verify"] if self._spec
+                                    else [])
+        return {name: self._stages[name].captures for name in names}
 
     @property
     def stats(self) -> dict:
@@ -873,9 +1060,15 @@ class Engine:
 
     def _place(self, slot: int, req: Request) -> None:
         """Prefill a request alone into a free slot.  A fresh request
-        commits its first (greedy) token; a resumed one keeps its stored
-        first token and queues the rest on the slot's forcing lane.  A
-        swapped-out request is restored by page copy instead."""
+        commits its first token (stream index 0); a resumed one keeps its
+        stored first token and queues the rest on the slot's forcing lane.
+        A swapped-out request is restored by page copy instead."""
+        # the same request always gets the same key, fresh or resumed
+        key = self._req_keys.get(req.id)
+        if key is None:
+            key = fold_in(self._base_key, req.id).numpy()
+            self._req_keys[req.id] = key
+        self._slot_keys[slot] = key
         if req.swap_pages is not None:
             self._swap_in(slot, req)
             return
@@ -888,8 +1081,19 @@ class Engine:
         else:
             logits = self._plain_place(slot, req)
         # a resumed request keeps its stored first token: no read
-        first = -1 if req.tokens else int(torch.argmax(logits[0, -1]))
+        first = -1 if req.tokens else int(self._draw(
+            logits[:, -1], self._slot_keys[slot:slot + 1], 0)[0])
         self._commit_first(slot, req, first)
+
+    def _draw(self, logits, keys, index):
+        """(B, V) logits -> (B,) tokens: the argmax, or with a temperature
+        one draw per slot under ``fold_in(keys, index)`` (the slots'
+        request keys and the tokens' stream indices)."""
+        t = self.scfg.temperature
+        if t <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        keys = torch.as_tensor(keys, device=logits.device)
+        return sample(logits, fold_in(keys, index), t)
 
     def _plain_place(self, slot: int, req: Request):
         """Book the pages (paged) and prefill the whole prompt; returns
@@ -920,7 +1124,7 @@ class Engine:
 
     def _commit_first(self, slot: int, req: Request, first: int) -> None:
         """After a prompt's last row is written (prefill or final wave
-        chunk): a fresh request commits its greedy ``first`` token, a
+        chunk): a fresh request commits its ``first`` token, a
         resumed one keeps its stored first token and queues the rest on
         the forcing lane; then the slot starts decoding."""
         p_len = int(req.prompt.size)
@@ -994,22 +1198,25 @@ class Engine:
         self._remaining[slot] = 0
 
     @torch.no_grad()
-    def _wave_step(self, tokens, lens, starts, rows, cow_src, cow_dst):
+    def _wave_step(self, tokens, lens, starts, rows, cow_src, cow_dst,
+                   keys):
         """The wave program: the lanes' COW page copies before any write,
         then one ``decode_step`` over the (G, C) chunks at per-lane
         ``starts`` through per-lane table ``rows`` (all-trash for pad
-        lanes); returns each lane's greedy token at its row ``lens - 1``
-        (the first token where the chunk completes the prompt)."""
+        lanes); returns each lane's token at its row ``lens - 1`` (the
+        first token, stream index 0 under the lane's request key
+        ``keys``, where the chunk completes the prompt)."""
         args = [torch.as_tensor(a, device=self.device).long()
-                for a in (tokens, lens, starts, rows, cow_src, cow_dst)]
+                for a in (tokens, lens, starts, rows, cow_src, cow_dst,
+                          keys)]
         self._stages["prefill_chunk"].record(*args)
-        tokens, lens, starts, rows, cow_src, cow_dst = args
+        tokens, lens, starts, rows, cow_src, cow_dst, keys = args
         copy_paged_cache_page(self._caches, cow_src, cow_dst)
         logits, _ = decode_step(self.params, self.cfg, tokens, self._caches,
                                 starts, page_table=rows)
         last = logits[torch.arange(tokens.shape[0], device=self.device),
                       lens - 1]
-        return torch.argmax(last, dim=-1).cpu().numpy()
+        return self._draw(last, keys, 0).cpu().numpy()
 
     def _run_wave(self) -> None:
         """Advance up to ``admit_group`` prefilling lanes by one prompt
@@ -1023,6 +1230,7 @@ class Engine:
         starts = np.zeros((g,), np.int64)
         rows = np.zeros((g, self._max_pages), np.int64)
         cow = np.zeros((2, g), np.int64)
+        keys = np.zeros((g, 2), np.int64)
         real = []
         for i, s in enumerate(lanes):
             req = self._slots[s]
@@ -1032,6 +1240,7 @@ class Engine:
             tokens[i, :n] = req.prompt[st:st + n]
             lens[i], starts[i] = n, st
             rows[i] = self.page_table.row(s)
+            keys[i] = self._slot_keys[s]
             if self._slot_cow[s][0] and st + n == p_len:
                 # the COW pair applies with the final chunk, the only one
                 # that writes into the duplicated tail page
@@ -1040,7 +1249,8 @@ class Engine:
             real.append(n)
             self.prefill_tokens += n
         self.prefill_waves += 1
-        first = self._wave_step(tokens, lens, starts, rows, cow[0], cow[1])
+        first = self._wave_step(tokens, lens, starts, rows, cow[0], cow[1],
+                                keys)
         for i, s in enumerate(lanes):
             req = self._slots[s]
             nxt = int(self._prefill_next[s]) + real[i]
@@ -1061,6 +1271,7 @@ class Engine:
     def _finish(self, req: Request, slot: int) -> None:
         req.t_done = time.perf_counter() - self._t0
         self._finished[req.id] = req
+        self._req_keys.pop(req.id, None)
         self._slot_forced[slot] = []
         if self._paged and self._slot_pages[slot] is not None:
             # the departing slot's row re-points at the trash page, so its
@@ -1106,31 +1317,46 @@ class Engine:
                 if victim == slot:
                     break
 
-    @torch.no_grad()
+    def _counts(self) -> np.ndarray:
+        """Each slot's stream index of its next token (its request's
+        tokens so far; 0 for an empty slot)."""
+        return np.asarray([len(r.tokens) if r is not None else 0
+                           for r in self._slots], np.int64)
+
     def _decode_chunk(self, forced: np.ndarray):
-        """``decode_chunk`` greedy steps on the device; inactive slots are
-        frozen and emit -1.  ``forced`` (steps, B) holds replayed tokens
-        (-1 = none): where set, the stored token replaces the argmax, so a
-        resumed request rebuilds the KV of its uninterrupted run.  Returns
-        the host copies of the chunk state and the (steps, B) emitted
-        tokens and validity."""
-        dev = self.device
-        token = torch.as_tensor(self._token, device=dev).long()
-        positions = torch.as_tensor(self._positions, device=dev).long()
-        active = torch.as_tensor(self._active, device=dev)
-        remaining = torch.as_tensor(self._remaining, device=dev)
-        table = (torch.as_tensor(self.page_table.asarray(), device=dev)
-                 if self._paged else None)
-        forced = torch.as_tensor(forced, device=dev).long()
-        self._stages["decode_chunk"].record(token, positions, active,
-                                            remaining, table, forced)
+        """Run the decode chunk stage (``_chunk_body``) and read it back
+        once: returns the host copies of the chunk state and the (steps,
+        B) emitted tokens and validity."""
+        table = self.page_table.asarray() if self._paged else None
+        out = self._stages["decode_chunk"](
+            self._token, self._positions, self._active, self._remaining,
+            table, forced, self._slot_keys, self._counts()).cpu().numpy()
+        n = self.scfg.decode_chunk
+        return (out[0, :, None].astype(np.int32), out[1].astype(np.int32),
+                out[2].astype(bool), out[3].astype(np.int32), out[4:4 + n],
+                out[4 + n:].astype(bool))
+
+    @torch.no_grad()
+    def _chunk_body(self, token, positions, active, remaining, table,
+                    forced, keys, counts):
+        """The decode chunk on the device: ``decode_chunk`` steps, step
+        ``t`` of slot ``b`` drawing under ``fold_in(keys[b], counts[b] +
+        t)`` (or the argmax); inactive slots are frozen and emit -1.
+        ``forced`` (steps, B) holds replayed tokens (-1 = none): where
+        set, the stored token replaces the draw, so a resumed request
+        rebuilds the KV of its uninterrupted run.  Returns one (4 + 2 *
+        steps, B) int64 tensor: the next token, positions, active flags
+        and remaining budgets, then the emitted tokens and their
+        validity per step."""
+        token, positions, forced = token.long(), positions.long(), \
+            forced.long()
         max_pos = self.scfg.max_len - 1
         toks, valid = [], []
         for t in range(self.scfg.decode_chunk):
             logits, _ = decode_step(self.params, self.cfg, token,
                                     self._caches, positions,
                                     page_table=table)
-            nxt = torch.argmax(logits[:, -1], dim=-1)
+            nxt = self._draw(logits[:, -1], keys, counts + t)
             nxt = torch.where(forced[t] >= 0, forced[t], nxt)
             toks.append(torch.where(active, nxt, torch.full_like(nxt, -1)))
             valid.append(active)
@@ -1142,11 +1368,9 @@ class Engine:
                 active, torch.clamp(positions + 1, max=max_pos), positions)
             token = torch.where(active[:, None], nxt[:, None], token)
             active = active & alive
-        return (token.cpu().numpy().astype(np.int32),
-                positions.cpu().numpy().astype(np.int32),
-                active.cpu().numpy(), remaining.cpu().numpy(),
-                torch.stack(toks).cpu().numpy(),
-                torch.stack(valid).cpu().numpy())
+        return torch.cat([token.t(), positions[None], active[None].long(),
+                          remaining[None].long(), torch.stack(toks),
+                          torch.stack(valid).long()])
 
     def _run_chunk(self, now: float) -> None:
         if self._incremental:
@@ -1187,50 +1411,64 @@ class Engine:
                     self._slots[slot] = None
                     break
 
-    @torch.no_grad()
     def _spec_device(self, forced: np.ndarray, start: np.ndarray):
         """The draft and verify stages, back to back on the device (the
-        drafts never leave it).  Draft: ``spec_k`` greedy S = 1 steps
-        under the draft config from ``start``; ``forced`` (k, B) replayed
-        tokens (-1 = none) replace the argmax; positions advance only for
-        active slots.  Verify: one dense step over ``[token, drafts]`` at
-        S = k + 1 from ``start``, rewriting those rows; a draft is
-        accepted where forced or equal to the dense argmax.  Returns the
-        host copies, read once, of ``out`` (B, k + 1) (the accepted
-        draft or the dense token, then the bonus token) and ``accept``
-        (B, k)."""
-        dev, k = self.device, self.scfg.spec_k
-        token = torch.as_tensor(self._token, device=dev).long()
-        start = torch.as_tensor(start, device=dev).long()
-        active = torch.as_tensor(self._active, device=dev)
-        table = (torch.as_tensor(self.page_table.asarray(), device=dev)
-                 if self._paged else None)
-        forced = torch.as_tensor(forced, device=dev).long()
-        self._stages["draft"].record(token, start, active, table, forced)
+        drafts and their distributions never leave it).  Returns the host
+        copies, read once, of ``out`` (B, k + 1) (the accepted draft or
+        its replacement, then the bonus token) and ``accept`` (B, k)."""
+        k = self.scfg.spec_k
+        table = self.page_table.asarray() if self._paged else None
+        counts = self._counts()
+        drafts, dprobs = self._stages["draft"](
+            self._token, start, self._active, table, forced,
+            self._slot_keys, counts)
+        both = self._stages["verify"](
+            self._token, drafts, start, table, forced, dprobs,
+            self._slot_keys, counts).cpu().numpy()
+        return both[:, :k + 1], both[:, k + 1:].astype(bool)
+
+    @torch.no_grad()
+    def _draft_body(self, token, start, active, table, forced, keys,
+                    counts):
+        """The draft stage: ``spec_k`` S = 1 steps under the draft config
+        from ``start``, step ``t`` drawing under ``fold_in(fold_in(keys,
+        counts + t), TAG_DRAFT)`` (or the argmax); ``forced`` (k, B)
+        replayed tokens (-1 = none) replace the draw; positions advance
+        only for active slots.  Returns the drafts (B, k) and their
+        distributions (k, B, V) ((k, B, 1) zeros when greedy)."""
+        temp = self.scfg.temperature
+        tok, positions, forced = token.long(), start.long(), forced.long()
         max_pos = self.scfg.max_len - 1
-        tok, positions, drafts = token, start, []
-        for t in range(k):
+        drafts, dprobs = [], []
+        for t in range(self.scfg.spec_k):
             logits, _ = decode_step(self.params, self._draft_cfg, tok,
                                     self._caches, positions,
                                     page_table=table)
-            nxt = torch.argmax(logits[:, -1], dim=-1)
+            step_keys = fold_in(keys, counts + t) if temp > 0.0 else None
+            nxt, probs = draft_sample(logits[:, -1], step_keys, temp)
             nxt = torch.where(forced[t] >= 0, forced[t], nxt)
             drafts.append(nxt)
+            dprobs.append(probs)
             positions = torch.where(
                 active, torch.clamp(positions + 1, max=max_pos), positions)
             tok = torch.where(active[:, None], nxt[:, None], tok)
-        drafts = torch.stack(drafts, dim=1)                    # (B, k)
-        self._stages["verify"].record(token, drafts, start, table, forced)
+        return torch.stack(drafts, dim=1), torch.stack(dprobs)
+
+    @torch.no_grad()
+    def _verify_body(self, token, drafts, start, table, forced, dprobs,
+                     keys, counts):
+        """The verify stage: one dense step over ``[token, drafts]`` at S
+        = k + 1 from ``start``, rewriting those rows, then
+        ``spec_accept`` (forced drafts are accepted).  Returns ``[out,
+        accept]`` as one (B, 2k + 1) int64 tensor."""
+        token = token.long()
         logits, _ = decode_step(self.params, self.cfg,
                                 torch.cat([token, drafts], dim=1),
-                                self._caches, start, page_table=table)
-        g = torch.argmax(logits, dim=-1)                       # (B, k+1)
-        f_on = forced.t() >= 0
-        accept = f_on | (drafts == g[:, :-1])
-        out = torch.cat([torch.where(f_on, drafts, g[:, :-1]), g[:, -1:]],
-                        dim=1)
-        both = torch.cat([out, accept.long()], dim=1).cpu().numpy()
-        return both[:, :k + 1], both[:, k + 1:].astype(bool)
+                                self._caches, start.long(), page_table=table)
+        out, accept = spec_accept(logits, drafts, forced.long().t() >= 0,
+                                  dprobs, keys, counts,
+                                  self.scfg.temperature)
+        return torch.cat([out, accept.long()], dim=1)
 
     def _spec_rollback(self, slot: int) -> None:
         """Roll a slot's rejected draft tail back as a page-table
@@ -1392,11 +1630,12 @@ class Engine:
         host = self.host_pool.in_use if self.host_pool is not None else 0
         return self.allocator.in_use + host
 
-    def generate(self, prompts, n_new: int) -> torch.Tensor:
+    def generate(self, prompts, n_new: int, rng=None) -> torch.Tensor:
         """prompts: (B, S) ints -> (B, S + n_new) int32 tokens on the
         engine's device.  Lockstep wrapper over submit/run: B must equal
         the slot count and every request decodes exactly ``n_new`` tokens
-        (build the engine with ``eos_id=-1``; an early EOS raises)."""
+        (build the engine with ``eos_id=-1``; an early EOS raises).
+        ``rng`` is the run's base key (``reset``)."""
         prompts = np.asarray(torch.as_tensor(prompts).cpu(), np.int32)
         b, s = prompts.shape
         if b != self.scfg.batch:
@@ -1405,7 +1644,7 @@ class Engine:
         if s + n_new > self.scfg.max_len:
             raise ValueError(f"prompt_len {s} + n_new {n_new} exceeds "
                              f"max_len {self.scfg.max_len}")
-        self.reset()
+        self.reset(rng=rng)
         ids = [self.submit(prompts[i], n_new) for i in range(b)]
         done = self.run()
         short = [i for i in ids if len(done[i].tokens) != n_new]

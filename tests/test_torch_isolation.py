@@ -69,7 +69,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("temperature", 0.7), ("tp", 2), ("mesh_shape", (1, 2))])
+    ("tp", 2), ("mesh_shape", (1, 2))])
 def test_unported_serve_knobs_raise(field, value):
     cfg = reduced(get_config("yi-6b")).replace(cache_mode="paged",
                                                page_size=4)
@@ -81,19 +81,30 @@ def test_unported_serve_knobs_raise(field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("prefix_cache", True), ("swap_mode", "host"), ("spec_decode", True),
-    ("prefill_chunk", 4), ("admit_group", 2)])
+    ("prefill_chunk", 4), ("admit_group", 2), ("temperature", 0.7)])
 def test_ported_serve_knobs_build_and_serve(field, value):
     """The knobs this package has ported build an engine that serves on
-    the CPU (an overcommitted pool, two prompts sharing a page)."""
+    the CPU (an overcommitted pool, two prompts sharing a page).  Greedy,
+    the two streams are equal; sampled, the two requests draw under
+    their own keys, and a second engine draws the same streams."""
     cfg = reduced(get_config("yi-6b")).replace(cache_mode="paged",
                                                page_size=4)
     params = model_init(cfg, device="cpu")
-    engine = Engine(cfg, params, ServeConfig(
-        batch=2, max_len=16, prefill_len=8, alloc_mode="incremental",
-        num_pages=5, **{field: value}), device="cpu")
-    ids = [engine.submit([1, 2, 3, 4, 5, 6], 8) for _ in range(2)]
-    done = engine.run()
-    assert [len(done[i].tokens) for i in ids] == [8, 8]
-    assert done[ids[0]].tokens == done[ids[1]].tokens
+    scfg = ServeConfig(batch=2, max_len=16, prefill_len=8,
+                       alloc_mode="incremental", num_pages=5,
+                       **{field: value})
+
+    def serve():
+        engine = Engine(cfg, params, scfg, device="cpu")
+        ids = [engine.submit([1, 2, 3, 4, 5, 6], 8) for _ in range(2)]
+        done = engine.run()
+        return engine, [done[i].tokens for i in ids]
+
+    engine, streams = serve()
+    assert [len(t) for t in streams] == [8, 8]
+    if field == "temperature":
+        assert serve()[1] == streams
+    else:
+        assert streams[0] == streams[1]
     engine.release_prefix_cache()
     assert engine.leaked_pages() == 0

@@ -2,8 +2,9 @@
 versions): lockstep batch generation, the uniform and bursty timed
 workloads, an overcommitted incremental pool that must preempt, the
 prefix cache and the host swap, speculative decoding and the wave
-prefill, the ``--verify`` re-run, and a ``NotImplementedError`` for every
-flag of a mechanism the port does not run yet."""
+prefill, temperature sampling, the ``--verify`` re-run, and a
+``NotImplementedError`` for every flag of a mechanism the port does not
+run yet."""
 
 import pytest
 import torch
@@ -144,13 +145,36 @@ def test_spec_and_wave_flags_serve(monkeypatch, capsys, flags):
 
 @pytest.mark.parametrize("flag", [
     ["--tp", "2"], ["--dp", "2"], ["--mesh", "1x2"], ["--predict"],
-    ["--autotune", "max-tok-s"], ["--ttft-slo-ms", "100"],
-    ["--temperature", "0.7"],
-    ["--temperature", "0.7", "--spec-decode"]],
-    ids=lambda f: f[0] + ("+spec" if "--spec-decode" in f else ""))
+    ["--autotune", "max-tok-s"], ["--ttft-slo-ms", "100"]],
+    ids=lambda f: f[0])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(BASE + ["--workload", "uniform"] + flag)
+
+
+@pytest.mark.parametrize("flags", [[], SPEC], ids=["temperature",
+                                                   "temperature+spec"])
+def test_temperature_flag_serves(monkeypatch, capsys, flags):
+    """``--temperature 0.7`` samples, alone and with ``--spec-decode``, on
+    an overcommitted pool: every request drains with zero leaks, spec
+    rounds account for every token after the firsts, and ``--verify``
+    (a greedy bit-match) refuses a sampled run, as the reference's
+    launcher does."""
+    extra = OVERCOMMIT if not flags else flags + ["--num-pages", "6"]
+    r, engine = _run_requests(monkeypatch, "uniform", "--temperature",
+                              "0.7", *extra)
+    out = capsys.readouterr().out
+    assert engine.scfg.temperature == 0.7
+    assert r["tokens"] == 5 * 6 and engine.leaked_pages() == 0
+    if flags:
+        assert "spec decode: k=4" in out
+        assert engine.spec_tokens == 5 * 6 - 5
+        assert 0.0 <= r["acceptance_rate"] <= 1.0
+    else:
+        assert r["preemptions"] >= 1
+    with pytest.raises(SystemExit, match="greedy"):
+        serve.main(BASE + ["--workload", "uniform", "--temperature", "0.7",
+                           "--verify"] + extra)
 
 
 def test_torch_backend_needs_the_cpu():

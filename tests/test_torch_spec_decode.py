@@ -214,16 +214,22 @@ def test_spec_stream_preempted_mid_draft_resumes_bitmatch(model):
 
 
 def test_spec_rejects_bad_k_and_temperature_stays_unported(model):
+    """Bad ``spec_k`` and draft modes raise.  Temperature is ported now
+    (the name predates it): a sampled engine, spec or not, builds and
+    serves, and its streams depend on the base key alone."""
     cfg, params = model
     with pytest.raises(ValueError, match="spec_k"):
         Engine(cfg, params, _scfg(spec_decode=True, spec_k=0), device="cpu")
     with pytest.raises(ValueError, match="unknown draft quant mode"):
         Engine(cfg, params, _scfg(spec_decode=True, spec_quant_mode="int2"),
                device="cpu")
+    prompts = _prompts(cfg.vocab_size, 2, seed=4)
     for over in ({}, {"spec_decode": True}):
-        with pytest.raises(NotImplementedError, match="temperature"):
-            Engine(cfg, params, _scfg(temperature=0.7, **over),
-                   device="cpu")
+        runs = [[r.tokens for r in _drive(cfg, params, prompts, [5, 5],
+                                          _scfg(temperature=0.7, **over))[1]]
+                for _ in range(2)]
+        assert runs[0] == runs[1]
+        assert all(len(t) == 5 for t in runs[0])
 
 
 def test_bursty_workload_reports_spec_columns(model):

@@ -105,6 +105,26 @@ Phases (any failure exits non-zero and prints no result line):
    kernel), 4 of the requests x 16 new tokens; the greedy streams must
    equal, token for token, what ``w8a8_nibble`` serves for the same
    requests (both compute the same int32 product and epilogue).
+7b. Families (the yi-6b weights freed first): the nibble kernel at
+   MLA's ``wkv_b`` (4 slots x 160 gathered latent rows) and ``wq_b``
+   shapes (``torch.equal``), the flash forward at 128 heads with q/k 192
+   and v 128, paged decode at llama4's group 5 and gemma3-1b's head_dim
+   256 with a window, each held to its plain version and timed beside
+   its bound and a library call; then deepseek-v3-671b at full width cut
+   to 4 layers (3 dense MLA + 1 MoE of 256 experts, top-8), llama4 at
+   full width cut to 2 layers (dense + MoE of 128 experts, top-1) and
+   gemma3-1b at full width and depth, each through a captured engine
+   (``w8a8_nibble`` on CUDA, flash prefill, paged incremental, 4 slots;
+   counters zeroed just before, read just after: nibble and flash
+   launched, paged decode on llama4 and gemma3 and never on deepseek's
+   MLA layers), host ms per decode chunk, memory allocated, and the
+   first request's prefill held to the plain path kernel by kernel
+   (``hold_family_prefill``: the nibble path bit for bit, the flash path
+   in ``dense`` within the serve phase's relative tolerance, the end-to-
+   end w8a8 difference printed).  deepseek-v3 also runs dense: an
+   overcommitted incremental pool with the prefix cache and the host
+   swap against a reserve pool (preemptions and swap-ins required;
+   streams equal or each divergence a near-tie).
 8. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
    (forward, remat recompute and the backward kernels), remat, batch 8 x
    seq 256, 4 AdamW steps through ``Trainer.run`` on ``SyntheticLM``
@@ -150,6 +170,7 @@ from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import nibble_matmul as nm  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import model_init, prefill  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import (Engine, ServeConfig,  # noqa: E402
                                 draw_workload, hash_chunks, pages_needed,
@@ -1234,24 +1255,12 @@ def phase_serve() -> dict:
     captures = require_captured(engine, "serve")
 
     # the first request's prefill: kernel path vs plain path
-    p = prompts[0]
-    padded = torch.zeros((1, prefill_len), dtype=torch.int64, device=DEV)
-    padded[0, :p.size] = torch.as_tensor(p, device=DEV)
-    plain_cfg = cfg.replace(quant_backend="torch", attn_impl="chunked")
-    ref, _ = prefill(params, plain_cfg, padded, logits_index=p.size - 1)
-    got, _ = prefill(params, cfg, padded, logits_index=p.size - 1)
-    torch.cuda.synchronize()
-    if not (torch.isfinite(ref).all() and torch.isfinite(got).all()):
-        raise AssertionError("non-finite prefill logits")
-    diff = (got - ref).abs().max().item()
-    tol = LOGIT_RTOL * ref.abs().max().item()
+    held = hold_plain_prefill(params, cfg, prompts[0], prefill_len)
+    diff, tol = held["logit_diff"], held["logit_tol"]
     print(f"  prefill logits kernel vs plain path: max|diff| {diff:.4e}, "
-          f"max|logit| {ref.abs().max().item():.4f}, tolerance {tol:.4e}; "
-          f"argmax {int(got.argmax())} vs {int(ref.argmax())}; first "
+          f"max|logit| {tol / LOGIT_RTOL:.4f}, tolerance {tol:.4e}; "
+          f"argmax {held['argmax'][0]} vs {held['argmax'][1]}; first "
           f"served token {streams[0][0]}", flush=True)
-    if not diff <= tol:
-        raise AssertionError("kernel-path prefill logits disagree with the "
-                             "plain path")
     return {"counts": counts, "tok_s": n_tok / wall, "wall_s": wall,
             "decode_chunks": engine.decode_chunks, "logit_diff": diff,
             "logit_tol": tol, "captures": captures, "engine": engine,
@@ -2004,6 +2013,430 @@ def phase_lut_serve(params, prompts, n_req=4, n_new=16,
     return {"counts": counts, "tok_s": n_tok / wall, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Families: MLA + MoE (deepseek-v3), MoE over GQA (llama4), gemma3-1b
+# ---------------------------------------------------------------------------
+
+def _timed_case(call, plain, lib, n_bytes, ops, peak) -> dict:
+    """Loop and graph times of ``call``, the plain version's and the
+    library call's (``lib`` None: no library call computes it), and the
+    bound of the work."""
+    b, by = bound_ms(n_bytes, ops, peak)
+    out = {"ms": cuda_ms(call), "graph_ms": graph_ms(call),
+           "plain_ms": cuda_ms(plain, iters=5), "bound_ms": b,
+           "bound_by": by, "library_ms": None, "library_graph_ms": None}
+    if lib is not None:
+        out["library_ms"] = cuda_ms(lib)
+        out["library_graph_ms"] = graph_ms(lib)
+    return out
+
+
+def _print_case(label, r) -> None:
+    print(f"  {label}: max|err| {r['max_abs_err']:.3e}; kernel "
+          f"{r['ms']:.4f} ms, graph {r['graph_ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms (graph "
+          f"{r['library_graph_ms']} ms){r.get('library_note', '')}, bound "
+          f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+
+
+def check_family_shapes(gen) -> dict:
+    """Rows 1-3 at the shapes the families phase gives them, held to their
+    plain versions and timed beside the bound and a library call: the
+    nibble kernel at MLA's ``wkv_b`` over 4 slots x 160 gathered latent
+    rows and at ``wq_b`` (decode, M 4), ``torch.equal``; the flash forward
+    at deepseek-v3's prefill (128 heads, S 128, q/k 192, v 128, run in the
+    256-wide instance); paged decode at llama4's group 5 and at
+    gemma3-1b's head_dim 256, group 4, window 512."""
+    rows = {"nibble_matmul": {}, "flash_attention_fwd": {},
+            "paged_decode_attention": {}}
+    for name, m, k, n in (("wkv_b decode", 640, 512, 32768),
+                          ("wq_b decode", 4, 1536, 24576)):
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=DEV,
+                          generator=gen)
+        wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=DEV,
+                           generator=gen)
+        xs = torch.tensor(1e-3, device=DEV)
+        ws = torch.rand((1, n), device=DEV, generator=gen) * 0.01 + 1e-4
+        for args in ((), (xs, ws)):
+            got = nm.nibble_matmul_cuda(x, wt.t(), *args)
+            want = nm.nibble_matmul_plain(x, wt.t(), *args)
+            if not torch.equal(got, want):
+                raise AssertionError(f"nibble {name} ({m},{k},{n}) differs "
+                                     f"from plain")
+        r = _timed_case(
+            lambda x=x, wt=wt, xs=xs, ws=ws: nm.nibble_matmul_cuda(
+                x, wt.t(), xs, ws),
+            lambda x=x, wt=wt, xs=xs, ws=ws: nm.nibble_matmul_plain(
+                x, wt.t(), xs, ws),
+            None, m * k + k * n + 2 * m * n + 4 + 4 * n, 2 * m * n * k,
+            INT8_OPS)
+        r["library_ms"] = _int_mm_ms(x, wt)
+        r["library_graph_ms"] = _int_mm_ms(x, wt, timer=graph_ms)
+        r["max_abs_err"] = 0.0
+        r["shape"] = (m, k, n)
+        rows["nibble_matmul"][name] = r
+        _print_case(f"nibble {name} ({m},{k},{n}) torch.equal", r)
+
+    bh, s, d, dv = 128, 128, 192, 128
+    q = torch.randn((bh, s, d), device=DEV, generator=gen).bfloat16()
+    k = torch.randn((bh, s, d), device=DEV, generator=gen).bfloat16()
+    v = torch.randn((bh, s, dv), device=DEV, generator=gen).bfloat16()
+    kw = dict(scale=d ** -0.5, causal=True, group=1)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    err = (o.float() - o_p.float()).abs().max().item()
+    err_l = (lse - lse_p).abs().max().item()
+    if not (err <= ATTN_ATOL and err_l <= LSE_ATOL):
+        raise AssertionError(f"flash forward at d {d} / dv {dv} disagrees "
+                             f"with plain: {err}, lse {err_l}")
+    q4, k4, v4 = (t.reshape(1, bh, s, t.shape[-1]) for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, scale=kw["scale"])
+
+    note = ""
+    try:
+        sdpa()
+    except RuntimeError as exc:          # no SDPA backend takes dv != d
+        sdpa, note = None, f" (SDPA n/a: {str(exc)[:120]})"
+    pairs = bh * s * (s + 1) // 2
+    r = _timed_case(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw),
+                    lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
+                    sdpa, 2 * (2 * bh * s * d + 2 * bh * s * dv) + 4 * bh * s,
+                    2 * pairs * (d + dv), BF16_FLOPS)
+    r.update(max_abs_err=err, lse_err=err_l, library_note=note,
+             shape=f"BH={bh} S={s} d={d} dv={dv} causal (instance "
+                   f"{fa.bwd_width(d, dv)})")
+    rows["flash_attention_fwd"]["mla prefill"] = r
+    _print_case(f"flash MLA prefill ({r['shape']})", r)
+
+    rng = np.random.default_rng(5)
+    for name, (kvh, g, d, window) in (("llama4 G=5", (8, 5, 128, 0)),
+                                      ("gemma3 d=256 G=4 window 512",
+                                       (1, 4, 256, 512))):
+        ps, per_slot = 16, 10
+        n_sets = _sets_for(4 * per_slot + 1, ps, kvh, d)
+        q, pools, table, q_pos = _paged_inputs(gen, rng, 4, kvh, g, d, ps,
+                                               per_slot, n_sets=n_sets)
+        kp, vp = pools[0]
+        kw = dict(scale=d ** -0.5, window=window)
+        o = fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos, **kw)
+        o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
+        err = (o.float() - o_p.float()).abs().max().item()
+        if not err <= ATTN_ATOL:
+            raise AssertionError(f"paged decode {name} disagrees with plain")
+        n_bytes, live = _paged_bytes(q, table, q_pos, ps, d)
+        lib = None if window else _paged_sdpa(q, kp, vp, table, q_pos,
+                                              kw["scale"])
+        r = _timed_case(
+            lambda: fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos,
+                                                   **kw),
+            lambda: fa.paged_decode_attention_plain(q, kp, vp, table, q_pos,
+                                                    **kw),
+            lib, n_bytes, 4 * live * kvh * g * d, BF16_FLOPS)
+        if not window:
+            # device time with every call cold in L2, as a layer's is
+            r["graph_ms"], r["library_graph_ms"] = _paged_graph(
+                q, pools, table, q_pos, kw["scale"])
+        else:
+            r["library_note"] = " (the yardstick masks no window)"
+        r.update(max_abs_err=err, live_rows=live,
+                 shape=f"B=4 KVH={kvh} G={g} d={d} page {ps} window "
+                       f"{window}")
+        rows["paged_decode_attention"][name] = r
+        _print_case(f"paged {name} ({r['shape']}, {live} live rows)", r)
+        del pools
+    return rows
+
+
+def _chunk_ms(engine, prompts, reps=3) -> float:
+    """Host milliseconds per decode chunk of a warm captured engine with
+    every slot active: one chunk after admission, then ``reps`` timed,
+    each ending in its host read; the median."""
+    engine.reset()
+    n_new = engine.scfg.decode_chunk * (reps + 2)
+    for p in prompts[:engine.scfg.batch]:
+        engine.submit(p[:engine.scfg.max_len - n_new], n_new)
+    engine.start()
+    engine._admit(0.0)
+    engine._run_chunk(0.0)
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine._run_chunk(0.0)
+        runs.append((time.perf_counter() - t) * 1e3)
+    if not engine._active.all():
+        raise AssertionError("a slot finished inside the timed chunks")
+    return statistics.median(runs)
+
+
+def _route_recorder(rec: list):
+    """A stand-in for ``moe._route`` that appends each call's result and
+    router logits (the reference's bf16 product, f32 accumulation)."""
+    route = tmoe._route
+
+    def recording(p, cfg, xt):
+        out = route(p, cfg, xt)
+        rec.append((out, xt.float() @ p["router"].to(xt.dtype).float()))
+        return out
+    return recording
+
+
+def _route_flips(kernel_routes, plain_routes, n_real) -> dict:
+    """MoE choices of the real tokens that the two paths' roundings
+    flipped, and the two paths' router logits (the MoE input, after
+    every kernel before it) compared: the largest difference and the
+    relative norm.  Reported, not held: the held logits below take one
+    routing on both paths."""
+    flips, worst, rel = 0, 0.0, 0.0
+    for (k_out, lg_k), (p_out, lg_p) in zip(kernel_routes, plain_routes):
+        lg_k, lg_p = lg_k[:n_real], lg_p[:n_real]
+        worst = max(worst, (lg_k - lg_p).abs().max().item())
+        rel = max(rel, ((lg_k - lg_p).norm() / lg_p.norm()).item())
+        e_k = k_out[1][:n_real].sort(-1).values
+        e_p = p_out[1][:n_real].sort(-1).values
+        flips += int((e_k != e_p).any(-1).sum())
+    return {"flipped_tokens": flips, "router_logit_max_diff": worst,
+            "router_logit_rel_diff": rel}
+
+
+def compare_plain_prefill(params, cfg, prompt, prefill_len) -> dict:
+    """One prompt's prefill logits through the kernel path and through the
+    plain path (``quant_backend="torch"``, ``attn_impl="chunked"``): the
+    largest difference, and LOGIT_RTOL of the largest plain logit as the
+    tolerance.  In an MoE model the compared plain run takes the kernel
+    run's routing (each MoE layer's top-k choices and weights), so the
+    difference measures the kernels, not an expert choice that the paths'
+    roundings flipped (a flip also moves which later tokens overflow an
+    expert); a free plain run counts the flips (``_route_flips``)."""
+    padded = torch.zeros((1, prefill_len), dtype=torch.int64, device=DEV)
+    padded[0, :prompt.size] = torch.as_tensor(prompt, device=DEV)
+    plain_cfg = cfg.replace(quant_backend="torch", attn_impl="chunked")
+    idx = prompt.size - 1
+    rec, route = [], tmoe._route
+    tmoe._route = _route_recorder(rec)
+    try:
+        got, _ = prefill(params, cfg, padded, logits_index=idx)
+        kernel_routes = rec[:]
+        del rec[:]
+        ref, _ = prefill(params, plain_cfg, padded, logits_index=idx)
+        out = {}
+        if kernel_routes:
+            out = _route_flips(kernel_routes, rec, prompt.size)
+            replay = iter(kernel_routes)
+            tmoe._route = lambda p, c, xt: next(replay)[0]
+            ref, _ = prefill(params, plain_cfg, padded, logits_index=idx)
+    finally:
+        tmoe._route = route
+    torch.cuda.synchronize()
+    if not (torch.isfinite(ref).all() and torch.isfinite(got).all()):
+        raise AssertionError("non-finite prefill logits")
+    return {"logit_diff": (got - ref).abs().max().item(),
+            "logit_tol": LOGIT_RTOL * ref.abs().max().item(),
+            "argmax": (int(got.argmax()), int(ref.argmax())), **out}
+
+
+def hold_plain_prefill(params, cfg, prompt, prefill_len) -> dict:
+    """``compare_plain_prefill``, failing when the difference exceeds the
+    tolerance."""
+    r = compare_plain_prefill(params, cfg, prompt, prefill_len)
+    if not r["logit_diff"] <= r["logit_tol"]:
+        raise AssertionError(f"{cfg.name}: kernel-path prefill logits "
+                             f"disagree with the plain path: {r}")
+    return r
+
+
+def hold_family_prefill(params, cfg, prompt, prefill_len) -> dict:
+    """The kernel path against the plain path, held kernel by kernel:
+    (1) with attention through ``attention_core`` on both sides, every
+    projection through the nibble kernel gives the plain path's logits
+    bit for bit; (2) in ``quant_mode="dense"`` the flash-forward path
+    holds the chunked one within LOGIT_RTOL; (3) the end-to-end w8a8
+    difference is measured beside them.  (3) is (2)'s attention
+    difference amplified by the per-tensor activation scales: on
+    deepseek-v3 it exceeds LOGIT_RTOL with the plain nibble path on both
+    sides as well (``PERF.md`` §6)."""
+    exact = compare_plain_prefill(params, cfg.replace(attn_impl="chunked"),
+                                  prompt, prefill_len)
+    if exact["logit_diff"] != 0.0:
+        raise AssertionError(f"{cfg.name}: nibble-kernel prefill logits "
+                             f"differ from the plain path's: {exact}")
+    return {"nibble_exact": exact,
+            "flash_dense": hold_plain_prefill(
+                params, cfg.replace(quant_mode="dense"), prompt, prefill_len),
+            "end_to_end": compare_plain_prefill(params, cfg, prompt,
+                                                prefill_len)}
+
+
+def _serve_family(cfg, smi, n_req, n_new, *, expect, prefill_len=128
+                  ) -> dict:
+    """Random weights (seed 0) for ``cfg``, then ``n_req`` requests of
+    32-``prefill_len`` prompt tokens x ``n_new`` through a captured
+    engine (4 slots, paged incremental, decode chunk 8), launch counters
+    zeroed just before and read just after; ``expect`` maps each kernel
+    to whether it must launch (True) or must not (False)."""
+    t = time.perf_counter()
+    params = model_init(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    mem = torch.cuda.memory_allocated() / 2**30
+    engine = Engine(cfg, params, ServeConfig(
+        batch=4, max_len=prefill_len + n_new + (-n_new) % cfg.page_size,
+        prefill_len=prefill_len, decode_chunk=8, alloc_mode="incremental"),
+        device=DEV)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, prefill_len + 1, n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    streams, wall, counts = _serve_timed(engine, prompts, n_new)
+    n_tok = sum(map(len, streams))
+    require_captured(engine, cfg.name)
+    require_no_f32(counts)
+    require_launched(counts, [n for n, on in expect.items() if on])
+    off = {n: counts[n] for n, on in expect.items() if not on and counts[n]}
+    if off:
+        raise AssertionError(f"{cfg.name}: kernels launched off their path: "
+                             f"{off}")
+    chunk = _chunk_ms(engine, prompts)
+    out = {"tok_s": n_tok / wall, "wall_s": wall, "init_s": init_s,
+           "gib_allocated": mem, "chunk_ms": chunk, "counts": counts,
+           "decode_chunks": engine.decode_chunks,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"  {cfg.name}: weights {init_s:.1f} s, {mem:.2f} GiB allocated; "
+          f"{n_req} requests (prompts {lens.tolist()}) x {n_new}: {n_tok} "
+          f"tokens in {wall:.3f} s, {n_tok / wall:.2f} tok/s; host ms per "
+          f"decode chunk (captured, 4 slots) {chunk:.3f}; launches "
+          f"{ {n: counts[n] for n in expect} }; first tokens "
+          f"{streams[0][:8]} ({smi})", flush=True)
+    held = hold_family_prefill(params, cfg, prompts[0], prefill_len)
+    out.update(held=held, logit_diff=held["flash_dense"]["logit_diff"],
+               logit_tol=held["flash_dense"]["logit_tol"])
+    print(f"  {cfg.name} prefill logits kernel vs plain path: nibble path "
+          f"(chunked attention on both sides) bit for bit; flash path in "
+          f"dense {held['flash_dense']}; end to end in w8a8, measured "
+          f"{held['end_to_end']}", flush=True)
+    out["params"] = params
+    return out
+
+
+FAMILY_KERNELS = ("nibble_matmul", "flash_attention_fwd",
+                  "paged_decode_attention")
+
+
+def phase_families(smi: str) -> dict:
+    """deepseek-v3 (full width, 4 layers: 3 dense MLA + 1 MoE) served and
+    its dense prefix + swap check, llama4 (full width, 2 layers: dense +
+    MoE) served, gemma3-1b (full width and depth) served; each model's
+    weights freed before the next."""
+    t_phase = time.perf_counter()
+    print(f"families: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated before the first model", flush=True)
+    paged = dict(quant_mode="w8a8_nibble", quant_backend="cuda",
+                 attn_impl="flash", cache_mode="paged", page_size=16)
+    out = {}
+
+    cfg = get_config("deepseek-v3-671b").replace(n_layers=4, **paged)
+    print(f"  {cfg.name}: full width cut to {cfg.n_layers} layers (3 dense "
+          f"MLA, d_ff {cfg.d_ff}; 1 MoE, {cfg.n_experts} experts top-"
+          f"{cfg.top_k} + {cfg.n_shared_experts} shared, d_ff_expert "
+          f"{cfg.d_ff_expert}); {cfg.n_heads} heads, q_lora "
+          f"{cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, rope "
+          f"{cfg.qk_rope_dim}, nope {cfg.qk_nope_dim}, v {cfg.v_head_dim}, "
+          f"vocab {cfg.vocab_size}", flush=True)
+    r = _serve_family(cfg, smi, 8, 32, expect={
+        "nibble_matmul": True, "flash_attention_fwd": True,
+        "paged_decode_attention": False})
+    params = r.pop("params")
+    r["dense_check"] = _family_dense_check(params, cfg, smi, r)
+    out[cfg.name] = r
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("llama4-maverick-400b-a17b").replace(n_layers=2,
+                                                          **paged)
+    print(f"  {cfg.name}: full width cut to {cfg.n_layers} layers (dense "
+          f"d_ff {cfg.d_ff}, then MoE: {cfg.n_experts} experts top-"
+          f"{cfg.top_k} + {cfg.n_shared_experts} shared, d_ff_expert "
+          f"{cfg.d_ff_expert}); {cfg.n_heads}/{cfg.n_kv_heads} heads (group "
+          f"{cfg.n_heads // cfg.n_kv_heads})", flush=True)
+    r = _serve_family(cfg, smi, 4, 16,
+                      expect=dict.fromkeys(FAMILY_KERNELS, True))
+    del r["params"]
+    out[cfg.name] = r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("gemma3-1b").replace(**paged)
+    print(f"  {cfg.name}: full width and depth ({cfg.n_layers} layers, 5 "
+          f"local (window {cfg.sliding_window}) : 1 global, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim})",
+          flush=True)
+    r = _serve_family(cfg, smi, 8, 32,
+                      expect=dict.fromkeys(FAMILY_KERNELS, True))
+    del r["params"]
+    out[cfg.name] = r
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  families phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _family_dense_check(params, cfg, smi, served) -> dict:
+    """deepseek-v3 in ``dense`` at the same width and depth: the uniform
+    overcommitted pool with the prefix cache and the host swap against a
+    reserve pool (8 requests x 64); preemptions and swap-ins required;
+    streams equal, or each divergence a near-tie (phase 6's rule, with
+    this model's kernel-vs-plain tolerance).  Both engines attend in
+    ``attention_core`` (``attn_impl="chunked"``): a context prefill does
+    anyway, and a flash prefill's roundings would flip MoE choices, which
+    are not what this check holds."""
+    dcfg = cfg.replace(quant_mode="dense", attn_impl="chunked")
+    prefill_len, n_new = 128, 64
+    worst = pages_needed(prefill_len + n_new - 1, cfg.page_size)
+    num_pages = 1 + worst * 3 // 2
+    traffic = dict(requests=8, prompt_budget=prefill_len, new_tokens=n_new,
+                   seed=1)
+
+    def serve(**kw):
+        eng = Engine(dcfg, params, ServeConfig(
+            batch=4, max_len=prefill_len + n_new, prefill_len=prefill_len,
+            decode_chunk=8, **kw), device=DEV)
+        res = run_timed_workload(eng, cfg.vocab_size, collect_streams=True,
+                                 **traffic)
+        torch.cuda.synchronize()
+        _check_streams(res["streams"], n_new, cfg.vocab_size)
+        eng.release_prefix_cache()
+        if eng.leaked_pages():
+            raise AssertionError(f"{eng.leaked_pages()} pages leaked")
+        if eng.host_pool is not None and eng.host_pool.in_use:
+            raise AssertionError(f"{eng.host_pool.in_use} host pages leaked")
+        require_captured(eng, "deepseek dense check")
+        return res
+
+    got = serve(alloc_mode="incremental", num_pages=num_pages,
+                prefix_cache=True, swap_mode="host")
+    want = serve(alloc_mode="reserve")
+    if got["preemptions"] < 1 or got["swap_in"] < 1:
+        raise AssertionError(f"the dense check preempted {got['preemptions']}"
+                             f" and swapped in {got['swap_in']}")
+    prompts = draw_workload(cfg.vocab_size, **traffic).prompts
+    n = len(prompts)
+    margins = divergence_margins(
+        params, dcfg, prompts, [want["streams"][i] for i in range(n)],
+        [got["streams"][i] for i in range(n)])
+    held = hold_margins(
+        f"{cfg.name} dense, {num_pages}-page incremental pool with the "
+        f"prefix cache and the host swap ({got['preemptions']} preemptions, "
+        f"{got['swap_in']} swap-ins) against a reserve pool", margins, n,
+        served)
+    return {"preemptions": got["preemptions"], "swap_in": got["swap_in"],
+            "tok_s": got["tok_per_s"], **held}
+
+
 def phase_train(profile: bool) -> dict:
     """Full-width qwen3-4b, QAT, flash attention, remat: 4 Trainer steps."""
     cfg = get_config("qwen3-4b").replace(quant_mode="qat", attn_impl="flash",
@@ -2383,6 +2816,13 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    shapes = check_family_shapes(gen)
+    families = phase_families(smi)
+    for r in rows[:3]:
+        r["families_shapes"] = shapes[r["name"]]
+        r["families_launches"] = {
+            name: f["counts"][r["name"]] for name, f in families.items()
+            if isinstance(f, dict)}
     train = phase_train(args.profile)
     rows[3]["launches"] = (train["counts"]["flash_attention_bwd_dq"]
                            + train["counts"]["flash_attention_bwd_dkv"])
@@ -2396,7 +2836,8 @@ def main() -> int:
                        "attention_f32_errors": f32, "serve": serve,
                        "workload": workload, "prefix_swap": prefix_swap,
                        "spec_wave": spec_wave, "graphs": graphs,
-                       "lut_serve": lut, "train": train,
+                       "lut_serve": lut, "families": families,
+                       "train": train,
                        "train_grads": grads, "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -2407,7 +2848,7 @@ def main() -> int:
     extra = ("graph_ms", "library_graph_ms", "train_ms", "train_graph_ms",
              "library_train_ms", "library_train_graph_ms", "train_bound_ms",
              "workload_launches", "prefix_swap_launches", "spec_launches",
-             "tail_launches")
+             "tail_launches", "families_launches", "families_shapes")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

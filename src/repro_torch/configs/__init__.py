@@ -1,5 +1,7 @@
-"""Architecture configs ported so far.  ``get_config(name)`` accepts both
-the assignment ids (``yi-6b``) and module names (``yi_6b``)."""
+"""Architecture configs ported so far: gemma3-1b, gemma-7b, qwen3-4b,
+yi-6b, deepseek-v3-671b and llama4-maverick-400b-a17b.  ``get_config``
+accepts both the assignment ids (``yi-6b``) and module names
+(``yi_6b``)."""
 
 from repro_torch.configs.base import (  # noqa: F401
     QUANT_MODES,

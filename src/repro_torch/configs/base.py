@@ -1,8 +1,9 @@
 """Model configuration schema + registry (the port's own copy).
 
 Mirrors ``repro.configs.base`` field for field for the families this
-package runs, so one configuration value means the same thing in both
-packages.  Differences:
+package runs (attention + MLP stacks, MLA and MoE; the SSM, enc-dec and
+VLM fields wait for their slices), so one configuration value means the
+same thing in both packages.  Differences:
 
 * ``quant_backend`` takes ``"torch"`` (plain PyTorch formulas, the
   counterpart of the reference's ``"xla"``) or ``"cuda"`` (the
@@ -60,6 +61,20 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     attn_scale: float = 0.0            # 0 => 1/sqrt(head_dim)
 
+    # MLA (deepseek)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 0
+    qk_nope_dim: int = 0
+    v_head_dim: int = 0
+
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+
     # activations / embeddings
     act: str = "silu"                  # "silu" (SwiGLU) | "gelu" (GeGLU)
     tie_embeddings: bool = True
@@ -101,8 +116,12 @@ class ModelConfig:
 
 
 _ALIASES = {
+    "gemma3-1b": "gemma3_1b",
+    "gemma-7b": "gemma_7b",
     "qwen3-4b": "qwen3_4b",
     "yi-6b": "yi_6b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 
@@ -129,7 +148,7 @@ def spec_split(cfg: ModelConfig, draft_mode: str | None = None
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant: same family & layer pattern, tiny dimensions
-    (the reference's rule for the dense attention families)."""
+    (the reference's rules for the families ported here)."""
     kw = dict(
         n_layers=len(cfg.prefix_pattern) + len(cfg.block_pattern)
         + len(cfg.suffix_pattern),
@@ -140,6 +159,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
     )
+    if cfg.n_experts:
+        kw.update(n_experts=4, top_k=min(cfg.top_k, 2), d_ff_expert=64)
+    if cfg.q_lora_rank or cfg.kv_lora_rank:
+        kw.update(q_lora_rank=32, kv_lora_rank=16, qk_rope_dim=8,
+                  qk_nope_dim=8, v_head_dim=16)
     if cfg.sliding_window:
         kw.update(sliding_window=8)
     return cfg.replace(**kw)

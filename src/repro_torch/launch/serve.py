@@ -47,8 +47,10 @@ under the reference's index-derived keys; ``--verify`` needs greedy
 streams.  On the card the decode chunk (the draft and the verify under
 ``--spec-decode``) replays from CUDA graphs.
 
-``--reduced`` (the default) runs the arch's smoke-scale variant, ``--full``
-its published widths and depth; weights are random, from seed 0.  It runs
+``--arch`` takes gemma3-1b, gemma-7b, qwen3-4b, yi-6b, deepseek-v3-671b
+and llama4-maverick-400b-a17b.  ``--reduced`` (the default) runs the
+arch's smoke-scale variant, ``--full`` its published widths and depth;
+weights are random, from seed 0.  It runs
 on the CUDA device, every projection through the CUDA kernels
 (``--quant-backend cuda``) and attention through the flash and paged
 kernels, unless ``--device cpu`` is given: there the same wrappers run

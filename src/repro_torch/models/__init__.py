@@ -1,4 +1,4 @@
-"""Model zoo (attention-only stacks): layers, GQA attention, assembly."""
+"""Model zoo: layers, GQA and MLA attention, MoE, assembly."""
 
 from repro_torch.models.transformer import (  # noqa: F401
     copy_paged_cache_page,

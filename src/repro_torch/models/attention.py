@@ -1,13 +1,13 @@
-"""Grouped-query attention (port of the GQA path of
-``repro.models.attention``; MLA, cross-attention and the int8 KV cache
-wait for later slices).
+"""Grouped-query attention and multi-head latent attention (port of the
+GQA and MLA paths of ``repro.models.attention``; cross-attention and the
+int8 KV cache wait for later slices).
 
-One implementation serves the full-sequence forward, prefill (K/V handed
-back for the cache), context prefill (a prompt suffix against cached
-prefix rows, for the prefix cache) and decode (queries against a dense
-per-slot slab or shared page pools addressed through a page table).
-Queries are grouped as (KV-heads x group), so head ``h`` reads KV head
-``h // G``.
+One implementation of each serves the full-sequence forward, prefill (K/V,
+or MLA's latents, handed back for the cache), context prefill (a prompt
+suffix against cached prefix rows, for the prefix cache) and decode
+(queries against a dense per-slot slab or shared page pools addressed
+through a page table).  Queries are grouped as (KV-heads x group), so head
+``h`` reads KV head ``h // G``.
 
 Cache writes are in place: the port updates the slab / pool tensors it is
 given (the reference returns new arrays; the values are the same) and
@@ -23,7 +23,8 @@ from repro_torch.kernels.ops import flash_mha, paged_flash_decode
 from repro_torch.models.layers import apply_rope, rms_norm, rms_norm_init, rope
 
 __all__ = ["attn_init", "attn_apply", "attention_core", "init_kv_cache",
-           "init_paged_kv_cache", "scatter_cache_rows",
+           "init_paged_kv_cache", "mla_init", "mla_apply", "init_mla_cache",
+           "init_paged_mla_cache", "scatter_cache_rows",
            "scatter_paged_rows", "scatter_prefill_rows", "gather_pages"]
 
 _NEG_INF = -2.0 ** 30
@@ -288,5 +289,125 @@ def attn_apply(params, cfg, x, *, positions, kind: str = "full",
                              scale=scale, causal=True, window=window,
                              softcap=softcap)
     out = linear_apply(params["wo"], out.reshape(b, s, h * hd), mode=mode,
+                       backend=backend)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (deepseek-v3)
+# ---------------------------------------------------------------------------
+
+def mla_init(cfg, *, generator, device) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    d_nope, d_rope, d_v = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kw = dict(generator=generator, device=device)
+    return {"wq_a": linear_init(d, r_q, **kw),
+            "q_a_norm": rms_norm_init(r_q, device),
+            "wq_b": linear_init(r_q, h * (d_nope + d_rope), **kw),
+            "wkv_a": linear_init(d, r_kv + d_rope, **kw),
+            "kv_a_norm": rms_norm_init(r_kv, device),
+            "wkv_b": linear_init(r_kv, h * (d_nope + d_v), **kw),
+            "wo": linear_init(h * d_v, d, **kw)}
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, device) -> dict:
+    """MLA caches the compressed latent and the shared rope key:
+    ``kv_lora_rank + qk_rope_dim`` values a token."""
+    _check_kv_dtype(cfg)
+    kw = dict(dtype=torch.bfloat16, device=device)
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), **kw),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), **kw)}
+
+
+def init_paged_mla_cache(cfg, num_pages: int, page_size: int, device) -> dict:
+    """Paged dual of :func:`init_mla_cache`: latent and rope-key pools."""
+    _check_kv_dtype(cfg)
+    kw = dict(dtype=torch.bfloat16, device=device)
+    return {"c_kv": torch.zeros((num_pages, page_size, cfg.kv_lora_rank),
+                                **kw),
+            "k_rope": torch.zeros((num_pages, page_size, cfg.qk_rope_dim),
+                                  **kw)}
+
+
+def mla_apply(params, cfg, x, *, positions, cache=None, cache_index=None,
+              return_cache: bool = False, page_table=None,
+              context_start=None):
+    """Returns (out, new_cache); the modes of :func:`attn_apply`.  The
+    caches hold latents ``c_kv`` and rope keys ``k_rope``; every branch
+    re-expands K and V from the latents through ``wkv_b`` (at decode over
+    every gathered row), then attends through ``attention_core``, or the
+    flash forward under ``attn_impl="flash"`` without a cache.  Paged
+    decode gathers the pages back into position order, as the reference
+    does: the paged-decode kernel does not run on MLA layers."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    r_kv = cfg.kv_lora_rank
+    d_nope, d_rope, d_v = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    mode, backend = cfg.quant_mode, cfg.quant_backend
+
+    q_a = rms_norm(params["q_a_norm"],
+                   linear_apply(params["wq_a"], x, mode=mode,
+                                backend=backend), cfg.norm_eps)
+    q = linear_apply(params["wq_b"], q_a, mode=mode, backend=backend) \
+        .reshape(b, s, h, d_nope + d_rope)
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    sin, cos = rope(positions, d_rope, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos).to(x.dtype)
+
+    kv_a = linear_apply(params["wkv_a"], x, mode=mode, backend=backend)
+    c_kv = rms_norm(params["kv_a_norm"], kv_a[..., :r_kv], cfg.norm_eps)
+    k_rope_new = apply_rope(kv_a[..., r_kv:].reshape(b, s, 1, d_rope),
+                            sin, cos).to(x.dtype).reshape(b, s, d_rope)
+
+    new_cache = cache
+    if cache is not None and context_start is not None:
+        _check_kv_dtype(cfg)
+        c_kv_f = _splice_context(gather_pages(cache["c_kv"], page_table),
+                                 c_kv, context_start)
+        k_rope_f = _splice_context(gather_pages(cache["k_rope"], page_table),
+                                   k_rope_new, context_start)
+        k_pos = torch.broadcast_to(torch.arange(s, device=x.device)[None, :],
+                                   (b, s))
+        if return_cache:
+            new_cache = {"c_kv": c_kv.to(torch.bfloat16),
+                         "k_rope": k_rope_new.to(torch.bfloat16)}
+    elif cache is not None:
+        _check_kv_dtype(cfg)
+        if page_table is not None:
+            for key, val in (("c_kv", c_kv), ("k_rope", k_rope_new)):
+                scatter_paged_rows(cache[key], val, page_table, cache_index)
+            c_kv_f = gather_pages(cache["c_kv"], page_table)
+            k_rope_f = gather_pages(cache["k_rope"], page_table)
+        else:
+            c_kv_f = scatter_cache_rows(cache["c_kv"], c_kv, cache_index)
+            k_rope_f = scatter_cache_rows(cache["k_rope"], k_rope_new,
+                                          cache_index)
+        sk = c_kv_f.shape[1]
+        k_pos = torch.broadcast_to(torch.arange(sk, device=x.device)[None, :],
+                                   (b, sk))
+    else:
+        c_kv_f, k_rope_f, k_pos = c_kv, k_rope_new, positions
+        if return_cache:
+            new_cache = {"c_kv": c_kv.to(torch.bfloat16),
+                         "k_rope": k_rope_new.to(torch.bfloat16)}
+
+    sk = c_kv_f.shape[1]
+    kv = linear_apply(params["wkv_b"], c_kv_f, mode=mode, backend=backend) \
+        .reshape(b, sk, h, d_nope + d_v)
+    k_nope, v = kv[..., :d_nope], kv[..., d_nope:]
+    k_rope_b = torch.broadcast_to(k_rope_f[:, :, None, :].to(x.dtype),
+                                  (b, sk, h, d_rope))
+    q_full = torch.cat([q_nope, q_rope], dim=-1).to(x.dtype)
+    k_full = torch.cat([k_nope, k_rope_b], dim=-1).to(x.dtype)
+
+    scale = 1.0 / (d_nope + d_rope) ** 0.5
+    if cfg.attn_impl == "flash" and cache is None:
+        out = _flash_local(q_full, k_full, v, scale=scale, window=0,
+                           softcap=0.0)
+    else:
+        out = attention_core(q_full, k_full, v, positions, k_pos,
+                             scale=scale, causal=True)
+    out = linear_apply(params["wo"], out.reshape(b, s, h * d_v), mode=mode,
                        backend=backend)
     return out, new_cache

@@ -1,23 +1,26 @@
-"""Model assembly for attention-only stacks (port of
-``repro.models.transformer``).
+"""Model assembly (port of ``repro.models.transformer``): stacks of
+attention (GQA or MLA) layers, each followed by an MLP or an MoE block.
 
 Parameters are a dict ``{"embed", "layers", "final_norm"[, "lm_head"]}``
-where ``layers`` is the fully unrolled list of per-layer dicts (the
-reference stacks the repeated blocks on a leading ``n_blocks`` axis for
+where ``layers`` is the fully unrolled list of per-layer dicts
+``{"mixer_norm", "attn", "ffn_norm", "mlp" | "moe"}`` (the reference
+stacks the repeated blocks on a leading ``n_blocks`` axis for
 ``lax.scan``; :func:`load_jax_params` unstacks them).  Caches are a list
-with one ``{"k", "v"}`` dict per layer: dense per-slot slabs
-``(B, max_len, KVH, hd)`` or shared page pools ``(num_pages, page_size,
-KVH, hd)``.
+with one dict per layer: ``{"k", "v"}`` for GQA layers, ``{"c_kv",
+"k_rope"}`` (latents and rope keys) for MLA layers, as dense per-slot
+slabs ``(B, max_len, ...)`` or shared page pools ``(num_pages,
+page_size, ...)``.
 
-Entry points: :func:`forward` (full-sequence training logits,
-differentiable; under ``cfg.remat`` each layer is recomputed in the
-backward pass), :func:`prefill` (logits at ``logits_index`` plus the
-caches, grown to ``max_len``; with ``ctx_*`` a prompt suffix against
-cached prefix rows) and :func:`decode_step` (tokens against the caches at
-per-slot positions).  Training mode never writes a cache.  The page-pool
-helpers below serve the engine's prefix cache (row scatter, the
-copy-on-write page copy) and its host tier (page payloads to and from
-CPU tensors).
+Entry points: :func:`forward` (full-sequence training logits and the
+summed MoE aux loss, differentiable; under ``cfg.remat`` each layer is
+recomputed in the backward pass), :func:`prefill` (logits at
+``logits_index`` plus the caches, grown to ``max_len``; with ``ctx_*`` a
+prompt suffix against cached prefix rows) and :func:`decode_step`
+(tokens against the caches at per-slot positions).  Training mode never
+writes a cache.  The page-pool helpers below serve the engine's prefix
+cache (row scatter, the copy-on-write page copy) and its host tier (page
+payloads to and from CPU tensors); they take every pool as it comes, of
+any key and row shape.
 """
 
 from __future__ import annotations
@@ -32,7 +35,11 @@ from repro_torch.models.attention import (
     attn_apply,
     attn_init,
     init_kv_cache,
+    init_mla_cache,
     init_paged_kv_cache,
+    init_paged_mla_cache,
+    mla_apply,
+    mla_init,
     scatter_prefill_rows,
 )
 from repro_torch.models.layers import (
@@ -44,6 +51,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rms_norm_init,
 )
+from repro_torch.models.moe import moe_apply, moe_init
 
 __all__ = ["model_init", "load_jax_params", "prepare_params", "forward",
            "prefill", "decode_step", "init_caches", "init_paged_caches",
@@ -53,18 +61,33 @@ __all__ = ["model_init", "load_jax_params", "prepare_params", "forward",
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    """Refuse what is not ported yet: mamba mixers (and layers without an
+    FFN) and the int8 KV cache (cross-attention has no config field in
+    this package yet)."""
     for spec in cfg.layer_specs:
-        if spec.mixer != "attn" or spec.attn_kind == "mla" \
-                or spec.ffn != "mlp":
+        if spec.mixer != "attn" or spec.ffn not in ("mlp", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: only attention + MLP layers are ported "
-                f"(got {spec})")
+                f"{cfg.name}: only attention (GQA or MLA) layers with an "
+                f"MLP or MoE block are ported (got {spec})")
+    if cfg.kv_cache_dtype != "bf16":
+        raise NotImplementedError("only the bf16 KV cache is ported")
+
+
+_ATTN_LINEARS = {"mla": ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo"),
+                 "gqa": ("wq", "wk", "wv", "wo")}
 
 
 def _linears(params: dict):
+    """Every projection the quant modes run: attention, MLP and the
+    shared expert (the bf16 expert stacks stay bf16, as in the
+    reference)."""
     for layer in params["layers"]:
-        yield from (layer["attn"][n] for n in ("wq", "wk", "wv", "wo"))
-        yield from (layer["mlp"][n] for n in ("gate", "up", "down"))
+        attn = layer["attn"]
+        yield from (attn[n] for n in _ATTN_LINEARS[
+            "mla" if "wkv_b" in attn else "gqa"])
+        ffn = layer["mlp"] if "mlp" in layer else layer["moe"].get("shared")
+        if ffn is not None:
+            yield from (ffn[n] for n in ("gate", "up", "down"))
 
 
 def prepare_params(params: dict, cfg: ModelConfig) -> dict:
@@ -79,20 +102,24 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
 def model_init(cfg: ModelConfig, *, seed: int = 0,
                device="cuda") -> dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` (the
-    reference's init rules: He-scaled projections, 0.02 embedding, zero
-    norm gains), quantized once for ``cfg.quant_mode``."""
+    reference's init rules: He-scaled projections and expert stacks, 0.02
+    embedding and f32 router, zero norm gains), quantized once for
+    ``cfg.quant_mode``."""
     _check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=gen, device=device)
     layers = []
-    for _ in cfg.layer_specs:
-        layers.append({
-            "mixer_norm": rms_norm_init(cfg.d_model, device),
-            "attn": attn_init(cfg, **kw),
-            "ffn_norm": rms_norm_init(cfg.d_model, device),
-            "mlp": mlp_init(cfg.d_model, cfg.d_ff, **kw),
-        })
+    for spec in cfg.layer_specs:
+        layer = {"mixer_norm": rms_norm_init(cfg.d_model, device),
+                 "attn": (mla_init if spec.attn_kind == "mla"
+                          else attn_init)(cfg, **kw),
+                 "ffn_norm": rms_norm_init(cfg.d_model, device)}
+        if spec.ffn == "moe":
+            layer["moe"] = moe_init(cfg, **kw)
+        else:
+            layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, **kw)
+        layers.append(layer)
     params = {"embed": embed_init(cfg.vocab_size, cfg.d_model, **kw),
               "layers": layers,
               "final_norm": rms_norm_init(cfg.d_model, device)}
@@ -101,19 +128,24 @@ def model_init(cfg: ModelConfig, *, seed: int = 0,
     return prepare_params(params, cfg)
 
 
+_F32_LEAVES = ("scale", "router")
+
+
 def load_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> dict:
     """The weight bridge: the reference ``model_init`` pytree with numpy
     leaves (bf16 leaves passed through float32) -> this package's params,
-    so both packages compute the same function.  Projection and embedding
-    weights come back as bf16 (exact: they were bf16), norm gains as f32;
-    the stacked block axis is unrolled into the layer list."""
+    so both packages compute the same function.  Projection, embedding and
+    expert weights come back as bf16 (exact: they were bf16), norm gains
+    and the MoE router as f32 (the reference keeps them f32); the stacked
+    block axis is unrolled into the layer list (an expert stack stays
+    whole per layer)."""
     _check_supported(cfg)
     device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: (torch.as_tensor(v, device=device).to(
-                torch.float32 if k == "scale" else torch.bfloat16)
+                torch.float32 if k in _F32_LEAVES else torch.bfloat16)
                 if not isinstance(v, dict) else conv(v))
                 for k, v in node.items()}
         raise TypeError(f"unexpected node {type(node)}")
@@ -144,43 +176,54 @@ def _index_tree(node: dict, i: int) -> dict:
 def _layer_apply(p, cfg: ModelConfig, spec, x, *, positions, cache=None,
                  cache_index=None, mode="train", page_table=None,
                  context_start=None):
-    """One pre-norm attention + MLP layer; returns (x, new_cache)."""
+    """One pre-norm attention (GQA or MLA) + MLP or MoE layer; returns
+    (x, new_cache, aux loss)."""
     h = rms_norm(p["mixer_norm"], x, cfg.norm_eps)
-    out, c = attn_apply(p["attn"], cfg, h, positions=positions,
-                        kind=spec.attn_kind, cache=cache,
-                        cache_index=cache_index,
-                        return_cache=(mode == "prefill"),
-                        page_table=page_table, context_start=context_start)
+    kw = dict(positions=positions, cache=cache, cache_index=cache_index,
+              return_cache=(mode == "prefill"), page_table=page_table,
+              context_start=context_start)
+    if spec.attn_kind == "mla":
+        out, c = mla_apply(p["attn"], cfg, h, **kw)
+    else:
+        out, c = attn_apply(p["attn"], cfg, h, kind=spec.attn_kind, **kw)
     x = x + out
     h = rms_norm(p["ffn_norm"], x, cfg.norm_eps)
-    x = x + mlp_apply(p["mlp"], h, act=cfg.act, quant_mode=cfg.quant_mode,
-                      quant_backend=cfg.quant_backend)
-    return x, c
+    if spec.ffn == "moe":
+        out, aux = moe_apply(p["moe"], cfg, h)
+    else:
+        out = mlp_apply(p["mlp"], h, act=cfg.act, quant_mode=cfg.quant_mode,
+                        quant_backend=cfg.quant_backend)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, c, aux
 
 
 def _stack_apply(params, cfg: ModelConfig, x, *, positions, caches=None,
                  cache_index=None, mode="train", page_table=None,
                  context_start=None):
-    """Returns (x, new_caches); caches only for prefill / decode.  In
-    training with ``cfg.remat`` every layer runs under a non-reentrant
-    checkpoint: only its input is kept, the rest is recomputed in the
-    backward pass (the reference's ``jax.checkpoint`` per block)."""
+    """Returns (x, new_caches, total aux loss); caches only for prefill /
+    decode.  In training with ``cfg.remat`` every layer runs under a
+    non-reentrant checkpoint: only its input is kept, the rest is
+    recomputed in the backward pass (the reference's ``jax.checkpoint``
+    per block)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     new_caches = []
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, (p, spec) in enumerate(zip(params["layers"], cfg.layer_specs)):
         if remat:
-            x, c = checkpoint(
+            x, c, aux = checkpoint(
                 lambda x_, p_=p, s_=spec: _layer_apply(
                     p_, cfg, s_, x_, positions=positions),
                 x, use_reentrant=False)
         else:
-            x, c = _layer_apply(p, cfg, spec, x, positions=positions,
-                                cache=None if caches is None else caches[li],
-                                cache_index=cache_index, mode=mode,
-                                page_table=page_table,
-                                context_start=context_start)
+            x, c, aux = _layer_apply(
+                p, cfg, spec, x, positions=positions,
+                cache=None if caches is None else caches[li],
+                cache_index=cache_index, mode=mode, page_table=page_table,
+                context_start=context_start)
+        total_aux = total_aux + aux
         new_caches.append(c)
-    return x, (new_caches if mode in ("prefill", "decode") else None)
+    return x, (new_caches if mode in ("prefill", "decode") else None), \
+        total_aux
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -199,16 +242,15 @@ def _embed(params, cfg, tokens):
 
 def forward(params, cfg: ModelConfig, tokens):
     """Training logits.  tokens: (B, S) int.  Returns ``(logits (B, S, V)
-    f32, aux)``; ``aux`` is the MoE auxiliary loss, 0 for the attention-only
-    stacks ported here.  Differentiable with respect to every float leaf
-    of ``params``."""
+    f32, aux)``; ``aux`` is the MoE auxiliary loss summed over the MoE
+    layers (0 without one).  Differentiable with respect to every float
+    leaf of ``params``."""
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
     pos = torch.broadcast_to(torch.arange(s, device=x.device)[None, :],
                              (b, s))
-    x, _ = _stack_apply(params, cfg, x, positions=pos, mode="train")
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
-                                                device=x.device)
+    x, _, aux = _stack_apply(params, cfg, x, positions=pos, mode="train")
+    return _logits(params, cfg, x), aux
 
 
 @torch.no_grad()
@@ -234,9 +276,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
     if ctx_start is not None:
         pos = pos + torch.as_tensor(ctx_start, device=x.device)
     pos = torch.broadcast_to(pos, (b, s))
-    x, caches = _stack_apply(params, cfg, x, positions=pos, mode="prefill",
-                             caches=ctx_caches, page_table=ctx_table,
-                             context_start=ctx_start)
+    x, caches, _ = _stack_apply(params, cfg, x, positions=pos,
+                                mode="prefill", caches=ctx_caches,
+                                page_table=ctx_table, context_start=ctx_start)
     if logits_index is None:
         x_last = x[:, -1:]
     else:
@@ -246,8 +288,10 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
         x_last = x[torch.arange(b, device=x.device), idx][:, None]
     logits = _logits(params, cfg, x_last)
     if max_len is not None and max_len > s:
-        caches = [{k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, max_len - s))
-                   for k, v in c.items()} for c in caches]
+        # the sequence axis is 1 in every cache leaf
+        caches = [{k: torch.nn.functional.pad(
+            v, (0, 0) * (v.ndim - 2) + (0, max_len - s))
+            for k, v in c.items()} for c in caches]
     return logits, caches
 
 
@@ -263,9 +307,9 @@ def decode_step(params, cfg: ModelConfig, token, caches, index, *,
     index = torch.as_tensor(index, device=x.device).to(torch.int64)
     pos = (torch.broadcast_to(index.reshape(-1, 1), (b, 1))
            + torch.arange(s, device=x.device)[None, :])
-    x, caches = _stack_apply(params, cfg, x, positions=pos, caches=caches,
-                             cache_index=index, mode="decode",
-                             page_table=page_table)
+    x, caches, _ = _stack_apply(params, cfg, x, positions=pos,
+                                caches=caches, cache_index=index,
+                                mode="decode", page_table=page_table)
     return _logits(params, cfg, x), caches
 
 
@@ -288,16 +332,24 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                              f"page_size {ps}")
         num_pages = cfg.num_pages or batch * (max_len // ps) + 1
         return init_paged_caches(cfg, batch, num_pages, ps, device=device)
-    return [init_kv_cache(cfg, batch, max_len, device)
-            for _ in cfg.layer_specs]
+    return [(init_mla_cache if spec.attn_kind == "mla" else init_kv_cache)(
+        cfg, batch, max_len, device) for spec in cfg.layer_specs]
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
                       page_size: int, *, device="cuda") -> list:
-    """One shared ``(num_pages, page_size, KVH, hd)`` pool per layer."""
+    """One set of shared pools per layer: ``(num_pages, page_size, KVH,
+    hd)`` K and V, or MLA's ``(num_pages, page_size, kv_lora_rank)``
+    latents and ``(num_pages, page_size, qk_rope_dim)`` rope keys."""
     device = resolve_device(device)
-    return [init_paged_kv_cache(cfg, num_pages, page_size, device)
-            for _ in cfg.layer_specs]
+    return [(init_paged_mla_cache if spec.attn_kind == "mla"
+             else init_paged_kv_cache)(cfg, num_pages, page_size, device)
+            for spec in cfg.layer_specs]
+
+
+def _pools(caches: list) -> list:
+    """Every pool of every layer, layer-major, in key order."""
+    return [pool for c in caches for pool in c.values()]
 
 
 def merge_slot_caches(big: list, one: list, slot: int) -> list:
@@ -313,7 +365,7 @@ def merge_slot_paged_caches(big: list, one: list, slot: int, pages) -> list:
     the pools at page ids ``pages[:n]``, in place.  Entries past the
     request's pages point at the trash page, so pad rows land there."""
     del slot                      # pools are shared; the table routes slots
-    pages = torch.as_tensor(pages, device=big[0]["k"].device).long()
+    pages = torch.as_tensor(pages, device=_pools(big)[0].device).long()
     for b_c, s_c in zip(big, one):
         for key in b_c:
             ps = b_c[key].shape[1]
@@ -334,7 +386,7 @@ def scatter_prefill_paged_caches(big: list, one: list, slot: int, row,
     ``start + [0, S)``) through one slot's table ``row`` into the pools,
     in place.  Shared prefix pages below ``start`` are never touched."""
     del slot                      # pools are shared; the row routes the slot
-    row = torch.as_tensor(row, device=big[0]["k"].device)
+    row = torch.as_tensor(row, device=_pools(big)[0].device)
     for b_c, s_c in zip(big, one):
         for key in b_c:
             scatter_prefill_rows(b_c[key], s_c[key], row, start)
@@ -348,12 +400,12 @@ def copy_paged_cache_page(caches: list, src, dst) -> list:
     be 0-d tensors, so the copy is data, not shape, or (G,) vectors of
     pairs (a wave's lanes; every source is read before any write); the
     no-COW default ``0, 0`` rewrites the trash page with itself."""
-    dev = caches[0]["k"].device
+    pools = _pools(caches)
+    dev = pools[0].device
     src = torch.as_tensor(src, device=dev).reshape(-1).long()
     dst = torch.as_tensor(dst, device=dev).reshape(-1).long()
-    for c in caches:
-        for pool in c.values():
-            pool.index_copy_(0, dst, pool.index_select(0, src))
+    for pool in pools:
+        pool.index_copy_(0, dst, pool.index_select(0, src))
     return caches
 
 
@@ -366,17 +418,19 @@ def _pad_pages(pages, pad_to):
 
 def extract_cache_pages(caches: list, pages, pad_to: int | None = None
                         ) -> list:
-    """Copy pool pages ``pages`` of every layer's K and V to host memory
-    in one transfer: one payload per page, a CPU tensor ``(2 * n_layers,
-    page_size, KVH, hd)`` (layer-major, K then V).  With
-    :func:`insert_cache_pages` a page round-trips bit for bit (swap-out and
-    prefix demotion).  ``pad_to`` pads the gather with the trash page, so
-    every call has one shape; the padded rows are dropped."""
+    """Copy pool pages ``pages`` of every layer's pools to host memory in
+    one transfer: one payload per page, a flat CPU tensor holding the
+    page's rows of every pool, layer-major in key order (GQA: K then V;
+    MLA: latents then rope keys), so pools of any row shape share one
+    payload.  With :func:`insert_cache_pages` a page round-trips bit for
+    bit (swap-out and prefix demotion).  ``pad_to`` pads the gather with
+    the trash page, so every call has one shape; the padded rows are
+    dropped."""
     pages = list(pages)
-    dev = caches[0]["k"].device
-    idx = torch.as_tensor(_pad_pages(pages, pad_to), device=dev)
-    rows = torch.stack([pool[idx] for c in caches for pool in c.values()],
-                       dim=1).cpu()
+    pools = _pools(caches)
+    idx = torch.as_tensor(_pad_pages(pages, pad_to), device=pools[0].device)
+    rows = torch.cat([pool[idx].reshape(len(idx), -1) for pool in pools],
+                     dim=1).cpu()
     return [rows[j].clone() for j in range(len(pages))]
 
 
@@ -384,20 +438,22 @@ def insert_cache_pages(caches: list, pages, payloads, pad_to: int | None = None
                        ) -> list:
     """Write host payloads (from :func:`extract_cache_pages`) into pool
     pages ``pages``, in place, in one transfer (swap-in and prefix
-    promotion).  ``pad_to`` pads with zero rows written onto the trash
-    page, which no query attends."""
+    promotion): each payload is split back into the pools' rows.
+    ``pad_to`` pads with zero rows written onto the trash page, which no
+    query attends."""
     pages = list(pages)
     if len(pages) != len(payloads):
         raise ValueError(f"{len(pages)} pages but {len(payloads)} payloads")
     padded = _pad_pages(pages, pad_to)
-    dev = caches[0]["k"].device
+    pools = _pools(caches)
+    dev = pools[0].device
     rows = torch.stack(list(payloads))
     if len(padded) > len(pages):
         rows = torch.cat([rows, rows.new_zeros(
-            (len(padded) - len(pages),) + tuple(rows.shape[1:]))])
-    rows = rows.to(dev).transpose(0, 1)
+            (len(padded) - len(pages), rows.shape[1]))])
+    rows = rows.to(dev)
     idx = torch.as_tensor(padded, device=dev)
-    pools = [pool for c in caches for pool in c.values()]
-    for i, pool in enumerate(pools):
-        pool[idx] = rows[i].to(pool.dtype)
+    width = [pool[0].numel() for pool in pools]
+    for pool, part in zip(pools, torch.split(rows, width, dim=1)):
+        pool[idx] = part.reshape(len(padded), *pool.shape[1:]).to(pool.dtype)
     return caches

@@ -729,8 +729,9 @@ class Engine:
 
     @property
     def cache_token_bytes(self) -> int:
-        """KV-cache bytes per cached token, summed over every layer's K
-        and V; times a request's ``cache_rows`` is its cache footprint."""
+        """KV-cache bytes per cached token, summed over every layer's
+        pools (K and V, or MLA's latents and rope keys); times a request's
+        ``cache_rows`` is its cache footprint."""
         rows = (self._num_pages * self._page_size if self._paged
                 else self.scfg.batch * self.scfg.max_len)
         total = sum(t.numel() * t.element_size()

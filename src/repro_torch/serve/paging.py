@@ -1,6 +1,7 @@
 """Paged KV cache bookkeeping (port of ``repro.serve.paging``).
 
-Host-side state only.  Every attention layer's K/V lives in a shared
+Host-side state only.  Every attention layer's K/V (MLA: latents and
+rope keys) lives in a shared
 ``(num_pages, page_size, ...)`` pool; one ``(batch, max_pages)`` int32
 table maps slot ``b``'s row ``pos`` to ``(table[b, pos // page_size],
 pos % page_size)``.  Page 0 is the reserved **trash page**: idle slots'

@@ -4,7 +4,7 @@
 * next-token cross-entropy with label masking (-1 = ignore),
   ``logsumexp - logits[label]`` (the reference's one-hot product, read by
   a gather), plus the MoE aux
-  loss (0 for the attention-only stacks ported here), the z-loss and the
+  loss (0 without an MoE layer), the z-loss and the
   optional multi-token-prediction terms;
 * gradient accumulation over microbatches as a Python loop (the
   reference's ``lax.scan``), summing f32 gradients;

@@ -526,3 +526,72 @@ def test_quant_matmul_lut_scaled_equals_torch_route(cuda, kw):
     assert lm.lut_launches == before + 1
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# The shapes of the MLA and MoE families (deepseek-v3, llama4, gemma3-1b)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [
+    (640, 512, 32768),       # wkv_b at decode: 4 slots x 160 latent rows
+    (4, 1536, 24576),        # wq_b at decode
+    (128, 1536, 24576),      # wq_b at prefill
+    (4, 7168, 576),          # wkv_a
+    (4, 16384, 7168),        # MLA's wo (128 heads x v 128)
+    (4, 7168, 2048)])        # the shared expert's gate
+def test_nibble_kernel_equals_plain_at_mla_shapes(cuda, m, k, n):
+    """The model path's arguments (per-tensor activation scale, per-column
+    weight scale, bf16 out) and the int32 product, ``torch.equal``."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda,
+                      generator=g)
+    w = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=cuda,
+                      generator=g).t()
+    xs = torch.tensor(1e-3, device=cuda)
+    ws = torch.rand((1, n), device=cuda, generator=g) * 0.01
+    assert torch.equal(nm.nibble_matmul_cuda(x, w),
+                       nm.nibble_matmul_plain(x, w))
+    assert torch.equal(nm.nibble_matmul_cuda(x, w, xs, ws),
+                       nm.nibble_matmul_plain(x, w, xs, ws))
+
+
+FAMILY_FLASH_CASES = [
+    # deepseek-v3's MLA prefill: 128 heads (group 1), q/k 192, v 128 (the
+    # 256-wide instance, zero-padded)
+    dict(bkv=128, group=1, s=128, d=192, dv=128, window=0, softcap=0.0),
+    dict(bkv=4, group=1, s=75, d=24, dv=16, window=0, softcap=0.0),
+    # llama4: group 5
+    dict(bkv=8, group=5, s=128, d=128, dv=128, window=0, softcap=0.0),
+    # gemma3-1b: head_dim 256, group 4, a window across the sequence
+    dict(bkv=1, group=4, s=160, d=256, dv=256, window=64, softcap=0.0),
+]
+
+
+@pytest.mark.parametrize("case", FAMILY_FLASH_CASES)
+def test_flash_kernel_matches_plain_at_family_shapes(cuda, case):
+    q, k, v, kw = _flash_inputs(case, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    assert o.shape == o_p.shape == (q.shape[0], q.shape[1], case["dv"])
+    torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
+                               rtol=0)
+    torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("shape,window", [((8, 5, 128), 0),
+                                          ((1, 4, 256), 512),
+                                          ((1, 4, 256), 40)])
+def test_paged_kernel_matches_plain_at_family_shapes(cuda, shape, window):
+    """llama4's group 5 and gemma3-1b's local layers (head_dim 256, group
+    4, window 512; and a window shorter than the cache)."""
+    kvh, g, d = shape
+    q, kp, vp, table, q_pos = (torch.from_numpy(a).to(cuda)
+                               for a in _paged_inputs(d + window, b=4,
+                                                      kvh=kvh, g=g, d=d,
+                                                      ps=16, per_slot=10))
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    kw = dict(scale=d ** -0.5, window=window)
+    o = fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos, **kw)
+    o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
+                               rtol=0)

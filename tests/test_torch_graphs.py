@@ -12,8 +12,10 @@ raw pointers), and the launch-counter registry covers every counter.
 
 Marked ``cuda`` (skipped without a card; no JAX): a captured engine's
 streams equal a ``capture=False`` engine's token for token at reduced
-width in each mode, one capture per stage once warm, equal launch
-counters; the sampler on the card equals the sampler on the CPU.  Run on
+width in each mode (yi-6b; the MLA and MoE families too), one capture
+per stage once warm, equal launch counters; the MoE block on the card
+repeats bit for bit and routes as on the CPU; the sampler on the card
+equals the sampler on the CPU.  Run on
 the GPU machine with ``python -m pytest -q -m cuda
 tests/test_torch_graphs.py``.
 """
@@ -223,8 +225,14 @@ def test_captured_streams_equal_eager(cuda, mode, over):
     one on the card: equal streams token for token, one capture per
     captured stage once warm (a second run captures nothing new), and
     equal launch counters (a replay adds its capture's counts)."""
-    cfg = reduced(get_config("yi-6b")).replace(
-        quant_mode=mode, quant_backend="cuda", attn_impl="flash")
+    _captured_vs_eager(cuda, reduced(get_config("yi-6b")).replace(
+        quant_mode=mode, quant_backend="cuda", attn_impl="flash"), over)
+
+
+def _captured_vs_eager(cuda, cfg, over, launches=True):
+    """``launches``: some kernel must launch (a dense MLA engine whose
+    prefills are context prefills or waves runs none: MLA decodes through
+    gathered pages, dense projections are plain matmuls)."""
     params = model_init(cfg, seed=0, device=cuda)
     prompts = _prompts(cfg.vocab_size, 5, seed=3) + [SHARED, SHARED]
     out = {}
@@ -242,12 +250,64 @@ def test_captured_streams_equal_eager(cuda, mode, over):
                         engine.compile_counts)
     eager, captured = out[False], out[True]
     assert captured[0] == eager[0] and captured[1] == eager[1]
-    assert captured[2] == eager[2] and sum(captured[2]) > 0
+    assert captured[2] == eager[2] and (sum(captured[2]) > 0) == launches
     assert set(eager[3].values()) == {0}
     want = (SPEC_CAPTURES if over.get("spec_decode")
             else {"decode_chunk": 1})
     assert captured[3] == want
     assert captured[4] == eager[4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode,over", [
+    ("deepseek-v3-671b", "w8a8_nibble", {}),
+    ("deepseek-v3-671b", "dense", {"alloc_mode": "incremental",
+                                   "num_pages": 6, "swap_mode": "host",
+                                   "prefix_cache": True}),
+    ("deepseek-v3-671b", "dense", {"spec_decode": True,
+                                   "spec_quant_mode": "w8a8_nibble",
+                                   "alloc_mode": "incremental"}),
+    ("deepseek-v3-671b", "dense", {"prefill_chunk": 4, "admit_group": 2}),
+    ("llama4-maverick-400b-a17b", "w8a8_nibble", {"temperature": 0.7}),
+    ("gemma3-1b", "w8a8_nibble", {})],
+    ids=["deepseek-nibble", "deepseek-swap-prefix", "deepseek-spec",
+         "deepseek-wave", "llama4-sampled", "gemma3"])
+def test_captured_family_streams_equal_eager(cuda, arch, mode, over):
+    """The MLA and MoE families (reduced) through a captured and an eager
+    engine: the MoE dispatch reads nothing on the host, so its decode
+    chunk, draft and verify capture; streams and launch counters equal
+    (the MoE combine sums in a fixed order, never by atomics)."""
+    _captured_vs_eager(cuda, reduced(get_config(arch)).replace(
+        quant_mode=mode, quant_backend="cuda", attn_impl="flash"), over,
+        launches=not (mode == "dense" and (over.get("prefix_cache")
+                                           or over.get("prefill_chunk"))))
+
+
+@pytest.mark.cuda
+def test_moe_on_card_equals_cpu_routing_and_repeats(cuda):
+    """``moe_apply`` on the card at reduced deepseek-v3 with drops (64
+    tokens, capacity factor 0.01): two calls equal bit for bit, routing
+    equal to the CPU's, outputs within 2e-2 of the CPU's."""
+    from repro_torch.models import moe as tmoe
+    cfg = reduced(get_config("deepseek-v3-671b")).replace(
+        capacity_factor=0.01)
+    p = tmoe.moe_init(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    x = torch.randn((2, 32, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1)).bfloat16()
+    pc = {k: ({n: {w: t.to(cuda) for w, t in v.items()} for n, v in
+               t_.items()} if isinstance(t_, dict) else t_.to(cuda))
+          for k, t_ in p.items()}
+    a, aux_a = tmoe.moe_apply(pc, cfg, x.to(cuda))
+    b, aux_b = tmoe.moe_apply(pc, cfg, x.to(cuda))
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    want, aux = tmoe.moe_apply(p, cfg, x)
+    xt = x.reshape(-1, cfg.d_model)
+    assert torch.equal(tmoe._route(pc, cfg, xt.to(cuda))[1].cpu(),
+                       tmoe._route(p, cfg, xt)[1])
+    torch.testing.assert_close(a.float().cpu(), want.float(), atol=2e-2,
+                               rtol=0)
+    assert abs(float(aux_a) - float(aux)) <= 1e-5
 
 
 @pytest.mark.cuda

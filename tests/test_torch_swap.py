@@ -97,12 +97,14 @@ def test_extract_insert_roundtrip_matches_reference(pad_to):
     tpay = extract_cache_pages(tc, src, pad_to=pad_to)
     assert len(tpay) == len(jpay) == 3
     for jp_, tp_ in zip(jpay, tpay):
-        assert tp_.device.type == "cpu"
+        assert tp_.device.type == "cpu" and tp_.ndim == 1
         k, v = (np.asarray(a).view(np.int16) for a in jp_.values())
+        # the flat payload: every layer's K rows, then its V rows
+        rows = tp_.reshape(-1, *k.shape[1:])
         np.testing.assert_array_equal(
-            tp_[0::2].view(torch.int16).numpy(), k)
+            rows[0::2].view(torch.int16).numpy(), k)
         np.testing.assert_array_equal(
-            tp_[1::2].view(torch.int16).numpy(), v)
+            rows[1::2].view(torch.int16).numpy(), v)
     want = jtransformer.insert_cache_pages(jc, dst, jpay, pad_to=pad_to)
     insert_cache_pages(tc, dst, tpay, pad_to=pad_to)
     _assert_pools_equal(tc, want)

@@ -125,6 +125,22 @@ Phases (any failure exits non-zero and prints no result line):
    overcommitted incremental pool with the prefix cache and the host
    swap against a reserve pool (preemptions and swap-ins required;
    streams equal or each divergence a near-tie).
+7c. SSM (the families' weights freed first): the nibble kernel at
+   mamba2-780m's ``in_proj`` (N 6448) and ``out_proj`` at decode, its
+   ``in_proj`` at a 512-token prefill and jamba's ``in_proj`` (N 16544)
+   at decode (``torch.equal``), the flash forward at jamba's prefill and
+   paged decode at its group 4, each held to its plain version and timed
+   beside its bound and a library call; then mamba2-780m at full width
+   and depth (48 SSD mixers, ``w8a8_nibble`` on CUDA, paged incremental,
+   4 slots): 8 requests of 32-128 tokens and one of 512 x 32 through a
+   captured engine (nibble 96 launches a decode step and a prefill,
+   flash and paged none), equal streams from a ``capture=False`` engine
+   and from the plain path, prefill logits equal to the plain path's bit
+   for bit, host ms per decode chunk, and in ``dense`` an overcommitted
+   incremental pool (replay, preemptions required) equal to a reserve
+   pool; then jamba-v0.1-52b at full width cut to one block of 8 layers
+   (1 attention, 7 mamba, 4 MoE of 16 experts top-2) served as the
+   families are (rows 1-3 launched, the prefill held kernel by kernel).
 8. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
    (forward, remat recompute and the backward kernels), remat, batch 8 x
    seq 256, 4 AdamW steps through ``Trainer.run`` on ``SyntheticLM``
@@ -620,14 +636,19 @@ def _paged_bytes(q, table, q_pos, ps, dv):
         + 4 * table.numel() + 4 * b, rows
 
 
-def _paged_sdpa(q, kp, vp, table, q_pos, scale):
+def _paged_sdpa(q, kp, vp, table, q_pos, scale, window=0):
     """The yardstick: gather the table's pages (as the plain version
-    does) and run SDPA with the causal-by-position mask."""
+    does) and run SDPA with the causal-by-position mask (and the sliding
+    window's, an explicit boolean mask)."""
     b, kvh, g, d = q.shape
     ps, dv = kp.shape[1], vp.shape[-1]
     L = table.shape[1] * ps
-    mask = (torch.arange(L, device=DEV)[None, :]
-            <= q_pos[:, None].long())[:, None, None, :]
+    key = torch.arange(L, device=DEV)[None, :]
+    qp = q_pos[:, None].long()
+    mask = key <= qp
+    if window:
+        mask &= (qp - key) < window
+    mask = mask[:, None, None, :]
     idx = table.long()
 
     def fn():
@@ -2039,61 +2060,60 @@ def _print_case(label, r) -> None:
           f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
 
 
-def check_family_shapes(gen) -> dict:
-    """Rows 1-3 at the shapes the families phase gives them, held to their
-    plain versions and timed beside the bound and a library call: the
-    nibble kernel at MLA's ``wkv_b`` over 4 slots x 160 gathered latent
-    rows and at ``wq_b`` (decode, M 4), ``torch.equal``; the flash forward
-    at deepseek-v3's prefill (128 heads, S 128, q/k 192, v 128, run in the
-    256-wide instance); paged decode at llama4's group 5 and at
-    gemma3-1b's head_dim 256, group 4, window 512."""
-    rows = {"nibble_matmul": {}, "flash_attention_fwd": {},
-            "paged_decode_attention": {}}
-    for name, m, k, n in (("wkv_b decode", 640, 512, 32768),
-                          ("wq_b decode", 4, 1536, 24576)):
-        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=DEV,
-                          generator=gen)
-        wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=DEV,
-                           generator=gen)
-        xs = torch.tensor(1e-3, device=DEV)
-        ws = torch.rand((1, n), device=DEV, generator=gen) * 0.01 + 1e-4
-        for args in ((), (xs, ws)):
-            got = nm.nibble_matmul_cuda(x, wt.t(), *args)
-            want = nm.nibble_matmul_plain(x, wt.t(), *args)
-            if not torch.equal(got, want):
-                raise AssertionError(f"nibble {name} ({m},{k},{n}) differs "
-                                     f"from plain")
-        r = _timed_case(
-            lambda x=x, wt=wt, xs=xs, ws=ws: nm.nibble_matmul_cuda(
-                x, wt.t(), xs, ws),
-            lambda x=x, wt=wt, xs=xs, ws=ws: nm.nibble_matmul_plain(
-                x, wt.t(), xs, ws),
-            None, m * k + k * n + 2 * m * n + 4 + 4 * n, 2 * m * n * k,
-            INT8_OPS)
-        r["library_ms"] = _int_mm_ms(x, wt)
-        r["library_graph_ms"] = _int_mm_ms(x, wt, timer=graph_ms)
-        r["max_abs_err"] = 0.0
-        r["shape"] = (m, k, n)
-        rows["nibble_matmul"][name] = r
-        _print_case(f"nibble {name} ({m},{k},{n}) torch.equal", r)
+def _nibble_case(gen, label, m, k, n) -> dict:
+    """The nibble kernel at (M, K, N), exact and scaled, against its plain
+    version (``torch.equal``), timed beside ``_int_mm`` and the bound."""
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=DEV,
+                      generator=gen)
+    wt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=DEV,
+                       generator=gen)
+    xs = torch.tensor(1e-3, device=DEV)
+    ws = torch.rand((1, n), device=DEV, generator=gen) * 0.01 + 1e-4
+    for args in ((), (xs, ws)):
+        got = nm.nibble_matmul_cuda(x, wt.t(), *args)
+        want = nm.nibble_matmul_plain(x, wt.t(), *args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"nibble {label} ({m},{k},{n}) differs "
+                                 f"from plain")
+    r = _timed_case(
+        lambda: nm.nibble_matmul_cuda(x, wt.t(), xs, ws),
+        lambda: nm.nibble_matmul_plain(x, wt.t(), xs, ws),
+        None, m * k + k * n + 2 * m * n + 4 + 4 * n, 2 * m * n * k,
+        INT8_OPS)
+    r["library_ms"] = _int_mm_ms(x, wt)
+    r["library_graph_ms"] = _int_mm_ms(x, wt, timer=graph_ms)
+    r["max_abs_err"] = 0.0
+    r["shape"] = (m, k, n)
+    _print_case(f"nibble {label} ({m},{k},{n}) torch.equal", r)
+    return r
 
-    bh, s, d, dv = 128, 128, 192, 128
+
+def _flash_case(gen, label, heads, group, s, d, dv=None, *, batch=1
+                ) -> dict:
+    """The flash forward (causal) over ``batch`` sequences of ``heads``
+    query heads (``heads // group`` K/V heads) against its plain version,
+    timed beside SDPA's forward (GQA) where a backend takes the shapes."""
+    dv = dv or d
+    bh = batch * heads
     q = torch.randn((bh, s, d), device=DEV, generator=gen).bfloat16()
-    k = torch.randn((bh, s, d), device=DEV, generator=gen).bfloat16()
-    v = torch.randn((bh, s, dv), device=DEV, generator=gen).bfloat16()
-    kw = dict(scale=d ** -0.5, causal=True, group=1)
+    k = torch.randn((bh // group, s, d), device=DEV, generator=gen)\
+        .bfloat16()
+    v = torch.randn((bh // group, s, dv), device=DEV, generator=gen)\
+        .bfloat16()
+    kw = dict(scale=d ** -0.5, causal=True, group=group)
     o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
     o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
     err = (o.float() - o_p.float()).abs().max().item()
     err_l = (lse - lse_p).abs().max().item()
     if not (err <= ATTN_ATOL and err_l <= LSE_ATOL):
-        raise AssertionError(f"flash forward at d {d} / dv {dv} disagrees "
-                             f"with plain: {err}, lse {err_l}")
-    q4, k4, v4 = (t.reshape(1, bh, s, t.shape[-1]) for t in (q, k, v))
+        raise AssertionError(f"flash forward {label} disagrees with plain: "
+                             f"{err}, lse {err_l}")
+    q4 = q.reshape(batch, heads, s, d)
+    k4, v4 = (t.reshape(batch, heads // group, s, t.shape[-1])
+              for t in (k, v))
 
     def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, scale=kw["scale"])
+        return _sdpa_gqa(q4, k4, v4, is_causal=True, scale=kw["scale"])
 
     note = ""
     try:
@@ -2101,53 +2121,100 @@ def check_family_shapes(gen) -> dict:
     except RuntimeError as exc:          # no SDPA backend takes dv != d
         sdpa, note = None, f" (SDPA n/a: {str(exc)[:120]})"
     pairs = bh * s * (s + 1) // 2
+    kvh = bh // group
     r = _timed_case(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw),
                     lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
-                    sdpa, 2 * (2 * bh * s * d + 2 * bh * s * dv) + 4 * bh * s,
-                    2 * pairs * (d + dv), BF16_FLOPS)
+                    sdpa, 2 * (bh * s * (d + dv) + kvh * s * (d + dv))
+                    + 4 * bh * s, 2 * pairs * (d + dv), BF16_FLOPS)
     r.update(max_abs_err=err, lse_err=err_l, library_note=note,
-             shape=f"BH={bh} S={s} d={d} dv={dv} causal (instance "
-                   f"{fa.bwd_width(d, dv)})")
-    rows["flash_attention_fwd"]["mla prefill"] = r
-    _print_case(f"flash MLA prefill ({r['shape']})", r)
+             shape=f"BH={bh} group={group} S={s} d={d} dv={dv} causal "
+                   f"(instance {fa.bwd_width(d, dv)})")
+    _print_case(f"flash {label} ({r['shape']})", r)
+    return r
 
+
+def _paged_case(gen, rng, label, kvh, g, d, window) -> dict:
+    """Paged decode at B 4, page 16, 10 pages a slot, against its plain
+    version, timed beside SDPA over the gathered pages (its mask holds
+    the window too); without a window also in CUDA graphs that find every
+    call's K/V cold in L2."""
+    ps, per_slot = 16, 10
+    n_sets = _sets_for(4 * per_slot + 1, ps, kvh, d)
+    q, pools, table, q_pos = _paged_inputs(gen, rng, 4, kvh, g, d, ps,
+                                           per_slot, n_sets=n_sets)
+    kp, vp = pools[0]
+    kw = dict(scale=d ** -0.5, window=window)
+    o = fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos, **kw)
+    o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
+    err = (o.float() - o_p.float()).abs().max().item()
+    if not err <= ATTN_ATOL:
+        raise AssertionError(f"paged decode {label} disagrees with plain")
+    n_bytes, live = _paged_bytes(q, table, q_pos, ps, d)
+    r = _timed_case(
+        lambda: fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos,
+                                               **kw),
+        lambda: fa.paged_decode_attention_plain(q, kp, vp, table, q_pos,
+                                                **kw),
+        _paged_sdpa(q, kp, vp, table, q_pos, kw["scale"], window),
+        n_bytes, 4 * live * kvh * g * d, BF16_FLOPS)
+    if not window:
+        # device time with every call cold in L2, as a layer's is
+        r["graph_ms"], r["library_graph_ms"] = _paged_graph(
+            q, pools, table, q_pos, kw["scale"])
+    r.update(max_abs_err=err, live_rows=live,
+             shape=f"B=4 KVH={kvh} G={g} d={d} page {ps} window {window}")
+    _print_case(f"paged {label} ({r['shape']}, {live} live rows)", r)
+    return r
+
+
+def check_family_shapes(gen) -> dict:
+    """Rows 1-3 at the shapes the families phase gives them, held to their
+    plain versions and timed beside the bound and a library call: the
+    nibble kernel at MLA's ``wkv_b`` over 4 slots x 160 gathered latent
+    rows and at ``wq_b`` (decode, M 4), ``torch.equal``; the flash forward
+    at deepseek-v3's prefill (128 heads, S 128, q/k 192, v 128, run in the
+    256-wide instance); paged decode at llama4's group 5 and at
+    gemma3-1b's head_dim 256, group 4, window 512 (the yardstick's mask
+    holds the window)."""
     rng = np.random.default_rng(5)
-    for name, (kvh, g, d, window) in (("llama4 G=5", (8, 5, 128, 0)),
-                                      ("gemma3 d=256 G=4 window 512",
-                                       (1, 4, 256, 512))):
-        ps, per_slot = 16, 10
-        n_sets = _sets_for(4 * per_slot + 1, ps, kvh, d)
-        q, pools, table, q_pos = _paged_inputs(gen, rng, 4, kvh, g, d, ps,
-                                               per_slot, n_sets=n_sets)
-        kp, vp = pools[0]
-        kw = dict(scale=d ** -0.5, window=window)
-        o = fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos, **kw)
-        o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
-        err = (o.float() - o_p.float()).abs().max().item()
-        if not err <= ATTN_ATOL:
-            raise AssertionError(f"paged decode {name} disagrees with plain")
-        n_bytes, live = _paged_bytes(q, table, q_pos, ps, d)
-        lib = None if window else _paged_sdpa(q, kp, vp, table, q_pos,
-                                              kw["scale"])
-        r = _timed_case(
-            lambda: fa.paged_decode_attention_cuda(q, kp, vp, table, q_pos,
-                                                   **kw),
-            lambda: fa.paged_decode_attention_plain(q, kp, vp, table, q_pos,
-                                                    **kw),
-            lib, n_bytes, 4 * live * kvh * g * d, BF16_FLOPS)
-        if not window:
-            # device time with every call cold in L2, as a layer's is
-            r["graph_ms"], r["library_graph_ms"] = _paged_graph(
-                q, pools, table, q_pos, kw["scale"])
-        else:
-            r["library_note"] = " (the yardstick masks no window)"
-        r.update(max_abs_err=err, live_rows=live,
-                 shape=f"B=4 KVH={kvh} G={g} d={d} page {ps} window "
-                       f"{window}")
-        rows["paged_decode_attention"][name] = r
-        _print_case(f"paged {name} ({r['shape']}, {live} live rows)", r)
-        del pools
-    return rows
+    return {
+        "nibble_matmul": {
+            name: _nibble_case(gen, name, *shape) for name, shape in (
+                ("wkv_b decode", (640, 512, 32768)),
+                ("wq_b decode", (4, 1536, 24576)))},
+        "flash_attention_fwd": {
+            "mla prefill": _flash_case(gen, "MLA prefill", 128, 1, 128, 192,
+                                       128)},
+        "paged_decode_attention": {
+            name: _paged_case(gen, rng, name, *shape) for name, shape in (
+                ("llama4 G=5", (8, 5, 128, 0)),
+                ("gemma3 d=256 G=4 window 512", (1, 4, 256, 512)))}}
+
+
+def check_ssm_shapes(gen) -> dict:
+    """Rows 1-3 at the ssm phase's shapes: the nibble kernel at
+    mamba2-780m's ``in_proj`` (N 6448) and ``out_proj`` at decode (M 4)
+    and ``in_proj`` at the 512-token prefill, and at jamba's ``in_proj``
+    (N 16544) at decode, ``torch.equal`` (neither N is a multiple of 64:
+    the edge tiles run); the flash forward at jamba's prefill (32/8
+    heads, d 128) at S 128 and at an uneven S 114, the length of the
+    phase's first jamba prompt (the engine prefills a model with mamba
+    mixers at the exact prompt length, so the tile tail runs); paged
+    decode at jamba's group 4."""
+    rng = np.random.default_rng(6)
+    return {
+        "nibble_matmul": {
+            name: _nibble_case(gen, name, *shape) for name, shape in (
+                ("mamba2 in_proj decode", (4, 1536, 6448)),
+                ("mamba2 out_proj decode", (4, 3072, 1536)),
+                ("mamba2 in_proj prefill 512", (512, 1536, 6448)),
+                ("jamba in_proj decode", (4, 4096, 16544)))},
+        "flash_attention_fwd": {
+            f"jamba prefill S={n}": _flash_case(gen, f"jamba prefill S={n}",
+                                                32, 4, n, 128)
+            for n in (128, 114)},
+        "paged_decode_attention": {
+            "jamba G=4": _paged_case(gen, rng, "jamba G=4", 8, 4, 128, 0)}}
 
 
 def _chunk_ms(engine, prompts, reps=3) -> float:
@@ -2270,26 +2337,68 @@ def hold_family_prefill(params, cfg, prompt, prefill_len) -> dict:
                                                 prefill_len)}
 
 
-def _serve_family(cfg, smi, n_req, n_new, *, expect, prefill_len=128
-                  ) -> dict:
+def _has_mamba(cfg) -> bool:
+    return any(spec.mixer == "mamba" for spec in cfg.layer_specs)
+
+
+def hold_family_served(params, cfg, prompts, prefill_len) -> dict:
+    """``hold_family_prefill`` on the first served prompt at the length the
+    engine prefills it: ``prefill_len``, or the prompt's own length on a
+    model with mamba mixers (the engine prefills those unpadded)."""
+    p = prompts[0]
+    n = p.size if _has_mamba(cfg) else prefill_len
+    held = hold_family_prefill(params, cfg, p, n)
+    print(f"  {cfg.name} prefill logits ({p.size} tokens at length {n}) "
+          f"kernel vs plain path: nibble path (chunked attention on both "
+          f"sides) bit for bit; flash path in dense {held['flash_dense']}; "
+          f"end to end in w8a8, measured {held['end_to_end']}", flush=True)
+    return {**held, "logit_diff": held["flash_dense"]["logit_diff"],
+            "logit_tol": held["flash_dense"]["logit_tol"]}
+
+
+def hold_exact_served(params, cfg, prompts, prefill_len) -> dict:
+    """For a model with neither attention nor MoE (the nibble kernel is its
+    only kernel): the first and the longest served prompt's prefill logits
+    through the kernels equal the plain path's bit for bit, each at its
+    exact length, as the engine prefills it."""
+    del prefill_len
+    runs = []
+    for p in (prompts[0], max(prompts, key=len)):
+        r = compare_plain_prefill(params, cfg, p, p.size)
+        print(f"  {cfg.name} prefill logits ({p.size} tokens) kernel vs "
+              f"plain path: {r}", flush=True)
+        if r["logit_diff"] != 0.0:
+            raise AssertionError(f"{cfg.name}: nibble-kernel prefill logits "
+                                 f"differ from the plain path's: {r}")
+        runs.append(r)
+    return {"exact": runs, "logit_diff": 0.0, "logit_tol": 0.0}
+
+
+def _serve_family(cfg, smi, n_req, n_new, *, expect, prefill_len=128,
+                  long_lens=(), hold=hold_family_served) -> tuple:
     """Random weights (seed 0) for ``cfg``, then ``n_req`` requests of
-    32-``prefill_len`` prompt tokens x ``n_new`` through a captured
-    engine (4 slots, paged incremental, decode chunk 8), launch counters
-    zeroed just before and read just after; ``expect`` maps each kernel
-    to whether it must launch (True) or must not (False)."""
+    32-``prefill_len`` prompt tokens, and one more of each length in
+    ``long_lens``, x ``n_new`` through a captured engine (4 slots, paged
+    incremental, decode chunk 8), launch counters zeroed just before and
+    read just after; ``expect`` maps each kernel to whether it must launch
+    (True) or must not (False).  Then host ms per captured chunk (its
+    launches kept) and ``hold``, which holds the prefill's kernels to the
+    plain path.  Returns the record and the run: params, prompts, streams
+    and the serve settings."""
     t = time.perf_counter()
     params = model_init(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     mem = torch.cuda.memory_allocated() / 2**30
-    engine = Engine(cfg, params, ServeConfig(
-        batch=4, max_len=prefill_len + n_new + (-n_new) % cfg.page_size,
-        prefill_len=prefill_len, decode_chunk=8, alloc_mode="incremental"),
-        device=DEV)
     rng = np.random.default_rng(0)
-    lens = rng.integers(32, prefill_len + 1, n_req)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+    lens = rng.integers(32, prefill_len + 1, n_req).tolist() + list(long_lens)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
+    scfg = ServeConfig(
+        batch=4, max_len=max(lens + [prefill_len]) + n_new
+        + (-n_new) % cfg.page_size, prefill_len=prefill_len, decode_chunk=8,
+        alloc_mode="incremental")
+    engine = Engine(cfg, params, scfg, device=DEV)
     streams, wall, counts = _serve_timed(engine, prompts, n_new)
     n_tok = sum(map(len, streams))
     require_captured(engine, cfg.name)
@@ -2299,26 +2408,25 @@ def _serve_family(cfg, smi, n_req, n_new, *, expect, prefill_len=128
     if off:
         raise AssertionError(f"{cfg.name}: kernels launched off their path: "
                              f"{off}")
+    reset_counts()
     chunk = _chunk_ms(engine, prompts)
     out = {"tok_s": n_tok / wall, "wall_s": wall, "init_s": init_s,
            "gib_allocated": mem, "chunk_ms": chunk, "counts": counts,
+           "chunk_counts": read_counts(),
            "decode_chunks": engine.decode_chunks,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(f"  {cfg.name}: weights {init_s:.1f} s, {mem:.2f} GiB allocated; "
-          f"{n_req} requests (prompts {lens.tolist()}) x {n_new}: {n_tok} "
+          f"{len(lens)} requests (prompts {lens}) x {n_new}: {n_tok} "
           f"tokens in {wall:.3f} s, {n_tok / wall:.2f} tok/s; host ms per "
           f"decode chunk (captured, 4 slots) {chunk:.3f}; launches "
           f"{ {n: counts[n] for n in expect} }; first tokens "
           f"{streams[0][:8]} ({smi})", flush=True)
-    held = hold_family_prefill(params, cfg, prompts[0], prefill_len)
-    out.update(held=held, logit_diff=held["flash_dense"]["logit_diff"],
-               logit_tol=held["flash_dense"]["logit_tol"])
-    print(f"  {cfg.name} prefill logits kernel vs plain path: nibble path "
-          f"(chunked attention on both sides) bit for bit; flash path in "
-          f"dense {held['flash_dense']}; end to end in w8a8, measured "
-          f"{held['end_to_end']}", flush=True)
-    out["params"] = params
-    return out
+    del engine
+    held = hold(params, cfg, prompts, prefill_len)
+    out.update(held=held, logit_diff=held["logit_diff"],
+               logit_tol=held["logit_tol"])
+    return out, {"params": params, "prompts": prompts, "streams": streams,
+                 "scfg": scfg}
 
 
 FAMILY_KERNELS = ("nibble_matmul", "flash_attention_fwd",
@@ -2345,13 +2453,14 @@ def phase_families(smi: str) -> dict:
           f"{cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, rope "
           f"{cfg.qk_rope_dim}, nope {cfg.qk_nope_dim}, v {cfg.v_head_dim}, "
           f"vocab {cfg.vocab_size}", flush=True)
-    r = _serve_family(cfg, smi, 8, 32, expect={
+    r, run = _serve_family(cfg, smi, 8, 32, expect={
         "nibble_matmul": True, "flash_attention_fwd": True,
         "paged_decode_attention": False})
-    params = r.pop("params")
-    r["dense_check"] = _family_dense_check(params, cfg, smi, r)
+    r["dense_check"] = _dense_overcommit(run["params"], cfg, r, "deepseek",
+                                         prefix_cache=True,
+                                         swap_mode="host")
     out[cfg.name] = r
-    del params
+    del run
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2362,10 +2471,8 @@ def phase_families(smi: str) -> dict:
           f"{cfg.top_k} + {cfg.n_shared_experts} shared, d_ff_expert "
           f"{cfg.d_ff_expert}); {cfg.n_heads}/{cfg.n_kv_heads} heads (group "
           f"{cfg.n_heads // cfg.n_kv_heads})", flush=True)
-    r = _serve_family(cfg, smi, 4, 16,
-                      expect=dict.fromkeys(FAMILY_KERNELS, True))
-    del r["params"]
-    out[cfg.name] = r
+    out[cfg.name], _ = _serve_family(
+        cfg, smi, 4, 16, expect=dict.fromkeys(FAMILY_KERNELS, True))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2374,10 +2481,8 @@ def phase_families(smi: str) -> dict:
           f"local (window {cfg.sliding_window}) : 1 global, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim})",
           flush=True)
-    r = _serve_family(cfg, smi, 8, 32,
-                      expect=dict.fromkeys(FAMILY_KERNELS, True))
-    del r["params"]
-    out[cfg.name] = r
+    out[cfg.name], _ = _serve_family(
+        cfg, smi, 8, 32, expect=dict.fromkeys(FAMILY_KERNELS, True))
     gc.collect()
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t_phase
@@ -2385,11 +2490,13 @@ def phase_families(smi: str) -> dict:
     return out
 
 
-def _family_dense_check(params, cfg, smi, served) -> dict:
-    """deepseek-v3 in ``dense`` at the same width and depth: the uniform
-    overcommitted pool with the prefix cache and the host swap against a
-    reserve pool (8 requests x 64); preemptions and swap-ins required;
-    streams equal, or each divergence a near-tie (phase 6's rule, with
+def _dense_overcommit(params, cfg, served, label, **mech) -> dict:
+    """``cfg`` in ``dense`` at the same width and depth: the uniform
+    workload (8 requests x 64) through an overcommitted incremental pool
+    (1.5 worst cases) with the mechanisms ``mech`` against a reserve pool;
+    preemptions required (and swap-ins with the host swap); zero device
+    and host leaks.  Streams must be equal, or, where ``mech`` routes a
+    prefill differently, each divergence a near-tie (phase 6's rule, with
     this model's kernel-vs-plain tolerance).  Both engines attend in
     ``attention_core`` (``attn_impl="chunked"``): a context prefill does
     anyway, and a flash prefill's roundings would flip MoE choices, which
@@ -2414,27 +2521,120 @@ def _family_dense_check(params, cfg, smi, served) -> dict:
             raise AssertionError(f"{eng.leaked_pages()} pages leaked")
         if eng.host_pool is not None and eng.host_pool.in_use:
             raise AssertionError(f"{eng.host_pool.in_use} host pages leaked")
-        require_captured(eng, "deepseek dense check")
+        require_captured(eng, f"{label} dense check")
         return res
 
-    got = serve(alloc_mode="incremental", num_pages=num_pages,
-                prefix_cache=True, swap_mode="host")
+    got = serve(alloc_mode="incremental", num_pages=num_pages, **mech)
     want = serve(alloc_mode="reserve")
-    if got["preemptions"] < 1 or got["swap_in"] < 1:
+    swap = mech.get("swap_mode") == "host"
+    if got["preemptions"] < 1 or (swap and got["swap_in"] < 1):
         raise AssertionError(f"the dense check preempted {got['preemptions']}"
                              f" and swapped in {got['swap_in']}")
+    what = (f"{cfg.name} dense, {num_pages}-page incremental pool"
+            f"{' ' + str(mech) if mech else ''} ({got['preemptions']} "
+            f"preemptions, {got['swap_in']} swap-ins) against a reserve pool")
+    n = traffic["requests"]
+    out = {"preemptions": got["preemptions"], "swap_in": got["swap_in"],
+           "tok_s": got["tok_per_s"], "num_pages": num_pages}
+    if not mech:
+        equal = sum(got["streams"][i] == want["streams"][i]
+                    for i in range(n))
+        print(f"  {what}: {equal}/{n} streams equal", flush=True)
+        if equal != n:
+            raise AssertionError(f"{what}: replayed streams differ")
+        return {**out, "equal": equal}
     prompts = draw_workload(cfg.vocab_size, **traffic).prompts
-    n = len(prompts)
     margins = divergence_margins(
         params, dcfg, prompts, [want["streams"][i] for i in range(n)],
         [got["streams"][i] for i in range(n)])
-    held = hold_margins(
-        f"{cfg.name} dense, {num_pages}-page incremental pool with the "
-        f"prefix cache and the host swap ({got['preemptions']} preemptions, "
-        f"{got['swap_in']} swap-ins) against a reserve pool", margins, n,
-        served)
-    return {"preemptions": got["preemptions"], "swap_in": got["swap_in"],
-            "tok_s": got["tok_per_s"], **held}
+    return {**out, **hold_margins(what, margins, n, served)}
+
+
+def _mamba2_extra(cfg, r, run) -> None:
+    """mamba2-780m's checks beyond ``_serve_family``'s: the nibble kernel
+    launched 2 x 48 times a decode step and a prefill over the timed
+    chunks; the served requests through a ``capture=False`` engine and
+    through the plain path (``quant_backend="torch"``), both equal to the
+    kernel engine's streams token for token; the dense overcommit check
+    (replay against a reserve pool, equal streams)."""
+    per = 2 * cfg.n_layers
+    n_chunk = r["chunk_counts"]["nibble_matmul"]
+    steps = r["decode_chunks"] * run["scfg"].decode_chunk
+    batch = run["scfg"].batch
+    print(f"  {cfg.name}: {per} nibble launches a decode step and a "
+          f"prefill: {n_chunk} over {steps} steps and {batch} prefills",
+          flush=True)
+    if n_chunk != per * (steps + batch):
+        raise AssertionError(f"{cfg.name}: {n_chunk} nibble launches over "
+                             f"{steps} decode steps and {batch} prefills, "
+                             f"expected {per} each")
+    r["nibble_per_step"] = per
+    streams, n = run["streams"], len(run["prompts"])
+    for label, c, kw in (("capture=False", cfg, {"capture": False}),
+                         ("plain path", cfg.replace(quant_backend="torch"),
+                          {})):
+        eng = Engine(c, run["params"], run["scfg"], device=DEV, **kw)
+        got, wall, _ = _serve_timed(eng, run["prompts"], len(streams[0]))
+        equal = sum(a == b for a, b in zip(got, streams))
+        print(f"  {cfg.name} {label}: {equal}/{n} streams equal the kernel "
+              f"engine's ({n * len(streams[0]) / wall:.2f} tok/s)",
+              flush=True)
+        if equal != n:
+            raise AssertionError(f"{cfg.name}: {label} streams differ")
+        r[f"{label} tok_s"] = n * len(streams[0]) / wall
+        del eng
+    r["dense_check"] = _dense_overcommit(run["params"], cfg, r, cfg.name)
+
+
+def phase_ssm(smi: str) -> dict:
+    """mamba2-780m at full width and depth, 8 requests of 32-128 prompt
+    tokens and one of 512 (two SSD chunks of 256, the inter-chunk loop),
+    the nibble kernel launched and the attention kernels never, its
+    prefill bit for bit the plain path's (``hold_exact_served``), then
+    ``_mamba2_extra``; then jamba-v0.1-52b at full width cut to one block
+    of 8 layers, rows 1-3 launched, its prefill held kernel by kernel at
+    the exact length the engine runs; each served as the families are
+    (``_serve_family``), each model's weights freed before the next."""
+    t_phase = time.perf_counter()
+    print(f"ssm: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+          f"before the first model", flush=True)
+    paged = dict(quant_mode="w8a8_nibble", quant_backend="cuda",
+                 attn_impl="flash", cache_mode="paged", page_size=16)
+    out = {}
+    cfg = get_config("mamba2-780m").replace(**paged)
+    print(f"  {cfg.name}: full width and depth ({cfg.n_layers} SSD mixers, "
+          f"no FFN; d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+          f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, {cfg.ssm_groups} group, conv {cfg.conv_width}, "
+          f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size}, tied)",
+          flush=True)
+    r, run = _serve_family(cfg, smi, 8, 32, long_lens=(512,),
+                           hold=hold_exact_served, expect={
+                               "nibble_matmul": True,
+                               "flash_attention_fwd": False,
+                               "paged_decode_attention": False})
+    _mamba2_extra(cfg, r, run)
+    out[cfg.name] = r
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("jamba-v0.1-52b").replace(n_layers=8, **paged)
+    print(f"  {cfg.name}: full width cut to {cfg.n_layers} layers (one "
+          f"block of 8: attention at layer 4 ({cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}), mamba (state "
+          f"{cfg.ssm_state}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}) "
+          f"elsewhere; MoE ({cfg.n_experts} experts top-{cfg.top_k}, "
+          f"d_ff_expert {cfg.d_ff_expert}) on odd layers, dense d_ff "
+          f"{cfg.d_ff} on even; vocab {cfg.vocab_size}, untied)",
+          flush=True)
+    out[cfg.name], _ = _serve_family(
+        cfg, smi, 8, 32, expect=dict.fromkeys(FAMILY_KERNELS, True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  ssm phase {out['wall_s']:.1f} s", flush=True)
+    return out
 
 
 def phase_train(profile: bool) -> dict:
@@ -2818,11 +3018,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     shapes = check_family_shapes(gen)
     families = phase_families(smi)
+    ssm_shapes = check_ssm_shapes(gen)
+    ssm = phase_ssm(smi)
     for r in rows[:3]:
         r["families_shapes"] = shapes[r["name"]]
-        r["families_launches"] = {
-            name: f["counts"][r["name"]] for name, f in families.items()
-            if isinstance(f, dict)}
+        r["ssm_shapes"] = ssm_shapes[r["name"]]
+        for key, phase in (("families_launches", families),
+                           ("ssm_launches", ssm)):
+            r[key] = {name: f["counts"][r["name"]]
+                      for name, f in phase.items() if isinstance(f, dict)}
     train = phase_train(args.profile)
     rows[3]["launches"] = (train["counts"]["flash_attention_bwd_dq"]
                            + train["counts"]["flash_attention_bwd_dkv"])
@@ -2837,7 +3041,7 @@ def main() -> int:
                        "workload": workload, "prefix_swap": prefix_swap,
                        "spec_wave": spec_wave, "graphs": graphs,
                        "lut_serve": lut, "families": families,
-                       "train": train,
+                       "ssm": ssm, "train": train,
                        "train_grads": grads, "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -2848,7 +3052,8 @@ def main() -> int:
     extra = ("graph_ms", "library_graph_ms", "train_ms", "train_graph_ms",
              "library_train_ms", "library_train_graph_ms", "train_bound_ms",
              "workload_launches", "prefix_swap_launches", "spec_launches",
-             "tail_launches", "families_launches", "families_shapes")
+             "tail_launches", "families_launches", "families_shapes",
+             "ssm_launches", "ssm_shapes")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

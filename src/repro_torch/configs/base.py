@@ -1,9 +1,9 @@
 """Model configuration schema + registry (the port's own copy).
 
 Mirrors ``repro.configs.base`` field for field for the families this
-package runs (attention + MLP stacks, MLA and MoE; the SSM, enc-dec and
-VLM fields wait for their slices), so one configuration value means the
-same thing in both packages.  Differences:
+package runs (attention + MLP stacks, MLA, MoE and the Mamba2 SSD
+mixer; the enc-dec and VLM fields wait for their slices), so one
+configuration value means the same thing in both packages.  Differences:
 
 * ``quant_backend`` takes ``"torch"`` (plain PyTorch formulas, the
   counterpart of the reference's ``"xla"``) or ``"cuda"`` (the
@@ -75,6 +75,14 @@ class ModelConfig:
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
 
+    # SSM (mamba2 SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    conv_width: int = 4
+    ssm_chunk: int = 256
+
     # activations / embeddings
     act: str = "silu"                  # "silu" (SwiGLU) | "gelu" (GeGLU)
     tie_embeddings: bool = True
@@ -111,6 +119,14 @@ class ModelConfig:
         n_fixed = len(self.prefix_pattern) + len(self.suffix_pattern)
         return (self.n_layers - n_fixed) // len(self.block_pattern)
 
+    @property
+    def d_inner(self) -> int:          # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -120,8 +136,10 @@ _ALIASES = {
     "gemma-7b": "gemma_7b",
     "qwen3-4b": "qwen3_4b",
     "yi-6b": "yi_6b",
+    "mamba2-780m": "mamba2_780m",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 
@@ -164,6 +182,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.q_lora_rank or cfg.kv_lora_rank:
         kw.update(q_lora_rank=32, kv_lora_rank=16, qk_rope_dim=8,
                   qk_nope_dim=8, v_head_dim=16)
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
     if cfg.sliding_window:
         kw.update(sliding_window=8)
     return cfg.replace(**kw)

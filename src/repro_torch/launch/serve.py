@@ -47,8 +47,10 @@ under the reference's index-derived keys; ``--verify`` needs greedy
 streams.  On the card the decode chunk (the draft and the verify under
 ``--spec-decode``) replays from CUDA graphs.
 
-``--arch`` takes gemma3-1b, gemma-7b, qwen3-4b, yi-6b, deepseek-v3-671b
-and llama4-maverick-400b-a17b.  ``--reduced`` (the default) runs the
+``--arch`` takes gemma3-1b, gemma-7b, qwen3-4b, yi-6b, mamba2-780m,
+deepseek-v3-671b, llama4-maverick-400b-a17b and jamba-v0.1-52b (a mamba
+model prefills at the exact prompt length, so ``--prompt-len`` is then a
+prompt-length bound, not a pad).  ``--reduced`` (the default) runs the
 arch's smoke-scale variant, ``--full`` its published widths and depth;
 weights are random, from seed 0.  It runs
 on the CUDA device, every projection through the CUDA kernels

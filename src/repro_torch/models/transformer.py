@@ -1,26 +1,33 @@
 """Model assembly (port of ``repro.models.transformer``): stacks of
-attention (GQA or MLA) layers, each followed by an MLP or an MoE block.
+layers, each a mixer (GQA or MLA attention, or the Mamba2 SSD mixer)
+followed by an MLP, an MoE block or no FFN (mamba2's blocks).
 
 Parameters are a dict ``{"embed", "layers", "final_norm"[, "lm_head"]}``
 where ``layers`` is the fully unrolled list of per-layer dicts
-``{"mixer_norm", "attn", "ffn_norm", "mlp" | "moe"}`` (the reference
-stacks the repeated blocks on a leading ``n_blocks`` axis for
+``{"mixer_norm", "attn" | "mamba"[, "ffn_norm", "mlp" | "moe"]}`` (the
+reference stacks the repeated blocks on a leading ``n_blocks`` axis for
 ``lax.scan``; :func:`load_jax_params` unstacks them).  Caches are a list
 with one dict per layer: ``{"k", "v"}`` for GQA layers, ``{"c_kv",
 "k_rope"}`` (latents and rope keys) for MLA layers, as dense per-slot
 slabs ``(B, max_len, ...)`` or shared page pools ``(num_pages,
-page_size, ...)``.
+page_size, ...)``; ``{"conv", "ssm"}`` for mamba layers, the per-slot
+recurrent state ``(B, ...)`` in either mode (it has no sequence axis).
 
 Entry points: :func:`forward` (full-sequence training logits and the
 summed MoE aux loss, differentiable; under ``cfg.remat`` each layer is
 recomputed in the backward pass), :func:`prefill` (logits at
-``logits_index`` plus the caches, grown to ``max_len``; with ``ctx_*`` a
-prompt suffix against cached prefix rows) and :func:`decode_step`
-(tokens against the caches at per-slot positions).  Training mode never
-writes a cache.  The page-pool helpers below serve the engine's prefix
-cache (row scatter, the copy-on-write page copy) and its host tier (page
-payloads to and from CPU tensors); they take every pool as it comes, of
-any key and row shape.
+``logits_index`` plus the caches, the sequence leaves grown to
+``max_len``; with ``ctx_*`` a prompt suffix against cached prefix rows)
+and :func:`decode_step` (tokens against the caches at per-slot
+positions).  Training mode never writes a cache.  The page-pool helpers
+below serve the engine's prefix cache (row scatter, the copy-on-write
+page copy) and its host tier (page payloads to and from CPU tensors);
+they take every sequence pool as it comes, of any key and row shape, and
+leave the recurrent state alone.
+
+Not ported yet (``_check_supported`` refuses them): the int8 KV cache;
+the encoder-decoder (whisper) and VLM (phi3-vision) families have no
+config here.
 """
 
 from __future__ import annotations
@@ -42,6 +49,12 @@ from repro_torch.models.attention import (
     mla_init,
     scatter_prefill_rows,
 )
+from repro_torch.models.mamba import (
+    init_mamba_cache,
+    mamba_apply,
+    mamba_init,
+    mamba_step,
+)
 from repro_torch.models.layers import (
     embed_apply,
     embed_init,
@@ -61,16 +74,21 @@ __all__ = ["model_init", "load_jax_params", "prepare_params", "forward",
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Refuse what is not ported yet: mamba mixers (and layers without an
-    FFN) and the int8 KV cache (cross-attention has no config field in
-    this package yet)."""
+    """Refuse what is not ported yet: the int8 KV cache.  The
+    encoder-decoder (whisper) and VLM (phi3-vision) families have no
+    config in this package yet, and their fields (``n_enc_layers``,
+    ``n_patches``) no place in ``ModelConfig``."""
     for spec in cfg.layer_specs:
-        if spec.mixer != "attn" or spec.ffn not in ("mlp", "moe"):
+        if spec.mixer not in ("attn", "mamba") \
+                or spec.ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
-                f"{cfg.name}: only attention (GQA or MLA) layers with an "
-                f"MLP or MoE block are ported (got {spec})")
+                f"{cfg.name}: {spec} is not ported: layers are an "
+                f"attention (GQA or MLA) or mamba mixer with an MLP, an MoE "
+                f"block or no FFN (the encoder-decoder and VLM families "
+                f"are not ported yet)")
     if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError("only the bf16 KV cache is ported")
+        raise NotImplementedError("only the bf16 KV cache is ported (the "
+                                  "int8 KV cache is not)")
 
 
 _ATTN_LINEARS = {"mla": ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo"),
@@ -78,14 +96,20 @@ _ATTN_LINEARS = {"mla": ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo"),
 
 
 def _linears(params: dict):
-    """Every projection the quant modes run: attention, MLP and the
-    shared expert (the bf16 expert stacks stay bf16, as in the
-    reference)."""
+    """Every projection the quant modes run: attention, the mamba mixer's
+    ``in_proj`` and ``out_proj``, MLP and the shared expert (the bf16
+    expert stacks stay bf16, as in the reference)."""
     for layer in params["layers"]:
-        attn = layer["attn"]
-        yield from (attn[n] for n in _ATTN_LINEARS[
-            "mla" if "wkv_b" in attn else "gqa"])
-        ffn = layer["mlp"] if "mlp" in layer else layer["moe"].get("shared")
+        if "attn" in layer:
+            attn = layer["attn"]
+            yield from (attn[n] for n in _ATTN_LINEARS[
+                "mla" if "wkv_b" in attn else "gqa"])
+        else:
+            yield from (layer["mamba"][n] for n in ("in_proj", "out_proj"))
+        if "mlp" in layer:
+            ffn = layer["mlp"]
+        else:
+            ffn = layer.get("moe", {}).get("shared")
         if ffn is not None:
             yield from (ffn[n] for n in ("gate", "up", "down"))
 
@@ -103,22 +127,26 @@ def model_init(cfg: ModelConfig, *, seed: int = 0,
                device="cuda") -> dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` (the
     reference's init rules: He-scaled projections and expert stacks, 0.02
-    embedding and f32 router, zero norm gains), quantized once for
-    ``cfg.quant_mode``."""
+    embedding and f32 router, zero norm gains; the mamba mixer's as in
+    ``mamba_init``), quantized once for ``cfg.quant_mode``."""
     _check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=gen, device=device)
     layers = []
     for spec in cfg.layer_specs:
-        layer = {"mixer_norm": rms_norm_init(cfg.d_model, device),
-                 "attn": (mla_init if spec.attn_kind == "mla"
-                          else attn_init)(cfg, **kw),
-                 "ffn_norm": rms_norm_init(cfg.d_model, device)}
-        if spec.ffn == "moe":
-            layer["moe"] = moe_init(cfg, **kw)
+        layer = {"mixer_norm": rms_norm_init(cfg.d_model, device)}
+        if spec.mixer == "mamba":
+            layer["mamba"] = mamba_init(cfg, **kw)
         else:
-            layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, **kw)
+            layer["attn"] = (mla_init if spec.attn_kind == "mla"
+                             else attn_init)(cfg, **kw)
+        if spec.ffn != "none":
+            layer["ffn_norm"] = rms_norm_init(cfg.d_model, device)
+            if spec.ffn == "moe":
+                layer["moe"] = moe_init(cfg, **kw)
+            else:
+                layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, **kw)
         layers.append(layer)
     params = {"embed": embed_init(cfg.vocab_size, cfg.d_model, **kw),
               "layers": layers,
@@ -128,15 +156,18 @@ def model_init(cfg: ModelConfig, *, seed: int = 0,
     return prepare_params(params, cfg)
 
 
-_F32_LEAVES = ("scale", "router")
+# leaves the reference keeps in f32: norm gains, the MoE router and the
+# mamba mixer's per-head A, D and dt-bias
+_F32_LEAVES = ("scale", "router", "A_log", "D", "dt_bias")
 
 
 def load_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> dict:
     """The weight bridge: the reference ``model_init`` pytree with numpy
     leaves (bf16 leaves passed through float32) -> this package's params,
     so both packages compute the same function.  Projection, embedding and
-    expert weights come back as bf16 (exact: they were bf16), norm gains
-    and the MoE router as f32 (the reference keeps them f32); the stacked
+    expert weights and the mamba conv come back as bf16 (exact: they were
+    bf16), norm gains, the MoE router and the mamba mixer's ``A_log``,
+    ``D`` and ``dt_bias`` as f32 (the reference keeps them f32); the stacked
     block axis is unrolled into the layer list (an expert stack stays
     whole per layer)."""
     _check_supported(cfg)
@@ -176,24 +207,33 @@ def _index_tree(node: dict, i: int) -> dict:
 def _layer_apply(p, cfg: ModelConfig, spec, x, *, positions, cache=None,
                  cache_index=None, mode="train", page_table=None,
                  context_start=None):
-    """One pre-norm attention (GQA or MLA) + MLP or MoE layer; returns
-    (x, new_cache, aux loss)."""
+    """One pre-norm layer: attention (GQA or MLA) or the mamba mixer, then
+    an MLP, an MoE block or no FFN; returns (x, new_cache, aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(p["mixer_norm"], x, cfg.norm_eps)
-    kw = dict(positions=positions, cache=cache, cache_index=cache_index,
-              return_cache=(mode == "prefill"), page_table=page_table,
-              context_start=context_start)
-    if spec.attn_kind == "mla":
-        out, c = mla_apply(p["attn"], cfg, h, **kw)
+    if spec.mixer == "mamba":
+        if mode == "decode":
+            out, c = mamba_step(p["mamba"], cfg, h, cache)
+        else:
+            out, c = mamba_apply(p["mamba"], cfg, h,
+                                 return_cache=(mode == "prefill"))
     else:
-        out, c = attn_apply(p["attn"], cfg, h, kind=spec.attn_kind, **kw)
+        kw = dict(positions=positions, cache=cache, cache_index=cache_index,
+                  return_cache=(mode == "prefill"), page_table=page_table,
+                  context_start=context_start)
+        if spec.attn_kind == "mla":
+            out, c = mla_apply(p["attn"], cfg, h, **kw)
+        else:
+            out, c = attn_apply(p["attn"], cfg, h, kind=spec.attn_kind, **kw)
     x = x + out
+    if spec.ffn == "none":
+        return x, c, aux
     h = rms_norm(p["ffn_norm"], x, cfg.norm_eps)
     if spec.ffn == "moe":
         out, aux = moe_apply(p["moe"], cfg, h)
     else:
         out = mlp_apply(p["mlp"], h, act=cfg.act, quant_mode=cfg.quant_mode,
                         quant_backend=cfg.quant_backend)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + out, c, aux
 
 
@@ -269,7 +309,10 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
     ``ctx_start`` rows sit in the pools.  Queries run at ``ctx_start + [0,
     S)`` against the cached rows spliced below the fresh ones; the
     returned caches hold the suffix rows only.  ``ctx_start == 0`` gives
-    the plain prefill's values through ``attention_core``."""
+    the plain prefill's values through ``attention_core``.  A mamba
+    layer's state is the prompt's whole: end padding would run through it,
+    so its prompts come unpadded (the engine prefills them at their exact
+    length)."""
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None, :]
@@ -288,9 +331,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
         x_last = x[torch.arange(b, device=x.device), idx][:, None]
     logits = _logits(params, cfg, x_last)
     if max_len is not None and max_len > s:
-        # the sequence axis is 1 in every cache leaf
+        # the sequence axis is 1 in every sequence leaf; the recurrent
+        # state has none
         caches = [{k: torch.nn.functional.pad(
             v, (0, 0) * (v.ndim - 2) + (0, max_len - s))
+            if k in _SEQ_CACHE_KEYS else v
             for k, v in c.items()} for c in caches]
     return logits, caches
 
@@ -301,7 +346,8 @@ def decode_step(params, cfg: ModelConfig, token, caches, index, *,
     """One decode step.  token: (B, S) int (classically S == 1); ``index``
     is the cache position of ``token[:, 0]``, a scalar or (B,) per-slot
     vector.  With ``page_table`` (B, max_pages) the caches are page pools.
-    Caches are updated in place.  Returns (logits (B, S, V), caches)."""
+    Caches are updated in place (a mamba layer's state included; it
+    takes S == 1 only).  Returns (logits (B, S, V), caches)."""
     x = _embed(params, cfg, token)
     b, s = x.shape[0], token.shape[1]
     index = torch.as_tensor(index, device=x.device).to(torch.int64)
@@ -317,11 +363,19 @@ def decode_step(params, cfg: ModelConfig, token, caches, index, *,
 # Caches
 # ---------------------------------------------------------------------------
 
+# Cache leaves with a sequence axis (axis 1: slab rows or pool pages); every
+# other leaf (mamba's conv and ssm state) is per-slot.  The reference's set,
+# int8 scales included.
+_SEQ_CACHE_KEYS = frozenset({"k", "v", "c_kv", "k_rope", "k_scale",
+                             "v_scale"})
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device="cuda") -> list:
     """Per-layer decode caches: dense slabs, or page pools when
     ``cfg.cache_mode == "paged"`` (auto pool: capacity parity with the
-    dense slab plus the trash page)."""
+    dense slab plus the trash page).  A mamba layer's state is per-slot
+    in both modes."""
     device = resolve_device(device)
     if cfg.cache_mode == "paged":
         ps = cfg.page_size
@@ -332,50 +386,67 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                              f"page_size {ps}")
         num_pages = cfg.num_pages or batch * (max_len // ps) + 1
         return init_paged_caches(cfg, batch, num_pages, ps, device=device)
-    return [(init_mla_cache if spec.attn_kind == "mla" else init_kv_cache)(
-        cfg, batch, max_len, device) for spec in cfg.layer_specs]
+    return [init_mamba_cache(cfg, batch, device) if spec.mixer == "mamba"
+            else (init_mla_cache if spec.attn_kind == "mla"
+                  else init_kv_cache)(cfg, batch, max_len, device)
+            for spec in cfg.layer_specs]
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
                       page_size: int, *, device="cuda") -> list:
-    """One set of shared pools per layer: ``(num_pages, page_size, KVH,
-    hd)`` K and V, or MLA's ``(num_pages, page_size, kv_lora_rank)``
-    latents and ``(num_pages, page_size, qk_rope_dim)`` rope keys."""
+    """One set of shared pools per attention layer: ``(num_pages,
+    page_size, KVH, hd)`` K and V, or MLA's ``(num_pages, page_size,
+    kv_lora_rank)`` latents and ``(num_pages, page_size, qk_rope_dim)``
+    rope keys; a mamba layer keeps its per-slot state beside them."""
     device = resolve_device(device)
-    return [(init_paged_mla_cache if spec.attn_kind == "mla"
-             else init_paged_kv_cache)(cfg, num_pages, page_size, device)
+    return [init_mamba_cache(cfg, batch, device) if spec.mixer == "mamba"
+            else (init_paged_mla_cache if spec.attn_kind == "mla"
+                  else init_paged_kv_cache)(cfg, num_pages, page_size,
+                                            device)
             for spec in cfg.layer_specs]
 
 
-def _pools(caches: list) -> list:
-    """Every pool of every layer, layer-major, in key order."""
-    return [pool for c in caches for pool in c.values()]
+def sequence_pools(caches: list) -> list:
+    """Every sequence leaf of every layer (a slab or a page pool),
+    layer-major, in key order; mamba's recurrent state has no sequence
+    axis and is left out.  The page helpers and the engine's byte count
+    take these leaves only."""
+    return [pool for c in caches for k, pool in c.items()
+            if k in _SEQ_CACHE_KEYS]
+
+
+def _leaves(big: list, one: list):
+    """``(key, big leaf, one leaf)`` for every cache leaf, layer-major."""
+    for b_c, s_c in zip(big, one):
+        for key in b_c:
+            yield key, b_c[key], s_c[key]
 
 
 def merge_slot_caches(big: list, one: list, slot: int) -> list:
     """Copy a batch-1 cache (same max_len) into slot ``slot``, in place."""
-    for b_c, s_c in zip(big, one):
-        for key in b_c:
-            b_c[key][slot] = s_c[key][0].to(b_c[key].dtype)
+    for _, b_leaf, s_leaf in _leaves(big, one):
+        b_leaf[slot] = s_leaf[0].to(b_leaf.dtype)
     return big
 
 
 def merge_slot_paged_caches(big: list, one: list, slot: int, pages) -> list:
-    """Copy a prefilled batch-1 cache (length a whole number of pages) into
-    the pools at page ids ``pages[:n]``, in place.  Entries past the
-    request's pages point at the trash page, so pad rows land there."""
-    del slot                      # pools are shared; the table routes slots
-    pages = torch.as_tensor(pages, device=_pools(big)[0].device).long()
-    for b_c, s_c in zip(big, one):
-        for key in b_c:
-            ps = b_c[key].shape[1]
-            s = s_c[key].shape[1]
-            if s % ps:
-                raise ValueError(f"prefill cache length {s} is not a whole "
-                                 f"number of pages (page_size {ps})")
-            n_p = s // ps
-            rows = s_c[key][0].reshape(n_p, ps, *s_c[key].shape[2:])
-            b_c[key][pages[:n_p]] = rows.to(b_c[key].dtype)
+    """Copy a prefilled batch-1 cache into the pools, in place: its
+    sequence leaves (length a whole number of pages) at page ids
+    ``pages[:n]``, its recurrent state (mamba's conv and ssm) at batch
+    slot ``slot`` as in the dense path.  Entries past the request's pages
+    point at the trash page, so pad rows land there."""
+    for key, b_leaf, s_leaf in _leaves(big, one):
+        if key not in _SEQ_CACHE_KEYS:
+            b_leaf[slot] = s_leaf[0].to(b_leaf.dtype)
+            continue
+        ps, s = b_leaf.shape[1], s_leaf.shape[1]
+        if s % ps:
+            raise ValueError(f"prefill cache length {s} is not a whole "
+                             f"number of pages (page_size {ps})")
+        n_p = s // ps
+        idx = torch.as_tensor(pages, device=b_leaf.device).long()[:n_p]
+        rows = s_leaf[0].reshape(n_p, ps, *s_leaf.shape[2:])
+        b_leaf[idx] = rows.to(b_leaf.dtype)
     return big
 
 
@@ -386,10 +457,10 @@ def scatter_prefill_paged_caches(big: list, one: list, slot: int, row,
     ``start + [0, S)``) through one slot's table ``row`` into the pools,
     in place.  Shared prefix pages below ``start`` are never touched."""
     del slot                      # pools are shared; the row routes the slot
-    row = torch.as_tensor(row, device=_pools(big)[0].device)
-    for b_c, s_c in zip(big, one):
-        for key in b_c:
-            scatter_prefill_rows(b_c[key], s_c[key], row, start)
+    row = torch.as_tensor(row, device=sequence_pools(big)[0].device)
+    for key, b_leaf, s_leaf in _leaves(big, one):
+        if key in _SEQ_CACHE_KEYS:
+            scatter_prefill_rows(b_leaf, s_leaf, row, start)
     return big
 
 
@@ -400,7 +471,7 @@ def copy_paged_cache_page(caches: list, src, dst) -> list:
     be 0-d tensors, so the copy is data, not shape, or (G,) vectors of
     pairs (a wave's lanes; every source is read before any write); the
     no-COW default ``0, 0`` rewrites the trash page with itself."""
-    pools = _pools(caches)
+    pools = sequence_pools(caches)
     dev = pools[0].device
     src = torch.as_tensor(src, device=dev).reshape(-1).long()
     dst = torch.as_tensor(dst, device=dev).reshape(-1).long()
@@ -427,7 +498,7 @@ def extract_cache_pages(caches: list, pages, pad_to: int | None = None
     the trash page, so every call has one shape; the padded rows are
     dropped."""
     pages = list(pages)
-    pools = _pools(caches)
+    pools = sequence_pools(caches)
     idx = torch.as_tensor(_pad_pages(pages, pad_to), device=pools[0].device)
     rows = torch.cat([pool[idx].reshape(len(idx), -1) for pool in pools],
                      dim=1).cpu()
@@ -445,7 +516,7 @@ def insert_cache_pages(caches: list, pages, payloads, pad_to: int | None = None
     if len(pages) != len(payloads):
         raise ValueError(f"{len(pages)} pages but {len(payloads)} payloads")
     padded = _pad_pages(pages, pad_to)
-    pools = _pools(caches)
+    pools = sequence_pools(caches)
     dev = pools[0].device
     rows = torch.stack(list(payloads))
     if len(padded) > len(pages):

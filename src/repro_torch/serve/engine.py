@@ -7,7 +7,11 @@ Each batch slot is an independent sequence sharing one model:
   1), its prompt zero-padded to the slot budget ``prefill_len``, and its
   caches are copied into the slot's row of the dense slab or, paged, into
   the pool pages its table row maps.  Pad-token rows are harmless: decode
-  overwrites row ``p`` before any query attends to it.
+  overwrites row ``p`` before any query attends to it.  A model with
+  mamba mixers prefills at the exact prompt length instead (pad tokens
+  would run through the recurrent state), so its prompts may exceed
+  ``prefill_len`` and the prefill keeps one signature per distinct
+  length; its per-slot state is copied to the slot's batch row.
 * **Decode chunks.**  ``decode_chunk`` steps run back to back on the
   device at per-slot positions, each token the argmax (``temperature``
   0) or a draw from ``logits / temperature``.  Slots that are idle or
@@ -102,6 +106,7 @@ from repro_torch.models.transformer import (
     prefill,
     prepare_params,
     scatter_prefill_paged_caches,
+    sequence_pools,
 )
 from repro_torch.serve.paging import (
     HostPagePool,
@@ -477,6 +482,8 @@ class Engine:
             raise ValueError(f"cache_mode must be 'dense' or 'paged', got "
                              f"{self.cfg.cache_mode!r}")
         self._swap = scfg.swap_mode == "host"
+        self._has_mamba = any(s.mixer == "mamba"
+                              for s in self.cfg.layer_specs)
         self._validate_mechanisms()
         self._spec = scfg.spec_decode
         self._draft_cfg = None
@@ -508,7 +515,6 @@ class Engine:
         speculative decoding and the wave prefill (the reference's checks
         and messages)."""
         scfg = self.scfg
-        has_mamba = any(s.mixer == "mamba" for s in self.cfg.layer_specs)
         if scfg.swap_mode not in ("off", "host"):
             raise ValueError(f"swap_mode must be 'off' or 'host', got "
                              f"{scfg.swap_mode!r}")
@@ -523,7 +529,7 @@ class Engine:
                 raise ValueError("prefix_cache=True requires "
                                  "cache_mode='paged' (the dense slab has "
                                  "no pages to share)")
-            if has_mamba:
+            if self._has_mamba:
                 raise ValueError("prefix_cache=True is incompatible with "
                                  "mamba-mixer models: SSM state is "
                                  "sequential and cannot be composed from "
@@ -538,14 +544,14 @@ class Engine:
                 raise ValueError("swap_mode='host' requires "
                                  "cache_mode='paged': the dense slab has "
                                  "no pages to swap")
-            if has_mamba:
+            if self._has_mamba:
                 raise ValueError("swap_mode='host' is incompatible with "
                                  "mamba-mixer models: recurrent state is "
                                  "per-slot, not paged")
         if scfg.spec_decode:
             if scfg.spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {scfg.spec_k}")
-            if has_mamba:
+            if self._has_mamba:
                 raise ValueError("spec_decode=True is incompatible with "
                                  "mamba-mixer models: the multi-token "
                                  "verify forward needs position-indexed "
@@ -562,7 +568,7 @@ class Engine:
                                  "cache_mode='paged': the wave program "
                                  "writes prompt rows through page-table "
                                  "rows, not a dense slab")
-            if has_mamba:
+            if self._has_mamba:
                 raise ValueError("prefill_chunk/admit_group are "
                                  "incompatible with mamba-mixer models: "
                                  "chunk boundaries are cache positions, "
@@ -661,7 +667,9 @@ class Engine:
         in wave mode ``{"prefill": 0, "decode_chunk": 1, "prefill_chunk":
         1}``, and both together ``{"prefill": 0, "decode_chunk": 0,
         "prefill_chunk": 1, "draft": 1, "verify": 1}`` (the reference's
-        keys per mode)."""
+        keys per mode).  On a model with mamba mixers the prefill counts
+        one signature per distinct prompt length (exact-length
+        prefills), as the reference's ``_CountingJit`` does."""
         names = ["prefill", "decode_chunk"]
         if self._wave:
             names.append("prefill_chunk")
@@ -730,12 +738,13 @@ class Engine:
     @property
     def cache_token_bytes(self) -> int:
         """KV-cache bytes per cached token, summed over every layer's
-        pools (K and V, or MLA's latents and rope keys); times a request's
+        sequence leaves (K and V, or MLA's latents and rope keys; a mamba
+        layer's per-slot state holds no token's row); times a request's
         ``cache_rows`` is its cache footprint."""
         rows = (self._num_pages * self._page_size if self._paged
                 else self.scfg.batch * self.scfg.max_len)
         total = sum(t.numel() * t.element_size()
-                    for layer in self._caches for t in layer.values())
+                    for t in sequence_pools(self._caches))
         return total // rows
 
     def _pages_for(self, req: Request) -> int:
@@ -832,7 +841,8 @@ class Engine:
         if prompt.size == 0 or prompt.size >= scfg.max_len:
             raise ValueError(f"prompt length {prompt.size} must be in "
                              f"[1, max_len={scfg.max_len})")
-        if scfg.prefill_len and prompt.size > scfg.prefill_len:
+        if scfg.prefill_len and prompt.size > scfg.prefill_len \
+                and not self._has_mamba:
             raise ValueError(f"prompt length {prompt.size} exceeds the "
                              f"slot budget prefill_len={scfg.prefill_len}")
         budget = scfg.max_len - prompt.size
@@ -1097,10 +1107,13 @@ class Engine:
         return sample(logits, fold_in(keys, index), t)
 
     def _plain_place(self, slot: int, req: Request):
-        """Book the pages (paged) and prefill the whole prompt; returns
-        the prefill logits."""
+        """Book the pages (paged) and prefill the whole prompt, padded to
+        ``prefill_len`` (at its exact length on a mamba model: pad tokens
+        would run through the state; paged, the caches then grow to whole
+        pages instead); returns the prefill logits."""
         p_len = int(req.prompt.size)
-        pad_len = self.scfg.prefill_len or p_len
+        pad_len = (p_len if self._has_mamba
+                   else self.scfg.prefill_len or p_len)
         row = None
         if self._paged:
             self._assign(slot, req, self._book(self._alloc_pages_for(req)))

@@ -1,8 +1,11 @@
 """Port parity for the model families added to the port: gemma3-1b (5:1
 local/global, MQA, head_dim 256 at full width), gemma-7b (MHA, GeGLU),
-deepseek-v3-671b (MLA + MoE) and llama4-maverick-400b-a17b (GQA + MoE,
-top-1), all at the reference's reduced size, random weights from the
-reference's seed through the weight bridge.
+deepseek-v3-671b (MLA + MoE), llama4-maverick-400b-a17b (GQA + MoE,
+top-1), mamba2-780m (Mamba2 SSD mixers, no FFN; 2 layers here) and
+jamba-v0.1-52b (7 mamba : 1 attention, MoE every other layer), all at
+the reference's reduced size, random weights from the reference's seed
+through the weight bridge.  Models with mamba mixers prefill at the
+exact prompt length, as the reference's engine runs them.
 
 * Model: ``forward`` and prefill + decode logits (dense slab and paged
   pools) within ``test_torch_model.py``'s LOGIT_ATOL, in ``dense`` and
@@ -27,6 +30,7 @@ assignment, so rows stay independent and the bit-match rules of the
 dense models apply.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -89,13 +93,35 @@ AUX_ATOL = 5e-3
 W8A8_DECODE_ATOL = 0.16
 
 ARCHS = ["gemma3-1b", "gemma-7b", "deepseek-v3-671b",
-         "llama4-maverick-400b-a17b"]
+         "llama4-maverick-400b-a17b", "mamba2-780m", "jamba-v0.1-52b"]
 DEEPSEEK = "deepseek-v3-671b"
 LLAMA4 = "llama4-maverick-400b-a17b"
+MAMBA2 = "mamba2-780m"
+JAMBA = "jamba-v0.1-52b"
 
 
 def _n_layers(arch):
-    return reduced(get_config(arch)).n_layers
+    # reduced mamba2 is one layer; two run the stack
+    return 2 if arch == MAMBA2 else reduced(get_config(arch)).n_layers
+
+
+def _has_mamba(cfg):
+    return any(s.mixer == "mamba" for s in cfg.layer_specs)
+
+
+# Jamba in w8a8 holds the port to the reference run eagerly
+# (``jax.disable_jit``): model and engine.  Jitted, the reference's own
+# int8 roundings come out differently from its eager run's, and eight
+# chained quantized layers carry the difference past LOGIT_ATOL: reduced
+# jamba's w8a8 prefill logits differ by 0.073-0.257 between the two over
+# weight seeds 0-3 x prompt seeds 0-1, while the port equals the eager run
+# bit for bit on all eight (``test_torch_mamba.py``, ``test_jamba_w8a8_
+# prefill_equals_eager_reference``); against the jitted reference engine
+# the streams diverge where the tie rule does not hold.  The other models hold the jitted reference within the
+# tolerances above.
+def _reference_run(arch, mode):
+    return (jax.disable_jit() if arch == JAMBA and mode == "w8a8_nibble"
+            else contextlib.nullcontext())
 
 
 def _pair(arch, **over):
@@ -246,7 +272,8 @@ def test_forward_logits_match(monkeypatch, arch, mode):
     jcfg, jp, tcfg, tp = _pair(arch, quant_mode=mode, attn_impl="flash")
     routes = _Routes(monkeypatch)
     toks = np.random.default_rng(0).integers(0, 256, (2, 11)).astype(np.int32)
-    want, jaux = _fresh(jmodels.forward)(jp, jcfg, jnp.asarray(toks))
+    with _reference_run(arch, mode):
+        want, jaux = _fresh(jmodels.forward)(jp, jcfg, jnp.asarray(toks))
     got, aux = forward(tp, tcfg, torch.from_numpy(toks))
     assert got.dtype == torch.float32 and got.shape == want.shape
     _close_unflipped(got, want, routes.flipped(2, 11))
@@ -258,10 +285,12 @@ def test_forward_logits_match(monkeypatch, arch, mode):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_match(monkeypatch, arch, mode, cache_mode):
-    """Two prompts prefilled alone (padded, per-row ``logits_index``),
-    moved into a 3-slot cache (slab rows or pages), then 3 decode steps
-    at per-slot positions, flash attention (the paged kernel's plain
-    version on GQA pools; MLA gathers its latent pages)."""
+    """Two prompts prefilled alone (padded, per-row ``logits_index``; at
+    their exact length on mamba models, whose state pad tokens would
+    run through), moved into a 3-slot cache (slab rows or pages, mamba
+    state at the slot's row), then 3 decode steps at per-slot positions,
+    flash attention (the paged kernel's plain version on GQA pools; MLA
+    gathers its latent pages)."""
     over = dict(quant_mode=mode, attn_impl="flash", cache_mode=cache_mode,
                 page_size=4)
     jcfg, jp, tcfg, tp = _pair(arch, **over)
@@ -285,11 +314,14 @@ def test_prefill_then_decode_match(monkeypatch, arch, mode, cache_mode):
     grow = max_len if cache_mode == "dense" else pad
     for slot, row in ((0, 0), (2, 1)):
         p = prompts[row:row + 1]
-        jl, jone, _ = jprefill(jp, jcfg, jnp.asarray(p), max_len=grow,
-                               logits_index=lens[row] - 1)
+        if _has_mamba(tcfg):
+            p = p[:, :lens[row]]
+        with _reference_run(arch, mode):
+            jl, jone, _ = jprefill(jp, jcfg, jnp.asarray(p), max_len=grow,
+                                   logits_index=lens[row] - 1)
         tl, tone = prefill(tp, tcfg, torch.from_numpy(p), max_len=grow,
                            logits_index=lens[row] - 1)
-        skip = routes.flipped(1, pad)[:, lens[row] - 1:lens[row]]
+        skip = routes.flipped(1, p.shape[1])[:, lens[row] - 1:lens[row]]
         _close_unflipped(tl, jl, skip)
         if cache_mode == "dense":
             jcaches = jmerge(jcaches, jone, slot)
@@ -304,8 +336,9 @@ def test_prefill_then_decode_match(monkeypatch, arch, mode, cache_mode):
     page_j = jnp.asarray(table) if cache_mode == "paged" else None
     page_t = torch.from_numpy(table) if cache_mode == "paged" else None
     for _ in range(3):
-        jl, jcaches = jdecode(jp, jcfg, jnp.asarray(tok), jcaches,
-                              jnp.asarray(pos), page_table=page_j)
+        with _reference_run(arch, mode):
+            jl, jcaches = jdecode(jp, jcfg, jnp.asarray(tok), jcaches,
+                                  jnp.asarray(pos), page_table=page_j)
         tl, tcaches = decode_step(tp, tcfg, torch.from_numpy(tok), tcaches,
                                   torch.from_numpy(pos), page_table=page_t)
         _close_unflipped(tl, jl, routes.flipped(3, 1), atol=decode_atol)
@@ -328,14 +361,17 @@ def test_mla_caches_are_latent_pools():
 # Engine against the reference engine
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("arch,cache_mode", [(DEEPSEEK, "dense"),
-                                             (DEEPSEEK, "paged"),
-                                             (LLAMA4, "paged")])
+@pytest.mark.parametrize("arch,cache_mode,mode", [
+    (a, c, m) for a, c in ((DEEPSEEK, "dense"), (DEEPSEEK, "paged"),
+                           (LLAMA4, "paged"), (MAMBA2, "dense"),
+                           (MAMBA2, "paged"), (JAMBA, "paged"))
+    for m in MODES])
 def test_engine_streams_match_reference(monkeypatch, arch, cache_mode, mode):
     """The staggered workload of ``test_torch_engine.py`` (6 requests
     through 3 slots) through both engines, under the same batch
-    composition; the tie rule of that file."""
+    composition; the tie rule of that file.  Jamba in w8a8 runs the
+    reference engine eagerly (``_reference_run``), as the model tests
+    hold its logits."""
     over = dict(quant_mode=mode, attn_impl="flash", cache_mode=cache_mode,
                 page_size=4)
     jcfg, jparams, tcfg, tparams = _pair(arch, **over)
@@ -346,7 +382,8 @@ def test_engine_streams_match_reference(monkeypatch, arch, cache_mode, mode):
     kw = dict(batch=3, max_len=24, prefill_len=8, decode_chunk=3)
     jeng = jengine.Engine(jcfg, jparams, jengine.ServeConfig(**kw))
     jids = [jeng.submit(p, n) for p, (_, n) in zip(prompts, te.SPEC)]
-    jdone = jeng.run()
+    with _reference_run(arch, mode):
+        jdone = jeng.run()
     teng = Engine(tcfg, tparams, ServeConfig(**kw), device="cpu")
     tids = [teng.submit(p, n) for p, (_, n) in zip(prompts, te.SPEC)]
     tdone = teng.run()

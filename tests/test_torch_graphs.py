@@ -12,10 +12,10 @@ raw pointers), and the launch-counter registry covers every counter.
 
 Marked ``cuda`` (skipped without a card; no JAX): a captured engine's
 streams equal a ``capture=False`` engine's token for token at reduced
-width in each mode (yi-6b; the MLA and MoE families too), one capture
-per stage once warm, equal launch counters; the MoE block on the card
-repeats bit for bit and routes as on the CPU; the sampler on the card
-equals the sampler on the CPU.  Run on
+width in each mode (yi-6b; the MLA, MoE and SSD mixer families too),
+one capture per stage once warm, equal launch counters; the MoE block on
+the card repeats bit for bit and routes as on the CPU; the sampler on the
+card equals the sampler on the CPU.  Run on
 the GPU machine with ``python -m pytest -q -m cuda
 tests/test_torch_graphs.py``.
 """
@@ -281,6 +281,27 @@ def test_captured_family_streams_equal_eager(cuda, arch, mode, over):
         quant_mode=mode, quant_backend="cuda", attn_impl="flash"), over,
         launches=not (mode == "dense" and (over.get("prefix_cache")
                                            or over.get("prefill_chunk"))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode,over", [
+    ("mamba2-780m", "w8a8_nibble", {}),
+    ("mamba2-780m", "dense", {"alloc_mode": "incremental",
+                              "num_pages": 6}),
+    ("jamba-v0.1-52b", "w8a8_nibble", {}),
+    ("jamba-v0.1-52b", "dense", {"cache_mode": "dense",
+                                 "page_size": None})],
+    ids=["mamba2-nibble", "mamba2-overcommit", "jamba-nibble",
+         "jamba-slab"])
+def test_captured_ssm_streams_equal_eager(cuda, arch, mode, over):
+    """The SSD mixer models (reduced) through a captured and an eager
+    engine: ``mamba_step`` writes the conv and ssm state into the cache
+    tensors in place, so the replayed decode chunk carries the state;
+    streams and launch counters equal (a dense mamba2 engine launches no
+    kernel: its projections are plain matmuls and it has no attention)."""
+    _captured_vs_eager(cuda, reduced(get_config(arch)).replace(
+        quant_mode=mode, quant_backend="cuda", attn_impl="flash"), over,
+        launches=mode != "dense" or arch == "jamba-v0.1-52b")
 
 
 @pytest.mark.cuda

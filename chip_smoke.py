@@ -105,6 +105,18 @@ Phases (any failure exits non-zero and prints no result line):
    kernel), 4 of the requests x 16 new tokens; the greedy streams must
    equal, token for token, what ``w8a8_nibble`` serves for the same
    requests (both compute the same int32 product and epilogue).
+7a. Int8 KV cache: the same weights with ``kv_cache_dtype="int8"``: the
+   serve requests through a captured paged incremental engine (nibble
+   and flash forward launched, the paged-decode kernel never: the decode
+   dequantizes gathered pages in ``attention_core``, as the reference
+   does) beside a bf16 engine with the same settings (tok/s, host ms per
+   captured decode chunk, cache bytes per token: bf16 / int8 >= 1.9);
+   the workload phase's pool and bursty traffic with ``swap_mode="host"``
+   (preemptions, swap-ins, no leak); teacher-forced int8-cache decode
+   logits within 5% of the largest bf16 forward logit (the reference's
+   rule); dense at 4 layers: paged int8 streams equal to the dense
+   slab's, and the host-swap engine's equal to the replay engine's,
+   token for token.
 7b. Families (the yi-6b weights freed first): the nibble kernel at
    MLA's ``wkv_b`` (4 slots x 160 gathered latent rows) and ``wq_b``
    shapes (``torch.equal``), the flash forward at 128 heads with q/k 192
@@ -141,6 +153,22 @@ Phases (any failure exits non-zero and prints no result line):
    pool; then jamba-v0.1-52b at full width cut to one block of 8 layers
    (1 attention, 7 mamba, 4 MoE of 16 experts top-2) served as the
    families are (rows 1-3 launched, the prefill held kernel by kernel).
+7d. Enc-dec + VLM (the SSM models freed first): the nibble kernel at
+   whisper-base's cross K/V projection of a decode step (6000, 512, 512;
+   ``torch.equal``), the flash forward at phi-3-vision's head_dim 96 (4 x
+   576 patches + 128 tokens) and whisper's decoder d 64, paged decode at
+   phi-3-vision's 32 KV heads of 96 and whisper's 8 of 64, each held to
+   its plain version and timed beside its bound and a library call; then
+   phi-3-vision-4.2b at full width and depth (32 layers) and whisper-base
+   at full width and depth (6 + 6 layers), each: 4 requests with their
+   stub inputs (576 patch embeddings + 32-128 prompt tokens; 1500 frames
+   + 16 tokens) through ``prefill`` and 32 greedy ``decode_step``s on
+   dense caches (whisper's cross-attending ``enc_out``; nibble and flash
+   launched), that prefill held to the plain path kernel by kernel with
+   the same inputs, then the model served text-only as the families are
+   (rows 1-3 launched, row 3 at d 96 and 64); then 4 QAT steps of
+   whisper-base through ``Trainer(extra_batch_fn=)`` at batch 8 x seq 128
+   (finite losses; rows 2 and 4 launched).
 8. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
    (forward, remat recompute and the backward kernels), remat, batch 8 x
    seq 256, 4 AdamW steps through ``Trainer.run`` on ``SyntheticLM``
@@ -185,7 +213,9 @@ from repro_torch.kernels import _build, flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import nibble_matmul as nm  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
-from repro_torch.models import model_init, prefill  # noqa: E402
+from repro_torch.launch.train import stub_extras  # noqa: E402
+from repro_torch.models import (decode_step, forward,  # noqa: E402
+                                model_init, prefill)
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.serve import (Engine, ServeConfig,  # noqa: E402
@@ -1625,7 +1655,7 @@ def divergence_margins(params, cfg, prompts, want, got) -> list:
             continue
         i = diff[0]
         toks = np.concatenate([p, np.asarray(w[:i], np.int32)])
-        logits, _ = prefill(params, cfg, torch.as_tensor(
+        logits, _, _ = prefill(params, cfg, torch.as_tensor(
             toks, device=DEV).long()[None])
         lg = logits[0, -1].float()
         out.append((n, i, float(lg[w[i]] - lg[g[i]])))
@@ -2035,6 +2065,185 @@ def phase_lut_serve(params, prompts, n_req=4, n_new=16,
 
 
 # ---------------------------------------------------------------------------
+# The int8 KV cache on yi-6b
+# ---------------------------------------------------------------------------
+
+INT8_DECODE_RTOL = 0.05   # the reference's rule (tests/test_serve.py)
+
+
+@torch.no_grad()
+def _int8_decode_error(params, cfg, prompt, n_pre=32) -> float:
+    """Teacher-forced: prefill ``prompt[:n_pre]`` into int8 caches, decode
+    the rest one token a step; the largest difference from the bf16
+    forward's logits over the largest forward logit (``dense``, so the
+    difference is the cache's alone)."""
+    dense = cfg.replace(quant_mode="dense", cache_mode="dense",
+                        kv_cache_dtype="int8")
+    toks = torch.as_tensor(prompt, device=DEV).long()[None]
+    s = toks.shape[1]
+    full, _ = forward(params, dense, toks)       # no cache: bf16 K/V
+    logits, caches, _ = prefill(params, dense, toks[:, :n_pre], max_len=s)
+    got = [logits[:, -1]]
+    for t in range(n_pre, s - 1):
+        lg, caches = decode_step(params, dense, toks[:, t:t + 1], caches, t)
+        got.append(lg[:, -1])
+    want = full[:, n_pre - 1:s - 1].float()
+    got = torch.stack(got, 1).float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_int8_kv(params, prompts, smi: str) -> dict:
+    """The serve phase's weights with ``kv_cache_dtype="int8"``: the serve
+    requests through a captured paged incremental engine (never the paged
+    kernel: the decode dequantizes gathered pages in ``attention_core``,
+    as the reference does) beside a bf16 engine with the same settings,
+    host ms per captured decode chunk both ways; the workload phase's
+    overcommitted pool and traffic with the host swap; teacher-forced
+    int8 decode against the bf16 forward; then dense, cut to 4 layers,
+    paged against the dense slab and the host swap against replay, token
+    for token."""
+    base = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    cfg = base.replace(kv_cache_dtype="int8")
+    n_new, prefill_len, slots = 32, 128, 4
+    scfg = ServeConfig(batch=slots, max_len=prefill_len + n_new,
+                       prefill_len=prefill_len, decode_chunk=8,
+                       alloc_mode="incremental")
+    print(f"int8 kv: {cfg.name} full width, all {cfg.n_layers} layers, "
+          f"w8a8_nibble on the CUDA backend, kv_cache_dtype=int8 (int8 K/V, "
+          f"f32 scale per token and KV head), paged incremental (page 16), "
+          f"{slots} slots, the serve phase's {len(prompts)} requests x "
+          f"{n_new}", flush=True)
+    t_phase = time.perf_counter()
+    out, engines = {}, {}
+    for label, c in (("bf16", base), ("int8", cfg)):
+        eng = Engine(c, params, scfg, device=DEV)
+        streams, wall, counts = _serve_timed(eng, prompts, n_new)
+        require_captured(eng, f"{label} kv serve")
+        require_no_f32(counts)
+        out[label] = {"tok_s": sum(map(len, streams)) / wall, "wall_s": wall,
+                      "counts": counts, "streams": streams,
+                      "cache_token_bytes": eng.cache_token_bytes}
+        engines[label] = eng
+    for label in engines:
+        reset_counts()
+        out[label]["chunk_ms"] = _chunk_ms(engines[label], prompts)
+        out[label]["chunk_counts"] = read_counts()
+    del engines
+    i8, b16 = out["int8"], out["bf16"]
+    require_launched(i8["counts"], ("nibble_matmul", "flash_attention_fwd"))
+    if i8["counts"]["paged_decode_attention"] \
+            or i8["chunk_counts"]["paged_decode_attention"]:
+        raise AssertionError("the paged-decode kernel ran on int8 pools")
+    ratio = b16["cache_token_bytes"] / i8["cache_token_bytes"]
+    same = sum(a == b for a, b in zip(i8["streams"], b16["streams"]))
+    print(f"  int8: {i8['tok_s']:.2f} tok/s, host ms per captured decode "
+          f"chunk {i8['chunk_ms']:.3f}; bf16 (same settings, this call): "
+          f"{b16['tok_s']:.2f} tok/s, {b16['chunk_ms']:.3f} ms ({smi}); "
+          f"launches int8 {i8['counts']}; cache bytes per token bf16 "
+          f"{b16['cache_token_bytes']} / int8 {i8['cache_token_bytes']} = "
+          f"{ratio:.4f}; streams equal to bf16's {same}/{len(prompts)} "
+          f"(not required: int8 rows move the logits)", flush=True)
+    if ratio < 1.9:
+        raise AssertionError(f"int8 cache bytes ratio {ratio} < 1.9")
+
+    # the workload phase's overcommitted pool and traffic, host swap
+    worst = pages_needed(prefill_len + 64 - 1, cfg.page_size)
+    num_pages = 1 + worst * 3 // 2
+    eng = Engine(cfg, params, ServeConfig(
+        batch=slots, max_len=prefill_len + 64, prefill_len=prefill_len,
+        decode_chunk=8, priority_aging_s=1.0, alloc_mode="incremental",
+        num_pages=num_pages, swap_mode="host"), device=DEV)
+    reset_counts()
+    res = run_timed_workload(eng, cfg.vocab_size, requests=16,
+                             prompt_budget=prefill_len, new_tokens=64,
+                             stagger_s=0.05, seed=0, priority_mix=0.25,
+                             arrival_mode="bursty", collect_streams=True)
+    torch.cuda.synchronize()
+    swap_counts = read_counts()
+    _check_streams(res.pop("streams"), 64, cfg.vocab_size)
+    print(f"  int8 + host swap (the workload's {num_pages}-page pool, bursty "
+          f"16 x 64; {smi}): {res['tok_per_s']} tok/s, ttft p50 "
+          f"{res['ttft_p50_ms']} ms, itl p99 {res['itl_p99_ms']} ms, "
+          f"{res['preemptions']} preemptions, swap out {res['swap_out']} / "
+          f"in {res['swap_in']}; launches {swap_counts}", flush=True)
+    if res["preemptions"] < 1 or res["swap_in"] < 1:
+        raise AssertionError("the int8 swap run preempted or swapped nobody")
+    if eng.leaked_pages() or eng.host_pool.in_use:
+        raise AssertionError("the int8 swap run leaked pages")
+    if swap_counts["paged_decode_attention"]:
+        raise AssertionError("the paged-decode kernel ran on int8 pools")
+    require_captured(eng, "int8 swap")
+    del eng
+
+    err = _int8_decode_error(params, cfg, np.concatenate(prompts)[:96])
+    print(f"  teacher-forced int8-cache decode (dense, full width, 32 "
+          f"prompt + 63 decoded tokens) against the bf16 forward: max|diff| "
+          f"/ max|logit| {err:.4f} (bound {INT8_DECODE_RTOL})", flush=True)
+    if not err < INT8_DECODE_RTOL:
+        raise AssertionError(f"int8 decode drifts {err} from bf16")
+
+    # exact checks, dense at 4 layers
+    dcfg = cfg.replace(quant_mode="dense", n_layers=4)
+    dparams = {**params, "layers": params["layers"][:4]}
+    runs = {}
+    for label, over in (("slab", dict(cache_mode="dense",
+                                      alloc_mode="reserve")),
+                        ("paged", {})):
+        eng = Engine(dcfg, dparams, dataclasses.replace(scfg, **over),
+                     device=DEV)
+        runs[label], _, _ = _serve_timed(eng, prompts, n_new)
+        require_captured(eng, f"int8 dense {label}")
+    paged_same = sum(a == b for a, b in zip(runs["paged"], runs["slab"]))
+    over = _dense_overcommit_int8(dcfg, dparams)
+    print(f"  dense 4-layer int8: paged streams equal to the dense slab's "
+          f"{paged_same}/{len(prompts)}; host swap ({over['preemptions']} "
+          f"preemptions, {over['swap_in']} swap-ins) against replay "
+          f"{over['equal']}/{over['n']}", flush=True)
+    if paged_same != len(prompts) or over["equal"] != over["n"]:
+        raise AssertionError("int8 streams differ between paged and slab, or "
+                             "between swap and replay")
+    wall = time.perf_counter() - t_phase
+    print(f"  int8 kv phase {wall:.1f} s", flush=True)
+    for r in (i8, b16):
+        del r["streams"]
+    return {"int8": i8, "bf16": b16, "bytes_ratio": ratio, "swap": res,
+            "swap_counts": swap_counts, "decode_rel_err": err,
+            "paged_equal": paged_same, "swap_vs_replay": over,
+            "counts": i8["counts"], "wall_s": wall}
+
+
+def _dense_overcommit_int8(dcfg, dparams) -> dict:
+    """The uniform 8 x 64 workload through a 1.5-worst-case incremental
+    pool, with the host swap and with replay: equal streams."""
+    prefill_len, n_new = 128, 64
+    num_pages = 1 + pages_needed(prefill_len + n_new - 1,
+                                 dcfg.page_size) * 3 // 2
+    res = {}
+    for label, mech in (("replay", {}), ("swap", {"swap_mode": "host"})):
+        eng = Engine(dcfg, dparams, ServeConfig(
+            batch=4, max_len=prefill_len + n_new, prefill_len=prefill_len,
+            decode_chunk=8, alloc_mode="incremental", num_pages=num_pages,
+            **mech), device=DEV)
+        res[label] = run_timed_workload(eng, dcfg.vocab_size, requests=8,
+                                        prompt_budget=prefill_len,
+                                        new_tokens=n_new, seed=1,
+                                        collect_streams=True)
+        torch.cuda.synchronize()
+        if eng.leaked_pages() or (eng.host_pool and eng.host_pool.in_use):
+            raise AssertionError(f"int8 {label}: pages leaked")
+        require_captured(eng, f"int8 dense {label}")
+    sw = res["swap"]
+    if sw["preemptions"] < 1 or sw["swap_in"] < 1:
+        raise AssertionError("the int8 dense swap run swapped nobody")
+    equal = sum(sw["streams"][n] == res["replay"]["streams"][n]
+                for n in range(8))
+    return {"preemptions": sw["preemptions"], "swap_in": sw["swap_in"],
+            "equal": equal, "n": 8}
+
+
+# ---------------------------------------------------------------------------
 # Families: MLA + MoE (deepseek-v3), MoE over GQA (llama4), gemma3-1b
 # ---------------------------------------------------------------------------
 
@@ -2269,32 +2478,40 @@ def _route_flips(kernel_routes, plain_routes, n_real) -> dict:
             "router_logit_rel_diff": rel}
 
 
-def compare_plain_prefill(params, cfg, prompt, prefill_len) -> dict:
+def compare_plain_prefill(params, cfg, prompt, prefill_len, extra=None
+                          ) -> dict:
     """One prompt's prefill logits through the kernel path and through the
     plain path (``quant_backend="torch"``, ``attn_impl="chunked"``): the
     largest difference, and LOGIT_RTOL of the largest plain logit as the
-    tolerance.  In an MoE model the compared plain run takes the kernel
-    run's routing (each MoE layer's top-k choices and weights), so the
-    difference measures the kernels, not an expert choice that the paths'
-    roundings flipped (a flip also moves which later tokens overflow an
-    expert); a free plain run counts the flips (``_route_flips``)."""
+    tolerance.  ``extra`` holds a VLM's ``extra_embeds`` (prepended: the
+    logits index moves past them) or an encoder-decoder's ``frames``, the
+    same tensors on both paths.  In an MoE model the compared plain run
+    takes the kernel run's routing (each MoE layer's top-k choices and
+    weights), so the difference measures the kernels, not an expert
+    choice that the paths' roundings flipped (a flip also moves which
+    later tokens overflow an expert); a free plain run counts the flips
+    (``_route_flips``)."""
+    extra = extra or {}
     padded = torch.zeros((1, prefill_len), dtype=torch.int64, device=DEV)
     padded[0, :prompt.size] = torch.as_tensor(prompt, device=DEV)
     plain_cfg = cfg.replace(quant_backend="torch", attn_impl="chunked")
-    idx = prompt.size - 1
+    n_pre = extra["extra_embeds"].shape[1] if "extra_embeds" in extra else 0
+    idx = n_pre + prompt.size - 1
     rec, route = [], tmoe._route
     tmoe._route = _route_recorder(rec)
     try:
-        got, _ = prefill(params, cfg, padded, logits_index=idx)
+        got, _, _ = prefill(params, cfg, padded, logits_index=idx, **extra)
         kernel_routes = rec[:]
         del rec[:]
-        ref, _ = prefill(params, plain_cfg, padded, logits_index=idx)
+        ref, _, _ = prefill(params, plain_cfg, padded, logits_index=idx,
+                            **extra)
         out = {}
         if kernel_routes:
             out = _route_flips(kernel_routes, rec, prompt.size)
             replay = iter(kernel_routes)
             tmoe._route = lambda p, c, xt: next(replay)[0]
-            ref, _ = prefill(params, plain_cfg, padded, logits_index=idx)
+            ref, _, _ = prefill(params, plain_cfg, padded,
+                                logits_index=idx, **extra)
     finally:
         tmoe._route = route
     torch.cuda.synchronize()
@@ -2305,17 +2522,19 @@ def compare_plain_prefill(params, cfg, prompt, prefill_len) -> dict:
             "argmax": (int(got.argmax()), int(ref.argmax())), **out}
 
 
-def hold_plain_prefill(params, cfg, prompt, prefill_len) -> dict:
+def hold_plain_prefill(params, cfg, prompt, prefill_len, extra=None
+                       ) -> dict:
     """``compare_plain_prefill``, failing when the difference exceeds the
     tolerance."""
-    r = compare_plain_prefill(params, cfg, prompt, prefill_len)
+    r = compare_plain_prefill(params, cfg, prompt, prefill_len, extra)
     if not r["logit_diff"] <= r["logit_tol"]:
         raise AssertionError(f"{cfg.name}: kernel-path prefill logits "
                              f"disagree with the plain path: {r}")
     return r
 
 
-def hold_family_prefill(params, cfg, prompt, prefill_len) -> dict:
+def hold_family_prefill(params, cfg, prompt, prefill_len, extra=None
+                        ) -> dict:
     """The kernel path against the plain path, held kernel by kernel:
     (1) with attention through ``attention_core`` on both sides, every
     projection through the nibble kernel gives the plain path's logits
@@ -2324,17 +2543,19 @@ def hold_family_prefill(params, cfg, prompt, prefill_len) -> dict:
     difference is measured beside them.  (3) is (2)'s attention
     difference amplified by the per-tensor activation scales: on
     deepseek-v3 it exceeds LOGIT_RTOL with the plain nibble path on both
-    sides as well (``PERF.md`` §6)."""
+    sides as well (``PERF.md`` §6).  ``extra``: as in
+    ``compare_plain_prefill``."""
     exact = compare_plain_prefill(params, cfg.replace(attn_impl="chunked"),
-                                  prompt, prefill_len)
+                                  prompt, prefill_len, extra)
     if exact["logit_diff"] != 0.0:
         raise AssertionError(f"{cfg.name}: nibble-kernel prefill logits "
                              f"differ from the plain path's: {exact}")
     return {"nibble_exact": exact,
             "flash_dense": hold_plain_prefill(
-                params, cfg.replace(quant_mode="dense"), prompt, prefill_len),
+                params, cfg.replace(quant_mode="dense"), prompt, prefill_len,
+                extra),
             "end_to_end": compare_plain_prefill(params, cfg, prompt,
-                                                prefill_len)}
+                                                prefill_len, extra)}
 
 
 def _has_mamba(cfg) -> bool:
@@ -2375,8 +2596,10 @@ def hold_exact_served(params, cfg, prompts, prefill_len) -> dict:
 
 
 def _serve_family(cfg, smi, n_req, n_new, *, expect, prefill_len=128,
-                  long_lens=(), hold=hold_family_served) -> tuple:
-    """Random weights (seed 0) for ``cfg``, then ``n_req`` requests of
+                  long_lens=(), hold=hold_family_served, params=None
+                  ) -> tuple:
+    """Random weights (seed 0) for ``cfg`` unless ``params`` are given,
+    then ``n_req`` requests of
     32-``prefill_len`` prompt tokens, and one more of each length in
     ``long_lens``, x ``n_new`` through a captured engine (4 slots, paged
     incremental, decode chunk 8), launch counters zeroed just before and
@@ -2386,7 +2609,8 @@ def _serve_family(cfg, smi, n_req, n_new, *, expect, prefill_len=128,
     plain path.  Returns the record and the run: params, prompts, streams
     and the serve settings."""
     t = time.perf_counter()
-    params = model_init(cfg, seed=0, device=DEV)
+    if params is None:
+        params = model_init(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     mem = torch.cuda.memory_allocated() / 2**30
@@ -2635,6 +2859,203 @@ def phase_ssm(smi: str) -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"  ssm phase {out['wall_s']:.1f} s", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper-base) and VLM (phi-3-vision-4.2b)
+# ---------------------------------------------------------------------------
+
+def check_encdec_vlm_shapes(gen) -> dict:
+    """Rows 1-3 at the enc-dec and VLM phase's shapes, held to their plain
+    versions and timed beside the bound and a library call: the nibble
+    kernel at whisper's cross K/V projection of a decode step (4 slots x
+    1500 frames, 512 -> 512; ``torch.equal``); the flash forward at
+    phi-3-vision's head_dim 96 (the 128 instance) over 4 prompts of 576
+    patches + 128 tokens and at whisper's decoder prefill (d 64); paged
+    decode at phi-3-vision's 32 KV heads of 96 and whisper's 8 of 64."""
+    rng = np.random.default_rng(7)
+    return {
+        "nibble_matmul": {
+            "whisper cross K/V decode": _nibble_case(
+                gen, "whisper cross K/V decode", 6000, 512, 512)},
+        "flash_attention_fwd": {
+            "phi3v prefill d=96": _flash_case(
+                gen, "phi-3-vision prefill, 576 patches + 128", 32, 1, 704,
+                96, batch=4),
+            "whisper prefill d=64": _flash_case(
+                gen, "whisper decoder prefill", 8, 1, 128, 64)},
+        "paged_decode_attention": {
+            name: _paged_case(gen, rng, name, *shape) for name, shape in (
+                ("phi3v d=96", (32, 1, 96, 0)),
+                ("whisper d=64", (8, 1, 64, 0)))}}
+
+
+def _stub_inputs(cfg, batch: int, seed: int) -> dict:
+    """The launcher's stub frontend inputs (N(0, 1) x 0.02 in bf16 from a
+    generator seeded with ``seed``) under ``prefill``'s keywords."""
+    extra = stub_extras(cfg, batch, DEV)(seed)
+    return {"extra_embeds" if k == "patch_embeds" else k: v
+            for k, v in extra.items()}
+
+
+@torch.no_grad()
+def _direct_decode(params, cfg, prompts, extra, n_steps=32) -> dict:
+    """The requests as one batch, prompts zero-padded to the longest after
+    the extras: ``prefill`` (logits at each prompt's last token), then
+    ``n_steps`` greedy ``decode_step``s on dense caches at per-slot
+    positions, cross-attending ``enc_out`` where the model has one; launch
+    counters zeroed just before and read just after."""
+    dcfg = cfg.replace(cache_mode="dense")
+    n_pre = extra["extra_embeds"].shape[1] if "extra_embeds" in extra else 0
+    plen = max(p.size for p in prompts)
+    toks = torch.zeros((len(prompts), plen), dtype=torch.int64, device=DEV)
+    for i, p in enumerate(prompts):
+        toks[i, :p.size] = torch.as_tensor(p, device=DEV)
+    lens = torch.as_tensor([p.size for p in prompts], device=DEV)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    logits, caches, enc = prefill(params, dcfg, toks,
+                                  max_len=n_pre + plen + n_steps,
+                                  logits_index=n_pre + lens - 1, **extra)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    finite = bool(torch.isfinite(logits).all())
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    pos, out = n_pre + lens, [tok]
+    t = time.perf_counter()
+    for _ in range(n_steps):
+        lg, caches = decode_step(params, dcfg, tok, caches, pos, enc_out=enc)
+        finite &= bool(torch.isfinite(lg).all())
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        pos = pos + 1
+        out.append(tok)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / n_steps
+    counts = read_counts()
+    streams = torch.cat(out, 1).cpu().tolist()
+    if not finite:
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    _check_streams(dict(enumerate(streams)), n_steps + 1, cfg.vocab_size)
+    return {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "counts": counts, "first_tokens": [s_[:8] for s_ in streams],
+            "enc_out": None if enc is None else list(enc.shape)}
+
+
+def _encdec_vlm_model(cfg, smi, seed, prompt_lens) -> tuple:
+    """Weights (seed 0), then the requests with their stub inputs
+    through ``_direct_decode`` (rows 1 and 2 launched), the first
+    request's prefill held kernel by kernel with its own extras, then the
+    model served text-only (``_serve_family``: rows 1-3 launched, 8 x
+    32, the prefill held again)."""
+    t = time.perf_counter()
+    params = model_init(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    mem = torch.cuda.memory_allocated() / 2**30
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in prompt_lens]
+    extra = _stub_inputs(cfg, len(prompts), seed)
+    direct = _direct_decode(params, cfg, prompts, extra)
+    require_launched(direct["counts"], ("nibble_matmul",
+                                        "flash_attention_fwd"))
+    require_no_f32(direct["counts"])
+    key = next(iter(extra))
+    one = {key: extra[key][:1]}
+    cross = (f", cross K/V over {cfg.enc_seq_len} frames" if cfg.is_encdec
+             else "")
+    held = hold_family_prefill(params, cfg, prompts[0], int(prompts[0].size),
+                               one)
+    print(f"  {cfg.name}: weights {init_s:.1f} s, {mem:.2f} GiB allocated; "
+          f"{len(prompts)} requests of {key} {list(extra[key].shape)} + "
+          f"prompts {list(prompt_lens)}: prefill {direct['prefill_ms']:.1f} "
+          f"ms, {direct['decode_step_ms']:.3f} ms a decode step (eager, "
+          f"dense caches{cross}); "
+          f"launches {direct['counts']}; first tokens "
+          f"{direct['first_tokens'][0]} ({smi})", flush=True)
+    print(f"  {cfg.name} prefill with its {key} kernel vs plain path: nibble "
+          f"path bit for bit; flash path in dense {held['flash_dense']}; end "
+          f"to end in w8a8, measured {held['end_to_end']}", flush=True)
+    served, run = _serve_family(cfg, smi, 8, 32, params=params,
+                                expect=dict.fromkeys(FAMILY_KERNELS, True))
+    del run, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"init_s": init_s, "gib_allocated": mem, "direct": direct,
+            "held_with_extras": held, "served": served,
+            "counts": served["counts"]}
+
+
+def phase_encdec_vlm(smi: str) -> dict:
+    """phi-3-vision-4.2b at full width and depth: 4 requests of 576 stub
+    patch embeddings + 32-128 prompt tokens through ``prefill`` and 32
+    greedy decode steps, the prefill held kernel by kernel, then served
+    text-only through a captured paged engine; whisper-base at full width
+    and depth the same way with 1500 stub frames and 16-token prompts;
+    then 4 QAT steps of whisper-base through ``Trainer(extra_batch_fn=)``
+    (rows 2 and 4 launched).  Each model's weights freed before the
+    next."""
+    t_phase = time.perf_counter()
+    print(f"enc-dec + vlm: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated before the first model", flush=True)
+    paged = dict(quant_mode="w8a8_nibble", quant_backend="cuda",
+                 attn_impl="flash", cache_mode="paged", page_size=16)
+    out = {}
+    cfg = get_config("phi-3-vision-4.2b").replace(**paged)
+    print(f"  {cfg.name}: full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied; "
+          f"{cfg.n_patches} stub patch embeddings)", flush=True)
+    lens = np.random.default_rng(11).integers(32, 129, 4).tolist()
+    out[cfg.name] = _encdec_vlm_model(cfg, smi, 11, lens)
+    cfg = get_config("whisper-base").replace(**paged)
+    print(f"  {cfg.name}: full width and depth ({cfg.n_enc_layers} encoder "
+          f"+ {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, GELU, "
+          f"vocab {cfg.vocab_size}, tied; {cfg.enc_seq_len} stub frames)",
+          flush=True)
+    out[cfg.name] = _encdec_vlm_model(cfg, smi, 12, [16] * 4)
+    out["whisper-base train"] = _train_whisper(smi)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  enc-dec + vlm phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _train_whisper(smi: str, batch=8, seq=128, steps=4) -> dict:
+    cfg = get_config("whisper-base").replace(quant_mode="qat",
+                                             attn_impl="flash", remat=True)
+    print(f"  {cfg.name} train: QAT, flash attention, remat, batch {batch} "
+          f"x seq {seq} + {cfg.enc_seq_len} stub frames, {steps} steps "
+          f"through Trainer(extra_batch_fn=)", flush=True)
+    trainer = Trainer(cfg, TrainConfig(total_steps=steps,
+                                       warmup_steps=max(1, steps // 10)),
+                      TrainerConfig(steps=steps, log_every=1),
+                      DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=batch),
+                      stub_extras(cfg, batch, DEV), device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    history = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in history]
+    print(f"    losses {[round(x, 4) for x in losses]}, {wall:.2f} s, peak "
+          f"{peak:.2f} GiB; launches {counts} ({smi})", flush=True)
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in history):
+        raise AssertionError("non-finite whisper-base training loss")
+    require_launched(counts, ("flash_attention_fwd", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv"))
+    require_no_f32(counts)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "wall_s": wall, "peak_gib": peak,
+            "counts": counts, "history": history}
 
 
 def phase_train(profile: bool) -> dict:
@@ -3013,6 +3434,9 @@ def main() -> int:
         spec_wave["profile"] = profile_spec_wave(params, prompts)
     lut = phase_lut_serve(params, prompts)
     rows[4]["launches"] = lut["counts"]["lut_matmul"]
+    int8kv = phase_int8_kv(params, prompts, smi)
+    for r in rows[:3]:
+        r["int8kv_launches"] = int8kv["counts"][r["name"]]
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3020,13 +3444,24 @@ def main() -> int:
     families = phase_families(smi)
     ssm_shapes = check_ssm_shapes(gen)
     ssm = phase_ssm(smi)
+    ev_shapes = check_encdec_vlm_shapes(gen)
+    encdec_vlm = phase_encdec_vlm(smi)
     for r in rows[:3]:
         r["families_shapes"] = shapes[r["name"]]
         r["ssm_shapes"] = ssm_shapes[r["name"]]
+        r["encdec_vlm_shapes"] = ev_shapes[r["name"]]
         for key, phase in (("families_launches", families),
                            ("ssm_launches", ssm)):
             r[key] = {name: f["counts"][r["name"]]
                       for name, f in phase.items() if isinstance(f, dict)}
+        r["encdec_vlm_launches"] = {
+            name: ({"with_inputs": f["direct"]["counts"][r["name"]],
+                    "served": f["counts"][r["name"]]} if "direct" in f
+                   else f["counts"][r["name"]])
+            for name, f in encdec_vlm.items() if isinstance(f, dict)}
+    tc = encdec_vlm["whisper-base train"]["counts"]
+    rows[3]["encdec_vlm_launches"] = {"whisper-base train": (
+        tc["flash_attention_bwd_dq"] + tc["flash_attention_bwd_dkv"])}
     train = phase_train(args.profile)
     rows[3]["launches"] = (train["counts"]["flash_attention_bwd_dq"]
                            + train["counts"]["flash_attention_bwd_dkv"])
@@ -3040,8 +3475,9 @@ def main() -> int:
                        "attention_f32_errors": f32, "serve": serve,
                        "workload": workload, "prefix_swap": prefix_swap,
                        "spec_wave": spec_wave, "graphs": graphs,
-                       "lut_serve": lut, "families": families,
-                       "ssm": ssm, "train": train,
+                       "lut_serve": lut, "int8_kv": int8kv,
+                       "families": families, "ssm": ssm,
+                       "encdec_vlm": encdec_vlm, "train": train,
                        "train_grads": grads, "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -3053,7 +3489,8 @@ def main() -> int:
              "library_train_ms", "library_train_graph_ms", "train_bound_ms",
              "workload_launches", "prefix_swap_launches", "spec_launches",
              "tail_launches", "families_launches", "families_shapes",
-             "ssm_launches", "ssm_shapes")
+             "ssm_launches", "ssm_shapes", "int8kv_launches",
+             "encdec_vlm_launches", "encdec_vlm_shapes")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

@@ -1,8 +1,7 @@
 """Model configuration schema + registry (the port's own copy).
 
-Mirrors ``repro.configs.base`` field for field for the families this
-package runs (attention + MLP stacks, MLA, MoE and the Mamba2 SSD
-mixer; the enc-dec and VLM fields wait for their slices), so one
+Mirrors ``repro.configs.base`` field for field (attention + MLP stacks,
+MLA, MoE, the Mamba2 SSD mixer, the encoder-decoder and the VLM), so one
 configuration value means the same thing in both packages.  Differences:
 
 * ``quant_backend`` takes ``"torch"`` (plain PyTorch formulas, the
@@ -20,7 +19,7 @@ import importlib
 from typing import Sequence
 
 __all__ = ["ModelConfig", "LayerSpec", "QUANT_MODES", "get_config",
-           "reduced", "spec_split"]
+           "reduced", "spec_split", "ARCH_NAMES"]
 
 # QuantLinear execution modes a draft model may run under; the verifier
 # of a self-speculative pair is always "dense" (accepted tokens must be
@@ -83,6 +82,13 @@ class ModelConfig:
     conv_width: int = 4
     ssm_chunk: int = 256
 
+    # encoder-decoder
+    n_enc_layers: int = 0
+    enc_seq_len: int = 0               # stub-frontend frame count (whisper)
+
+    # VLM
+    n_patches: int = 0                 # stub-frontend patch count
+
     # activations / embeddings
     act: str = "silu"                  # "silu" (SwiGLU) | "gelu" (GeGLU)
     tie_embeddings: bool = True
@@ -94,7 +100,8 @@ class ModelConfig:
     remat: bool = True                 # recompute each layer in backward
     norm_eps: float = 1e-6
     attn_impl: str = "chunked"         # "chunked" | "flash"
-    kv_cache_dtype: str = "bf16"       # only "bf16" is ported
+    kv_cache_dtype: str = "bf16"       # "bf16" | "int8" (symmetric int8
+    #   per (token, head) with f32 scales; MLA caches stay bf16)
     cache_mode: str = "dense"          # "dense" | "paged"
     page_size: int = 16                # tokens per KV page (paged mode)
     num_pages: int = 0                 # pool size incl. the trash page;
@@ -120,6 +127,10 @@ class ModelConfig:
         return (self.n_layers - n_fixed) // len(self.block_pattern)
 
     @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
+
+    @property
     def d_inner(self) -> int:          # SSM inner width
         return self.ssm_expand * self.d_model
 
@@ -131,12 +142,20 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+ARCH_NAMES = [
+    "gemma3_1b", "gemma_7b", "qwen3_4b", "yi_6b", "mamba2_780m",
+    "phi3_vision_4_2b", "whisper_base", "deepseek_v3_671b",
+    "llama4_maverick_400b_a17b", "jamba_v0_1_52b",
+]
+
 _ALIASES = {
     "gemma3-1b": "gemma3_1b",
     "gemma-7b": "gemma_7b",
     "qwen3-4b": "qwen3_4b",
     "yi-6b": "yi_6b",
     "mamba2-780m": "mamba2_780m",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
+    "whisper-base": "whisper_base",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
@@ -166,7 +185,7 @@ def spec_split(cfg: ModelConfig, draft_mode: str | None = None
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant: same family & layer pattern, tiny dimensions
-    (the reference's rules for the families ported here)."""
+    (the reference's rules)."""
     kw = dict(
         n_layers=len(cfg.prefix_pattern) + len(cfg.block_pattern)
         + len(cfg.suffix_pattern),
@@ -186,4 +205,9 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
     if cfg.sliding_window:
         kw.update(sliding_window=8)
+    if cfg.n_enc_layers:
+        kw.update(n_enc_layers=2, enc_seq_len=32)
+        kw["n_layers"] = 2
+    if cfg.n_patches:
+        kw.update(n_patches=8)
     return cfg.replace(**kw)

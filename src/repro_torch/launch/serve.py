@@ -48,12 +48,14 @@ streams.  On the card the decode chunk (the draft and the verify under
 ``--spec-decode``) replays from CUDA graphs.
 
 ``--arch`` takes gemma3-1b, gemma-7b, qwen3-4b, yi-6b, mamba2-780m,
-deepseek-v3-671b, llama4-maverick-400b-a17b and jamba-v0.1-52b (a mamba
-model prefills at the exact prompt length, so ``--prompt-len`` is then a
-prompt-length bound, not a pad).  ``--reduced`` (the default) runs the
-arch's smoke-scale variant, ``--full`` its published widths and depth;
-weights are random, from seed 0.  It runs
-on the CUDA device, every projection through the CUDA kernels
+phi-3-vision-4.2b, whisper-base, deepseek-v3-671b,
+llama4-maverick-400b-a17b and jamba-v0.1-52b (a mamba model prefills at
+the exact prompt length, so ``--prompt-len`` is then a prompt-length
+bound, not a pad; phi-3-vision and whisper are served text-only, without
+patches or frames, as the reference serves them).  ``--reduced`` (the
+default) runs the arch's smoke-scale variant, ``--full`` its published
+widths and depth; weights are random, from seed 0.  It runs on the CUDA
+device, every projection through the CUDA kernels
 (``--quant-backend cuda``) and attention through the flash and paged
 kernels, unless ``--device cpu`` is given: there the same wrappers run
 their plain versions, and ``--quant-backend torch`` is allowed too.  The

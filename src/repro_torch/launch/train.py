@@ -5,7 +5,11 @@
         [--device cuda]
 
 ``--reduced`` (the default) runs the smoke-scale variant of the arch;
-``--full`` the published widths.  Runs on the CUDA device unless
+``--full`` the published widths.  A VLM (phi-3-vision-4.2b) trains on
+stub patch embeddings and an encoder-decoder (whisper-base) on stub
+frames: N(0, 1) x 0.02 in bf16 from a ``torch.Generator`` seeded with the
+step (the reference draws them from ``PRNGKey(step)``; the values
+differ, the rule is the same).  Runs on the CUDA device unless
 ``--device cpu`` is given.
 """
 
@@ -14,11 +18,35 @@ from __future__ import annotations
 import argparse
 import json
 
+import torch
+
+from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import TrainConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def stub_extras(cfg, batch: int, device="cuda"):
+    """``extra_batch_fn`` for a VLM (``patch_embeds`` (B, n_patches, D))
+    or an encoder-decoder (``frames`` (B, enc_seq_len, D)), else None:
+    N(0, 1) x 0.02 in bf16, drawn on ``device`` from a generator seeded
+    with the step."""
+    if cfg.family == "vlm":
+        key, rows = "patch_embeds", cfg.n_patches
+    elif cfg.is_encdec:
+        key, rows = "frames", cfg.enc_seq_len
+    else:
+        return None
+    device = resolve_device(device)
+
+    def extra(step):
+        gen = torch.Generator(device=device).manual_seed(step)
+        x = torch.randn((batch, rows, cfg.d_model), generator=gen,
+                        device=device, dtype=torch.bfloat16)
+        return {key: x * 0.02}
+    return extra
 
 
 def main(argv=None):
@@ -55,7 +83,9 @@ def main(argv=None):
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch)
 
-    trainer = Trainer(cfg, tcfg, rcfg, dcfg, device=args.device)
+    trainer = Trainer(cfg, tcfg, rcfg, dcfg,
+                      stub_extras(cfg, args.batch, args.device),
+                      device=args.device)
     history = trainer.run()
 
     first, last = history[0]["loss"], history[-1]["loss"]

@@ -1,8 +1,10 @@
-"""Model zoo: layers, GQA and MLA attention, MoE, assembly."""
+"""Model zoo: layers, GQA (self and cross) and MLA attention, MoE, the
+Mamba2 mixer, assembly (decoder-only, encoder-decoder, VLM)."""
 
 from repro_torch.models.transformer import (  # noqa: F401
     copy_paged_cache_page,
     decode_step,
+    encode,
     extract_cache_pages,
     forward,
     init_caches,

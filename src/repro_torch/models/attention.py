@@ -1,13 +1,20 @@
-"""Grouped-query attention and multi-head latent attention (port of the
-GQA and MLA paths of ``repro.models.attention``; cross-attention and the
-int8 KV cache wait for later slices).
+"""Grouped-query attention (self- and cross-attention) and multi-head
+latent attention (port of ``repro.models.attention``).
 
 One implementation of each serves the full-sequence forward, prefill (K/V,
 or MLA's latents, handed back for the cache), context prefill (a prompt
 suffix against cached prefix rows, for the prefix cache) and decode
 (queries against a dense per-slot slab or shared page pools addressed
 through a page table).  Queries are grouped as (KV-heads x group), so head
-``h`` reads KV head ``h // G``.
+``h`` reads KV head ``h // G``.  A cross-attention (the encoder-decoder's
+decoder) takes its K/V from the encoder output, has no RoPE and no cache.
+
+The int8 KV cache (``kv_cache_dtype="int8"``) stores K and V as symmetric
+int8 per (token, head) with f32 scales ``k_scale`` / ``v_scale`` of shape
+``(..., KVH, 1)`` beside them; a decode step scatters the quantized rows
+and dequantizes what it attends in f32, cast to the activations' dtype,
+through ``attention_core`` (the paged-decode kernel reads bf16 pools only,
+so it never runs under int8, as in the reference).  MLA caches stay bf16.
 
 Cache writes are in place: the port updates the slab / pool tensors it is
 given (the reference returns new arrays; the values are the same) and
@@ -181,35 +188,81 @@ def attn_init(cfg, *, generator, device) -> dict:
     return p
 
 
-def _check_kv_dtype(cfg):
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError("only the bf16 KV cache is ported")
+KV_CACHE_DTYPES = ("bf16", "int8")
+
+_INT8_PREFIX_MSG = ("prefix caching over the int8 KV cache is unsupported: "
+                    "cached rows would be dequantized while a solo prefill "
+                    "attends full-precision rows, breaking the bit-match "
+                    "contract")
+
+
+def _kv_cache(cfg, shape, device) -> dict:
+    """K/V leaves of ``shape`` (rows, row, KVH, hd): bf16, or int8 values
+    with per-(token, head) f32 scales under ``kv_cache_dtype="int8"``."""
+    if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise NotImplementedError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: "
+                                  f"the KV cache is one of {KV_CACHE_DTYPES}")
+    if cfg.kv_cache_dtype == "int8":
+        kw = dict(dtype=torch.int8, device=device)
+        sk = dict(dtype=torch.float32, device=device)
+        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
+                "k_scale": torch.zeros(shape[:3] + (1,), **sk),
+                "v_scale": torch.zeros(shape[:3] + (1,), **sk)}
+    kw = dict(dtype=torch.bfloat16, device=device)
+    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device) -> dict:
-    _check_kv_dtype(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    return _kv_cache(cfg, (batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+                     device)
 
 
 def init_paged_kv_cache(cfg, num_pages: int, page_size: int, device) -> dict:
-    _check_kv_dtype(cfg)
-    shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    return _kv_cache(cfg, (num_pages, page_size, cfg.n_kv_heads,
+                           cfg.head_dim), device)
+
+
+def _q8_heads(t):
+    """Symmetric int8 per (token, head): t (B, S, KVH, D) -> (q int8,
+    scale f32 (B, S, KVH, 1)), the reference's formula as it runs: under
+    ``jit`` XLA turns its ``amax / 127`` into a product with the f32
+    reciprocal of 127, so the scale is that product here too (bit for bit
+    the reference's; a true division differs in the last ulp of ~4% of
+    the scales)."""
+    t = t.to(torch.float32)
+    amax = torch.clamp(t.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    scale = amax * (1.0 / 127.0)
+    q = torch.clamp(torch.round(t / scale), -128, 127).to(torch.int8)
+    return q, scale
+
+
+def _quantized(k, v) -> dict:
+    kq, ks = _q8_heads(k)
+    vq, vs = _q8_heads(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _dequant(q, scale, dtype):
+    return (q.to(torch.float32) * scale).to(dtype)
 
 
 def attn_apply(params, cfg, x, *, positions, kind: str = "full",
                cache: dict | None = None, cache_index=None,
+               kv_source=None, causal: bool = True,
                return_cache: bool = False, page_table=None,
                context_start=None):
     """Returns (out, new_cache).  ``cache=None``: K/V from ``x`` (forward
-    / prefill; prefill hands the post-RoPE K/V back).  With ``cache``: the
-    new rows are written at ``cache_index`` (scalar or (B,) per slot) and
-    the queries attend the cache; with ``page_table`` the cache is shared
-    page pools, and under ``attn_impl="flash"`` a one-token step runs the
-    paged-decode kernel, which walks the table itself.
+    / prefill; prefill hands the post-RoPE K/V back, quantized under the
+    int8 KV cache), or from ``kv_source`` for a cross-attention (no RoPE,
+    keys at ``[0, S_kv)``, never causal).  ``causal=False`` makes a
+    self-attention bidirectional (the encoder).  With ``cache``: the new
+    rows are written at ``cache_index`` (scalar or (B,) per slot) and the
+    queries attend the cache; with ``page_table`` the cache is shared page
+    pools, and under ``attn_impl="flash"`` a one-token step over bf16
+    pools runs the paged-decode kernel, which walks the table itself.
+    The flash forward runs for causal self-attention without a cache
+    only; the encoder, cross-attention and every cache read attend in
+    ``attention_core``, as in the reference.
 
     Context prefill (the prefix cache): ``cache`` + ``page_table`` +
     ``context_start``.  ``x`` is a prompt suffix whose queries sit at
@@ -218,34 +271,40 @@ def attn_apply(params, cfg, x, *, positions, kind: str = "full",
     buffer length S (``_splice_context``), and the plain
     ``attention_core`` attends them, as in the reference (the flash
     kernel is not used here).  The pools are not written: the suffix K/V
-    come back as ``new_cache`` for the caller to scatter."""
+    come back as ``new_cache`` for the caller to scatter.  Refused over
+    the int8 KV cache (the reference's rule)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     mode, backend = cfg.quant_mode, cfg.quant_backend
 
     q = linear_apply(params["wq"], x, mode=mode, backend=backend) \
         .reshape(b, s, h, hd)
-    k = linear_apply(params["wk"], x, mode=mode, backend=backend) \
-        .reshape(b, s, kvh, hd)
-    v = linear_apply(params["wv"], x, mode=mode, backend=backend) \
-        .reshape(b, s, kvh, hd)
+    kv_in = x if kv_source is None else kv_source
+    sk_new = kv_in.shape[1]
+    k = linear_apply(params["wk"], kv_in, mode=mode, backend=backend) \
+        .reshape(b, sk_new, kvh, hd)
+    v = linear_apply(params["wv"], kv_in, mode=mode, backend=backend) \
+        .reshape(b, sk_new, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = rms_norm(params["k_norm"], k, cfg.norm_eps)
 
-    theta = cfg.rope_theta_local if kind == "local" else cfg.rope_theta
-    sin, cos = rope(positions, hd, theta)
-    q = apply_rope(q, sin, cos).to(x.dtype)
-    k = apply_rope(k, sin, cos).to(x.dtype)
+    if kv_source is None:              # no RoPE on cross-attention
+        theta = cfg.rope_theta_local if kind == "local" else cfg.rope_theta
+        sin, cos = rope(positions, hd, theta)
+        q = apply_rope(q, sin, cos).to(x.dtype)
+        k = apply_rope(k, sin, cos).to(x.dtype)
 
     scale = cfg.attn_scale or (1.0 / hd ** 0.5)
     window = cfg.sliding_window if kind == "local" else 0
     softcap = cfg.attn_logit_softcap
+    is_causal_self = causal and kv_source is None
 
     new_cache = cache
     paged_kernel = False
     if cache is not None and context_start is not None:
-        _check_kv_dtype(cfg)
+        if "k_scale" in cache:
+            raise NotImplementedError(_INT8_PREFIX_MSG)
         k_full = _splice_context(gather_pages(cache["k"], page_table), k,
                                  context_start)
         v_full = _splice_context(gather_pages(cache["v"], page_table), v,
@@ -254,40 +313,50 @@ def attn_apply(params, cfg, x, *, positions, kind: str = "full",
                                    (b, s))
         if return_cache:
             new_cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-    elif cache is not None and page_table is not None:
-        _check_kv_dtype(cfg)
-        for key, val in (("k", k), ("v", v)):
-            scatter_paged_rows(cache[key], val, page_table, cache_index)
-        paged_kernel = cfg.attn_impl == "flash" and s == 1
-        if not paged_kernel:
-            k_full = gather_pages(cache["k"], page_table)
-            v_full = gather_pages(cache["v"], page_table)
-        sk_total = page_table.shape[1] * cache["k"].shape[1]
-        k_pos = torch.broadcast_to(
-            torch.arange(sk_total, device=x.device)[None, :], (b, sk_total))
     elif cache is not None:
-        _check_kv_dtype(cfg)
-        k_full = scatter_cache_rows(cache["k"], k, cache_index)
-        v_full = scatter_cache_rows(cache["v"], v, cache_index)
-        length = k_full.shape[1]
+        quant_kv = "k_scale" in cache
+        writes = _quantized(k, v) if quant_kv else {"k": k, "v": v}
+        for key, val in writes.items():
+            if page_table is None:
+                scatter_cache_rows(cache[key], val, cache_index)
+            else:
+                scatter_paged_rows(cache[key], val, page_table, cache_index)
+        paged_kernel = (page_table is not None and cfg.attn_impl == "flash"
+                        and not quant_kv and is_causal_self and s == 1)
+
+        def read(key):            # per-slot rows in position order
+            return (cache[key] if page_table is None
+                    else gather_pages(cache[key], page_table))
+
+        if quant_kv:
+            k_full = _dequant(read("k"), read("k_scale"), x.dtype)
+            v_full = _dequant(read("v"), read("v_scale"), x.dtype)
+        elif not paged_kernel:
+            k_full, v_full = read("k"), read("v")
+        length = (cache["k"].shape[1] if page_table is None
+                  else page_table.shape[1] * cache["k"].shape[1])
         k_pos = torch.broadcast_to(
             torch.arange(length, device=x.device)[None, :], (b, length))
     else:
-        k_full, v_full, k_pos = k, v, positions
+        k_full, v_full = k, v
+        k_pos = positions if kv_source is None else torch.broadcast_to(
+            torch.arange(sk_new, device=x.device)[None, :], (b, sk_new))
         if return_cache:
-            new_cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+            new_cache = (_quantized(k, v) if cfg.kv_cache_dtype == "int8"
+                         else {"k": k.to(torch.bfloat16),
+                               "v": v.to(torch.bfloat16)})
 
     if paged_kernel:
         out = paged_flash_decode(q, cache["k"], cache["v"], page_table,
                                  positions[:, -1], scale=scale,
                                  window=window, softcap=softcap)
-    elif cfg.attn_impl == "flash" and cache is None:
+    elif cfg.attn_impl == "flash" and cache is None and is_causal_self:
         out = _flash_local(q, k, v, scale=scale, window=window,
                            softcap=softcap)
     else:
         out = attention_core(q, k_full, v_full, positions, k_pos,
-                             scale=scale, causal=True, window=window,
-                             softcap=softcap)
+                             scale=scale, causal=is_causal_self,
+                             window=window, softcap=softcap)
     out = linear_apply(params["wo"], out.reshape(b, s, h * hd), mode=mode,
                        backend=backend)
     return out, new_cache
@@ -313,8 +382,8 @@ def mla_init(cfg, *, generator, device) -> dict:
 
 def init_mla_cache(cfg, batch: int, max_len: int, device) -> dict:
     """MLA caches the compressed latent and the shared rope key:
-    ``kv_lora_rank + qk_rope_dim`` values a token."""
-    _check_kv_dtype(cfg)
+    ``kv_lora_rank + qk_rope_dim`` values a token, bf16 whatever
+    ``kv_cache_dtype`` says (as in the reference)."""
     kw = dict(dtype=torch.bfloat16, device=device)
     return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), **kw),
             "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), **kw)}
@@ -322,7 +391,6 @@ def init_mla_cache(cfg, batch: int, max_len: int, device) -> dict:
 
 def init_paged_mla_cache(cfg, num_pages: int, page_size: int, device) -> dict:
     """Paged dual of :func:`init_mla_cache`: latent and rope-key pools."""
-    _check_kv_dtype(cfg)
     kw = dict(dtype=torch.bfloat16, device=device)
     return {"c_kv": torch.zeros((num_pages, page_size, cfg.kv_lora_rank),
                                 **kw),
@@ -362,7 +430,6 @@ def mla_apply(params, cfg, x, *, positions, cache=None, cache_index=None,
 
     new_cache = cache
     if cache is not None and context_start is not None:
-        _check_kv_dtype(cfg)
         c_kv_f = _splice_context(gather_pages(cache["c_kv"], page_table),
                                  c_kv, context_start)
         k_rope_f = _splice_context(gather_pages(cache["k_rope"], page_table),
@@ -373,7 +440,6 @@ def mla_apply(params, cfg, x, *, positions, cache=None, cache_index=None,
             new_cache = {"c_kv": c_kv.to(torch.bfloat16),
                          "k_rope": k_rope_new.to(torch.bfloat16)}
     elif cache is not None:
-        _check_kv_dtype(cfg)
         if page_table is not None:
             for key, val in (("c_kv", c_kv), ("k_rope", k_rope_new)):
                 scatter_paged_rows(cache[key], val, page_table, cache_index)

@@ -1,33 +1,39 @@
 """Model assembly (port of ``repro.models.transformer``): stacks of
-layers, each a mixer (GQA or MLA attention, or the Mamba2 SSD mixer)
-followed by an MLP, an MoE block or no FFN (mamba2's blocks).
+layers, each a mixer (GQA or MLA attention, or the Mamba2 SSD mixer), in
+an encoder-decoder's decoder a cross-attention over the encoder output,
+then an MLP, an MoE block or no FFN (mamba2's blocks).
 
-Parameters are a dict ``{"embed", "layers", "final_norm"[, "lm_head"]}``
-where ``layers`` is the fully unrolled list of per-layer dicts
-``{"mixer_norm", "attn" | "mamba"[, "ffn_norm", "mlp" | "moe"]}`` (the
-reference stacks the repeated blocks on a leading ``n_blocks`` axis for
-``lax.scan``; :func:`load_jax_params` unstacks them).  Caches are a list
-with one dict per layer: ``{"k", "v"}`` for GQA layers, ``{"c_kv",
-"k_rope"}`` (latents and rope keys) for MLA layers, as dense per-slot
-slabs ``(B, max_len, ...)`` or shared page pools ``(num_pages,
-page_size, ...)``; ``{"conv", "ssm"}`` for mamba layers, the per-slot
-recurrent state ``(B, ...)`` in either mode (it has no sequence axis).
+Parameters are a dict ``{"embed", "layers", "final_norm"[, "lm_head"][,
+"encoder"]}`` where ``layers`` is the fully unrolled list of per-layer
+dicts ``{"mixer_norm", "attn" | "mamba"[, "cross_norm", "cross"][,
+"ffn_norm", "mlp" | "moe"]}`` (the reference stacks the repeated blocks
+on a leading ``n_blocks`` axis for ``lax.scan``; :func:`load_jax_params`
+unstacks them) and an encoder-decoder's ``encoder`` is ``{"layers",
+"norm"}``, its own stack of ``n_enc_layers`` attention + MLP layers.
+Caches are a list with one dict per decoder layer: ``{"k", "v"}`` for
+GQA layers (``{"k", "v", "k_scale", "v_scale"}`` under the int8 KV
+cache), ``{"c_kv", "k_rope"}`` (latents and rope keys) for MLA layers,
+as dense per-slot slabs ``(B, max_len, ...)`` or shared page pools
+``(num_pages, page_size, ...)``; ``{"conv", "ssm"}`` for mamba layers,
+the per-slot recurrent state ``(B, ...)`` in either mode (it has no
+sequence axis).  A cross-attention keeps no cache: every decode step
+projects K/V from ``enc_out`` again, as the reference does.
 
-Entry points: :func:`forward` (full-sequence training logits and the
-summed MoE aux loss, differentiable; under ``cfg.remat`` each layer is
-recomputed in the backward pass), :func:`prefill` (logits at
-``logits_index`` plus the caches, the sequence leaves grown to
-``max_len``; with ``ctx_*`` a prompt suffix against cached prefix rows)
-and :func:`decode_step` (tokens against the caches at per-slot
-positions).  Training mode never writes a cache.  The page-pool helpers
-below serve the engine's prefix cache (row scatter, the copy-on-write
-page copy) and its host tier (page payloads to and from CPU tensors);
-they take every sequence pool as it comes, of any key and row shape, and
-leave the recurrent state alone.
-
-Not ported yet (``_check_supported`` refuses them): the int8 KV cache;
-the encoder-decoder (whisper) and VLM (phi3-vision) families have no
-config here.
+Entry points: :func:`encode` (the encoder over stub frame embeddings),
+:func:`forward` (full-sequence training logits and the summed MoE aux
+loss, differentiable; a VLM's patch embeddings are prepended, an
+encoder-decoder's frames run through the encoder first; under
+``cfg.remat`` each layer is recomputed in the backward pass),
+:func:`prefill` (logits at ``logits_index`` plus the caches, the
+sequence leaves grown to ``max_len``, and the encoder output; with
+``ctx_*`` a prompt suffix against cached prefix rows) and
+:func:`decode_step` (tokens against the caches at per-slot positions,
+cross-attending ``enc_out`` where given).  Training mode never writes a
+cache.  The page-pool helpers below serve the engine's prefix cache (row
+scatter, the copy-on-write page copy) and its host tier (page payloads
+to and from CPU tensors, each pool's bytes as they are); they take every
+sequence pool as it comes, of any key, row shape and dtype, and leave
+the recurrent state alone.
 """
 
 from __future__ import annotations
@@ -36,9 +42,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.linear import linear_init, prepare_quantized
 from repro_torch.models.attention import (
+    KV_CACHE_DTYPES,
     attn_apply,
     attn_init,
     init_kv_cache,
@@ -66,29 +73,35 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import moe_apply, moe_init
 
-__all__ = ["model_init", "load_jax_params", "prepare_params", "forward",
-           "prefill", "decode_step", "init_caches", "init_paged_caches",
+__all__ = ["model_init", "load_jax_params", "prepare_params", "encode",
+           "forward", "prefill", "decode_step", "init_caches",
+           "init_paged_caches",
            "merge_slot_caches", "merge_slot_paged_caches",
            "scatter_prefill_paged_caches", "copy_paged_cache_page",
            "extract_cache_pages", "insert_cache_pages"]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Refuse what is not ported yet: the int8 KV cache.  The
-    encoder-decoder (whisper) and VLM (phi3-vision) families have no
-    config in this package yet, and their fields (``n_enc_layers``,
-    ``n_patches``) no place in ``ModelConfig``."""
+    """Refuse what the reference does not run either: layers other than
+    an attention (GQA or MLA) or mamba mixer with an MLP, an MoE block or
+    no FFN, and a KV cache other than bf16 or int8."""
     for spec in cfg.layer_specs:
         if spec.mixer not in ("attn", "mamba") \
                 or spec.ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: {spec} is not ported: layers are an "
                 f"attention (GQA or MLA) or mamba mixer with an MLP, an MoE "
-                f"block or no FFN (the encoder-decoder and VLM families "
-                f"are not ported yet)")
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError("only the bf16 KV cache is ported (the "
-                                  "int8 KV cache is not)")
+                f"block or no FFN")
+    if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise NotImplementedError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: "
+                                  f"the KV cache is one of {KV_CACHE_DTYPES}")
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's stack: ``n_enc_layers`` attention + MLP layers."""
+    return cfg.replace(n_layers=cfg.n_enc_layers,
+                       block_pattern=(LayerSpec(),), prefix_pattern=(),
+                       suffix_pattern=())
 
 
 _ATTN_LINEARS = {"mla": ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo"),
@@ -96,16 +109,20 @@ _ATTN_LINEARS = {"mla": ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo"),
 
 
 def _linears(params: dict):
-    """Every projection the quant modes run: attention, the mamba mixer's
-    ``in_proj`` and ``out_proj``, MLP and the shared expert (the bf16
-    expert stacks stay bf16, as in the reference)."""
-    for layer in params["layers"]:
+    """Every projection the quant modes run, the encoder's included:
+    attention and cross-attention, the mamba mixer's ``in_proj`` and
+    ``out_proj``, MLP and the shared expert (the bf16 expert stacks stay
+    bf16, as in the reference)."""
+    for layer in params["layers"] + params.get("encoder", {}).get(
+            "layers", []):
         if "attn" in layer:
             attn = layer["attn"]
             yield from (attn[n] for n in _ATTN_LINEARS[
                 "mla" if "wkv_b" in attn else "gqa"])
         else:
             yield from (layer["mamba"][n] for n in ("in_proj", "out_proj"))
+        if "cross" in layer:
+            yield from (layer["cross"][n] for n in _ATTN_LINEARS["gqa"])
         if "mlp" in layer:
             ffn = layer["mlp"]
         else:
@@ -123,36 +140,51 @@ def prepare_params(params: dict, cfg: ModelConfig) -> dict:
     return params
 
 
+def _layer_init(cfg: ModelConfig, spec, *, cross: bool, generator,
+                device) -> dict:
+    kw = dict(generator=generator, device=device)
+    layer = {"mixer_norm": rms_norm_init(cfg.d_model, device)}
+    if spec.mixer == "mamba":
+        layer["mamba"] = mamba_init(cfg, **kw)
+    else:
+        layer["attn"] = (mla_init if spec.attn_kind == "mla"
+                         else attn_init)(cfg, **kw)
+    if cross:
+        layer["cross_norm"] = rms_norm_init(cfg.d_model, device)
+        layer["cross"] = attn_init(cfg, **kw)
+    if spec.ffn != "none":
+        layer["ffn_norm"] = rms_norm_init(cfg.d_model, device)
+        if spec.ffn == "moe":
+            layer["moe"] = moe_init(cfg, **kw)
+        else:
+            layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, **kw)
+    return layer
+
+
 def model_init(cfg: ModelConfig, *, seed: int = 0,
                device="cuda") -> dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` (the
     reference's init rules: He-scaled projections and expert stacks, 0.02
     embedding and f32 router, zero norm gains; the mamba mixer's as in
-    ``mamba_init``), quantized once for ``cfg.quant_mode``."""
+    ``mamba_init``; an encoder-decoder's decoder layers carry a
+    cross-attention and its encoder a stack of its own), quantized once
+    for ``cfg.quant_mode``."""
     _check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=gen, device=device)
-    layers = []
-    for spec in cfg.layer_specs:
-        layer = {"mixer_norm": rms_norm_init(cfg.d_model, device)}
-        if spec.mixer == "mamba":
-            layer["mamba"] = mamba_init(cfg, **kw)
-        else:
-            layer["attn"] = (mla_init if spec.attn_kind == "mla"
-                             else attn_init)(cfg, **kw)
-        if spec.ffn != "none":
-            layer["ffn_norm"] = rms_norm_init(cfg.d_model, device)
-            if spec.ffn == "moe":
-                layer["moe"] = moe_init(cfg, **kw)
-            else:
-                layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, **kw)
-        layers.append(layer)
+    layers = [_layer_init(cfg, spec, cross=cfg.is_encdec, **kw)
+              for spec in cfg.layer_specs]
     params = {"embed": embed_init(cfg.vocab_size, cfg.d_model, **kw),
               "layers": layers,
               "final_norm": rms_norm_init(cfg.d_model, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(cfg.d_model, cfg.vocab_size, **kw)
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "layers": [_layer_init(cfg, spec, cross=False, **kw)
+                       for spec in _enc_cfg(cfg).layer_specs],
+            "norm": rms_norm_init(cfg.d_model, device)}
     return prepare_params(params, cfg)
 
 
@@ -181,17 +213,23 @@ def load_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> dict:
                 for k, v in node.items()}
         raise TypeError(f"unexpected node {type(node)}")
 
-    stack = tree["stack"]
-    per_block = [conv(p) for p in stack["prefix"]]
-    blocks = stack["blocks"]
-    for i in range(cfg.n_blocks):
-        for j in range(len(cfg.block_pattern)):
-            per_block.append(_index_tree(conv(blocks[str(j)]), i))
-    per_block += [conv(p) for p in stack["suffix"]]
-    params = {"embed": conv(tree["embed"]), "layers": per_block,
+    def unstack(stack, c):
+        layers = [conv(p) for p in stack["prefix"]]
+        blocks = [conv(stack["blocks"][str(j)])
+                  for j in range(len(c.block_pattern))] if c.n_blocks else []
+        for i in range(c.n_blocks):
+            layers += [_index_tree(blk, i) for blk in blocks]
+        return layers + [conv(p) for p in stack["suffix"]]
+
+    params = {"embed": conv(tree["embed"]),
+              "layers": unstack(tree["stack"], cfg),
               "final_norm": conv(tree["final_norm"])}
     if "lm_head" in tree:
         params["lm_head"] = conv(tree["lm_head"])
+    if "encoder" in tree:
+        params["encoder"] = {
+            "layers": unstack(tree["encoder"]["stack"], _enc_cfg(cfg)),
+            "norm": conv(tree["encoder"]["norm"])}
     return prepare_params(params, cfg)
 
 
@@ -205,10 +243,12 @@ def _index_tree(node: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _layer_apply(p, cfg: ModelConfig, spec, x, *, positions, cache=None,
-                 cache_index=None, mode="train", page_table=None,
-                 context_start=None):
-    """One pre-norm layer: attention (GQA or MLA) or the mamba mixer, then
-    an MLP, an MoE block or no FFN; returns (x, new_cache, aux loss)."""
+                 cache_index=None, enc_out=None, causal=True, mode="train",
+                 page_table=None, context_start=None):
+    """One pre-norm layer: attention (GQA or MLA) or the mamba mixer, the
+    cross-attention over ``enc_out`` where the layer has one and
+    ``enc_out`` is given, then an MLP, an MoE block or no FFN; returns
+    (x, new_cache, aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(p["mixer_norm"], x, cfg.norm_eps)
     if spec.mixer == "mamba":
@@ -224,8 +264,14 @@ def _layer_apply(p, cfg: ModelConfig, spec, x, *, positions, cache=None,
         if spec.attn_kind == "mla":
             out, c = mla_apply(p["attn"], cfg, h, **kw)
         else:
-            out, c = attn_apply(p["attn"], cfg, h, kind=spec.attn_kind, **kw)
+            out, c = attn_apply(p["attn"], cfg, h, kind=spec.attn_kind,
+                                causal=causal, **kw)
     x = x + out
+    if "cross" in p and enc_out is not None:
+        h = rms_norm(p["cross_norm"], x, cfg.norm_eps)
+        out, _ = attn_apply(p["cross"], cfg, h, positions=positions,
+                            kv_source=enc_out, causal=False)
+        x = x + out
     if spec.ffn == "none":
         return x, c, aux
     h = rms_norm(p["ffn_norm"], x, cfg.norm_eps)
@@ -238,13 +284,14 @@ def _layer_apply(p, cfg: ModelConfig, spec, x, *, positions, cache=None,
 
 
 def _stack_apply(params, cfg: ModelConfig, x, *, positions, caches=None,
-                 cache_index=None, mode="train", page_table=None,
-                 context_start=None):
+                 cache_index=None, enc_out=None, causal=True, mode="train",
+                 page_table=None, context_start=None):
     """Returns (x, new_caches, total aux loss); caches only for prefill /
-    decode.  In training with ``cfg.remat`` every layer runs under a
-    non-reentrant checkpoint: only its input is kept, the rest is
-    recomputed in the backward pass (the reference's ``jax.checkpoint``
-    per block)."""
+    decode.  ``params["layers"]`` runs in ``cfg.layer_specs`` order (the
+    decoder's, or with ``_enc_cfg`` the encoder's).  In training with
+    ``cfg.remat`` every layer runs under a non-reentrant checkpoint: only
+    its input is kept, the rest is recomputed in the backward pass (the
+    reference's ``jax.checkpoint`` per block)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     new_caches = []
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -252,13 +299,15 @@ def _stack_apply(params, cfg: ModelConfig, x, *, positions, caches=None,
         if remat:
             x, c, aux = checkpoint(
                 lambda x_, p_=p, s_=spec: _layer_apply(
-                    p_, cfg, s_, x_, positions=positions),
+                    p_, cfg, s_, x_, positions=positions, enc_out=enc_out,
+                    causal=causal),
                 x, use_reentrant=False)
         else:
             x, c, aux = _layer_apply(
                 p, cfg, spec, x, positions=positions,
                 cache=None if caches is None else caches[li],
-                cache_index=cache_index, mode=mode, page_table=page_table,
+                cache_index=cache_index, enc_out=enc_out, causal=causal,
+                mode=mode, page_table=page_table,
                 context_start=context_start)
         total_aux = total_aux + aux
         new_caches.append(c)
@@ -275,33 +324,58 @@ def _logits(params, cfg: ModelConfig, x):
         .to(torch.float32)
 
 
-def _embed(params, cfg, tokens):
-    return embed_apply(params["embed"], tokens,
-                       scale_by_sqrt_dim=cfg.emb_scale_by_sqrt_dim)
+def encode(params, cfg: ModelConfig, frames):
+    """The encoder over stub-frontend frame embeddings (B, S_enc, D):
+    bidirectional self-attention (with RoPE, in ``attention_core``) + MLP
+    layers, then the encoder's final norm."""
+    b, s, _ = frames.shape
+    pos = torch.broadcast_to(torch.arange(s, device=frames.device)[None, :],
+                             (b, s))
+    x, _, _ = _stack_apply(params["encoder"], _enc_cfg(cfg), frames,
+                           positions=pos, causal=False, mode="train")
+    return rms_norm(params["encoder"]["norm"], x, cfg.norm_eps)
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """Training logits.  tokens: (B, S) int.  Returns ``(logits (B, S, V)
+def _embed_inputs(params, cfg, tokens, extra_embeds=None):
+    """Token embeddings, a VLM's patch embeddings (B, P, D) prepended."""
+    x = embed_apply(params["embed"], tokens,
+                    scale_by_sqrt_dim=cfg.emb_scale_by_sqrt_dim)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
+            frames=None):
+    """Training logits.  tokens: (B, S) int.  Returns ``(logits (B, S', V)
     f32, aux)``; ``aux`` is the MoE auxiliary loss summed over the MoE
-    layers (0 without one).  Differentiable with respect to every float
-    leaf of ``params``."""
-    x = _embed(params, cfg, tokens)
+    layers (0 without one).  A VLM's ``extra_embeds`` (B, P, D) are
+    prepended (S' = P + S); an encoder-decoder's ``frames`` (B, S_enc, D)
+    run through the encoder first and every decoder layer cross-attends
+    its output.  Differentiable with respect to every float leaf of
+    ``params``."""
+    enc_out = encode(params, cfg, frames) if frames is not None else None
+    x = _embed_inputs(params, cfg, tokens, extra_embeds)
     b, s, _ = x.shape
     pos = torch.broadcast_to(torch.arange(s, device=x.device)[None, :],
                              (b, s))
-    x, _, aux = _stack_apply(params, cfg, x, positions=pos, mode="train")
+    x, _, aux = _stack_apply(params, cfg, x, positions=pos, enc_out=enc_out,
+                             mode="train")
     return _logits(params, cfg, x), aux
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
-            logits_index=None, ctx_caches=None, ctx_table=None,
-            ctx_start=None):
-    """Run the prompt; returns (logits (B, 1, V), caches).
-    ``logits_index`` (scalar or (B,)) picks the position whose logits are
-    returned (default: the last), so a prompt zero-padded to a fixed slot
-    budget returns its real last token's logits.  With ``max_len`` the
-    caches are zero-grown to that length.
+def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
+            frames=None, max_len: int | None = None, logits_index=None,
+            ctx_caches=None, ctx_table=None, ctx_start=None):
+    """Run the prompt; returns (logits (B, 1, V), caches, enc_out).
+    ``extra_embeds`` (a VLM's patches) are prepended to the prompt, and
+    positions and ``logits_index`` count them; ``frames`` run through the
+    encoder, whose output ``enc_out`` (None without frames) the decode
+    steps take.  ``logits_index`` (scalar or (B,)) picks the position
+    whose logits are returned (default: the last), so a prompt
+    zero-padded to a fixed slot budget returns its real last token's
+    logits.  With ``max_len`` the caches are zero-grown to that length.
 
     Context prefill: with ``ctx_caches`` (the page pools), ``ctx_table``
     (the slot's (1, max_pages) table row) and ``ctx_start`` (an int or a
@@ -313,15 +387,17 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
     layer's state is the prompt's whole: end padding would run through it,
     so its prompts come unpadded (the engine prefills them at their exact
     length)."""
-    x = _embed(params, cfg, tokens)
+    enc_out = encode(params, cfg, frames) if frames is not None else None
+    x = _embed_inputs(params, cfg, tokens, extra_embeds)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)[None, :]
     if ctx_start is not None:
         pos = pos + torch.as_tensor(ctx_start, device=x.device)
     pos = torch.broadcast_to(pos, (b, s))
     x, caches, _ = _stack_apply(params, cfg, x, positions=pos,
-                                mode="prefill", caches=ctx_caches,
-                                page_table=ctx_table, context_start=ctx_start)
+                                enc_out=enc_out, mode="prefill",
+                                caches=ctx_caches, page_table=ctx_table,
+                                context_start=ctx_start)
     if logits_index is None:
         x_last = x[:, -1:]
     else:
@@ -337,25 +413,28 @@ def prefill(params, cfg: ModelConfig, tokens, *, max_len: int | None = None,
             v, (0, 0) * (v.ndim - 2) + (0, max_len - s))
             if k in _SEQ_CACHE_KEYS else v
             for k, v in c.items()} for c in caches]
-    return logits, caches
+    return logits, caches, enc_out
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, token, caches, index, *,
-                page_table=None):
+                enc_out=None, page_table=None):
     """One decode step.  token: (B, S) int (classically S == 1); ``index``
     is the cache position of ``token[:, 0]``, a scalar or (B,) per-slot
     vector.  With ``page_table`` (B, max_pages) the caches are page pools.
-    Caches are updated in place (a mamba layer's state included; it
-    takes S == 1 only).  Returns (logits (B, S, V), caches)."""
-    x = _embed(params, cfg, token)
+    With ``enc_out`` (from :func:`prefill`) every decoder layer
+    cross-attends it.  Caches are updated in place (a mamba layer's state
+    included; it takes S == 1 only).  Returns (logits (B, S, V),
+    caches)."""
+    x = _embed_inputs(params, cfg, token)
     b, s = x.shape[0], token.shape[1]
     index = torch.as_tensor(index, device=x.device).to(torch.int64)
     pos = (torch.broadcast_to(index.reshape(-1, 1), (b, 1))
            + torch.arange(s, device=x.device)[None, :])
     x, caches, _ = _stack_apply(params, cfg, x, positions=pos,
                                 caches=caches, cache_index=index,
-                                mode="decode", page_table=page_table)
+                                enc_out=enc_out, mode="decode",
+                                page_table=page_table)
     return _logits(params, cfg, x), caches
 
 
@@ -491,17 +570,22 @@ def extract_cache_pages(caches: list, pages, pad_to: int | None = None
                         ) -> list:
     """Copy pool pages ``pages`` of every layer's pools to host memory in
     one transfer: one payload per page, a flat CPU tensor holding the
-    page's rows of every pool, layer-major in key order (GQA: K then V;
-    MLA: latents then rope keys), so pools of any row shape share one
-    payload.  With :func:`insert_cache_pages` a page round-trips bit for
-    bit (swap-out and prefix demotion).  ``pad_to`` pads the gather with
-    the trash page, so every call has one shape; the padded rows are
-    dropped."""
+    page's rows of every pool, layer-major in key order (GQA: K then V,
+    and under the int8 KV cache their scales; MLA: latents then rope
+    keys), each pool's bytes as they are.  Where every pool has one dtype
+    the payload is in that dtype; where they differ (int8 K/V beside f32
+    scales) it is the raw bytes, ``uint8``, so no pool is widened.  With
+    :func:`insert_cache_pages` a page round-trips bit for bit (swap-out
+    and prefix demotion).  ``pad_to`` pads the gather with the trash page,
+    so every call has one shape; the padded rows are dropped."""
     pages = list(pages)
     pools = sequence_pools(caches)
     idx = torch.as_tensor(_pad_pages(pages, pad_to), device=pools[0].device)
-    rows = torch.cat([pool[idx].reshape(len(idx), -1) for pool in pools],
-                     dim=1).cpu()
+    rows = torch.cat([pool[idx].reshape(len(idx), -1).view(torch.uint8)
+                      for pool in pools], dim=1).cpu()
+    dtypes = {pool.dtype for pool in pools}
+    if len(dtypes) == 1:
+        rows = rows.view(dtypes.pop())
     return [rows[j].clone() for j in range(len(pages))]
 
 
@@ -509,22 +593,23 @@ def insert_cache_pages(caches: list, pages, payloads, pad_to: int | None = None
                        ) -> list:
     """Write host payloads (from :func:`extract_cache_pages`) into pool
     pages ``pages``, in place, in one transfer (swap-in and prefix
-    promotion): each payload is split back into the pools' rows.
-    ``pad_to`` pads with zero rows written onto the trash page, which no
-    query attends."""
+    promotion): each payload's bytes are split back into the pools' rows
+    in their own dtypes.  ``pad_to`` pads with zero rows written onto the
+    trash page, which no query attends."""
     pages = list(pages)
     if len(pages) != len(payloads):
         raise ValueError(f"{len(pages)} pages but {len(payloads)} payloads")
     padded = _pad_pages(pages, pad_to)
     pools = sequence_pools(caches)
     dev = pools[0].device
-    rows = torch.stack(list(payloads))
+    rows = torch.stack(list(payloads)).view(torch.uint8)
     if len(padded) > len(pages):
         rows = torch.cat([rows, rows.new_zeros(
             (len(padded) - len(pages), rows.shape[1]))])
     rows = rows.to(dev)
     idx = torch.as_tensor(padded, device=dev)
-    width = [pool[0].numel() for pool in pools]
+    width = [pool[0].numel() * pool.element_size() for pool in pools]
     for pool, part in zip(pools, torch.split(rows, width, dim=1)):
-        pool[idx] = part.reshape(len(padded), *pool.shape[1:]).to(pool.dtype)
+        pool[idx] = part.contiguous().view(pool.dtype).reshape(
+            len(padded), *pool.shape[1:])
     return caches

@@ -77,6 +77,13 @@ Each batch slot is an independent sequence sharing one model:
   block at per-lane positions and table rows, before the decode chunk.
   The monolithic prefill is then never run.
 * **Priority queue** with optional aging, as in the reference.
+* **Families and the KV dtype.**  An encoder-decoder (whisper) and a VLM
+  (phi-3-vision) are served text-only, as the reference's engine serves
+  them: no frames and no patches, so the decoder's cross-attention does
+  not run.  Under ``kv_cache_dtype="int8"`` the prefix cache and the wave
+  prefill are refused (the reference's rules: a cached or earlier-chunk
+  row would be attended dequantized where a solo prefill attends full
+  precision); the host swap and speculative decoding run.
 
 Not ported yet (the knobs raise ``NotImplementedError``): tensor
 parallelism and the device mesh.
@@ -538,7 +545,8 @@ class Engine:
                 raise ValueError("prefix_cache=True is incompatible with "
                                  "kv_cache_dtype='int8': cached rows are "
                                  "attended dequantized while a solo "
-                                 "prefill attends full precision")
+                                 "prefill attends full precision, "
+                                 "breaking the bit-match contract")
         if self._swap:
             if not self._paged:
                 raise ValueError("swap_mode='host' requires "
@@ -573,6 +581,13 @@ class Engine:
                                  "incompatible with mamba-mixer models: "
                                  "chunk boundaries are cache positions, "
                                  "and recurrent state has none")
+            if self.cfg.kv_cache_dtype == "int8":
+                raise ValueError("prefill_chunk/admit_group are "
+                                 "incompatible with kv_cache_dtype="
+                                 "'int8': earlier chunks are attended "
+                                 "dequantized while a monolithic "
+                                 "prefill attends full precision, "
+                                 "breaking the bit-match contract")
             if (scfg.prefill_chunk or scfg.prefill_len) < 1:
                 raise ValueError("admit_group > 1 with prefill_chunk=0 "
                                  "needs prefill_len > 0 to serve as the "
@@ -738,9 +753,10 @@ class Engine:
     @property
     def cache_token_bytes(self) -> int:
         """KV-cache bytes per cached token, summed over every layer's
-        sequence leaves (K and V, or MLA's latents and rope keys; a mamba
-        layer's per-slot state holds no token's row); times a request's
-        ``cache_rows`` is its cache footprint."""
+        sequence leaves (K and V, with their f32 scales under the int8 KV
+        cache, or MLA's latents and rope keys; a mamba layer's per-slot
+        state holds no token's row); times a request's ``cache_rows`` is
+        its cache footprint."""
         rows = (self._num_pages * self._page_size if self._paged
                 else self.scfg.batch * self.scfg.max_len)
         total = sum(t.numel() * t.element_size()
@@ -1059,10 +1075,10 @@ class Engine:
         self._stages["prefill"].record(padded, row, *args)
         start_t, src_t, dst_t = args
         copy_paged_cache_page(self._caches, src_t, dst_t)
-        logits, one = prefill(self.params, self.cfg, padded,
-                              logits_index=sfx_len - 1,
-                              ctx_caches=self._caches, ctx_table=row[None],
-                              ctx_start=start_t)
+        logits, one, _ = prefill(self.params, self.cfg, padded,
+                                 logits_index=sfx_len - 1,
+                                 ctx_caches=self._caches,
+                                 ctx_table=row[None], ctx_start=start_t)
         scatter_prefill_paged_caches(self._caches, one, slot, row, start_t)
         self._prefix_insert(req.chunk_keys, self._slot_pages[slot])
         self.prefill_tokens += sfx_len
@@ -1128,8 +1144,8 @@ class Engine:
         padded[0, :p_len] = torch.as_tensor(req.prompt, device=self.device)
         self.prefill_tokens += p_len
         self._stages["prefill"].record(padded, row)
-        logits, one = prefill(self.params, self.cfg, padded, max_len=grow_to,
-                              logits_index=p_len - 1)
+        logits, one, _ = prefill(self.params, self.cfg, padded,
+                                 max_len=grow_to, logits_index=p_len - 1)
         if self._paged:
             merge_slot_paged_caches(self._caches, one, slot, row)
         else:

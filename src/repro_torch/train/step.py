@@ -1,7 +1,9 @@
 """Training step: loss, gradient accumulation, compression hook, MTP
 (port of ``repro.train.step``).
 
-* next-token cross-entropy with label masking (-1 = ignore),
+* next-token cross-entropy with label masking (-1 = ignore), over the
+  token grid (a VLM's patch positions are cut off; an encoder-decoder's
+  frames feed the encoder),
   ``logsumexp - logits[label]`` (the reference's one-hot product, read by
   a gather), plus the MoE aux
   loss (0 without an MoE layer), the z-loss and the
@@ -71,12 +73,19 @@ def z_loss(logits, labels):
 
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(f"{cfg.family} training inputs are not "
-                                  f"ported yet")
-
+    """``loss_fn(params, batch) -> (loss, metrics)``.  A VLM's batch
+    carries ``patch_embeds`` (B, P, D), prepended to the tokens, and its
+    logits are cut back to the token grid; an encoder-decoder's carries
+    ``frames`` (B, S_enc, D) for the encoder."""
     def loss_fn(params, batch):
-        logits, aux = forward(params, cfg, batch["tokens"])
+        extra = {}
+        if cfg.family == "vlm":
+            extra["extra_embeds"] = batch["patch_embeds"]
+        if cfg.is_encdec:
+            extra["frames"] = batch["frames"]
+        logits, aux = forward(params, cfg, batch["tokens"], **extra)
+        if cfg.family == "vlm":
+            logits = logits[:, -batch["tokens"].shape[1]:]
         labels = batch["labels"]
         loss = cross_entropy(logits[:, :-1], labels[:, :-1])
         loss = loss + tcfg.aux_loss_weight * aux

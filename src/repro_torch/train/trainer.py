@@ -4,16 +4,17 @@
 Deterministic data slices, checkpoint-restart that reproduces the exact
 batch sequence (``SyntheticLM.batch(step)`` is a pure function of the
 step, and the checkpoint holds parameters and optimizer state bit for
-bit), heartbeat / straggler hooks around each step.  Runs on the CUDA
-device unless the caller passes ``device="cpu"``.  The reference's
-``extra_batch_fn`` (extra VLM / enc-dec inputs) is not ported: those
-families do not train here yet.
+bit), heartbeat / straggler hooks around each step.  ``extra_batch_fn(step)``
+returns the inputs a VLM or an encoder-decoder needs beside the tokens
+(``patch_embeds`` or ``frames``), merged into each step's batch.  Runs on
+the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import torch
 
@@ -42,11 +43,13 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
-                 rcfg: TrainerConfig, dcfg: DataConfig, *, device="cuda"):
+                 rcfg: TrainerConfig, dcfg: DataConfig,
+                 extra_batch_fn: Callable | None = None, *, device="cuda"):
         self.cfg, self.tcfg, self.rcfg = cfg, tcfg, rcfg
         self.device = resolve_device(device)
         self.data = SyntheticLM(dcfg, rcfg.host_id, rcfg.n_hosts,
                                 device=self.device)
+        self.extra_batch_fn = extra_batch_fn
         self.step_fn = make_train_step(cfg, tcfg)
         self.ckpt = (Checkpointer(rcfg.checkpoint_dir)
                      if rcfg.checkpoint_dir else None)
@@ -69,12 +72,18 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _batch(self, step: int) -> dict:
+        batch = self.data.batch(step)
+        if self.extra_batch_fn:
+            batch.update(self.extra_batch_fn(step))
+        return batch
+
     def run(self) -> list[dict]:
         history = []
         rcfg = self.rcfg
         for step in range(self.start_step, rcfg.steps):
             t0 = time.time()
-            batch = self.data.batch(step)
+            batch = self._batch(step)
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch)
             self._sync()

@@ -319,8 +319,8 @@ def test_prefill_then_decode_match(monkeypatch, arch, mode, cache_mode):
         with _reference_run(arch, mode):
             jl, jone, _ = jprefill(jp, jcfg, jnp.asarray(p), max_len=grow,
                                    logits_index=lens[row] - 1)
-        tl, tone = prefill(tp, tcfg, torch.from_numpy(p), max_len=grow,
-                           logits_index=lens[row] - 1)
+        tl, tone, _ = prefill(tp, tcfg, torch.from_numpy(p), max_len=grow,
+                              logits_index=lens[row] - 1)
         skip = routes.flipped(1, p.shape[1])[:, lens[row] - 1:lens[row]]
         _close_unflipped(tl, jl, skip)
         if cache_mode == "dense":

@@ -12,7 +12,9 @@ raw pointers), and the launch-counter registry covers every counter.
 
 Marked ``cuda`` (skipped without a card; no JAX): a captured engine's
 streams equal a ``capture=False`` engine's token for token at reduced
-width in each mode (yi-6b; the MLA, MoE and SSD mixer families too),
+width in each mode (yi-6b, on the bf16 and the int8 KV cache; the MLA,
+MoE and SSD mixer families and whisper-base and phi-3-vision served
+text-only too),
 one capture per stage once warm, equal launch counters; the MoE block on
 the card repeats bit for bit and routes as on the CPU; the sampler on the
 card equals the sampler on the CPU.  Run on
@@ -302,6 +304,31 @@ def test_captured_ssm_streams_equal_eager(cuda, arch, mode, over):
     _captured_vs_eager(cuda, reduced(get_config(arch)).replace(
         quant_mode=mode, quant_backend="cuda", attn_impl="flash"), over,
         launches=mode != "dense" or arch == "jamba-v0.1-52b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode,cfg_over,over", [
+    ("yi-6b", "w8a8_nibble", {"kv_cache_dtype": "int8"}, {}),
+    ("yi-6b", "dense", {"kv_cache_dtype": "int8"},
+     {"alloc_mode": "incremental", "num_pages": 6, "swap_mode": "host"}),
+    ("yi-6b", "dense", {"kv_cache_dtype": "int8"},
+     {"spec_decode": True, "spec_quant_mode": "w8a8_nibble",
+      "alloc_mode": "incremental"}),
+    ("phi-3-vision-4.2b", "w8a8_nibble", {}, {}),
+    ("whisper-base", "w8a8_nibble", {}, {}),
+    ("whisper-base", "dense", {}, {"cache_mode": "dense",
+                                   "page_size": None})],
+    ids=["int8-nibble", "int8-swap", "int8-spec", "phi3v-nibble",
+         "whisper-nibble", "whisper-slab"])
+def test_captured_int8_and_text_only_streams_equal_eager(cuda, arch, mode,
+                                                         cfg_over, over):
+    """The int8 KV cache (its decode gathers and dequantizes pages; the
+    paged kernel stays off) and the encoder-decoder and VLM families
+    served text-only (reduced) through a captured and an eager engine:
+    streams and launch counters equal, one capture per stage."""
+    _captured_vs_eager(cuda, reduced(get_config(arch)).replace(
+        quant_mode=mode, quant_backend="cuda", attn_impl="flash",
+        **cfg_over), over)
 
 
 @pytest.mark.cuda

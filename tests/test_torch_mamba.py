@@ -358,7 +358,7 @@ def test_prefill_grows_sequence_leaves_only_and_decode_writes_in_place():
     params = model_init(cfg, seed=0, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, 5)))
-    _, one = prefill(params, cfg, toks, max_len=12)
+    _, one, _ = prefill(params, cfg, toks, max_len=12)
     big = init_caches(cfg, 2, 12, device="cpu")
     for spec, c in zip(cfg.layer_specs, one):
         if spec.mixer == "mamba":

@@ -150,8 +150,8 @@ def test_prefill_then_decode_match(arch, mode, cache_mode):
         p = prompts[row:row + 1]
         jl, jone, _ = jprefill(jp, jcfg, jnp.asarray(p), max_len=grow,
                                logits_index=lens[row] - 1)
-        tl, tone = prefill(tp, tcfg, torch.from_numpy(p), max_len=grow,
-                           logits_index=lens[row] - 1)
+        tl, tone, _ = prefill(tp, tcfg, torch.from_numpy(p), max_len=grow,
+                              logits_index=lens[row] - 1)
         _close(tl, jl)
         v_j = np.asarray(jone["blocks"]["0"]["attn"]["v"][0]
                          .astype(jnp.float32))
@@ -214,7 +214,7 @@ def test_scalar_index_decode_matches():
     jcfg, jp, tcfg, tp = _pair("yi-6b", quant_mode="w8a8_nibble")
     toks = np.random.default_rng(2).integers(0, 256, (2, 6)).astype(np.int32)
     jl, jc, _ = jprefill(jp, jcfg, jnp.asarray(toks), max_len=10)
-    tl, tc = prefill(tp, tcfg, torch.from_numpy(toks), max_len=10)
+    tl, tc, _ = prefill(tp, tcfg, torch.from_numpy(toks), max_len=10)
     _close(tl, jl)
     nxt = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)[:, None]
     jl, _ = jdecode(jp, jcfg, jnp.asarray(nxt), jc, 6)
@@ -242,6 +242,9 @@ def test_forward_gradients_with_and_without_remat(impl):
 
 
 def test_unported_layers_raise():
-    cfg = reduced(get_config("yi-6b")).replace(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError):
+    # bf16 and int8 are the reference's KV dtypes; anything else raises
+    cfg = reduced(get_config("yi-6b")).replace(kv_cache_dtype="fp8")
+    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
         init_caches(cfg, 2, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
+        model_init(cfg, device="cpu")

@@ -199,10 +199,10 @@ def test_context_prefill_matches_reference(mode, backend, start):
                            logits_index=sfx_len - 1, ctx_caches=jc,
                            ctx_table=jnp.asarray(row)[None],
                            ctx_start=jnp.int32(start))
-    tl, tone = prefill(tp, tcfg, torch.from_numpy(suffix).long(),
-                       logits_index=sfx_len - 1, ctx_caches=tc,
-                       ctx_table=torch.from_numpy(row)[None],
-                       ctx_start=torch.tensor(start))
+    tl, tone, _ = prefill(tp, tcfg, torch.from_numpy(suffix).long(),
+                          logits_index=sfx_len - 1, ctx_caches=tc,
+                          ctx_table=torch.from_numpy(row)[None],
+                          ctx_start=torch.tensor(start))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32),
                                atol=te.LOGIT_TOL, rtol=0)
     for key in ("k", "v"):
@@ -231,11 +231,11 @@ def test_context_prefill_at_zero_is_the_plain_prefill(mode):
         np.random.default_rng(3).integers(0, 256, (1, 8))).long()
     caches = init_caches(cfg, 2, 16, device="cpu")
     row = torch.tensor([[1, 2, 0, 0]])
-    want_l, want_c = prefill(params, cfg, tokens, logits_index=5)
+    want_l, want_c, _ = prefill(params, cfg, tokens, logits_index=5)
     for impl in ("chunked", "flash"):
-        got_l, got_c = prefill(params, cfg.replace(attn_impl=impl), tokens,
-                               logits_index=5, ctx_caches=caches,
-                               ctx_table=row, ctx_start=torch.tensor(0))
+        got_l, got_c, _ = prefill(params, cfg.replace(attn_impl=impl),
+                                  tokens, logits_index=5, ctx_caches=caches,
+                                  ctx_table=row, ctx_start=torch.tensor(0))
         assert torch.equal(got_l, want_l)
         for g, w in zip(got_c, want_c):
             for key in ("k", "v"):

@@ -24,6 +24,27 @@ Phases (any failure exits non-zero and prints no result line):
    on rows with no key in their window.  The f32 routes of the three
    attention entry points (``csrc/attention_f32.cu``) are held to their
    plain versions at small shapes, each showing its own launch counter.
+2b. Paper: the paper's multiplier layer on the card.  Every 8-bit
+   (a, b) through ``shift_add``, ``wallace``, ``lut_array`` and unsigned
+   ``nibble_precompute`` ([0, 256)²) and through ``booth_radix2`` and
+   signed ``nibble_precompute`` ([-128, 128)²), a 256-lane vector per
+   broadcast b, and ``lut_array_16bit`` over all 65536 16-bit A for each
+   of the 256 B: every product must equal a * b and every ``cycles``
+   ``cycle_model.total_cycles``.  Table 2 (cycles per operand and for 16
+   operands), Fig. 3 (8 operands from ``default_rng(42)``, b = 0xB7:
+   nibble 16 cycles, LUT array 1, both exact) and the Fig. 4 ratios at 16
+   operands, each held to the paper's value within
+   ``tests/test_cycle_model.py``'s bounds.  Then the link to the kernels
+   at yi-6b's ``wq`` at decode (int8 x (4, 4096), w (4096, 4096)):
+   Algorithm 2's signed products summed over k on the card must equal
+   ``ops.nibble_matmul`` (row 1) and ``ops.lut_matmul`` (row 5), and
+   ``ops.quant_matmul_fused`` must equal ``ops.quant_matmul`` on
+   ``quantize_rows``'s output, bit for bit; counters zeroed just before
+   the phase and read after it: rows 1 and 5 must have launched
+   (``paper_launches``).  Prints the phase's wall time and the link
+   check's time.  The serve, families, ssm, enc-dec + VLM and train
+   phases print each built model's ``param_count()`` beside the elements
+   and bytes its tree holds.
 3. Serve: yi-6b at full published width (random weights from a seed),
    every projection ``w8a8_nibble`` on the CUDA backend, flash prefill,
    paged decode; 8 requests through ``Engine.submit`` / ``Engine.run``.
@@ -207,12 +228,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import cycle_model  # noqa: E402
+from repro_torch.core import multipliers as tmul  # noqa: E402
 from repro_torch.core.nibble import pack_int4  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import nibble_matmul as nm  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels.quant_matmul_fused import (  # noqa: E402
+    quantize_rows)
 from repro_torch.launch.train import stub_extras  # noqa: E402
 from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 model_init, prefill)
@@ -1185,6 +1210,170 @@ def check_lut(gen) -> dict:
             "shapes": "one decode layer: wq,wk,wv,wo,gate,up,down at M=4"}
 
 
+# Table 2 of the paper: cycles per operand and for 16 operands
+PAPER_TABLE2 = {"shift_add": (8, 128), "booth_radix2": (4, 64),
+                "nibble_precompute": (2, 32), "wallace": (1, 1),
+                "lut_array": (1, 1)}
+# the exhaustive 8-bit sweeps: (architecture, signed operands)
+PAPER_SWEEPS = [("shift_add", False), ("wallace", False),
+                ("lut_array", False), ("nibble_precompute", False),
+                ("booth_radix2", True), ("nibble_precompute", True)]
+
+
+def _sweep_8bit(arch: str, signed: bool) -> int:
+    """Every (a, b) of the 8-bit range through one multiplier model on the
+    card: a 256-lane vector per broadcast b.  Fails on a wrong product or
+    a cycle count other than ``cycle_model.total_cycles``; returns the
+    number of products checked."""
+    lanes = (torch.arange(-128, 128, device=DEV) if signed
+             else torch.arange(256, device=DEV))
+    kw = {"signed": True} if signed and arch == "nibble_precompute" else {}
+    cycles = cycle_model.total_cycles(arch, lanes.numel())
+    wrong = torch.zeros((), dtype=torch.int64, device=DEV)
+    for b in lanes.tolist():
+        tr = tmul.MULTIPLIERS[arch](lanes, b, **kw)
+        if tr.cycles != cycles or tr.products.device != lanes.device:
+            raise AssertionError(f"{arch}: {tr.cycles} cycles on "
+                                 f"{tr.products.device}, expected {cycles}")
+        wrong += (tr.products != lanes * b).sum()
+    if int(wrong):
+        raise AssertionError(f"{arch} (signed={signed}): {int(wrong)} wrong "
+                             f"products of 65536")
+    return lanes.numel() ** 2
+
+
+def _paper_tables() -> dict:
+    """Table 2, Fig. 3 and the Fig. 4 ratios from the port, held to the
+    paper's values and to ``tests/test_cycle_model.py``'s bounds."""
+    out = {"table2": {}}
+    a16 = torch.arange(16, device=DEV)
+    for arch, (per_op, total_16) in PAPER_TABLE2.items():
+        tr = tmul.MULTIPLIERS[arch](a16, 7)
+        got = (tr.cycles_per_operand, tr.cycles,
+               cycle_model.cycles_per_operand(arch),
+               cycle_model.total_cycles(arch, 16))
+        print(f"  table2 {arch}: cycles/operand {got[0]} (model {got[2]}, "
+              f"paper {per_op}), 16 operands {got[1]} (model {got[3]}, "
+              f"paper {total_16})", flush=True)
+        if got != (per_op, total_16, per_op, total_16):
+            raise AssertionError(f"Table 2 {arch}: {got}")
+        out["table2"][arch] = got[:2]
+    a = torch.as_tensor(np.random.default_rng(42).integers(0, 256, 8),
+                        device=DEV)
+    for arch, want in (("nibble_precompute", 16), ("lut_array", 1)):
+        tr = tmul.MULTIPLIERS[arch](a, 0xB7)
+        exact = torch.equal(tr.products, (a * 0xB7).int())
+        print(f"  fig3 {arch}: 8 operands, b = 0xB7, {tr.cycles} cycles "
+              f"(paper {want}), products exact {exact}", flush=True)
+        if not exact or tr.cycles != want:
+            raise AssertionError(f"Fig. 3 {arch}")
+        out[f"fig3_{arch}_cycles"] = tr.cycles
+    ratios = {
+        "area_vs_shift_add": (cycle_model.improvement_vs(
+            "shift_add", "nibble_precompute", "area", 16), 1.69, 0.02),
+        "power_vs_shift_add": (cycle_model.improvement_vs(
+            "shift_add", "nibble_precompute", "power", 16), 1.63, 0.03),
+        "area_vs_lut_array": (cycle_model.improvement_vs(
+            "lut_array", "nibble_precompute", "area", 16), 2.6, 0.1)}
+    for name, (r, paper, tol) in ratios.items():
+        print(f"  fig4 {name} at 16 operands: {r:.4f}x (paper {paper}x, "
+              f"held within {tol})", flush=True)
+        if abs(r - paper) >= tol:
+            raise AssertionError(f"Fig. 4 {name}: {r}")
+        out[f"fig4_{name}"] = r
+    r = cycle_model.improvement_vs("lut_array", "nibble_precompute", "power",
+                                   16)
+    print(f"  fig4 power_vs_lut_array at 16 operands: {r:.4f}x (paper: "
+          f"over 2.7x)", flush=True)
+    if not r > 2.7:
+        raise AssertionError(f"Fig. 4 power_vs_lut_array: {r}")
+    out["fig4_power_vs_lut_array"] = r
+    return out
+
+
+def _link_nibble_kernel(gen, m=4, k=4096, n=4096, k_chunk=256) -> dict:
+    """The paper's model against kernel rows 1 and 5 at yi-6b's ``wq`` at
+    decode: int8 x (m, k) and w (k, n); Algorithm 2's signed products
+    ``nibble_precompute(w[k, :], x[i, k], signed=True)`` (the lanes are a
+    weight row, the broadcast operand an activation, as in the kernel's
+    shared weight tile) summed over k on the card, ``k_chunk`` rows of w
+    at a time, must equal ``ops.nibble_matmul`` and ``ops.lut_matmul``;
+    ``ops.quant_matmul_fused`` must equal ``ops.quant_matmul`` on
+    ``quantize_rows``'s output."""
+    x = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=DEV,
+                      generator=gen)
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=DEV,
+                      generator=gen)
+    x[:, 0] = -128                       # the extreme products at k = 0
+    w[0, :2] = torch.tensor([-128, 127], dtype=torch.int8)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    acc = torch.zeros((m, n), dtype=torch.int32, device=DEV)
+    for k0 in range(0, k, k_chunk):
+        tr = tmul.nibble_precompute(w[None, k0:k0 + k_chunk],
+                                    x[:, k0:k0 + k_chunk, None], signed=True)
+        acc += tr.products.sum(1, dtype=torch.int32)
+    torch.cuda.synchronize()
+    model_ms = (time.perf_counter() - t) * 1e3
+    row1 = kops.nibble_matmul(x, w)
+    row5 = kops.lut_matmul(x, w)
+    xf = torch.randn((m, k), device=DEV, generator=gen).bfloat16()
+    ws = torch.rand((1, n), device=DEV, generator=gen) * 0.01 + 1e-4
+    fused = kops.quant_matmul_fused(xf, w, ws)
+    xq, xs = quantize_rows(xf)
+    unfused = kops.quant_matmul(xq, w, x_scale=xs, w_scale=ws)
+    checks = {"row 1 (nibble_matmul)": torch.equal(row1, acc),
+              "row 5 (lut_matmul)": torch.equal(row5, acc),
+              "quant_matmul_fused": torch.equal(fused, unfused)}
+    print(f"  link ({m},{k},{n}): Algorithm 2 summed over k on the card in "
+          f"{model_ms:.1f} ms; {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"paper model vs kernels: {checks}")
+    return {"link_shape": [m, k, n], "link_model_ms": model_ms}
+
+
+def phase_paper() -> dict:
+    """The paper's multiplier layer on the card: the exhaustive 8-bit
+    products of the five models and the 16-bit LUT array, Table 2, Fig. 3
+    and Fig. 4 from the port's cycle model, and the link from Algorithm 2
+    to kernel rows 1 and 5 (launch counters zeroed just before, read just
+    after)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    out = {"sweeps": {}}
+    for arch, signed in PAPER_SWEEPS:
+        t = time.perf_counter()
+        n = _sweep_8bit(arch, signed)
+        torch.cuda.synchronize()
+        label = f"{arch}{' signed' if signed else ''}"
+        ms = (time.perf_counter() - t) * 1e3
+        print(f"  {label}: {n} products exact, cycles = total_cycles "
+              f"({ms:.1f} ms)", flush=True)
+        out["sweeps"][label] = ms
+    t = time.perf_counter()
+    a16 = torch.arange(65536, device=DEV)
+    wrong = torch.zeros((), dtype=torch.int64, device=DEV)
+    for b in range(256):
+        o1, o2 = tmul.lut_array_16bit(a16, b)
+        wrong += ((o1.long() + (o2.long() << 8)) != a16 * b).sum()
+    if int(wrong):
+        raise AssertionError(f"lut_array_16bit: {int(wrong)} wrong products")
+    ms = (time.perf_counter() - t) * 1e3
+    print(f"  lut_array_16bit: {65536 * 256} products exact ({ms:.1f} ms)",
+          flush=True)
+    out["sweeps"]["lut_array_16bit"] = ms
+    out.update(_paper_tables())
+    out.update(_link_nibble_kernel(
+        torch.Generator(device=DEV).manual_seed(0)))
+    out["counts"] = read_counts()
+    require_launched(out["counts"], ("nibble_matmul", "lut_matmul"))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"paper: {out['wall_s']:.1f} s; launches nibble "
+          f"{out['counts']['nibble_matmul']}, lut "
+          f"{out['counts']['lut_matmul']}", flush=True)
+    return out
+
+
 COUNTERS = {
     "nibble_matmul": (nm, "launches"),
     "flash_attention_fwd": (fa, "fwd_launches"),
@@ -1270,6 +1459,29 @@ def _serve_timed(engine, prompts, n_new) -> tuple:
     return streams, wall, counts
 
 
+_QUANT_LEAVES = ("qt8", "s8", "qt4", "s4")
+
+
+def param_line(cfg, params) -> dict:
+    """``cfg.param_count()`` (the analytical count, total and active)
+    beside what the built tree holds: its elements without the prepared
+    int8 copies and their scales, and its bytes with them.  Printed only:
+    the CPU tests hold the count."""
+    leaves = [(p, t) for p, t in tree_paths(params)
+              if isinstance(t, torch.Tensor)]
+    n = sum(t.numel() for p, t in leaves
+            if p.rsplit("/", 1)[-1] not in _QUANT_LEAVES)
+    n_bytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    out = {"param_count": cfg.param_count(),
+           "param_count_active": cfg.param_count(active_only=True),
+           "tree_elements": n, "tree_bytes": n_bytes}
+    print(f"  {cfg.name} at n_layers={cfg.n_layers}: param_count() "
+          f"{out['param_count']} (active {out['param_count_active']}); the "
+          f"tree holds {n} elements without its int8 copies, "
+          f"{n_bytes / 2**30:.3f} GiB with them", flush=True)
+    return out
+
+
 def phase_serve() -> dict:
     cfg = get_config("yi-6b").replace(
         quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
@@ -1284,6 +1496,7 @@ def phase_serve() -> dict:
     print(f"  weights built and quantized in {time.perf_counter() - t:.1f} s"
           f", {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
           flush=True)
+    params_line = param_line(cfg, params)
     n_req, n_new, prefill_len = 8, 32, 128
     scfg = ServeConfig(batch=4, max_len=prefill_len + n_new,
                        prefill_len=prefill_len, decode_chunk=8)
@@ -1315,7 +1528,8 @@ def phase_serve() -> dict:
     return {"counts": counts, "tok_s": n_tok / wall, "wall_s": wall,
             "decode_chunks": engine.decode_chunks, "logit_diff": diff,
             "logit_tol": tol, "captures": captures, "engine": engine,
-            "prompts": prompts, "streams": streams, "params": params}
+            "prompts": prompts, "streams": streams, "params": params,
+            "param_count": params_line}
 
 
 def time_decode_chunks(cfg, params, prompts, reps=7) -> dict:
@@ -2614,6 +2828,7 @@ def _serve_family(cfg, smi, n_req, n_new, *, expect, prefill_len=128,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     mem = torch.cuda.memory_allocated() / 2**30
+    params_line = param_line(cfg, params)
     rng = np.random.default_rng(0)
     lens = rng.integers(32, prefill_len + 1, n_req).tolist() + list(long_lens)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -2638,7 +2853,8 @@ def _serve_family(cfg, smi, n_req, n_new, *, expect, prefill_len=128,
            "gib_allocated": mem, "chunk_ms": chunk, "counts": counts,
            "chunk_counts": read_counts(),
            "decode_chunks": engine.decode_chunks,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "param_count": params_line}
     print(f"  {cfg.name}: weights {init_s:.1f} s, {mem:.2f} GiB allocated; "
           f"{len(lens)} requests (prompts {lens}) x {n_new}: {n_tok} "
           f"tokens in {wall:.3f} s, {n_tok / wall:.2f} tok/s; host ms per "
@@ -3078,6 +3294,7 @@ def phase_train(profile: bool) -> dict:
     trainer = Trainer(cfg, tcfg, rcfg, dcfg, device=DEV)
     torch.cuda.synchronize()
     n_params = sum(t_.numel() for _, t_ in tree_paths(trainer.params))
+    params_line = param_line(cfg, trainer.params)
     print(f"  {n_params / 1e9:.3f} B parameters, initialised in "
           f"{time.perf_counter() - t:.1f} s; "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
@@ -3108,7 +3325,8 @@ def phase_train(profile: bool) -> dict:
                               "flash_attention_bwd_dkv"))
     require_no_f32(counts)
     out = {"counts": counts, "history": history, "wall_s": wall,
-           "tok_s": tok_s, "peak_bytes": peak, "n_params": n_params}
+           "tok_s": tok_s, "peak_bytes": peak, "n_params": n_params,
+           "param_count": params_line}
     if profile:
         out["profile"] = profile_train_step(trainer)
     del trainer
@@ -3406,6 +3624,9 @@ def main() -> int:
     rows = [check_nibble(gen), check_flash(gen), check_paged(gen)]
     rows += [check_flash_bwd(gen, rows[1]), check_lut(gen)]
     f32 = check_attention_f32(gen)
+    paper = phase_paper()
+    rows[0]["paper_launches"] = paper["counts"]["nibble_matmul"]
+    rows[4]["paper_launches"] = paper["counts"]["lut_matmul"]
     serve = phase_serve()
     engine, prompts = serve.pop("engine"), serve.pop("prompts")
     params = serve.pop("params")
@@ -3472,7 +3693,8 @@ def main() -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "kernels": rows,
-                       "attention_f32_errors": f32, "serve": serve,
+                       "attention_f32_errors": f32, "paper": paper,
+                       "serve": serve,
                        "workload": workload, "prefix_swap": prefix_swap,
                        "spec_wave": spec_wave, "graphs": graphs,
                        "lut_serve": lut, "int8_kv": int8kv,
@@ -3490,7 +3712,7 @@ def main() -> int:
              "workload_launches", "prefix_swap_launches", "spec_launches",
              "tail_launches", "families_launches", "families_shapes",
              "ssm_launches", "ssm_shapes", "int8kv_launches",
-             "encdec_vlm_launches", "encdec_vlm_shapes")
+             "encdec_vlm_launches", "encdec_vlm_shapes", "paper_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

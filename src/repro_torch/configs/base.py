@@ -141,6 +141,12 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self, active_only: bool = False) -> int:
+        """Analytical parameter count (``models.params``): every expert,
+        or with ``active_only`` those a token runs through."""
+        from repro_torch.models.params import count_params_analytical
+        return count_params_analytical(self, active_only=active_only)
+
 
 ARCH_NAMES = [
     "gemma3_1b", "gemma_7b", "qwen3_4b", "yi_6b", "mamba2_780m",

@@ -4,8 +4,11 @@
 Scale-only, zero-point-free, per-tensor or per-channel.  ``torch.round``
 rounds half to even exactly like ``jnp.round``; the ``x / scale``
 division, the clip to ``[-qmax - 1, qmax]`` and the ``1e-8`` floor are
-kept as the reference writes them, so values and scales match bit for
-bit.
+kept as the reference writes them.  The scale is the reference's as it
+runs: under ``jit`` XLA turns its ``amax / qmax`` into a product with the
+f32 reciprocal of ``qmax`` (:func:`scale_from_amax`), so values and
+scales match the jitted reference bit for bit (a true division differs
+in the last ulp of ~5% of the scales).
 
 ``fake_quant`` (QAT) is quantize-dequantize with a straight-through
 gradient.  Its backward reproduces what JAX's autodiff gives the
@@ -23,14 +26,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
+import numpy as np
 import torch
 
-__all__ = ["QTensor", "abs_max_scale", "quantize", "dequantize",
-           "fake_quant"]
+__all__ = ["QTensor", "abs_max_scale", "scale_from_amax", "quantize",
+           "dequantize", "fake_quant"]
 
 Granularity = Literal["per_tensor", "per_channel"]
 
 _QMAX = {8: 127.0, 4: 7.0}
+# the f32 reciprocals XLA multiplies by in place of ``/ qmax``
+_RECIP = {bits: float(np.float32(1.0) / np.float32(q))
+          for bits, q in _QMAX.items()}
 
 
 @dataclasses.dataclass
@@ -48,12 +55,17 @@ def abs_max_scale(x: torch.Tensor, bits: int = 8,
                   granularity: Granularity = "per_channel",
                   axis: int = -1) -> torch.Tensor:
     """Scale such that the abs-max of ``x`` maps to the integer max."""
-    qmax = _QMAX[bits]
     if granularity == "per_tensor":
         amax = x.abs().max()
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
-    return torch.clamp(amax, min=1e-8) / qmax
+    return scale_from_amax(amax, bits)
+
+
+def scale_from_amax(amax: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """``max(amax, 1e-8) * f32(1 / qmax)``: what the jitted reference
+    computes for its ``max(amax, 1e-8) / qmax``."""
+    return torch.clamp(amax, min=1e-8) * _RECIP[bits]
 
 
 def quantize(x: torch.Tensor, bits: int = 8,

@@ -23,11 +23,13 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_fwd,
     paged_decode_attention,
 )
-from repro_torch.kernels.lut_matmul import lut_matmul
 from repro_torch.kernels.nibble_matmul import fused_nibble_matmul
+from repro_torch.kernels.quant_matmul_fused import quant_matmul_fused
 
-__all__ = ["quant_matmul", "flash_mha", "paged_flash_decode", "W_FORMATS",
-           "LAUNCH_COUNTERS", "launch_counts", "add_launch_counts"]
+__all__ = ["quant_matmul", "nibble_matmul", "nibble_matmul_w4", "lut_matmul",
+           "quant_matmul_fused", "flash_mha", "paged_flash_decode",
+           "W_FORMATS", "LAUNCH_COUNTERS", "launch_counts",
+           "add_launch_counts"]
 
 W_FORMATS = ("int8", "int4_packed", "lut")
 
@@ -88,7 +90,7 @@ def quant_matmul(x_q: torch.Tensor, w: torch.Tensor, *, x_scale=None,
     n = 2 * w.shape[1] if packed else w.shape[1]
     scaled = x_scale is not None or w_scale is not None
     if w_format == "lut":
-        out = lut_matmul(mat, w)
+        out = _lm.lut_matmul(mat, w)
         if scaled:
             out = out.to(torch.float32)
             if x_scale is not None:
@@ -110,6 +112,31 @@ def quant_matmul(x_q: torch.Tensor, w: torch.Tensor, *, x_scale=None,
     out = fused_nibble_matmul(mat, w, x_scale, w_scale, w_packed=packed,
                               out_dtype=out_dtype)
     return out.reshape(*lead, n)
+
+
+# The seed entry points: thin shims over quant_matmul.  The reference's
+# ``bm``, ``bn``, ``bk``, ``unroll_passes`` and ``interpret`` are Pallas
+# tiling and interpreter knobs with no meaning for the CUDA kernels, which
+# plan their own tiles (``nibble_plan``, ``lut_plan``), so they are not
+# taken.  ``quant_matmul_fused`` (per-row int8 quantization, then the
+# nibble kernel with its epilogue) lives in ``kernels.quant_matmul_fused``.
+
+def nibble_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 (..., K) x int8 (K, N) -> exact int32 (..., N): the paper's
+    kernel."""
+    return quant_matmul(x_q, w_q, w_format="int8")
+
+
+def nibble_matmul_w4(x_q: torch.Tensor,
+                     w_packed: torch.Tensor) -> torch.Tensor:
+    """int8 (..., K) x packed int4 (K, N//2) -> exact int32 (..., N)."""
+    return quant_matmul(x_q, w_packed, w_format="int4_packed")
+
+
+def lut_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 (..., K) x int8 (K, N) -> exact int32 (..., N) by LUT
+    selection."""
+    return quant_matmul(x_q, w_q, w_format="lut")
 
 
 class _FlashMHA(torch.autograd.Function):

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.linear import linear_apply, linear_init
+from repro_torch.core.quantize import scale_from_amax
 from repro_torch.kernels.ops import flash_mha, paged_flash_decode
 from repro_torch.models.layers import apply_rope, rms_norm, rms_norm_init, rope
 
@@ -226,12 +227,9 @@ def _q8_heads(t):
     """Symmetric int8 per (token, head): t (B, S, KVH, D) -> (q int8,
     scale f32 (B, S, KVH, 1)), the reference's formula as it runs: under
     ``jit`` XLA turns its ``amax / 127`` into a product with the f32
-    reciprocal of 127, so the scale is that product here too (bit for bit
-    the reference's; a true division differs in the last ulp of ~4% of
-    the scales)."""
+    reciprocal of 127 (``scale_from_amax``), bit for bit the reference's."""
     t = t.to(torch.float32)
-    amax = torch.clamp(t.abs().amax(dim=-1, keepdim=True), min=1e-8)
-    scale = amax * (1.0 / 127.0)
+    scale = scale_from_amax(t.abs().amax(dim=-1, keepdim=True))
     q = torch.clamp(torch.round(t / scale), -128, 127).to(torch.int8)
     return q, scale
 

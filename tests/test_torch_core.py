@@ -1,6 +1,9 @@
 """Port parity: nibble decomposition, int4 packing and quantization must
-match the JAX reference bit for bit (``repro.core`` vs ``repro_torch.core``)."""
+match the JAX reference bit for bit (``repro.core`` vs ``repro_torch.core``);
+quantization is held to the jitted reference, whose scales multiply by
+the f32 reciprocal of qmax."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,8 +58,14 @@ def test_pack_int4_rejects_odd_width():
         tnib.pack_int4(torch.zeros((3, 5), dtype=torch.int8))
 
 
+# the reference as it runs: under jit XLA turns ``amax / qmax`` into a
+# product with the f32 reciprocal of qmax
+jquantize = jax.jit(jq.quantize, static_argnames=("bits", "granularity",
+                                                  "axis"))
+
+
 def _assert_quantize_equal(x, **kw):
-    jt = jq.quantize(jnp.asarray(x), **kw)
+    jt = jquantize(jnp.asarray(x), **kw)
     tt = tq.quantize(torch.from_numpy(x), **kw)
     np.testing.assert_array_equal(_np(jt.values), _np(tt.values))
     np.testing.assert_array_equal(_np(jt.scale).astype(np.float32),
@@ -92,7 +101,7 @@ def test_quantize_all_zero_uses_floor(granularity):
     tt = _assert_quantize_equal(x, bits=8, granularity=granularity)
     assert not tt.values.any()
     np.testing.assert_array_equal(_np(tt.scale),
-                                  np.float32(1e-8) / np.float32(127.0))
+                                  np.float32(1e-8) * np.float32(1 / 127))
 
 
 def test_quantize_clips_explicit_scale():
@@ -101,3 +110,45 @@ def test_quantize_clips_explicit_scale():
     tt = tq.quantize(torch.from_numpy(x), scale=torch.tensor(2.0))
     np.testing.assert_array_equal(_np(jt.values), _np(tt.values))
     np.testing.assert_array_equal(_np(tt.values), [[127, -128, 2]])
+
+
+def _scale_draw(rows=12800, width=64, seed=0):
+    """f32 rows whose magnitudes span 1e-3 to 1e3 (log-uniform)."""
+    rng = np.random.default_rng(seed)
+    mag = 10.0 ** rng.uniform(-3.0, 3.0, (rows, 1))
+    return (rng.standard_normal((rows, width)) * mag).astype(np.float32)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("granularity", ["per_tensor", "per_channel"])
+def test_scales_match_jitted_reference(bits, granularity):
+    """``abs_max_scale``, ``quantize`` and ``fake_quant``'s forward equal
+    the jitted reference bit for bit on 12800 scales (one a row: per
+    channel over the last axis, per tensor row by row)."""
+    x = _scale_draw()
+    tx = torch.from_numpy(x)
+
+    def ref(a):
+        return (jq.abs_max_scale(a, bits, granularity),
+                jq.quantize(a, bits, granularity),
+                jq.fake_quant(a, bits, granularity))
+
+    def port(t):
+        return (tq.abs_max_scale(t, bits, granularity),
+                tq.quantize(t, bits, granularity),
+                tq.fake_quant(t, bits, granularity))
+
+    if granularity == "per_tensor":
+        jscale, jqt, jfake = jax.jit(jax.vmap(ref))(jnp.asarray(x))
+        rows = [port(r) for r in tx]
+        scale = torch.stack([r[0] for r in rows])
+        values = torch.stack([r[1].values for r in rows])
+        fake = torch.stack([r[2] for r in rows])
+    else:
+        jscale, jqt, jfake = jax.jit(ref)(jnp.asarray(x))
+        scale, qt, fake = port(tx)
+        values = qt.values
+        assert scale.shape == (12800, 1)
+    np.testing.assert_array_equal(_np(scale), _np(jscale))
+    np.testing.assert_array_equal(_np(values), _np(jqt.values))
+    np.testing.assert_array_equal(_np(fake), _np(jfake))

@@ -595,3 +595,69 @@ def test_paged_kernel_matches_plain_at_family_shapes(cuda, shape, window):
     o_p = fa.paged_decode_attention_plain(q, kp, vp, table, q_pos, **kw)
     torch.testing.assert_close(o.float(), o_p.float(), atol=BF16_ATOL,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The paper's multiplier models and the seed shims on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,signed", [
+    ("shift_add", False), ("booth_radix2", True), ("wallace", False),
+    ("lut_array", False), ("nibble_precompute", False),
+    ("nibble_precompute", True)])
+def test_multipliers_exhaustive_on_card(cuda, arch, signed):
+    """Every 8-bit (a, b) (signed for Booth and signed Algorithm 2): the
+    products stay on the card and equal a * b and the CPU run's, with the
+    same cycles."""
+    from repro_torch.core import multipliers as tmul
+    kw = {"signed": True} if arch == "nibble_precompute" and signed else {}
+    vals = torch.arange(-128, 128) if signed else torch.arange(256)
+    lanes = vals.to(cuda)
+    for b in vals.tolist():
+        got = tmul.MULTIPLIERS[arch](lanes, b, **kw)
+        host = tmul.MULTIPLIERS[arch](vals, b, **kw)
+        assert got.products.device.type == "cuda"
+        assert torch.equal(got.products.cpu(), host.products)
+        assert torch.equal(host.products, (vals * b).int())
+        assert (got.cycles, got.cycles_per_operand) == \
+            (host.cycles, host.cycles_per_operand)
+
+
+def test_lut_array_16bit_on_card(cuda):
+    from repro_torch.core import multipliers as tmul
+    a16 = torch.arange(65536, device=cuda)
+    for b in (0, 1, 15, 16, 171, 255):
+        o1, o2 = tmul.lut_array_16bit(a16, b)
+        assert torch.equal(o1.long() + (o2.long() << 8), a16 * b)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 512), (5, 37, 22),
+                                   (128, 256, 200)])
+def test_seed_shims_on_card(cuda, m, k, n):
+    """``ops.nibble_matmul``, ``nibble_matmul_w4`` and ``lut_matmul``
+    exact against ``kernels.ref``; ``quant_matmul_fused`` equal to its
+    plain run on the CPU and to ``quant_matmul`` on ``quantize_rows``'s
+    output, bit for bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant_matmul_fused import quantize_rows
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randint(-128, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w4 = torch.randint(-8, 8, (k, n), generator=g, device=cuda,
+                       dtype=torch.int8)
+    want = ref.nibble_matmul_ref(x, w)
+    assert torch.equal(ops.nibble_matmul(x, w), want)
+    assert torch.equal(ops.lut_matmul(x, w), want)
+    assert torch.equal(ops.nibble_matmul_w4(x, pack_int4(w4)),
+                       ref.nibble_matmul_ref(x, w4))
+    xf = torch.randn((m, k), generator=g, device=cuda) * 2
+    ws = torch.rand((1, n), generator=g, device=cuda) * 0.01 + 1e-4
+    for dtype in (torch.float32, torch.bfloat16):
+        got = ops.quant_matmul_fused(xf, w, ws, out_dtype=dtype)
+        xq, xs = quantize_rows(xf)
+        assert torch.equal(got, ops.quant_matmul(xq, w, x_scale=xs,
+                                                 w_scale=ws, out_dtype=dtype))
+        assert torch.equal(got.cpu(), ops.quant_matmul_fused(
+            xf.cpu(), w.cpu(), ws.cpu(), out_dtype=dtype))

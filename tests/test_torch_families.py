@@ -9,8 +9,9 @@ exact prompt length, as the reference's engine runs them.
 
 * Model: ``forward`` and prefill + decode logits (dense slab and paged
   pools) within ``test_torch_model.py``'s LOGIT_ATOL, in ``dense`` and
-  ``w8a8_nibble``; the bridge copies MLA and MoE leaves exactly and keeps
-  the router f32.
+  ``w8a8_nibble``, against the reference compiled by ``tm.exact_jit``
+  (its engine's stages too: ``tm.exact_engine``); the bridge copies MLA
+  and MoE leaves exactly and keeps the router f32.
 * Engine, cross-package: reduced deepseek-v3 and llama4 greedy streams
   against the reference engine under ``test_torch_engine.py``'s tie rule.
 * Engine, inside the port, on reduced deepseek-v3 in ``dense``: paged
@@ -30,7 +31,6 @@ assignment, so rows stay independent and the bit-match rules of the
 dense models apply.
 """
 
-import contextlib
 import dataclasses
 
 import jax
@@ -81,16 +81,12 @@ torch.set_num_threads(1)
 ROUTE_TIE = 4e-3
 AUX_ATOL = 5e-3
 
-# Decode logits in w8a8 on the MLA and MoE models.  A decode step
-# quantizes each projection's input per tensor over the whole batch (MLA's
-# wkv_b over every cached latent row of every slot: 48 rows here), and
-# MLA chains two quantized low-rank pairs through an RMSNorm, so a bf16
-# rounding difference anywhere upstream moves a scale and flips int8
-# roundings across the batch.  Measured on a CPU, seeds 1-3: up to
-# 0.145 (deepseek-v3, also 0.121 with its 3 dense MLA layers alone) and
-# 0.096 (llama4), against 0.05-0.06 for yi-6b; dense mode, and every
-# prefill, stay within LOGIT_ATOL.
-W8A8_DECODE_ATOL = 0.16
+# Every logit below holds ``tm.LOGIT_ATOL``.  The w8a8 decode on the MLA
+# and MoE models held 0.16 while the reference ran with excess precision
+# (a decode step quantizes each projection's input per tensor over the
+# whole batch, so a rounding difference upstream moves a scale); against
+# ``tm.exact_jit`` it measured (on a CPU) 0 on deepseek-v3 and at most
+# 0.0430 on llama4 (paged), within LOGIT_ATOL with a margin of 1.45x.
 
 ARCHS = ["gemma3-1b", "gemma-7b", "deepseek-v3-671b",
          "llama4-maverick-400b-a17b", "mamba2-780m", "jamba-v0.1-52b"]
@@ -107,21 +103,6 @@ def _n_layers(arch):
 
 def _has_mamba(cfg):
     return any(s.mixer == "mamba" for s in cfg.layer_specs)
-
-
-# Jamba in w8a8 holds the port to the reference run eagerly
-# (``jax.disable_jit``): model and engine.  Jitted, the reference's own
-# int8 roundings come out differently from its eager run's, and eight
-# chained quantized layers carry the difference past LOGIT_ATOL: reduced
-# jamba's w8a8 prefill logits differ by 0.073-0.257 between the two over
-# weight seeds 0-3 x prompt seeds 0-1, while the port equals the eager run
-# bit for bit on all eight (``test_torch_mamba.py``, ``test_jamba_w8a8_
-# prefill_equals_eager_reference``); against the jitted reference engine
-# the streams diverge where the tie rule does not hold.  The other models hold the jitted reference within the
-# tolerances above.
-def _reference_run(arch, mode):
-    return (jax.disable_jit() if arch == JAMBA and mode == "w8a8_nibble"
-            else contextlib.nullcontext())
 
 
 def _pair(arch, **over):
@@ -187,13 +168,13 @@ def _close_unflipped(got, want, skip, atol=tm.LOGIT_ATOL):
 
 
 def _fresh(fn, **kw):
-    """A new jit of a reference entry point through a new function
-    object, so this test's routing recorder is traced in (JAX caches
-    traces by function and static arguments)."""
+    """A new compile of a reference entry point (``tm.exact_jit``) through
+    a new function object, so this test's routing recorder is traced in
+    (JAX caches traces by function and static arguments)."""
     def call(*args, **kwargs):
         return fn(*args, **kwargs)
 
-    return jax.jit(call, static_argnums=1, **kw)
+    return tm.exact_jit(call, static_argnums=1, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -269,11 +250,12 @@ MODES = ["dense", "w8a8_nibble"]
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_logits_match(monkeypatch, arch, mode):
+    """Measured on a CPU: equal in 10 of 12 cases, 3.7e-5 (gemma3-1b) and
+    0.0156 (deepseek-v3), both ``dense``."""
     jcfg, jp, tcfg, tp = _pair(arch, quant_mode=mode, attn_impl="flash")
     routes = _Routes(monkeypatch)
     toks = np.random.default_rng(0).integers(0, 256, (2, 11)).astype(np.int32)
-    with _reference_run(arch, mode):
-        want, jaux = _fresh(jmodels.forward)(jp, jcfg, jnp.asarray(toks))
+    want, jaux = _fresh(jmodels.forward)(jp, jcfg, jnp.asarray(toks))
     got, aux = forward(tp, tcfg, torch.from_numpy(toks))
     assert got.dtype == torch.float32 and got.shape == want.shape
     _close_unflipped(got, want, routes.flipped(2, 11))
@@ -290,16 +272,15 @@ def test_prefill_then_decode_match(monkeypatch, arch, mode, cache_mode):
     run through), moved into a 3-slot cache (slab rows or pages, mamba
     state at the slot's row), then 3 decode steps at per-slot positions,
     flash attention (the paged kernel's plain version on GQA pools; MLA
-    gathers its latent pages)."""
+    gathers its latent pages).  Measured on a CPU: every w8a8 dense-slab
+    case equal but llama4's (3.1e-5); the largest, 0.0547 (jamba, dense,
+    paged), 0.0469 (jamba, dense, slab), 0.0430 (llama4, w8a8, paged)."""
     over = dict(quant_mode=mode, attn_impl="flash", cache_mode=cache_mode,
                 page_size=4)
     jcfg, jp, tcfg, tp = _pair(arch, **over)
     routes = _Routes(monkeypatch)
     jprefill = _fresh(jmodels.prefill, static_argnames=("max_len",))
     jdecode = _fresh(jmodels.decode_step)
-    decode_atol = (W8A8_DECODE_ATOL if mode == "w8a8_nibble"
-                   and (tcfg.n_experts or tcfg.kv_lora_rank)
-                   else tm.LOGIT_ATOL)
     rng = np.random.default_rng(1)
     max_len, pad = 16, 8
     lens = [5, 8]
@@ -316,9 +297,8 @@ def test_prefill_then_decode_match(monkeypatch, arch, mode, cache_mode):
         p = prompts[row:row + 1]
         if _has_mamba(tcfg):
             p = p[:, :lens[row]]
-        with _reference_run(arch, mode):
-            jl, jone, _ = jprefill(jp, jcfg, jnp.asarray(p), max_len=grow,
-                                   logits_index=lens[row] - 1)
+        jl, jone, _ = jprefill(jp, jcfg, jnp.asarray(p), max_len=grow,
+                               logits_index=lens[row] - 1)
         tl, tone, _ = prefill(tp, tcfg, torch.from_numpy(p), max_len=grow,
                               logits_index=lens[row] - 1)
         skip = routes.flipped(1, p.shape[1])[:, lens[row] - 1:lens[row]]
@@ -336,12 +316,11 @@ def test_prefill_then_decode_match(monkeypatch, arch, mode, cache_mode):
     page_j = jnp.asarray(table) if cache_mode == "paged" else None
     page_t = torch.from_numpy(table) if cache_mode == "paged" else None
     for _ in range(3):
-        with _reference_run(arch, mode):
-            jl, jcaches = jdecode(jp, jcfg, jnp.asarray(tok), jcaches,
-                                  jnp.asarray(pos), page_table=page_j)
+        jl, jcaches = jdecode(jp, jcfg, jnp.asarray(tok), jcaches,
+                              jnp.asarray(pos), page_table=page_j)
         tl, tcaches = decode_step(tp, tcfg, torch.from_numpy(tok), tcaches,
                                   torch.from_numpy(pos), page_table=page_t)
-        _close_unflipped(tl, jl, routes.flipped(3, 1), atol=decode_atol)
+        _close_unflipped(tl, jl, routes.flipped(3, 1))
         tok = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)[:, None]
         pos = pos + 1
 
@@ -369,9 +348,8 @@ def test_mla_caches_are_latent_pools():
 def test_engine_streams_match_reference(monkeypatch, arch, cache_mode, mode):
     """The staggered workload of ``test_torch_engine.py`` (6 requests
     through 3 slots) through both engines, under the same batch
-    composition; the tie rule of that file.  Jamba in w8a8 runs the
-    reference engine eagerly (``_reference_run``), as the model tests
-    hold its logits."""
+    composition; the tie rule of that file.  The reference engine's
+    stages compile as ``tm.exact_jit`` does (``tm.exact_engine``)."""
     over = dict(quant_mode=mode, attn_impl="flash", cache_mode=cache_mode,
                 page_size=4)
     jcfg, jparams, tcfg, tparams = _pair(arch, **over)
@@ -380,10 +358,10 @@ def test_engine_streams_match_reference(monkeypatch, arch, cache_mode, mode):
                for p, _ in te.SPEC]
     records = te._recorders(monkeypatch)
     kw = dict(batch=3, max_len=24, prefill_len=8, decode_chunk=3)
+    tm.exact_engine(monkeypatch)
     jeng = jengine.Engine(jcfg, jparams, jengine.ServeConfig(**kw))
     jids = [jeng.submit(p, n) for p, (_, n) in zip(prompts, te.SPEC)]
-    with _reference_run(arch, mode):
-        jdone = jeng.run()
+    jdone = jeng.run()
     teng = Engine(tcfg, tparams, ServeConfig(**kw), device="cpu")
     tids = [teng.submit(p, n) for p, (_, n) in zip(prompts, te.SPEC)]
     tdone = teng.run()

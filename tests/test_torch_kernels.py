@@ -20,11 +20,13 @@ numerically identical to it by construction.  The attention kernels are
 held to the reference's interpret-mode Pallas kernels directly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import test_torch_model as tm
 from repro.core import linear as jlin
 from repro.core.nibble import pack_int4 as jpack
 from repro.kernels import ops as jops
@@ -109,6 +111,82 @@ def test_quant_matmul_scaled_epilogue_exact(w_format, out_dtype):
     assert got.dtype == (torch.bfloat16 if out_dtype is None
                          else torch.float32)
     np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+# the seed shims: exact int32 products against repro.kernels.ref
+SHIMS = {
+    "nibble_matmul": (ops.nibble_matmul, jref.nibble_matmul_ref, False),
+    "nibble_matmul_w4": (ops.nibble_matmul_w4, jref.nibble_matmul_w4_ref,
+                         True),
+    "lut_matmul": (ops.lut_matmul, jref.lut_matmul_ref, False),
+}
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 8), (2, 3, 37, 22), (33, 100, 50)])
+@pytest.mark.parametrize("shim", list(SHIMS))
+def test_seed_shims_exact(shim, shape):
+    """``ops.nibble_matmul``, ``nibble_matmul_w4`` and ``lut_matmul`` (the
+    reference's seed entry points) on int8 activations with leading dims:
+    int32 equal to ``repro.kernels.ref`` bit for bit."""
+    fn, ref, packed = SHIMS[shim]
+    *lead, k, n = shape
+    r = _rng(sum(shape))
+    x = r.integers(-128, 128, (*lead, k)).astype(np.int8)
+    if packed:
+        w = np.array(jpack(jnp.asarray(r.integers(-8, 8, (k, n)))))
+    else:
+        w = r.integers(-128, 128, (k, n)).astype(np.int8)
+    want = np.asarray(ref(jnp.asarray(x.reshape(-1, k)), jnp.asarray(w)))
+    got = fn(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.int32 and got.shape == (*lead, n)
+    np.testing.assert_array_equal(got.reshape(-1, n).numpy(), want)
+
+
+def test_quantize_rows_matches_jitted_reference():
+    """Per-row int8 quantization on 12800 rows whose magnitudes span 1e-3
+    to 1e3 (and a zero row, the 1e-8 floor): values and scales equal to
+    the jitted reference's bit for bit (its ``amax / 127.0`` is a product
+    with the f32 reciprocal of 127 under jit)."""
+    from repro.kernels.quant_matmul_fused import quantize_rows as jrows
+    from repro_torch.kernels.quant_matmul_fused import quantize_rows
+    r = _rng(11)
+    x = (r.standard_normal((12800, 64))
+         * 10.0 ** r.uniform(-3.0, 3.0, (12800, 1))).astype(np.float32)
+    x[5] = 0.0
+    jq_, js = jax.jit(jrows)(jnp.asarray(x))
+    tq_, ts = quantize_rows(torch.from_numpy(x))
+    assert tq_.dtype == torch.int8 and ts.dtype == torch.float32
+    assert ts.shape == (12800, 1)
+    np.testing.assert_array_equal(tq_.numpy(), np.asarray(jq_))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_scale_shape", [(1, 30), ()])
+def test_quant_matmul_fused_matches_jitted_reference(out_dtype,
+                                                     w_scale_shape):
+    """``ops.quant_matmul_fused`` (quantize_rows, then the nibble product
+    with its epilogue): in f32 equal to the jitted
+    ``ref.quant_dequant_matmul_ref`` bit for bit; in bf16 that value
+    rounded once; and equal to ``quant_matmul`` on ``quantize_rows``'s
+    output."""
+    from repro_torch.kernels.quant_matmul_fused import quantize_rows
+    r = _rng(13)
+    x = (r.standard_normal((2, 3, 45)) * 2).astype(np.float32)
+    w = r.integers(-128, 128, (45, 30)).astype(np.int8)
+    ws = np.asarray(r.random(w_scale_shape) * 0.01 + 1e-4, np.float32)
+    want = np.asarray(jax.jit(jref.quant_dequant_matmul_ref)(
+        jnp.asarray(x.reshape(6, 45)), jnp.asarray(w), jnp.asarray(ws)))
+    got = ops.quant_matmul_fused(torch.from_numpy(x), torch.from_numpy(w),
+                                 torch.from_numpy(ws), out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (2, 3, 30)
+    want = torch.from_numpy(want).to(out_dtype).reshape(2, 3, 30)
+    assert torch.equal(got, want)
+    xq, xs = quantize_rows(torch.from_numpy(x).reshape(6, 45))
+    again = ops.quant_matmul(xq, torch.from_numpy(w), x_scale=xs,
+                             w_scale=torch.from_numpy(ws),
+                             out_dtype=out_dtype)
+    assert torch.equal(got.reshape(6, 30), again)
 
 
 def test_quant_matmul_lut_not_ported():
@@ -261,9 +339,9 @@ def test_linear_apply_matches_xla(mode, backend, shape):
     r = _rng(len(shape) + shape[1])
     x = _bf16_np(r.standard_normal(shape) * 2)
     w = _bf16_np(r.standard_normal((64, 96)) * 0.1)
-    want = np.asarray(jlin.linear_apply(
-        {"w": jnp.asarray(w, jnp.bfloat16)}, jnp.asarray(x, jnp.bfloat16),
-        mode=mode, backend="xla").astype(jnp.float32))
+    want = np.asarray(tm.exact_jit(lambda w, x: jlin.linear_apply(
+        {"w": w}, x, mode=mode, backend="xla").astype(jnp.float32))(
+        jnp.asarray(w, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16)))
     params = {"w": torch.from_numpy(w).bfloat16()}
     got = tlin.linear_apply(params, torch.from_numpy(x).bfloat16(),
                             mode=mode, backend=backend)
@@ -289,8 +367,9 @@ def test_prepared_weight_is_reference_quantization():
     params = {"w": torch.from_numpy(w).bfloat16()}
     for mode, bits in (("w8a8_nibble", 8), ("w4a8_nibble", 4)):
         tlin.prepare_quantized(params, mode)
-        jt = jq.quantize(jnp.asarray(w), bits=bits,
-                         granularity="per_channel", axis=0)
+        jt = jax.jit(lambda a: jq.quantize(a, bits=bits,
+                                           granularity="per_channel",
+                                           axis=0))(jnp.asarray(w))
         np.testing.assert_array_equal(params[f"qt{bits}"].t().numpy(),
                                       np.asarray(jt.values))
         np.testing.assert_array_equal(params[f"s{bits}"].numpy(),

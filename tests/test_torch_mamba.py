@@ -12,7 +12,7 @@ four MoE).
   64); ``mamba_step`` over a sequence; prefill then decode.  Outputs are
   bf16: OUT_ATOL is one bf16 ulp at |y| in [2, 4) (measured on a CPU: at
   most 1.2e-7 in ``dense``, equal in ``w8a8_nibble``); the f32 state
-  within STATE_RTOL of its largest entry (measured: at most 6.7e-7; the
+  within STATE_RTOL of its largest entry (measured: at most 3.6e-7; the
   frameworks round ``exp``, ``cumsum`` and the products' sums in other
   orders); the bf16 conv history (the last ``in_proj`` rows) equal in
   ``w8a8_nibble`` (integer product, the same epilogue) and within one
@@ -24,8 +24,9 @@ four MoE).
   state.
 * The bridge keeps ``A_log``, ``D`` and ``dt_bias`` f32, bit for bit;
   ``model_init`` quantizes ``in_proj`` and ``out_proj``; reduced jamba's
-  w8a8 prefill logits equal the reference's eager run bit for bit over
-  four weight seeds.
+  w8a8 prefill logits against the reference over four weight seeds.
+* The reference runs compiled without excess precision
+  (``test_torch_model.exact_jit``).
 * Engine, inside the port: paged equals dense (jamba, prompts 3 and 6,
   as the reference's ``tests/test_paging.py``), an overcommitted
   incremental pool that preempts and replays equals a reserve pool,
@@ -41,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_model as tmodel
 from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
 from repro.models import mamba as jm
@@ -65,14 +67,12 @@ CONV_RTOL = 2.0 ** -7
 MAMBA2 = "mamba2-780m"
 JAMBA = "jamba-v0.1-52b"
 
-# The reference mixer runs eagerly here.  Under ``jax.jit`` XLA fuses the
-# per-tensor activation quantizer into its neighbours and some int8
-# roundings come out differently (measured: w8a8 outputs up to 0.045
-# apart at |y| ~ 3, against exact equality eagerly); the model-level tests
-# (``test_torch_families.py``) hold the jitted reference within their
-# logit tolerance.
-jmamba_apply = jm.mamba_apply
-jmamba_step = jm.mamba_step
+# The reference mixer runs compiled without excess precision
+# (``test_torch_model.exact_jit``); with excess precision its w8a8 outputs
+# came out up to 0.045 from its own eager run at |y| ~ 3.
+jmamba_apply = tmodel.exact_jit(jm.mamba_apply, static_argnums=1,
+                                static_argnames=("return_cache",))
+jmamba_step = tmodel.exact_jit(jm.mamba_step, static_argnums=1)
 
 # the reduced widths (N = P = 16), and the two other contraction orders
 DIMS = {"reduced": {}, "n<p": {"ssm_head_dim": 32},
@@ -286,13 +286,21 @@ def test_bridge_keeps_mamba_scalars_f32_exactly():
 
 @pytest.mark.parametrize("wseed", range(4))
 def test_jamba_w8a8_prefill_equals_eager_reference(wseed):
-    """Reduced jamba in ``w8a8_nibble``: the port's prefill logits equal
-    the reference's eager run (``jax.disable_jit``) bit for bit, over
-    weight seed ``wseed`` x prompt seeds 0-1.  The reference's jitted run
-    is printed beside it (``-s``): XLA fuses the activation quantizer and
-    some int8 roundings move, so jit and eager differ (measured on a CPU:
-    0.073-0.257 over the eight), which is why the model and engine tests
-    hold jamba's w8a8 path to the eager reference."""
+    """Reduced jamba in ``w8a8_nibble``, weight seed ``wseed`` x prompt
+    seeds 0-1: the port's prefill logits against the reference compiled
+    without excess precision (``test_torch_model.exact_jit``), within
+    LOGIT_ATOL.  Named for when the port equalled the reference's eager
+    run bit for bit: it no longer does, since its int8 scales multiply by
+    the f32 reciprocal of 127 as the jitted reference's do, and eager the
+    reference divides.  Printed beside it (``-s``): the jitted run with
+    excess precision (0.074-0.152 from the exact one).  Measured on a
+    CPU: equal in 6 of
+    the 8 cases; weight seed 1, prompt seed 0: 0.0254 (most logits off,
+    so upstream of the head) and weight seed 3, prompt seed 0: 0.00098
+    (2 of 256 logits).  The residue stays when XLA's fusion passes are
+    switched off, and switching off its algebraic simplifier (which also
+    makes the reciprocal) leaves 0.066, the eager run's distance; so it
+    is another simplifier rewrite, not found yet."""
     from repro import models as jmodels
     over = dict(quant_mode="w8a8_nibble", attn_impl="flash")
     jcfg = jreduced(jget_config(JAMBA)).replace(**over)
@@ -306,15 +314,16 @@ def test_jamba_w8a8_prefill_equals_eager_reference(wseed):
     for pseed in range(2):
         toks = np.random.default_rng(pseed).integers(0, 256, (1, 11))\
             .astype(np.int32)
-        with jax.disable_jit():
-            eager = _f32(jmodels.prefill(jp, jcfg, jnp.asarray(toks))[0])
         jitted = _f32(jprefill(jp, jcfg, jnp.asarray(toks))[0])
+        exact = _f32(tmodel.jprefill(jp, jcfg, jnp.asarray(toks))[0])
         got = _f32(prefill(tp, reduced(get_config(JAMBA)).replace(**over),
                            torch.from_numpy(toks))[0])
         print(f"jamba w8a8 weight seed {wseed} prompt seed {pseed}: "
-              f"|jit - eager| {np.abs(jitted - eager).max()}, "
-              f"|port - eager| {np.abs(got - eager).max()}")
-        np.testing.assert_array_equal(got, eager)
+              f"|port - exact| {np.abs(got - exact).max()}, "
+              f"|jit with excess precision - exact| "
+              f"{np.abs(jitted - exact).max()}")
+        np.testing.assert_allclose(got, exact, atol=tmodel.LOGIT_ATOL,
+                                   rtol=0)
 
 
 def test_model_init_follows_reference_rules_and_quantizes():

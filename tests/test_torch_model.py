@@ -3,13 +3,22 @@
 yi-6b (2 layers, untied head) and reduced qwen3-4b (qk_norm, tied head),
 in ``dense`` and ``w8a8_nibble``, with chunked and flash attention.
 
-Logit tolerance LOGIT_ATOL = 0.08: both packages compute the same
-function, but XLA and torch round f32 ``sin``/``cos``/``exp`` differently
-in the last ulp (measured on this CPU: ~3-6% of RoPE table entries), which
-flips some bf16 roundings of activations and, in w8a8, some int8
-roundings; yi-6b's logits are themselves bf16 (ulp 2**-6 for |x| in
-[2, 4)), so the measured difference is up to ~3 logit ulps.  Exact:
-the bridged weights, and layer 0's V cache (no RoPE before it).
+The reference runs compiled, as it runs in use, but without XLA's excess
+precision (:func:`exact_jit`): left on, XLA keeps f32 where the program
+names a bf16 value, and under jit its int8 scales multiply by the f32
+reciprocal of qmax (the port does too).  On these two models those two
+were the whole gap; it was not, as an earlier account here had it, XLA
+and torch rounding ``sin``/``cos`` differently.  Held so (measured on a
+CPU), forward and prefill logits are equal bit for bit or within 3.1e-5,
+and the paged decode differs where the reference attends through its
+paged Pallas kernel (interpret mode) and the port through that kernel's
+plain version, which sum in other orders: up to 0.0254 here (yi-6b,
+w8a8).  Over every test that holds LOGIT_ATOL the largest difference is
+0.0547 (reduced jamba, dense, paged decode, ``test_torch_families.py``;
+jamba keeps a residue even in prefill, ``test_torch_mamba.py``).
+LOGIT_ATOL = 2**-4 = 0.0625 is the power of two above it, a margin of
+1.14x (it was 0.08).  Exact: the bridged weights, and layer 0's V cache
+(no RoPE before it).
 """
 
 import functools
@@ -37,15 +46,70 @@ from repro_torch.models import (
 
 torch.set_num_threads(1)
 
-LOGIT_ATOL = 0.08
+LOGIT_ATOL = 2.0 ** -4
+
+# XLA's option that lets it keep f32 where a program rounds to bf16, off
+# for one computation (the JAX package's own tests keep their flags)
+EXACT_OPTIONS = {"xla_allow_excess_precision": False}
+
+
+def _leaf_sig(leaf):
+    if hasattr(leaf, "shape") and hasattr(leaf, "dtype"):
+        return (tuple(leaf.shape), str(leaf.dtype),
+                bool(getattr(leaf, "weak_type", False)))
+    return (type(leaf).__name__,)
+
+
+def exact_jit(fn, *, static_argnums=(), static_argnames=(), **jit_kw):
+    """``jax.jit(fn, ...)`` compiled without excess precision: every bf16
+    value the program names is rounded to bf16, as the port's eager ops
+    round it.  Lowered and compiled once per static signature (the static
+    arguments' values, the other arguments' tree and leaf shapes and
+    dtypes) and called with the dynamic arguments, as a ``Compiled`` is."""
+    nums = (static_argnums,) if isinstance(static_argnums, int) \
+        else tuple(static_argnums)
+    names = (static_argnames,) if isinstance(static_argnames, str) \
+        else tuple(static_argnames)
+    jitted = jax.jit(fn, static_argnums=nums, static_argnames=names,
+                     **jit_kw)
+    compiled = {}
+
+    def call(*args, **kw):
+        dyn = tuple(a for i, a in enumerate(args) if i not in nums)
+        dyn_kw = {k: v for k, v in kw.items() if k not in names}
+        leaves, tree = jax.tree_util.tree_flatten((dyn, dyn_kw))
+        key = (tuple(args[i] for i in nums),
+               tuple(sorted((k, v) for k, v in kw.items() if k in names)),
+               tree, tuple(map(_leaf_sig, leaves)))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args, **kw).compile(
+                compiler_options=EXACT_OPTIONS)
+        return compiled[key](*dyn, **dyn_kw)
+
+    return call
+
+
+def exact_engine(monkeypatch):
+    """Compile every stage of the reference engines made after this call
+    as :func:`exact_jit` compiles (their ``_CountingJit`` wraps
+    ``jax.jit``)."""
+    import repro.serve.engine as jengine
+
+    def init(self, fn, **jit_kw):
+        self._fn = exact_jit(fn, **jit_kw)
+        self._keys = set()
+
+    monkeypatch.setattr(jengine._CountingJit, "__init__", init)
+
 
 # the reference's entry points, compiled whole (eager op-by-op dispatch
-# compiles every small op separately and dominates the test time)
+# compiles every small op separately and dominates the test time); the
+# weights' init is the same either way
 jmodel_init = jax.jit(jmodels.model_init, static_argnums=1)
-jforward = jax.jit(jmodels.forward, static_argnums=1)
-jprefill = jax.jit(jmodels.prefill, static_argnums=1,
-                   static_argnames=("max_len",))
-jdecode = jax.jit(jmodels.decode_step, static_argnums=1)
+jforward = exact_jit(jmodels.forward, static_argnums=1)
+jprefill = exact_jit(jmodels.prefill, static_argnums=1,
+                     static_argnames=("max_len",))
+jdecode = exact_jit(jmodels.decode_step, static_argnums=1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,6 +175,8 @@ def test_model_init_is_seeded_and_prepares_weights():
 
 @pytest.mark.parametrize("arch,mode,impl", CASES)
 def test_forward_logits_match(arch, mode, impl):
+    """Measured on a CPU: equal in 7 of 8 cases, 3.1e-5 in the eighth
+    (yi-6b, w8a8, chunked)."""
     jcfg, jp, tcfg, tp = _pair(arch, quant_mode=mode, attn_impl=impl)
     toks = np.random.default_rng(0).integers(0, 256, (2, 11)).astype(np.int32)
     want, _ = jforward(jp, jcfg, jnp.asarray(toks))
@@ -125,7 +191,9 @@ def test_prefill_then_decode_match(arch, mode, cache_mode):
     """Prefill two prompts (padded, per-row logits_index), grow to the
     decode budget, move them into a 3-slot cache (slab rows or pages) and
     run decode steps at per-slot positions, with flash attention (the
-    paged kernel's plain version on the paged path)."""
+    paged kernel's plain version on the paged path).  Measured on a CPU:
+    the dense slab equal in both modes; paged up to 0.0156 (dense) and
+    0.0254 (w8a8) on yi-6b, 0.0085 on qwen3-4b."""
     over = dict(quant_mode=mode, attn_impl="flash", cache_mode=cache_mode,
                 page_size=4)
     jcfg, jp, tcfg, tp = _pair(arch, **over)
@@ -184,7 +252,9 @@ def test_prefill_then_decode_match(arch, mode, cache_mode):
 
 def test_first_layer_integer_path_exact():
     """Embedding -> RMSNorm -> per-tensor int8 activations -> the wq
-    nibble accumulator: every integer on the way is bit-identical."""
+    nibble accumulator: every integer on the way is bit-identical to the
+    jitted reference's (whose scales multiply by the f32 reciprocal of
+    127)."""
     from repro.core import linear as jlin
     from repro.core import quantize as jq
     from repro.models.layers import embed_apply as jembed
@@ -195,11 +265,15 @@ def test_first_layer_integer_path_exact():
     jcfg, jp, tcfg, tp = _pair("yi-6b", quant_mode="w8a8_nibble")
     toks = np.random.default_rng(3).integers(0, 256, (2, 9)).astype(np.int32)
     blk = jax.tree_util.tree_map(lambda a: a[0], jp["stack"]["blocks"]["0"])
-    jh = jrms(blk["mixer_norm"], jembed(jp["embed"], jnp.asarray(toks)))
-    jx = jq.quantize(jh.astype(jnp.float32), granularity="per_tensor")
-    jw = jq.quantize(blk["attn"]["wq"]["w"].astype(jnp.float32),
-                     granularity="per_channel", axis=0)
-    jacc = jlin.nibble_matmul_xla(jx.values, jw.values)
+
+    def first_layer(blk, embed, toks):
+        jh = jrms(blk["mixer_norm"], jembed(embed, toks))
+        jx = jq.quantize(jh.astype(jnp.float32), granularity="per_tensor")
+        jw = jq.quantize(blk["attn"]["wq"]["w"].astype(jnp.float32),
+                         granularity="per_channel", axis=0)
+        return jx, jlin.nibble_matmul_xla(jx.values, jw.values)
+
+    jx, jacc = exact_jit(first_layer)(blk, jp["embed"], jnp.asarray(toks))
     layer = tp["layers"][0]
     th = rms_norm(layer["mixer_norm"],
                   embed_apply(tp["embed"], torch.from_numpy(toks)))
@@ -210,7 +284,8 @@ def test_first_layer_integer_path_exact():
 
 
 def test_scalar_index_decode_matches():
-    """Lockstep decode (one scalar write position for the whole batch)."""
+    """Lockstep decode (one scalar write position for the whole batch);
+    measured on a CPU: equal."""
     jcfg, jp, tcfg, tp = _pair("yi-6b", quant_mode="w8a8_nibble")
     toks = np.random.default_rng(2).integers(0, 256, (2, 6)).astype(np.int32)
     jl, jc, _ = jprefill(jp, jcfg, jnp.asarray(toks), max_len=10)

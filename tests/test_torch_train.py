@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_model as tm
 from repro import models as jmodels
 from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
@@ -98,8 +99,12 @@ def test_fake_quant_matches_reference_including_clip_ties(axis):
         x[:, 3] = np.round(x[:, 3] * 20)
         x[5, 3] = 127.0
     g = r.standard_normal(x.shape).astype(np.float32)
-    jy, vjp = jax.vjp(lambda a: jq.fake_quant(a, axis=axis), jnp.asarray(x))
-    (jg,) = vjp(jnp.asarray(g))
+
+    def jfn(a, ga):  # jitted: the scale multiplies by f32(1 / 127)
+        y, vjp = jax.vjp(lambda v: jq.fake_quant(v, axis=axis), a)
+        return y, vjp(ga)[0]
+
+    jy, jg = jax.jit(jfn)(jnp.asarray(x), jnp.asarray(g))
     jg = np.asarray(jg)
     tie = (3, 5) if axis == -1 else (5, 3)
     assert jg[tie] == np.float32(0.5) * g[tie]      # the reference's rule
@@ -112,7 +117,8 @@ def test_fake_quant_matches_reference_including_clip_ties(axis):
 
 def test_dequantize_matches_reference():
     x = _rng(6).standard_normal((8, 12)).astype(np.float32)
-    want = jq.dequantize(jq.quantize(jnp.asarray(x), axis=0))
+    want = jax.jit(lambda a: jq.dequantize(jq.quantize(a, axis=0)))(
+        jnp.asarray(x))
     got = tq.dequantize(tq.quantize(torch.from_numpy(x), axis=0))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -124,13 +130,14 @@ def test_qat_linear_matches_reference(shape):
     w = _bf16_np(r.standard_normal((64, 96)) * 0.1).copy()
     gy = r.standard_normal(shape[:-1] + (96,)).astype(np.float32)
 
-    def jfn(x, w):
-        return jlin.linear_apply({"w": w}, x, mode="qat") \
-            .astype(jnp.float32)
+    def jfn(x, w, gy):
+        y, vjp = jax.vjp(lambda a, b: jlin.linear_apply(
+            {"w": b}, a, mode="qat").astype(jnp.float32), x, w)
+        return y, vjp(gy)
 
-    jy, vjp = jax.vjp(jfn, jnp.asarray(x, jnp.bfloat16),
-                      jnp.asarray(w, jnp.bfloat16))
-    jgx, jgw = vjp(jnp.asarray(gy))
+    jy, (jgx, jgw) = tm.exact_jit(jfn)(jnp.asarray(x, jnp.bfloat16),
+                                       jnp.asarray(w, jnp.bfloat16),
+                                       jnp.asarray(gy))
     xt = torch.from_numpy(x).bfloat16().requires_grad_(True)
     wt = torch.from_numpy(w).bfloat16().requires_grad_(True)
     y = tlin.linear_apply({"w": wt}, xt, mode="qat")
@@ -410,7 +417,7 @@ def test_train_step_loss_and_grads_match_reference(mode, impl):
     jcfg = jreduced(jget_config("qwen3-4b")).replace(**over)
     jp, tree = _jax_params()
     toks, labels = _batch(0)
-    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+    (jloss, _), jgrads = tm.exact_jit(jax.value_and_grad(
         jmake_loss_fn(jcfg, JTrainConfig()), has_aux=True))(
         jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
     jgrads = jax.tree_util.tree_map(

@@ -80,6 +80,30 @@ Phases (any failure exits non-zero and prints no result line):
    layers, the same uniform overcommitted workload through the
    incremental pool and through an uncontended ``reserve`` pool must give
    equal greedy streams, token for token, with preemptions in the first.
+4b. Fleet: two replicas of the same full-width yi-6b behind one
+   ``Router`` on the one card, sharing the serve phase's weight tree, each
+   with the workload phase's pool and ``prefix_cache=True``, through
+   ``run_timed_workload``: the workload phase's bursty traffic with
+   ``shared_prefix=0.75``.  Prints fleet tok/s, TTFT p50/p99, ITL p99,
+   placements and affinity hits per replica and the peak memory; requires
+   2 replicas on 1 device, 16 placements, one signature per stage, one
+   CUDA graph per replica, no leak after ``release_prefix_cache()``, the
+   nibble and paged kernels launched (counters zeroed just before, read
+   just after) and no flash forward (a prefix-cache prefill attends in
+   ``attention_core``) nor f32 route.  Then, dense at full width cut to 4
+   layers, the same 8 requests at arrival 0 through a two-replica fleet
+   and through one engine: equal streams, each divergence held to a
+   near-tie as in phase 6 (flash and paged launched).  Then the capacity
+   model: the workload phase's engine, drained, is calibrated
+   (``calibrate_engine``: each stage timed on a recorded signature, the
+   decode chunk by replaying its graph; the host overhead from a probe),
+   and ``predict`` on that phase's workload prints predicted against
+   measured tok/s and TTFT p50 with the relative error (no limit; it must
+   not raise and must find the workload feasible).  Every engine any
+   phase builds holds ``analytic_cache_token_bytes(cfg)`` equal to its
+   ``cache_token_bytes``.  Last, the launcher in process on reduced
+   yi-6b: ``--dp 2``, ``--predict`` and ``--autotune max-tok-s
+   --ttft-slo-ms 100``, each returning 0.
 5. Prefix cache and host swap: the same weights and the workload phase's
    pool and traffic, with ``prefix_cache=True``, ``swap_mode="host"`` and
    ``shared_prefix=0.75`` (a 64-token shared head, 4 pages).  Every
@@ -243,7 +267,12 @@ from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 model_init, prefill)
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
-from repro_torch.serve import (Engine, ServeConfig,  # noqa: E402
+from repro_torch.capacity import (Knobs, WorkloadShape,  # noqa: E402
+                                  analytic_cache_token_bytes, predict)
+from repro_torch.capacity.calibrate import calibrate_engine  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.serve import Engine as _PortEngine  # noqa: E402
+from repro_torch.serve import (Router, ServeConfig,  # noqa: E402
                                 draw_workload, hash_chunks, pages_needed,
                                 run_timed_workload, sampling)
 from repro_torch.train import TrainConfig  # noqa: E402
@@ -285,6 +314,32 @@ BWD_RTOL = 1e-3
 # a whole int8 step.  On the CPU the reference's own flash and chunked
 # paths differ by 1.8% (dense) and 3.6% (qat) on reduced qwen3-4b.
 MODEL_GRAD_RTOL = {"dense": 0.05, "qat": 0.15}
+
+# every engine a phase builds holds its cache bytes per token to the
+# capacity model's closed form: config name, layers, KV dtype -> bytes
+CACHE_BYTES: dict = {}
+
+
+def hold_cache_bytes(engine) -> int:
+    """``analytic_cache_token_bytes(cfg)`` must equal what the engine
+    allocates per cached token."""
+    cfg = engine.cfg
+    want, got = analytic_cache_token_bytes(cfg), engine.cache_token_bytes
+    if want != got:
+        raise AssertionError(f"{cfg.name}: analytic cache bytes per token "
+                             f"{want} != the engine's {got}")
+    CACHE_BYTES[f"{cfg.name}/{cfg.n_layers}L/{cfg.kv_cache_dtype}"] = got
+    return got
+
+
+class Engine(_PortEngine):
+    """The port's engine, held to the capacity model's cache bytes when
+    built (``hold_cache_bytes``); everything else is the port's."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        hold_cache_bytes(self)
+
 
 MM_SHAPES_DECODE = [  # one decode layer's projections at 4 slots
     ("wq", 4, 4096, 4096), ("wk", 4, 4096, 512), ("wv", 4, 4096, 512),
@@ -1792,7 +1847,6 @@ def phase_workload(params, smi: str) -> dict:
     require_launched(counts, ("nibble_matmul", "flash_attention_fwd",
                               "paged_decode_attention"))
     require_no_f32(counts)
-    del engine
 
     # preemption's bit-match, where rows do not depend on each other
     n_layers = 4
@@ -1835,7 +1889,186 @@ def phase_workload(params, smi: str) -> dict:
           flush=True)
     return {"counts": counts, "result": r,
             "bitmatch": {"preemptions": inc["preemptions"],
-                         "streams_equal": same}, "dense_runs": dense_runs}
+                         "streams_equal": same}, "dense_runs": dense_runs,
+            "engine": engine, "scfg": scfg}
+
+
+def _fleet_bitmatch(params, cfg, scfg, serve: dict, n_req=8, n_new=64
+                    ) -> dict:
+    """Dense, full width cut to 4 layers, the workload phase's pool: the
+    same requests at arrival 0 through a two-replica fleet and through one
+    engine; equal greedy streams, each divergence held to a near-tie.
+    Launch counters zeroed just before the fleet's run, read just after
+    (dense projections are plain matmuls: flash and paged launch)."""
+    dcfg = cfg.replace(quant_mode="dense", n_layers=4)
+    dparams = {**params, "layers": params["layers"][:4]}
+    draw = draw_workload(cfg.vocab_size, requests=n_req, prompt_budget=128,
+                         new_tokens=n_new, seed=2, arrival_mode="bursty")
+    solo = Engine(dcfg, dparams, scfg, device=DEV)
+    ids = [solo.submit(p, n_new) for p in draw.prompts]
+    done = solo.run()
+    want = [done[i].tokens for i in ids]
+    fleet = Router(dcfg, dparams, scfg, replicas=2, device=DEV)
+    for eng in fleet.replicas:
+        hold_cache_bytes(eng)
+    fleet.submit(draw.prompts[0], 2)
+    fleet.submit(draw.prompts[1], 2)
+    fleet.run()
+    torch.cuda.synchronize()
+    reset_counts()
+    gids = [fleet.submit(p, n_new) for p in draw.prompts]
+    fdone = fleet.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = [fdone[g].tokens for g in gids]
+    _check_streams(dict(enumerate(got)), n_new, cfg.vocab_size)
+    if fleet.leaked_pages() or solo.leaked_pages():
+        raise AssertionError("the dense fleet check leaked pages")
+    require_launched(counts, ("flash_attention_fwd",
+                              "paged_decode_attention"))
+    require_no_f32(counts)
+    margins = divergence_margins(dparams, dcfg, draw.prompts, want, got)
+    held = hold_margins(f"dense fleet vs one engine ({dcfg.name} cut to 4 "
+                        f"layers, {n_req} requests x {n_new} at arrival 0, "
+                        f"placements {fleet.placements})", margins, n_req,
+                        serve)
+    return {**held, "counts": counts, "placements": fleet.placements,
+            "preemptions": fleet.stats["preemptions"]}
+
+
+def _capacity_check(engine, workload: dict, smi: str) -> dict:
+    """Calibrate the workload phase's engine (drained; each stage timed on
+    a recorded signature, the decode chunk by replaying its CUDA graph)
+    and predict that phase's workload: predicted against measured tok/s
+    and TTFT p50, with the relative error (printed; a bring-up sets no
+    limit on it).  ``predict`` must not raise and must find the workload
+    feasible: it ran."""
+    r = workload["result"]
+    t = time.perf_counter()
+    costs = calibrate_engine(engine)
+    cal_s = time.perf_counter() - t
+    shape = WorkloadShape(requests=16, prompt_budget=128, new_tokens=64,
+                          stagger_s=0.05, seed=0, priority_mix=0.25,
+                          arrival_mode="bursty")
+    pred = predict(Knobs.from_engine(engine), shape, costs,
+                   cache_token_bytes=engine.cache_token_bytes)
+    if not pred["feasible"] or "tok_per_s" not in pred:
+        raise AssertionError(f"predict found the workload that ran "
+                             f"infeasible: {pred['infeasible_reason']}")
+    err = {k: (pred[k] - r[k]) / r[k] for k in ("tok_per_s", "ttft_p50_ms")}
+    print(f"  calibrated StageCosts of the workload engine in {cal_s:.1f} s "
+          f"({smi}): {json.dumps(costs.to_dict())}", flush=True)
+    print(f"  capacity model: predicted {pred['tok_per_s']:.2f} tok/s "
+          f"against the measured {r['tok_per_s']} (relative error "
+          f"{err['tok_per_s']:+.3f}); TTFT p50 {pred['ttft_p50_ms']:.1f} ms "
+          f"against {r['ttft_p50_ms']} ({err['ttft_p50_ms']:+.3f}); "
+          f"preemptions {pred['preemptions']} against {r['preemptions']}; "
+          f"decode chunks {pred['decode_chunks']} against "
+          f"{r['decode_chunks']}", flush=True)
+    keep = ("tok_per_s", "ttft_p50_ms", "ttft_p99_ms", "preemptions",
+            "decode_chunks", "wall_s", "cache_kb_per_req")
+    return {"costs": costs.to_dict(), "calibrate_s": cal_s,
+            "predicted": {k: pred[k] for k in keep},
+            "measured": {k: r[k] for k in keep}, "rel_err": err}
+
+
+def _launcher_runs() -> dict:
+    """The serving launcher in process on reduced yi-6b: ``--dp 2`` (a
+    fleet with the prefix cache), ``--predict`` (one engine, then its
+    calibration and prediction) and ``--autotune max-tok-s --ttft-slo-ms
+    100`` (no model run); each must return 0."""
+    base = ["--arch", "yi-6b", "--reduced", "--quant", "w8a8_nibble",
+            "--cache-mode", "paged", "--page-size", "16", "--batch", "4",
+            "--prompt-len", "32", "--new-tokens", "16", "--requests", "8"]
+    runs = {"dp": base + ["--workload", "bursty", "--dp", "2",
+                          "--prefix-cache", "--shared-prefix", "0.5"],
+            "predict": base + ["--workload", "uniform", "--predict"],
+            "autotune": base + ["--workload", "uniform", "--autotune",
+                                "max-tok-s", "--ttft-slo-ms", "100"]}
+    out = {}
+    for name, argv in runs.items():
+        print(f"  launcher {' '.join(argv)}", flush=True)
+        t = time.perf_counter()
+        rc = serve_launcher.main(argv)
+        if rc != 0:
+            raise AssertionError(f"the launcher's {name} run returned {rc}")
+        out[name] = round(time.perf_counter() - t, 2)
+    return out
+
+
+def phase_fleet(params, smi: str, workload: dict, serve: dict) -> dict:
+    """Two full-width yi-6b replicas behind one ``Router`` on the one card,
+    sharing the serve phase's weights: the workload phase's pool and
+    bursty traffic with the prefix cache (75% of prompts share a head);
+    then the dense fleet bit-match, the capacity model on the workload
+    phase's engine, and the launcher's ``--dp`` / ``--predict`` /
+    ``--autotune``."""
+    cfg = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    scfg = dataclasses.replace(workload["scfg"], prefix_cache=True)
+    n_req, n_new = 16, 64
+    print(f"fleet: 2 replicas of {cfg.name} (full width, all "
+          f"{cfg.n_layers} layers, w8a8_nibble on the CUDA backend, flash "
+          f"attention) on one card, one shared weight tree; each the "
+          f"workload phase's pool ({scfg.num_pages} pages of "
+          f"{cfg.page_size}) with prefix_cache=True; bursty, {n_req} "
+          f"requests x {n_new} new tokens, stagger 0.05 s, priority mix "
+          f"0.25, shared_prefix 0.75", flush=True)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fleet = Router(cfg, params, scfg, replicas=2, device=DEV)
+    for eng in fleet.replicas:
+        hold_cache_bytes(eng)
+    reset_counts()
+    r = run_timed_workload(fleet, cfg.vocab_size, requests=n_req,
+                           prompt_budget=128, new_tokens=n_new,
+                           stagger_s=0.05, seed=0, priority_mix=0.25,
+                           shared_prefix=0.75, arrival_mode="bursty",
+                           collect_streams=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    streams = r.pop("streams")
+    _check_streams(streams, n_new, cfg.vocab_size)
+    print(f"  result ({smi}): {json.dumps(r)}", flush=True)
+    print(f"  fleet {r['tok_per_s']} tok/s; ttft p50 {r['ttft_p50_ms']} ms, "
+          f"p99 {r['ttft_p99_ms']} ms; itl p99 {r['itl_p99_ms']} ms; "
+          f"placements {[p['placed'] for p in r['per_replica']]}, affinity "
+          f"hits {fleet.affinity_hits}; prefix hit rate "
+          f"{r['prefix_hit_rate']}; preemptions {r['preemptions']}; peak "
+          f"memory {peak / 2**30:.3f} GiB ({smi})", flush=True)
+    print(f"  launches in the fleet run (warm-up included): {counts}",
+          flush=True)
+    if (r["dp_replicas"], r["device_count"]) != (2, 1):
+        raise AssertionError(f"fleet topology {r['dp_replicas']} replicas "
+                             f"on {r['device_count']} devices")
+    if sum(p["placed"] for p in r["per_replica"]) != n_req:
+        raise AssertionError(f"placements {r['per_replica']}")
+    if r["compile_counts"] != {"prefill": 1, "decode_chunk": 1}:
+        raise AssertionError(f"stage signatures {r['compile_counts']}")
+    if fleet.capture_counts != {"decode_chunk": 1}:
+        raise AssertionError(f"CUDA graphs {fleet.capture_counts}")
+    fleet.release_prefix_cache()
+    if fleet.leaked_pages():
+        raise AssertionError(f"{fleet.leaked_pages()} pages leaked")
+    # the prefix-cache prefill attends in attention_core (the reference's
+    # context prefill), so the flash forward launches in the dense check
+    require_launched(counts, ("nibble_matmul", "paged_decode_attention"))
+    if counts["flash_attention_fwd"]:
+        raise AssertionError("a prefix-cache prefill ran the flash kernel")
+    require_no_f32(counts)
+    out = {"counts": counts, "result": r, "peak_bytes": peak,
+           "affinity_hits": list(fleet.affinity_hits),
+           "capture_counts": fleet.capture_counts}
+    del fleet
+    out["bitmatch"] = _fleet_bitmatch(
+        params, cfg, dataclasses.replace(scfg, prefix_cache=False), serve)
+    out["capacity"] = _capacity_check(workload.pop("engine"), workload, smi)
+    out["launcher_s"] = _launcher_runs()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  fleet phase {out['wall_s']:.1f} s", flush=True)
+    return out
 
 
 def _cached_rows(prompts, page_size) -> list:
@@ -3641,6 +3874,12 @@ def main() -> int:
     workload = phase_workload(params, smi)
     for r in rows[:3]:
         r["workload_launches"] = workload["counts"][r["name"]]
+    fleet = phase_fleet(params, smi, workload, serve)
+    del workload["scfg"]
+    for r in rows[:3]:
+        r["fleet_launches"] = {
+            "fleet": fleet["counts"][r["name"]],
+            "dense_fleet": fleet["bitmatch"]["counts"][r["name"]]}
     prefix_swap = phase_prefix_swap(params, smi, workload, serve)
     del workload["dense_runs"]
     for r in rows[:3]:
@@ -3687,6 +3926,8 @@ def main() -> int:
     rows[3]["launches"] = (train["counts"]["flash_attention_bwd_dq"]
                            + train["counts"]["flash_attention_bwd_dkv"])
     grads = check_train_grads()
+    print(f"cache bytes per token held to the capacity model's closed form "
+          f"on {len(CACHE_BYTES)} configs: {CACHE_BYTES}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -3695,7 +3936,9 @@ def main() -> int:
             json.dump({"nvidia_smi": smi, "kernels": rows,
                        "attention_f32_errors": f32, "paper": paper,
                        "serve": serve,
-                       "workload": workload, "prefix_swap": prefix_swap,
+                       "workload": workload, "fleet": fleet,
+                       "cache_token_bytes": CACHE_BYTES,
+                       "prefix_swap": prefix_swap,
                        "spec_wave": spec_wave, "graphs": graphs,
                        "lut_serve": lut, "int8_kv": int8kv,
                        "families": families, "ssm": ssm,
@@ -3709,7 +3952,8 @@ def main() -> int:
     # workload and prefix+swap phases' launches, where a row has them
     extra = ("graph_ms", "library_graph_ms", "train_ms", "train_graph_ms",
              "library_train_ms", "library_train_graph_ms", "train_bound_ms",
-             "workload_launches", "prefix_swap_launches", "spec_launches",
+             "workload_launches", "fleet_launches", "prefix_swap_launches",
+             "spec_launches",
              "tail_launches", "families_launches", "families_shapes",
              "ssm_launches", "ssm_shapes", "int8kv_launches",
              "encdec_vlm_launches", "encdec_vlm_shapes", "paper_launches")

@@ -62,10 +62,11 @@ def abs_max_scale(x: torch.Tensor, bits: int = 8,
     return scale_from_amax(amax, bits)
 
 
-def scale_from_amax(amax: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    """``max(amax, 1e-8) * f32(1 / qmax)``: what the jitted reference
-    computes for its ``max(amax, 1e-8) / qmax``."""
-    return torch.clamp(amax, min=1e-8) * _RECIP[bits]
+def scale_from_amax(amax: torch.Tensor, bits: int = 8,
+                    floor: float = 1e-8) -> torch.Tensor:
+    """``max(amax, floor) * f32(1 / qmax)``: what the jitted reference
+    computes for its ``max(amax, floor) / qmax``."""
+    return torch.clamp(amax, min=floor) * _RECIP[bits]
 
 
 def quantize(x: torch.Tensor, bits: int = 8,

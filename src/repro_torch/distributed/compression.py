@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantize import scale_from_amax
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["compress_tree_int8", "decompress_tree_int8", "ef_compress",
@@ -19,7 +20,7 @@ __all__ = ["compress_tree_int8", "decompress_tree_int8", "ef_compress",
 
 def _comp(g):
     g = g.to(torch.float32)
-    scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+    scale = scale_from_amax(g.abs().max(), floor=1e-12)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale}
 

@@ -42,6 +42,20 @@ wave prefill (chunked prefill with grouped admission):
         --workload bursty --cache-mode paged --page-size 16 \
         --prefill-chunk 32 --admit-group 4
 
+Data parallelism (``--dp`` engine replicas behind one admission router,
+sharing the card and the weights), the capacity model's prediction next
+to the measurement (``--predict``), and the knob search over the capacity
+model (``--autotune``, no model run; the counterpart of the reference's
+``tools/autotune.py``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --workload bursty --requests 16 --cache-mode paged \
+        --page-size 16 --prefix-cache --shared-prefix 0.75 --dp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --workload uniform --cache-mode paged --page-size 16 --predict
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --workload uniform --autotune max-tok-s --ttft-slo-ms 100
+
 ``--temperature 0.7`` samples (any workload, also with ``--spec-decode``)
 under the reference's index-derived keys; ``--verify`` needs greedy
 streams.  On the card the decode chunk (the draft and the verify under
@@ -60,8 +74,8 @@ device, every projection through the CUDA kernels
 kernels, unless ``--device cpu`` is given: there the same wrappers run
 their plain versions, and ``--quant-backend torch`` is allowed too.  The
 warm-up (which builds the kernels on first use) is timed apart from the
-steady state.  Flags of mechanisms not ported yet stay in the parser and
-raise ``NotImplementedError``.
+steady state.  The flags of tensor parallelism (``--tp``, ``--mesh``), not
+ported yet, stay in the parser and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -73,16 +87,14 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import model_init
-from repro_torch.serve import Engine, ServeConfig, run_timed_workload
+from repro_torch.serve import Engine, Router, ServeConfig, \
+    run_timed_workload
 
 # flag -> (default, where ROADMAP.md places the work that ports it)
 _UNPORTED_FLAGS = {
-    "tp": (1, "queue 1 item 4, scale-out"),
-    "dp": (1, "queue 1 item 4, scale-out"),
-    "mesh": (None, "queue 1 item 4, scale-out"),
-    "predict": (False, "queue 1 item 5, the capacity model"),
-    "autotune": (None, "queue 1 item 5, the capacity model"),
-    "ttft_slo_ms": (None, "queue 1 item 5, the capacity model"),
+    "tp": (1, "queue 1 item 4, tensor parallelism on torch.distributed"),
+    "mesh": (None, "queue 1 item 4, tensor parallelism on "
+                   "torch.distributed"),
 }
 
 
@@ -99,15 +111,20 @@ def _check_ported(args) -> None:
                          "through the CUDA kernels (use --device cpu)")
 
 
-def _build(args, reference=False):
-    """Build the engine for ``args``; ``reference=True`` builds the
-    baseline of ``--verify`` from the same flags, with every tail-latency
-    mechanism off (monolithic prefill, serialized admission, replay-only
-    resume), as the reference's launcher does."""
+def _config(args):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    cfg = cfg.replace(quant_mode=args.quant, attn_impl="flash")
+    return cfg.replace(quant_mode=args.quant, attn_impl="flash")
+
+
+def _build(args, reference=False):
+    """Build the engine (a ``Router`` of ``--dp`` replicas when above 1)
+    for ``args``; ``reference=True`` builds the baseline of ``--verify``
+    from the same flags: one engine, with every tail-latency mechanism off
+    (monolithic prefill, serialized admission, replay-only resume), as the
+    reference's launcher does."""
+    cfg = _config(args)
     params = model_init(cfg, seed=0, device=args.device)
     max_len = args.prompt_len + args.new_tokens
     if args.cache_mode == "paged":
@@ -133,6 +150,9 @@ def _build(args, reference=False):
                        admit_group=1 if reference else args.admit_group,
                        swap_mode="off" if reference else args.swap_mode,
                        host_pages=args.host_pages)
+    if args.dp > 1 and not reference:
+        return cfg, params, Router(cfg, params, scfg, replicas=args.dp,
+                                   device=args.device)
     return cfg, params, Engine(cfg, params, scfg, device=args.device)
 
 
@@ -190,11 +210,18 @@ def _check_leaks(args, engine):
 def _verify(args, cfg, r):
     """Re-run the identical workload on a reference build and demand
     token-for-token equality (greedy streams).  The reference's baseline
-    is single-device with every tail-latency mechanism off: here the host
-    swap (the prefix cache stays, as in the reference)."""
+    is one engine with every tail-latency mechanism off (the prefix cache
+    stays, as in the reference).  Dense only when ``--dp > 1``: w8a8
+    activation scales span the batch, and placement changes which
+    requests share a decode chunk."""
     if args.temperature > 0:
         raise SystemExit("--verify needs greedy streams "
                          "(--temperature 0)")
+    if args.dp > 1 and args.quant != "dense":
+        raise SystemExit("--verify with --dp > 1 needs --quant dense: "
+                         "batched activation quantization is batch-"
+                         "composition-dependent, so placement changes "
+                         "quantized streams")
     cfg_ref, _, ref = _build(args, reference=True)
     ref_r = _run_workload(args, cfg_ref, ref, collect_streams=True)
     _check_leaks(args, ref)
@@ -206,6 +233,78 @@ def _verify(args, cfg, r):
                          f"(request ids {bad[:8]})")
     print(f"  verify: {len(r['streams'])} streams bit-match the "
           f"reference build")
+
+
+def _workload_shape(args):
+    from repro_torch.capacity import WorkloadShape
+    stagger = args.stagger_ms / 1000.0 \
+        if args.workload in ("staggered", "bursty") else 0.0
+    return WorkloadShape(requests=args.requests,
+                         prompt_budget=args.prompt_len,
+                         new_tokens=args.new_tokens, stagger_s=stagger,
+                         priority_mix=args.priority_mix,
+                         shared_prefix=args.shared_prefix,
+                         arrival_mode="bursty"
+                         if args.workload == "bursty" else "uniform")
+
+
+def _predict(args, engine, r):
+    """Calibrate the engine and print the capacity model's prediction
+    for the workload just measured, beside the measurement."""
+    if args.dp > 1:
+        print("  capacity model: (skipped: it covers one engine; a --dp "
+              "fleet carries no prediction)")
+        return None
+    from repro_torch.capacity import Knobs, predict
+    from repro_torch.capacity.calibrate import calibrate_engine
+    costs = calibrate_engine(engine)
+    p = predict(Knobs.from_engine(engine), _workload_shape(args), costs,
+                cache_token_bytes=int(engine.cache_token_bytes),
+                acceptance=(r["acceptance_rate"]
+                            if args.spec_decode else None))
+    if not p["feasible"] or "tok_per_s" not in p:
+        print(f"  capacity model: infeasible: {p['infeasible_reason']}")
+        return p
+    err = 100.0 * abs(p["tok_per_s"] - r["tok_per_s"]) \
+        / max(r["tok_per_s"], 1e-9)
+    print(f"  capacity model: predicted {p['tok_per_s']:.1f} tok/s "
+          f"(measured {r['tok_per_s']:.1f}, {err:.0f}% off), "
+          f"ttft p50={p['ttft_p50_ms']:.0f}ms "
+          f"p99={p['ttft_p99_ms']:.0f}ms, "
+          f"preemptions {p['preemptions']}, "
+          f"cache {p['cache_kb_per_req']:.1f} KiB/req")
+    return p
+
+
+def run_autotune(args):
+    """``--autotune``: the knob-grid search over the capacity model for
+    this invocation's workload shape (H100 peak rates); prints the
+    prediction table and the winning ServeConfig kwargs.  No model run."""
+    import json
+
+    from repro_torch.capacity.tune import knob_grid, search, table_lines
+    if args.workload == "batch":
+        raise SystemExit("--autotune plans request workloads "
+                         "(uniform/staggered/bursty), not batch mode")
+    cfg = _config(args)
+    shape = _workload_shape(args)
+    max_len = args.prompt_len + args.new_tokens
+    max_len += (-max_len) % args.page_size
+    cells = knob_grid(shape, batch=args.batch, max_len=max_len,
+                      prefill_len=args.prompt_len)
+    results, winner = search(cfg, shape, cells, objective=args.autotune,
+                             ttft_slo_ms=args.ttft_slo_ms, alpha=0.8)
+    print(f"# autotune: {len(cells)} cells, objective={args.autotune}"
+          + (f", ttft_slo={args.ttft_slo_ms}ms"
+             if args.ttft_slo_ms else ""))
+    for line in table_lines(results, winner):
+        print(line)
+    if winner is None:
+        print("# no admissible configuration")
+        return 1
+    print("# winning ServeConfig kwargs:")
+    print(json.dumps(winner["knobs"].to_dict(), indent=1))
+    return 0
 
 
 def run_requests(args, cfg, engine):
@@ -254,6 +353,11 @@ def run_requests(args, cfg, engine):
         print(f"  host swap: {r['swap_out']} out / {r['swap_in']} in, "
               f"{r['replay_steps_saved']} replay steps saved, "
               f"{r['prefix_cold_hits']} cold prefix pages promoted")
+    for pr in r.get("per_replica", ()):
+        print(f"  replica {pr['replica']}: {pr['placed']} placed, "
+              f"affinity hit rate {pr['affinity_hit_rate']:.0%}, "
+              f"prefix hit rate {pr['prefix_hit_rate']:.0%}, "
+              f"preemptions {pr['preemptions']}")
     if r["truncated"]:
         print(f"  WARNING: {r['truncated']} request(s) truncated at the "
               f"max_len budget")
@@ -262,6 +366,8 @@ def run_requests(args, cfg, engine):
         hi_s = "n/a (no hi requests)" if hi is None else f"p50={hi:.0f}ms"
         lo_s = "n/a (no lo requests)" if lo is None else f"p50={lo:.0f}ms"
         print(f"  priority split:  hi {hi_s}  lo {lo_s}")
+    if args.predict:
+        r["prediction"] = _predict(args, engine, r)
     if args.verify:
         _verify(args, cfg, r)
     return r
@@ -366,17 +472,38 @@ def main(argv=None):
     ap.add_argument("--admit-group", type=int, default=1,
                     help="grouped admission: prefilling requests one wave "
                          "advances together (paged cache)")
-    # the reference's flags for mechanisms not ported yet: kept so that a
-    # command line written for the reference fails loudly, not silently
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel engine replicas behind one "
+                         "admission router (least-loaded placement with "
+                         "priority ordering and prefix-cache affinity), "
+                         "sharing the device and the weights")
+    ap.add_argument("--predict", action="store_true",
+                    help="after the measured run, calibrate the engine's "
+                         "per-dispatch stage costs and print the capacity "
+                         "model's prediction for the same workload beside "
+                         "the measurement (one engine; skipped at --dp > 1)")
+    ap.add_argument("--autotune", default=None, metavar="OBJECTIVE",
+                    choices=["max-tok-s", "min-pages"],
+                    help="skip the run: search the serving knob grid with "
+                         "the capacity model for this workload shape and "
+                         "print the winning ServeConfig (max-tok-s under "
+                         "--ttft-slo-ms, or min-pages at zero predicted "
+                         "preemptions)")
+    ap.add_argument("--ttft-slo-ms", type=float, default=None,
+                    help="p99 TTFT SLO an --autotune max-tok-s winner must "
+                         "meet")
+    # the reference's flags of tensor parallelism, not ported yet: kept so
+    # that a command line written for the reference fails loudly
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--predict", action="store_true")
-    ap.add_argument("--autotune", default=None)
-    ap.add_argument("--ttft-slo-ms", type=float, default=None)
     args = ap.parse_args(argv)
 
     _check_ported(args)
+    if args.workload == "batch" and args.dp > 1:
+        raise SystemExit("--dp applies to request workloads "
+                         "(uniform/staggered/bursty), not batch mode")
+    if args.autotune:
+        return run_autotune(args)
     cfg, _, engine = _build(args)
     if args.workload == "batch":
         run_batch(args, cfg, engine)

@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.quantize import scale_from_amax
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
@@ -39,7 +40,7 @@ class AdamWConfig:
 
 
 def _q8(x):
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    scale = scale_from_amax(x.abs().max(), floor=1e-12)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
 

@@ -86,7 +86,8 @@ Each batch slot is an independent sequence sharing one model:
   precision); the host swap and speculative decoding run.
 
 Not ported yet (the knobs raise ``NotImplementedError``): tensor
-parallelism and the device mesh.
+parallelism and the device mesh.  Data parallelism is ``serve.router``:
+N engines behind one admission queue.
 """
 
 from __future__ import annotations
@@ -305,10 +306,24 @@ class _StageCounter:
     signature is one a CUDA graph captured once can replay, so the count
     pins the same contract: a warm engine reads ``{"prefill": 1,
     "decode_chunk": 1}`` across request mixes, page recyclings and
-    preemptions (given a fixed ``prefill_len``)."""
+    preemptions (given a fixed ``prefill_len``).
 
-    def __init__(self):
+    ``fn`` is the stage's body, which takes the recorded arguments and
+    runs the stage's device work; the recorded signatures are its replay
+    surface (``signatures``, ``rerun``), the calibration's counterpart of
+    the reference's ``abstract_args``.  The body writes the engine's
+    caches in place, so a rerun leaves stale rows behind: calibrate a
+    drained engine and ``reset`` it afterwards."""
+
+    # a non-tensor argument keeps only its type in the signature; a stage
+    # body takes such arguments as data (an index, a slot), never as a
+    # shape, so a stand-in value runs the same work
+    _STANDIN = {"int": 0, "float": 0.0, "bool": False, "NoneType": None}
+
+    def __init__(self, fn=None, device: torch.device | None = None):
         self._keys: set = set()
+        self._fn = fn
+        self.device = device
 
     def record(self, *args) -> tuple:
         key = tuple(
@@ -321,6 +336,27 @@ class _StageCounter:
     @property
     def count(self) -> int:
         return len(self._keys)
+
+    @property
+    def signatures(self) -> tuple:
+        """The distinct signatures recorded so far, in a fixed order."""
+        return tuple(sorted(self._keys, key=repr))
+
+    def rerun(self, signature):
+        """Run the stage's body once on zero tensors of ``signature``, on
+        the stage's device (stand-ins for non-tensor arguments): the
+        calibration's timed dispatch.  Returns the body's outputs."""
+        args = []
+        for leaf in signature:
+            if len(leaf) == 1:
+                args.append(self._STANDIN[leaf[0]])
+                continue
+            shape, dtype = leaf
+            dtype = (getattr(torch, dtype[len("torch."):])
+                     if dtype.startswith("torch.")
+                     else torch.from_numpy(np.zeros(0, dtype)).dtype)
+            args.append(torch.zeros(shape, dtype=dtype, device=self.device))
+        return self._fn(*args)
 
 
 @dataclasses.dataclass
@@ -360,9 +396,7 @@ class _CapturedStage(_StageCounter):
     itself, which launches nothing."""
 
     def __init__(self, fn, device: torch.device, capture: bool):
-        super().__init__()
-        self._fn = fn
-        self._device = device
+        super().__init__(fn, device)
         self._capture = capture
         self._buffers: dict[tuple, _StageBuffers] = {}
 
@@ -371,13 +405,24 @@ class _CapturedStage(_StageCounter):
         """CUDA graphs captured (one per signature on the card, else 0)."""
         return sum(b.graph is not None for b in self._buffers.values())
 
+    def rerun(self, signature):
+        """Replay ``signature``'s graph on its static buffers (eagerly: run
+        the body on them), as a warm call does after its staging copies;
+        returns the outputs."""
+        st = self._buffers[signature]
+        if st.graph is None:
+            return self._fn(*st.args)
+        st.graph.replay()
+        add_launch_counts(st.launches)
+        return st.outputs
+
     def _new_buffers(self, args) -> _StageBuffers:
-        pin = self._device.type == "cuda"
+        pin = self.device.type == "cuda"
         bufs, staging = [], []
         for a in args:
             if isinstance(a, np.ndarray):
                 host = torch.from_numpy(np.zeros(a.shape, a.dtype))
-                buf = host.to(self._device)
+                buf = host.to(self.device)
                 staging.append(host.pin_memory() if pin else buf)
             else:
                 buf = a
@@ -411,8 +456,8 @@ class _CapturedStage(_StageCounter):
         return st.outputs
 
     def _capture_graph(self, st: _StageBuffers) -> None:
-        stream = torch.cuda.current_stream(self._device)
-        side = torch.cuda.Stream(self._device)
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
             warm = self._fn(*st.args)       # launches for real, counted
@@ -455,7 +500,8 @@ class Engine:
             if getattr(scfg, field) != default:
                 raise NotImplementedError(
                     f"ServeConfig.{field}={getattr(scfg, field)!r} is not "
-                    f"ported yet (ROADMAP queue 1)")
+                    f"ported yet (ROADMAP queue 1 item 4, tensor "
+                    f"parallelism on torch.distributed)")
         if scfg.alloc_mode not in ("reserve", "incremental"):
             raise ValueError(f"alloc_mode must be 'reserve' or "
                              f"'incremental', got {scfg.alloc_mode!r}")
@@ -507,8 +553,10 @@ class Engine:
             self._wave_group = scfg.admit_group
         self._caches = init_caches(self.cfg, scfg.batch, scfg.max_len,
                                    device=self.device)
-        self._stages = {"prefill": _StageCounter(),
-                        "prefill_chunk": _StageCounter()}
+        self._stages = {
+            "prefill": _StageCounter(self._prefix_body if scfg.prefix_cache
+                                     else self._prefill_body, self.device),
+            "prefill_chunk": _StageCounter(self._wave_body, self.device)}
         for name, fn in (("decode_chunk", self._chunk_body),
                          ("draft", self._draft_body),
                          ("verify", self._verify_body)):
@@ -691,6 +739,16 @@ class Engine:
         if self._spec:
             names += ["draft", "verify"]
         return {name: self._stages[name].count for name in names}
+
+    def stage_programs(self) -> dict:
+        """The stages this engine's mode runs, ``{name: stage}``, under the
+        reference's keys: ``prefill`` (``prefill_chunk`` in wave mode), then
+        ``decode_chunk`` (``draft`` and ``verify`` under ``spec_decode``).
+        Each stage's ``signatures`` and ``rerun`` are the calibration's
+        replay surface (``repro_torch.capacity.calibrate``)."""
+        names = ["prefill_chunk" if self._wave else "prefill"]
+        names += ["draft", "verify"] if self._spec else ["decode_chunk"]
+        return {name: self._stages[name] for name in names}
 
     @property
     def capture_counts(self) -> dict:
@@ -1070,19 +1128,28 @@ class Engine:
         padded = torch.zeros((1, pad_len), dtype=torch.int64, device=dev)
         padded[0, :sfx_len] = torch.as_tensor(req.prompt[start:], device=dev)
         row = torch.as_tensor(self.page_table.row(slot), device=dev)
-        args = [torch.tensor(v, dtype=torch.int64, device=dev)
-                for v in (start, cow_src, cow_dst)]
-        self._stages["prefill"].record(padded, row, *args)
-        start_t, src_t, dst_t = args
-        copy_paged_cache_page(self._caches, src_t, dst_t)
-        logits, one, _ = prefill(self.params, self.cfg, padded,
-                                 logits_index=sfx_len - 1,
-                                 ctx_caches=self._caches,
-                                 ctx_table=row[None], ctx_start=start_t)
-        scatter_prefill_paged_caches(self._caches, one, slot, row, start_t)
+        args = [padded, row] + [torch.tensor(v, dtype=torch.int64,
+                                             device=dev)
+                                for v in (start, cow_src, cow_dst)]
+        self._stages["prefill"].record(*args, sfx_len)
+        logits = self._prefix_body(*args, sfx_len)
         self._prefix_insert(req.chunk_keys, self._slot_pages[slot])
         self.prefill_tokens += sfx_len
         self.cow_copies += bool(cow_src)
+        return logits
+
+    @torch.no_grad()
+    def _prefix_body(self, padded, row, start, cow_src, cow_dst, sfx_len):
+        """The prefix-cache prefill stage: the COW page copy, then the
+        suffix ``padded`` prefilled against the rows the table ``row``
+        maps below ``start``, its rows scattered through ``row``; returns
+        the logits at the suffix's last real token (``sfx_len - 1``)."""
+        copy_paged_cache_page(self._caches, cow_src, cow_dst)
+        logits, one, _ = prefill(self.params, self.cfg, padded,
+                                 logits_index=sfx_len - 1,
+                                 ctx_caches=self._caches,
+                                 ctx_table=row[None], ctx_start=start)
+        scatter_prefill_paged_caches(self._caches, one, 0, row, start)
         return logits
 
     def _place(self, slot: int, req: Request) -> None:
@@ -1133,17 +1200,26 @@ class Engine:
         row = None
         if self._paged:
             self._assign(slot, req, self._book(self._alloc_pages_for(req)))
-            grow_to = -(-pad_len // self._page_size) * self._page_size
             row = torch.as_tensor(self.page_table.row(slot),
                                   device=self.device)
         else:
             req.cache_rows = self.scfg.max_len
-            grow_to = self.scfg.max_len
         padded = torch.zeros((1, pad_len), dtype=torch.int64,
                              device=self.device)
         padded[0, :p_len] = torch.as_tensor(req.prompt, device=self.device)
         self.prefill_tokens += p_len
-        self._stages["prefill"].record(padded, row)
+        self._stages["prefill"].record(padded, row, slot, p_len)
+        return self._prefill_body(padded, row, slot, p_len)
+
+    @torch.no_grad()
+    def _prefill_body(self, padded, row, slot, p_len):
+        """The monolithic prefill stage: ``padded`` prefilled alone and its
+        caches merged into ``slot`` (paged: the pages the table ``row``
+        maps; the caches grow to whole pages, dense to ``max_len``);
+        returns the logits at the prompt's last token (``p_len - 1``)."""
+        pad_len = padded.shape[1]
+        grow_to = (-(-pad_len // self._page_size) * self._page_size
+                   if self._paged else self.scfg.max_len)
         logits, one, _ = prefill(self.params, self.cfg, padded,
                                  max_len=grow_to, logits_index=p_len - 1)
         if self._paged:
@@ -1240,13 +1316,18 @@ class Engine:
                 for a in (tokens, lens, starts, rows, cow_src, cow_dst,
                           keys)]
         self._stages["prefill_chunk"].record(*args)
-        tokens, lens, starts, rows, cow_src, cow_dst, keys = args
+        return self._wave_body(*args).cpu().numpy()
+
+    @torch.no_grad()
+    def _wave_body(self, tokens, lens, starts, rows, cow_src, cow_dst, keys):
+        """The wave stage on the device (see ``_wave_step``); returns the
+        (G,) tokens."""
         copy_paged_cache_page(self._caches, cow_src, cow_dst)
         logits, _ = decode_step(self.params, self.cfg, tokens, self._caches,
                                 starts, page_table=rows)
         last = logits[torch.arange(tokens.shape[0], device=self.device),
                       lens - 1]
-        return self._draw(last, keys, 0).cpu().numpy()
+        return self._draw(last, keys, 0)
 
     def _run_wave(self) -> None:
         """Advance up to ``admit_group`` prefilling lanes by one prompt

@@ -5,8 +5,9 @@ The serving launcher (``repro_torch.launch.serve --workload
 uniform|staggered|bursty``) runs it, so the warm-up protocol and the
 latency definitions are the reference's:
 
-* warm-up: one short request end to end (on the card, the kernels' first
-  use builds them), timed apart as ``compile_s``, then ``engine.reset()``;
+* warm-up: one short request end to end per engine replica (on the card,
+  the kernels' first use builds them; a ``Router`` places one on each
+  idle replica), timed apart as ``compile_s``, then ``engine.reset()``;
 * request latency = arrival -> completion; TTFT = arrival -> first token;
   ITL = gaps between consecutive emission stamps (``Request.t_tokens``),
   pooled across requests; replayed tokens keep their first stamps;
@@ -28,8 +29,9 @@ latency definitions are the reference's:
   ``prefix_cold_hits``, plus ``truncated``.
 
 ``draw_workload`` is the reference's numpy draw, copied, so a seed gives
-the same arrays in both packages.  ``device_count`` is 1 and
-``mesh_shape`` ``[1, 1]``: the engine runs on one device.
+the same arrays in both packages.  The topology keys (``device_count``,
+``mesh_shape``, ``dp_replicas``) come from the engine or the fleet, and a
+``Router``'s result carries its ``per_replica`` placement split.
 """
 
 from __future__ import annotations
@@ -208,9 +210,11 @@ def run_timed_workload(engine, vocab_size: int, *, requests: int,
     lens, arrivals, prios = draw.lens, draw.arrivals, draw.prios
     prompts = draw.prompts
 
-    # warm-up outside the timed window: first use of every stage
+    # warm-up outside the timed window: first use of every stage, one
+    # request per replica (JSQ spreads them one per idle replica)
     wrng = np.random.default_rng(np.random.SeedSequence([seed, 0xC0]))
-    engine.submit(wrng.integers(0, vocab_size, int(lens[0])), 2)
+    for _ in range(len(getattr(engine, "replicas", ())) or 1):
+        engine.submit(wrng.integers(0, vocab_size, int(lens[0])), 2)
     t0 = time.perf_counter()
     engine.run()
     compile_s = time.perf_counter() - t0
@@ -269,9 +273,9 @@ def run_timed_workload(engine, vocab_size: int, *, requests: int,
         "truncated": int(sum(done[i].truncated for i in ids)),
         "compile_s": round(compile_s, 2),
         "compile_counts": engine.compile_counts,
-        "device_count": 1,
-        "mesh_shape": [1, 1],
-        "dp_replicas": 1,
+        "device_count": int(getattr(engine, "device_count", 1)),
+        "mesh_shape": list(getattr(engine, "mesh_shape", (1, 1))),
+        "dp_replicas": stats.get("dp_replicas", 1),
         "workload_shape": {
             "seed": seed,
             "stagger_s": stagger_s,
@@ -284,6 +288,8 @@ def run_timed_workload(engine, vocab_size: int, *, requests: int,
         # both class keys whenever a split was asked for (None if empty)
         for cls, name in ((1, "hi"), (0, "lo")):
             out[f"{name}_req_p50_ms"] = _ms(_pct(lat[prios == cls], 50))
+    if "per_replica" in stats:
+        out["per_replica"] = stats["per_replica"]
     if collect_streams:
         out["streams"] = {n: list(done[i].tokens)
                           for n, i in enumerate(ids)}

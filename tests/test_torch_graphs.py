@@ -32,7 +32,7 @@ from repro_torch.kernels import lut_matmul as lm
 from repro_torch.kernels import nibble_matmul as nm
 from repro_torch.kernels import ops
 from repro_torch.models import model_init
-from repro_torch.serve import Engine, ServeConfig
+from repro_torch.serve import Engine, Router, ServeConfig
 from repro_torch.serve import engine as eng
 from repro_torch.serve import sampling
 from repro_torch.tree import tree_paths
@@ -377,3 +377,38 @@ def test_sampler_on_card_equals_cpu(cuda):
     top2 = scores.topk(2, dim=-1).values
     near = (top2[:, 0] - top2[:, 1]) < 1e-5
     assert torch.equal(got[~near], want[~near])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", ["dense", "w8a8_nibble"])
+def test_captured_fleet_on_card(cuda, quant_mode):
+    """Two replicas behind one ``Router`` on one card, captured: one CUDA
+    graph per replica's decode chunk, one signature per stage, kernel
+    launches, no leak after the prefix index is released, and the same
+    streams when the fleet serves them again; in ``dense`` they equal one
+    captured engine's (w8a8 activation scales span the batch, so
+    placement moves quantized streams)."""
+    cfg = reduced(get_config("yi-6b")).replace(
+        quant_mode=quant_mode, quant_backend="cuda", attn_impl="flash")
+    params = model_init(cfg, seed=0, device=cuda)
+    scfg = _scfg(alloc_mode="incremental", num_pages=9, prefix_cache=True)
+    prompts = _prompts(cfg.vocab_size, 6, seed=5) + [SHARED, SHARED]
+    solo = _serve(Engine(cfg, params, scfg, device=cuda), prompts)
+    fleet = Router(cfg, params, scfg, replicas=2, device=cuda)
+    runs = []
+    for _ in range(2):
+        before = ops.launch_counts()
+        fleet.reset()
+        gids = [fleet.submit(p, 7) for p in prompts]
+        done = fleet.run()
+        torch.cuda.synchronize()
+        runs.append(([done[g].tokens for g in gids],
+                     [a - b for a, b in zip(ops.launch_counts(), before)]))
+        fleet.release_prefix_cache()
+        assert fleet.leaked_pages() == 0
+    assert runs[0] == runs[1] and sum(runs[0][1]) > 0
+    assert fleet.device_count == 1 and sum(fleet.placements) == 8
+    assert fleet.compile_counts == {"prefill": 1, "decode_chunk": 1}
+    assert fleet.capture_counts == {"decode_chunk": 1}
+    if quant_mode == "dense":
+        assert runs[0][0] == solo

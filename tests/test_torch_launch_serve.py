@@ -2,9 +2,12 @@
 versions): lockstep batch generation, the uniform and bursty timed
 workloads, an overcommitted incremental pool that must preempt, the
 prefix cache and the host swap, speculative decoding and the wave
-prefill, temperature sampling, the ``--verify`` re-run, and a
-``NotImplementedError`` for every flag of a mechanism the port does not
-run yet."""
+prefill, temperature sampling, the ``--verify`` re-run, the DP fleet
+(``--dp``), the capacity model (``--predict``, ``--autotune``,
+``--ttft-slo-ms``), and a ``NotImplementedError`` for the flags of tensor
+parallelism, which the port does not run yet."""
+
+import json
 
 import pytest
 import torch
@@ -143,13 +146,93 @@ def test_spec_and_wave_flags_serve(monkeypatch, capsys, flags):
                                        "prefill_chunk": 1}
 
 
-@pytest.mark.parametrize("flag", [
-    ["--tp", "2"], ["--dp", "2"], ["--mesh", "1x2"], ["--predict"],
-    ["--autotune", "max-tok-s"], ["--ttft-slo-ms", "100"]],
-    ids=lambda f: f[0])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--mesh", "1x2"]],
+                         ids=lambda f: f[0])
 def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 4, tensor parallelism"):
         serve.main(BASE + ["--workload", "uniform"] + flag)
+
+
+@pytest.mark.parametrize("extra", [[], PREFIX],
+                         ids=["jsq", "prefix-affinity"])
+def test_dp_serves_a_fleet(monkeypatch, capsys, extra):
+    """``--dp 2`` serves through a ``Router`` of two replicas on the one
+    device: every request placed and drained, the fleet topology and the
+    per-replica split reported, one signature per stage, no leak, and
+    ``--verify`` (dense) equal to one engine's streams."""
+    r, fleet = _run_requests(monkeypatch, "bursty", "--dp", "2",
+                             "--stagger-ms", "1", "--verify",
+                             *(extra or OVERCOMMIT))
+    out = capsys.readouterr().out
+    assert r["dp_replicas"] == 2 and len(fleet.replicas) == 2
+    assert r["device_count"] == 1 and r["mesh_shape"] == [1, 1]
+    assert sum(p["placed"] for p in r["per_replica"]) == 5
+    assert r["tokens"] == 5 * 6
+    assert r["compile_counts"] == {"prefill": 1, "decode_chunk": 1}
+    assert "dp_replicas=2" in out and "replica 1:" in out
+    assert "verify: 5 streams bit-match" in out
+    assert fleet.leaked_pages() == 0
+
+
+def test_dp_refusals():
+    """The reference's refusals: ``--dp`` with the batch workload, and
+    ``--verify`` of a quantized fleet (placement moves w8a8 streams)."""
+    with pytest.raises(SystemExit, match="request workloads"):
+        serve.main(BASE + ["--dp", "2"])
+    with pytest.raises(SystemExit, match="--quant dense"):
+        serve.main(BASE + ["--workload", "uniform", "--dp", "2",
+                           "--quant", "w8a8_nibble", "--verify"])
+
+
+@pytest.mark.parametrize("extra", [OVERCOMMIT, OVERCOMMIT + ["--dp", "2"]],
+                         ids=["engine", "fleet"])
+def test_predict_prints_the_capacity_model(monkeypatch, capsys, extra):
+    """``--predict`` calibrates the drained engine and prints the model's
+    prediction beside the measurement (the fleet skips it, as the
+    reference's launcher does); the engine stays serviceable."""
+    r, engine = _run_requests(monkeypatch, "uniform", "--predict", *extra)
+    out = capsys.readouterr().out
+    if "--dp" in extra:
+        assert r["prediction"] is None
+        assert "capacity model: (skipped" in out
+        return
+    p = r["prediction"]
+    assert p["feasible"] and p["tokens"] == r["tokens"] == 5 * 6
+    assert p["pool_pages"] == r["pool_pages"] == 6
+    assert f"predicted {p['tok_per_s']:.1f} tok/s" in out
+    assert engine.leaked_pages() == 0
+    ids = [engine.submit([1, 2, 3, 4], 4) for _ in range(2)]
+    done = engine.run()
+    assert [len(done[i].tokens) for i in ids] == [4, 4]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--autotune", "max-tok-s", "--ttft-slo-ms", "100"],
+    ["--autotune", "min-pages"],
+    ["--autotune", "max-tok-s", "--ttft-slo-ms", "0.001"]],
+    ids=["max-tok-s-slo", "min-pages", "unmeetable-slo"])
+def test_autotune_plans_without_a_model(capsys, flags):
+    """``--autotune`` runs no model (so it needs no card: no ``--device``
+    here): it prints the knob table and the winning ServeConfig kwargs,
+    or says that no cell meets the SLO and returns 1."""
+    argv = ["--arch", "yi-6b", "--batch", "2", "--prompt-len", "8",
+            "--new-tokens", "6", "--requests", "5", "--workload",
+            "uniform"] + flags
+    rc = serve.main(argv)
+    out = capsys.readouterr().out
+    assert out.startswith("# autotune: ")
+    assert "cache,alloc,page_size,pool_pages" in out
+    if flags[-1] == "0.001":
+        assert rc == 1 and "no admissible configuration" in out
+        return
+    assert rc == 0 and "<== winner" in out
+    kwargs = json.loads(out.split("# winning ServeConfig kwargs:\n")[1])
+    assert kwargs["quant_backend"] == "cuda"
+    if flags[1] == "min-pages":
+        assert kwargs["cache_mode"] == "paged"
+    with pytest.raises(SystemExit, match="batch mode"):
+        serve.main(argv[:-len(flags)] + ["--workload", "batch"] + flags)
 
 
 @pytest.mark.parametrize("flags", [[], SPEC], ids=["temperature",

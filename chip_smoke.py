@@ -218,9 +218,28 @@ Phases (any failure exits non-zero and prints no result line):
    (forward, remat recompute and the backward kernels), remat, batch 8 x
    seq 256, 4 AdamW steps through ``Trainer.run`` on ``SyntheticLM``
    data; losses must be finite and the flash forward, dq and dk/dv
-   kernels must have launched.  Then, cut to 2 layers, one step's
-   gradients through the kernels are held to the plain path's
-   (``attn_impl="chunked"``) leaf by leaf.
+   kernels must have launched.
+8b. Train families (qwen3-4b freed first): rows 2 and 4 held to their
+   plain versions and timed (loop, CUDA graph, plain, SDPA forward and
+   forward + backward, bound) at deepseek-v3's MLA training shape (BH
+   1024, G 1, S 256, q/k 192, v 128, through the 256 instance) and at
+   gemma3-1b's (BH 16, G 4, S 1024, d 256, window 512); then 3 QAT steps
+   each (remat, AdamW, ``Trainer`` on ``SyntheticLM``) of (a) gemma3-1b
+   at full width and depth, flash, batch 4 x seq 1024 (the window
+   binds), (b) deepseek-v3-671b at full width cut to its first 2 (dense
+   MLA) layers, flash, ``mtp_weight`` 0.3, batch 8 x seq 256, and (c)
+   jamba-v0.1-52b at full width cut to its first 2 layers (mamba + MLP,
+   mamba + MoE of 16 experts top-2), batch 4 x seq 512 (two SSD chunks),
+   each model freed before the next: per-step loss, grad norm and
+   ``aux``, steady tokens/s, peak memory and launches; every loss finite,
+   ``aux`` > 0 in (c), rows 2 and 4 launched in (a) and (b) and no f32
+   route; on one batch of (b) the loss with MTP exceeds the loss without
+   by exactly the MTP term.
+8c. Train gradients: one step's gradients through the kernels (flash)
+   held to the plain path's (``attn_impl="chunked"``) leaf by leaf, in
+   ``qat`` and ``dense``, on full-width qwen3-4b cut to 2 layers,
+   deepseek-v3-671b cut to its first 2 layers and gemma3-1b cut to its
+   first 6 (one 5:1 block) at seq 1024.
 
 The last three lines are the per-kernel JSON, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -277,7 +296,7 @@ from repro_torch.serve import (Router, ServeConfig,  # noqa: E402
                                 run_timed_workload, sampling)
 from repro_torch.train import TrainConfig  # noqa: E402
 from repro_torch.train.step import (accumulate_grads,  # noqa: E402
-                                    make_loss_fn)
+                                    cross_entropy, make_loss_fn)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tree import tree_paths  # noqa: E402
 
@@ -3601,41 +3620,312 @@ def profile_train_step(trainer) -> dict:
             "flash_fwd_ms": fwd}
 
 
+# (config, cut, batch, seq, TrainConfig fields) of the gradient checks
+GRAD_CASES = (
+    ("qwen3-4b", lambda c: c.replace(n_layers=2), 8, 256, {}),
+    ("deepseek-v3-671b", lambda c: c.replace(
+        n_layers=2, prefix_pattern=c.prefix_pattern[:2]), 8, 256,
+     {"mtp_weight": 0.3}),
+    ("gemma3-1b", lambda c: c.replace(n_layers=6, suffix_pattern=()), 4,
+     1024, {}))
+
+
 def check_train_grads() -> dict:
-    """One step's gradients on full-width qwen3-4b cut to 2 layers:
-    kernel path (flash) vs plain path (chunked), leaf by leaf."""
+    """One step's gradients at full width, kernel path (flash) vs plain
+    path (chunked), leaf by leaf, in ``qat`` and ``dense``: qwen3-4b cut
+    to 2 layers, deepseek-v3-671b cut to its first 2 (MLA at q/k 192, v
+    128 through the 256 instance) and gemma3-1b cut to its first 6 (one
+    5:1 block: head_dim 256, window 512 at seq 1024)."""
     out = {}
-    for mode in ("qat", "dense"):
-        cfg = get_config("qwen3-4b").replace(n_layers=2, quant_mode=mode,
-                                             remat=True)
-        print(f"train grads: {cfg.name} full width cut to n_layers=2 "
-              f"(of 36), quant_mode={mode}, batch 8 x seq 256: flash "
-              f"kernels vs plain chunked attention", flush=True)
-        params = model_init(cfg, seed=1, device=DEV)
-        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                       seq_len=256, global_batch=8),
-                            device=DEV).batch(0)
-        res = {}
-        for impl in ("flash", "chunked"):
-            c = cfg.replace(attn_impl=impl)
-            loss, _, g = accumulate_grads(make_loss_fn(c, TrainConfig()),
-                                          params, batch, 1)
-            res[impl] = (float(loss), dict(tree_paths(g)))
-        errs = {p: _rel(a, res["chunked"][1][p])
-                for p, a in res["flash"][1].items()}
-        worst = sorted(errs.items(), key=lambda kv: -kv[1])
-        print(f"  loss flash {res['flash'][0]:.6f} vs chunked "
-              f"{res['chunked'][0]:.6f}; worst rel-norm errors: "
-              + ", ".join(f"{p} {e:.3e}" for p, e in worst[:4])
-              + f" (bound {MODEL_GRAD_RTOL[mode]})", flush=True)
-        if not worst[0][1] <= MODEL_GRAD_RTOL[mode]:
-            raise AssertionError(f"{mode}: kernel-path gradients disagree "
-                                 f"with the plain path")
-        out[mode] = {"loss": {k: v[0] for k, v in res.items()},
-                     "worst": worst[:4]}
-        del params, res
-        gc.collect()
-        torch.cuda.empty_cache()
+    for arch, cut, batch_n, seq, tover in GRAD_CASES:
+        for mode in ("qat", "dense"):
+            full = get_config(arch)
+            cfg = cut(full).replace(quant_mode=mode, remat=True)
+            print(f"train grads: {cfg.name} full width cut to n_layers="
+                  f"{cfg.n_layers} (of {full.n_layers}), quant_mode={mode}, "
+                  f"batch {batch_n} x seq {seq}{', ' if tover else ''}"
+                  f"{', '.join(f'{k}={v}' for k, v in tover.items())}: "
+                  f"flash kernels vs plain chunked attention", flush=True)
+            params = model_init(cfg, seed=1, device=DEV)
+            batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=seq, global_batch=batch_n),
+                                device=DEV).batch(0)
+            res = {}
+            for impl in ("flash", "chunked"):
+                c = cfg.replace(attn_impl=impl)
+                reset_counts()
+                loss, _, g = accumulate_grads(
+                    make_loss_fn(c, TrainConfig(**tover)), params, batch, 1)
+                res[impl] = (float(loss), dict(tree_paths(g)), read_counts())
+            require_launched(res["flash"][2], (
+                "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv"))
+            require_no_f32(res["flash"][2])
+            errs = {p: _rel(a, res["chunked"][1][p])
+                    for p, a in res["flash"][1].items()}
+            worst = sorted(errs.items(), key=lambda kv: -kv[1])
+            print(f"  loss flash {res['flash'][0]:.6f} vs chunked "
+                  f"{res['chunked'][0]:.6f}; worst rel-norm errors: "
+                  + ", ".join(f"{p} {e:.3e}" for p, e in worst[:4])
+                  + f" (bound {MODEL_GRAD_RTOL[mode]})", flush=True)
+            if not worst[0][1] <= MODEL_GRAD_RTOL[mode]:
+                raise AssertionError(f"{arch} {mode}: kernel-path gradients "
+                                     f"disagree with the plain path")
+            out[f"{arch} {mode}"] = {
+                "loss": {k: v[0] for k, v in res.items()},
+                "worst": worst[:4]}
+            del params, res, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _window_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal row set of length ``s`` attends, each
+    row at most ``window`` keys back (0: no window)."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _train_shape(gen, label, bh, group, s, d, dv, window, heads) -> dict:
+    """Rows 2 and 4 at one training shape: each held to its plain version
+    (the forward within ATTN_ATOL / LSE_ATOL, the backward within
+    BWD_RTOL), then timed in a loop and in a CUDA graph beside the plain
+    version and SDPA (its forward, and its forward + backward minus its
+    forward, with the KV heads expanded and, under a window, a boolean
+    mask), and their bounds from the pairs this mask keeps."""
+    bkv = bh // group
+    q, do = (torch.randn((bh, s, n), device=DEV, generator=gen).bfloat16()
+             for n in (d, dv))
+    k = torch.randn((bkv, s, d), device=DEV, generator=gen).bfloat16()
+    v = torch.randn((bkv, s, dv), device=DEV, generator=gen).bfloat16()
+    kw = dict(scale=d ** -0.5, causal=True, group=group, window=window,
+              softcap=0.0)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err_o = (o.float() - o_p.float()).abs().max().item()
+    err_l = (lse - lse_p).abs().max().item()
+    if not (err_o <= ATTN_ATOL and err_l <= LSE_ATOL):
+        raise AssertionError(f"flash forward at {label} disagrees with "
+                             f"plain: {err_o}, {err_l}")
+    del o_p, lse_p
+    err_b = _check_bwd(q, k, v, do, kw, label)
+    dmat = (do.float() * o.float()).sum(-1)
+
+    def fwd():
+        return fa.flash_attention_fwd_cuda(q, k, v, **kw)
+
+    def bwd():
+        return fa.flash_attention_bwd_cuda(q, k, v, lse, do, dmat, **kw)
+
+    w = fa.bwd_width(d, dv)
+    # the instance's width; held here, since the timed launches read them
+    # through raw pointers
+    padded = [torch.nn.functional.pad(t, (0, w - t.shape[-1]))
+              for t in (q, k, v, do)]
+    run_dq, run_dkv = _bwd_parts(*padded[:3], lse, padded[3], dmat, **kw)
+    nb = bh // heads
+    q4 = q.reshape(nb, heads, s, d).detach().requires_grad_(True)
+    k4, v4 = (t.reshape(nb, heads // group, s, t.shape[-1])
+              .repeat_interleave(group, 1).detach().requires_grad_(True)
+              for t in (k, v))
+    do4 = do.reshape(nb, heads, s, dv)
+    i = torch.arange(s, device=DEV)
+    mask = i[None, :] <= i[:, None]
+    if window:
+        mask &= (i[:, None] - i[None, :]) < window
+    sdpa_kw = (dict(is_causal=True) if not window else dict(attn_mask=mask))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, scale=kw["scale"], **sdpa_kw)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
+
+    t = {"fwd_ms": cuda_ms(fwd), "fwd_graph_ms": graph_ms(fwd),
+         "fwd_plain_ms": cuda_ms(lambda: fa.flash_attention_fwd_plain(
+             q, k, v, **kw), iters=5),
+         "bwd_ms": cuda_ms(bwd), "bwd_graph_ms": graph_ms(bwd),
+         "dq_graph_ms": graph_ms(run_dq), "dkv_graph_ms": graph_ms(run_dkv),
+         "bwd_plain_ms": cuda_ms(lambda: fa.flash_attention_bwd_plain(
+             q, k, v, lse, do, dmat, **kw), iters=5),
+         "sdpa_fwd_ms": cuda_ms(sdpa), "sdpa_fwd_graph_ms": graph_ms(sdpa),
+         "sdpa_fwd_bwd_ms": cuda_ms(sdpa_fwd_bwd),
+         "sdpa_fwd_bwd_graph_ms": graph_ms(sdpa_fwd_bwd)}
+    t["sdpa_bwd_ms"] = t["sdpa_fwd_bwd_ms"] - t["sdpa_fwd_ms"]
+    t["sdpa_bwd_graph_ms"] = t["sdpa_fwd_bwd_graph_ms"] \
+        - t["sdpa_fwd_graph_ms"]
+    pairs = bh * _window_pairs(s, window)
+    io = q.numel() + k.numel() + v.numel()
+    f_bytes = 2 * (io + bh * s * dv) + 4 * bh * s
+    f_flops = 2 * pairs * (d + dv)
+    b_bytes = 2 * (io + do.numel()) + 4 * 2 * bh * s + 4 * io
+    b_flops = 2 * pairs * (3 * d + 2 * dv)
+    t["fwd_bound_ms"], t["fwd_bound_by"] = bound_ms(f_bytes, f_flops,
+                                                    BF16_FLOPS)
+    t["bwd_bound_ms"], t["bwd_bound_by"] = bound_ms(b_bytes, b_flops,
+                                                    BF16_FLOPS)
+    t.update(fwd_max_abs_err=err_o, lse_max_abs_err=err_l,
+             bwd_max_abs_err=err_b,
+             shape=f"BH={bh} G={group} S={s} q/k {d} v {dv} causal "
+                   f"window {window} (bwd instance {w})")
+    print(f"  {label} ({t['shape']}): fwd kernel {t['fwd_ms']:.4f} ms, "
+          f"graph {t['fwd_graph_ms']:.4f} ms, plain {t['fwd_plain_ms']:.4f} "
+          f"ms, sdpa {t['sdpa_fwd_ms']:.4f} ms (graph "
+          f"{t['sdpa_fwd_graph_ms']:.4f}), bound {t['fwd_bound_ms']:.5f} ms "
+          f"({t['fwd_bound_by']}); bwd kernels {t['bwd_ms']:.4f} ms, graph "
+          f"{t['bwd_graph_ms']:.4f} ms (dq {t['dq_graph_ms']:.4f}, dk/dv "
+          f"{t['dkv_graph_ms']:.4f}), plain {t['bwd_plain_ms']:.4f} ms, sdpa "
+          f"fwd+bwd - fwd {t['sdpa_bwd_ms']:.4f} ms (graph "
+          f"{t['sdpa_bwd_graph_ms']:.4f}), bound {t['bwd_bound_ms']:.5f} ms "
+          f"({t['bwd_bound_by']}, {b_bytes / 1e6:.1f} MB, "
+          f"{b_flops / 1e9:.2f} GFLOP)", flush=True)
+    return t
+
+
+def check_train_family_shapes(gen) -> dict:
+    """Rows 2 and 4 at the train families phase's two new shapes."""
+    return {"deepseek-v3 MLA train": _train_shape(
+                gen, "flash deepseek-v3 MLA train", 1024, 1, 256, 192, 128,
+                0, 128),
+            "gemma3-1b train": _train_shape(
+                gen, "flash gemma3-1b train", 16, 4, 1024, 256, 256, 512, 4)}
+
+
+def _train_family(cfg, tcfg, batch, seq, steps, smi, what) -> dict:
+    """``steps`` steps of ``Trainer.run`` on ``SyntheticLM``: per-step
+    loss, grad norm and aux, steady tokens/s, peak memory, launches."""
+    print(f"  {cfg.name}: {what}; quant_mode={cfg.quant_mode} attn_impl="
+          f"{cfg.attn_impl} remat={cfg.remat}, batch {batch} x seq {seq}, "
+          f"{steps} steps", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, TrainerConfig(steps=steps, log_every=1),
+                      DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=batch), device=DEV)
+    torch.cuda.synchronize()
+    params_line = param_line(cfg, trainer.params)
+    print(f"    initialised in {time.perf_counter() - t:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated (bf16 "
+          f"params + f32 moments)", flush=True)
+    reset_counts()
+    t = time.perf_counter()
+    history = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in history:
+        print(f"    step {h['step']}: loss {h['loss']:.6f}, grad norm "
+              f"{h['grad_norm']:.6f}, aux {h['aux']:.6f}, lr {h['lr']:.3e}, "
+              f"{h['step_time_s']:.3f} s", flush=True)
+        if not all(math.isfinite(h[k]) for k in ("loss", "grad_norm",
+                                                  "aux")):
+            raise AssertionError(f"{cfg.name}: non-finite loss at step "
+                                 f"{h['step']}")
+    steady = [h["step_time_s"] for h in history[1:]]
+    tok_s = batch * seq * len(steady) / sum(steady)
+    print(f"    {steps} steps in {wall:.2f} s; steady {tok_s:.1f} tokens/s "
+          f"(steps 1-{steps - 1}); peak memory allocated {peak / 1e9:.2f} "
+          f"GB; launches {counts} ({smi})", flush=True)
+    require_no_f32(counts)
+    return {"trainer": trainer, "history": history, "wall_s": wall,
+            "tok_s": tok_s, "peak_bytes": peak, "counts": counts,
+            "param_count": params_line}
+
+
+def _free(out: dict) -> None:
+    del out["trainer"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_families(smi: str) -> dict:
+    """3 QAT steps (remat, AdamW, ``Trainer``) of gemma3-1b at full width
+    and depth, deepseek-v3-671b cut to its first 2 layers with the MTP
+    term, and jamba-v0.1-52b cut to its first 2 layers, at published
+    widths; each model freed before the next."""
+    t_phase = time.perf_counter()
+    print(f"train families: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated before the first model", flush=True)
+    qat = dict(quant_mode="qat", remat=True)
+    steps = 3
+    out = {}
+
+    def tconf(**kw):
+        return TrainConfig(total_steps=steps, warmup_steps=1, **kw)
+
+    cfg = get_config("gemma3-1b").replace(attn_impl="flash", **qat)
+    r = _train_family(
+        cfg, tconf(), 4, 1024, steps, smi,
+        f"full width and depth ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied; 5 "
+        f"local (window {cfg.sliding_window}) : 1 global)")
+    require_launched(r["counts"], ("flash_attention_fwd",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv"))
+    _free(r)
+    out[cfg.name] = r
+
+    full = get_config("deepseek-v3-671b")
+    cfg = full.replace(n_layers=2, prefix_pattern=full.prefix_pattern[:2],
+                       attn_impl="flash", **qat)
+    tcfg = tconf(mtp_weight=0.3, mtp_depth=1)
+    r = _train_family(
+        cfg, tcfg, 8, 256, steps, smi,
+        f"full width cut to its first 2 layers (dense MLA: {cfg.n_heads} "
+        f"heads, q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, rope "
+        f"{cfg.qk_rope_dim}, nope {cfg.qk_nope_dim}, v {cfg.v_head_dim}; "
+        f"d_ff {cfg.d_ff}; vocab {cfg.vocab_size}, untied), mtp_weight "
+        f"{tcfg.mtp_weight}, mtp_depth {tcfg.mtp_depth}")
+    require_launched(r["counts"], ("flash_attention_fwd",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv"))
+    trainer = r["trainer"]
+    batch = trainer.data.batch(steps)
+    with torch.no_grad():
+        with_mtp, _ = make_loss_fn(cfg, tcfg)(trainer.params, batch)
+        without, _ = make_loss_fn(cfg, tconf())(trainer.params, batch)
+        logits, _ = forward(trainer.params, cfg, batch["tokens"])
+        term = cross_entropy(logits[:, :-2], batch["labels"][:, 1:-1])
+    del logits
+    gap = float(with_mtp - without)
+    want = float(tcfg.mtp_weight * term)
+    tol = 1e-6 * abs(float(with_mtp))
+    print(f"    MTP on one batch: loss {float(with_mtp):.6f} with, "
+          f"{float(without):.6f} without, gap {gap:.6f}; mtp_weight x "
+          f"shifted CE {want:.6f} (|diff| {abs(gap - want):.2e}, bound "
+          f"{tol:.2e})", flush=True)
+    if not (want > 0 and abs(gap - want) <= tol):
+        raise AssertionError("deepseek-v3: the MTP term is not the gap "
+                             "between the losses with and without it")
+    r["mtp"] = {"with": float(with_mtp), "without": float(without),
+                "term": want}
+    del trainer
+    _free(r)
+    out[cfg.name] = r
+
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.replace(n_layers=2, block_pattern=full.block_pattern[:2],
+                       attn_impl="flash", **qat)
+    r = _train_family(
+        cfg, tconf(), 4, 512, steps, smi,
+        f"full width cut to its first 2 layers (mamba + MLP d_ff "
+        f"{cfg.d_ff}, mamba + MoE of {cfg.n_experts} experts top-"
+        f"{cfg.top_k}, d_ff_expert {cfg.d_ff_expert}; d_model "
+        f"{cfg.d_model}, {cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, "
+        f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}; vocab "
+        f"{cfg.vocab_size}, untied; no attention layer)")
+    if not all(h["aux"] > 0 for h in r["history"]):
+        raise AssertionError("jamba: the MoE aux loss is not positive")
+    _free(r)
+    out[cfg.name] = r
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  train families phase {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -3925,6 +4215,15 @@ def main() -> int:
     train = phase_train(args.profile)
     rows[3]["launches"] = (train["counts"]["flash_attention_bwd_dq"]
                            + train["counts"]["flash_attention_bwd_dkv"])
+    train_shapes = check_train_family_shapes(gen)
+    train_families = phase_train_families(smi)
+    for r, keys in ((rows[1], ("flash_attention_fwd",)),
+                    (rows[3], ("flash_attention_bwd_dq",
+                               "flash_attention_bwd_dkv"))):
+        r["train_families_shapes"] = train_shapes
+        r["train_families_launches"] = {
+            name: sum(f["counts"][k] for k in keys)
+            for name, f in train_families.items() if isinstance(f, dict)}
     grads = check_train_grads()
     print(f"cache bytes per token held to the capacity model's closed form "
           f"on {len(CACHE_BYTES)} configs: {CACHE_BYTES}", flush=True)
@@ -3943,6 +4242,7 @@ def main() -> int:
                        "lut_serve": lut, "int8_kv": int8kv,
                        "families": families, "ssm": ssm,
                        "encdec_vlm": encdec_vlm, "train": train,
+                       "train_families": train_families,
                        "train_grads": grads, "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -3956,7 +4256,8 @@ def main() -> int:
              "spec_launches",
              "tail_launches", "families_launches", "families_shapes",
              "ssm_launches", "ssm_shapes", "int8kv_launches",
-             "encdec_vlm_launches", "encdec_vlm_shapes", "paper_launches")
+             "encdec_vlm_launches", "encdec_vlm_shapes", "paper_launches",
+             "train_families_launches", "train_families_shapes")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

@@ -1,6 +1,6 @@
 """Training launcher (port of ``repro.launch.train``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
         --steps 200 --seq 256 --batch 8 --quant qat [--reduced | --full] \\
         [--device cuda]
 
@@ -51,7 +51,7 @@ def stub_extras(cfg, batch: int, device="cuda"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch", type=int, default=8)

@@ -17,4 +17,5 @@ from repro_torch.models.transformer import (  # noqa: F401
     prefill,
     prepare_params,
     scatter_prefill_paged_caches,
+    unstack_jax_tree,
 )

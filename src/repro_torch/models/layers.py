@@ -12,7 +12,22 @@ import torch.nn.functional as F
 from repro_torch.core.linear import linear_apply, linear_init
 
 __all__ = ["rms_norm_init", "rms_norm", "rope", "apply_rope", "mlp_init",
-           "mlp_apply", "embed_init", "embed_apply", "embed_logits"]
+           "mlp_apply", "embed_init", "embed_apply", "embed_logits",
+           "bf16_matmul"]
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 operands, summed in f32 and rounded once to
+    ``a``'s dtype, as XLA's dot of bf16 operands.  On CUDA that is
+    cuBLAS's bf16 GEMM.  On the CPU the operands go through f32: torch's
+    bf16 CPU kernel sums K in another order than XLA's CPU dot (it moved
+    reduced jamba's w8a8 logits by 0.0254 through one expert output one
+    ulp off), and its f32 kernel sums as XLA does at the reduced shapes
+    (the jamba logits then equal the reference's)."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.float32),
+                            b.to(torch.float32)).to(a.dtype)
+    return torch.matmul(a, b)
 
 
 def rms_norm_init(dim: int, device) -> dict:

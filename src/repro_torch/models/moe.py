@@ -5,8 +5,9 @@ Top-k routing over an f32 router, then a fixed-shape sort dispatch: the
 position inside its expert's segment, assignments past the capacity
 ``C = max(8, int(k * T / E * capacity_factor))`` are dropped, and the kept
 ones are added into an (E, C, D) buffer that the stacked SwiGLU experts
-run as three batched products.  The combine weights each expert row by its
-renormalised router weight in f32 and sums a token's k rows.
+run as three batched bf16 products (``bf16_matmul``).  The combine
+weights each expert row by its renormalised router weight in f32 and
+sums a token's k rows.
 
 Every shape is a function of the static token count ``T = B * S``, and no
 step reads the device from the host (no ``.item()``, no ``nonzero``, no
@@ -28,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import mlp_apply, mlp_init
+from repro_torch.models.layers import bf16_matmul, mlp_apply, mlp_init
 
 __all__ = ["moe_init", "moe_apply"]
 
@@ -118,10 +119,10 @@ def _dispatch_compute_combine(cfg, xt, top_w, top_e, w_gate, w_up, w_down,
     # exact in any order
     expert_in.index_put_((slot_e, slot_c), contrib_in, accumulate=True)
 
-    g = torch.bmm(expert_in, w_gate.to(xt.dtype))
-    u = torch.bmm(expert_in, w_up.to(xt.dtype))
+    g = bf16_matmul(expert_in, w_gate.to(xt.dtype))
+    u = bf16_matmul(expert_in, w_up.to(xt.dtype))
     g = F.silu(g.to(torch.float32)).to(xt.dtype)
-    expert_out = torch.bmm(g * u, w_down.to(xt.dtype))
+    expert_out = bf16_matmul(g * u, w_down.to(xt.dtype))
 
     contrib = expert_out[slot_e, slot_c].to(torch.float32) * w_eff[:, None]
     # back to (T, k) in ascending expert order per token (the sort is

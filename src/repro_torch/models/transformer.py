@@ -63,6 +63,7 @@ from repro_torch.models.mamba import (
     mamba_step,
 )
 from repro_torch.models.layers import (
+    bf16_matmul,
     embed_apply,
     embed_init,
     embed_logits,
@@ -73,7 +74,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import moe_apply, moe_init
 
-__all__ = ["model_init", "load_jax_params", "prepare_params", "encode",
+__all__ = ["model_init", "load_jax_params", "unstack_jax_tree",
+           "prepare_params", "encode",
            "forward", "prefill", "decode_step", "init_caches",
            "init_paged_caches",
            "merge_slot_caches", "merge_slot_paged_caches",
@@ -193,24 +195,16 @@ def model_init(cfg: ModelConfig, *, seed: int = 0,
 _F32_LEAVES = ("scale", "router", "A_log", "D", "dt_bias")
 
 
-def load_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> dict:
-    """The weight bridge: the reference ``model_init`` pytree with numpy
-    leaves (bf16 leaves passed through float32) -> this package's params,
-    so both packages compute the same function.  Projection, embedding and
-    expert weights and the mamba conv come back as bf16 (exact: they were
-    bf16), norm gains, the MoE router and the mamba mixer's ``A_log``,
-    ``D`` and ``dt_bias`` as f32 (the reference keeps them f32); the stacked
-    block axis is unrolled into the layer list (an expert stack stays
-    whole per layer)."""
-    _check_supported(cfg)
-    device = resolve_device(device)
-
+def unstack_jax_tree(tree, cfg: ModelConfig, leaf) -> dict:
+    """The reference's pytree in this package's layout: the stacked block
+    axis unrolled into the layer list (an expert stack stays whole per
+    layer), every array leaf passed through ``leaf(name, array)`` first
+    (``name`` is its key).  The weight bridge below casts there; a test
+    maps the reference's gradients with an identity ``leaf``."""
     def conv(node):
         if isinstance(node, dict):
-            return {k: (torch.as_tensor(v, device=device).to(
-                torch.float32 if k in _F32_LEAVES else torch.bfloat16)
-                if not isinstance(v, dict) else conv(v))
-                for k, v in node.items()}
+            return {k: conv(v) if isinstance(v, dict) else leaf(k, v)
+                    for k, v in node.items()}
         raise TypeError(f"unexpected node {type(node)}")
 
     def unstack(stack, c):
@@ -221,15 +215,31 @@ def load_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> dict:
             layers += [_index_tree(blk, i) for blk in blocks]
         return layers + [conv(p) for p in stack["suffix"]]
 
-    params = {"embed": conv(tree["embed"]),
-              "layers": unstack(tree["stack"], cfg),
-              "final_norm": conv(tree["final_norm"])}
+    out = {"embed": conv(tree["embed"]),
+           "layers": unstack(tree["stack"], cfg),
+           "final_norm": conv(tree["final_norm"])}
     if "lm_head" in tree:
-        params["lm_head"] = conv(tree["lm_head"])
+        out["lm_head"] = conv(tree["lm_head"])
     if "encoder" in tree:
-        params["encoder"] = {
+        out["encoder"] = {
             "layers": unstack(tree["encoder"]["stack"], _enc_cfg(cfg)),
             "norm": conv(tree["encoder"]["norm"])}
+    return out
+
+
+def load_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> dict:
+    """The weight bridge: the reference ``model_init`` pytree with numpy
+    leaves (bf16 leaves passed through float32) -> this package's params,
+    so both packages compute the same function.  Projection, embedding and
+    expert weights and the mamba conv come back as bf16 (exact: they were
+    bf16), norm gains, the MoE router and the mamba mixer's ``A_log``,
+    ``D`` and ``dt_bias`` as f32 (the reference keeps them f32); the layout
+    is :func:`unstack_jax_tree`'s."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    params = unstack_jax_tree(
+        tree, cfg, lambda k, v: torch.as_tensor(v, device=device).to(
+            torch.float32 if k in _F32_LEAVES else torch.bfloat16))
     return prepare_params(params, cfg)
 
 
@@ -319,8 +329,8 @@ def _logits(params, cfg: ModelConfig, x):
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         return embed_logits(params["embed"], x)
-    # untied head: a plain bf16 matmul, as the reference leaves it to XLA
-    return torch.matmul(x, params["lm_head"]["w"].to(x.dtype)) \
+    # untied head: a bf16 product, as the reference leaves it to XLA
+    return bf16_matmul(x, params["lm_head"]["w"].to(x.dtype)) \
         .to(torch.float32)
 
 

@@ -9,8 +9,8 @@ same tensors), so a full-width step holds no second copy of the
 parameters or moments.  The operations and their order are the
 reference's: clip by the global norm, ``mu = b1 * mu + (1 - b1) * g``,
 ``nu = b2 * nu + (1 - b2) * g^2``, bias correction, decoupled weight decay
-on matrices only (``ndim >= 2``), ``p - lr * delta`` in f32 and one cast
-back to the parameter's dtype.
+on matrices only (``ndim >= 2``, or the leaves a ``decay`` tree marks),
+``p - lr * delta`` in f32 and one cast back to the parameter's dtype.
 
 The quantized-moment mode stores both moments as int8 with one
 per-tensor abs-max scale, re-quantized after every update.
@@ -91,9 +91,12 @@ def _moment_leaves(tree, quantized: bool):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0,
+                 decay=None):
     """Returns (params, state, metrics): the same parameter tree and state
-    dict, updated in place, and ``{"grad_norm", "lr"}`` (0-dim f32)."""
+    dict, updated in place, and ``{"grad_norm", "lr"}`` (0-dim f32).
+    ``decay``: a tree of bools like ``params`` naming the leaves that take
+    weight decay; None decays the leaves of two or more dimensions."""
     f32 = torch.float32
     step = state["step"] + 1
     gnorm = global_norm(grads)
@@ -107,10 +110,13 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=f32, device=step.device)
 
     qm = cfg.quantize_moments
-    leaves = zip(tree_leaves(params), tree_leaves(grads),
+    p_leaves = tree_leaves(params)
+    decays = ([p.ndim >= 2 for p in p_leaves] if decay is None
+              else tree_leaves(decay))
+    leaves = zip(p_leaves, tree_leaves(grads),
                  _moment_leaves(state["mu"], qm),
-                 _moment_leaves(state["nu"], qm))
-    for p, g, mu, nu in leaves:
+                 _moment_leaves(state["nu"], qm), decays)
+    for p, g, mu, nu, decayed in leaves:
         g = g.to(f32, copy=True)
         if clip is not None:
             g.mul_(clip)
@@ -120,7 +126,7 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0):
         nu_f.mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
         del g
         delta = (mu_f / b1c).div_((nu_f / b2c).sqrt_().add_(cfg.eps))
-        if p.ndim >= 2:                  # decoupled decay on matrices only
+        if decayed:                      # decoupled weight decay
             delta.add_(p.to(f32) * cfg.weight_decay)
         p.copy_(p.to(f32).sub_(delta.mul_(lr)))
         del delta

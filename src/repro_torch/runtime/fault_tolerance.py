@@ -1,21 +1,24 @@
-"""Fault tolerance hooks (port of the host-side logic of
-``repro.runtime.fault_tolerance``): heartbeats and straggler detection,
-driven by the trainer loop (and by tests with simulated clocks).
+"""Fault tolerance hooks (port of ``repro.runtime.fault_tolerance``):
+heartbeats and straggler detection, driven by the trainer loop (and by
+tests with simulated clocks), and the elastic re-mesh plan.
 
 * ``HeartbeatMonitor``  - per-host step heartbeats; a host silent for
   ``timeout_s`` is declared dead (restart-from-checkpoint decision).
 * ``StragglerDetector`` - EWMA of per-host step times; hosts slower than
   ``threshold x`` the fleet median for ``patience`` checks are flagged,
   and grad-accumulation microbatches can be rebalanced away from them.
-
-The elastic re-mesh plan (``ElasticPlan``) is not ported yet.
+* ``plan_elastic_mesh`` - given the surviving host count, the largest
+  valid (data, model) mesh and the global batch it keeps; pure
+  arithmetic, it reads no mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
-__all__ = ["HeartbeatMonitor", "StragglerDetector"]
+__all__ = ["HeartbeatMonitor", "StragglerDetector", "plan_elastic_mesh",
+           "ElasticPlan"]
 
 
 class HeartbeatMonitor:
@@ -87,3 +90,30 @@ class StragglerDetector:
             out[h] += 1 if drift > 0 else -1
             drift += -1 if drift > 0 else 1
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    data_axis: int
+    model_axis: int
+    hosts_used: int
+    global_batch: int
+
+
+def plan_elastic_mesh(surviving_hosts: int, chips_per_host: int,
+                      model_axis: int, global_batch: int) -> ElasticPlan:
+    """Largest power-of-two data axis that the survivors support, with
+    the model (TP) axis kept: the TP degree is a property of the model,
+    the data axis shrinks.  The global batch is kept if it divides the
+    new data axis, else halved until it does."""
+    chips = surviving_hosts * chips_per_host
+    if chips < model_axis:
+        raise ValueError(
+            f"survivors ({chips} chips) cannot hold model axis "
+            f"{model_axis}; restore requires re-sharding to smaller TP")
+    data = 1 << int(math.log2(chips // model_axis))
+    batch = global_batch
+    while batch % data:
+        batch //= 2
+    hosts_used = data * model_axis // chips_per_host
+    return ElasticPlan(data, model_axis, hosts_used, batch)

@@ -93,6 +93,7 @@ N engines behind one admission queue.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import heapq
 import time
 from typing import Callable
@@ -464,8 +465,19 @@ class _CapturedStage(_StageCounter):
         stream.wait_stream(side)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            st.outputs = self._fn(*st.args)
+        # a dropped engine's graphs wait in a reference cycle (its stages
+        # hold its bound methods) for the cyclic collector; freed while a
+        # stream captures, they invalidate the capture.  So collect first
+        # and keep the collector off until the capture ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                st.outputs = self._fn(*st.args)
+        finally:
+            if collecting:
+                gc.enable()
         st.launches = [a - b for a, b in zip(launch_counts(), before)]
         add_launch_counts([-n for n in st.launches])
         st.graph = graph

@@ -10,7 +10,9 @@
   optional multi-token-prediction terms;
 * gradient accumulation over microbatches as a Python loop (the
   reference's ``lax.scan``), summing f32 gradients;
-* optional int8 gradient compression before the optimizer.
+* optional int8 gradient compression before the optimizer;
+* AdamW's weight decay on the leaves the reference decays
+  (:func:`weight_decay_mask`).
 
 Parameters are the port's nested dict, every leaf a float tensor that
 is trained (integer copies prepared for serving have no place in it).
@@ -28,11 +30,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.compression import compress_tree_int8
 from repro_torch.models import forward
+from repro_torch.models.transformer import _enc_cfg
 from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
 from repro_torch.tree import tree_map, tree_paths
 
 __all__ = ["TrainConfig", "cross_entropy", "z_loss", "make_loss_fn",
-           "accumulate_grads", "make_train_step", "trainable"]
+           "accumulate_grads", "make_train_step", "trainable",
+           "weight_decay_mask"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +152,31 @@ def accumulate_grads(loss_fn, params, batch, n_micro: int):
     return loss, {"ce": loss}, _grad_tree(params, grads)
 
 
+def weight_decay_mask(params, cfg: ModelConfig):
+    """A tree of bools like ``params``: the leaves the reference's AdamW
+    decays.  It decays the leaves of two or more dimensions in its own
+    layout, where the repeated blocks are stacked on a leading axis; so
+    every leaf of a block layer is decayed, its vectors too (norm gains,
+    the mamba mixer's ``A_log``, ``D``, ``dt_bias`` and conv bias), and of
+    the prefix and suffix layers, the embedding, the head and the final
+    norms only the matrices."""
+    def stack_mask(layers, c):
+        lo = len(c.prefix_pattern)
+        hi = lo + c.n_blocks * len(c.block_pattern)
+        return [tree_map(lambda t, blk=lo <= i < hi: blk or t.ndim >= 2, lp)
+                for i, lp in enumerate(layers)]
+
+    out = {k: tree_map(lambda t: t.ndim >= 2, v) for k, v in params.items()
+           if k not in ("layers", "encoder")}
+    out["layers"] = stack_mask(params["layers"], cfg)
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "layers": stack_mask(enc["layers"], _enc_cfg(cfg)),
+            "norm": tree_map(lambda t: t.ndim >= 2, enc["norm"])}
+    return out
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     loss_fn = make_loss_fn(cfg, tcfg)
 
@@ -160,7 +189,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
                                  warmup=tcfg.warmup_steps,
                                  total=tcfg.total_steps)
         params, opt_state, opt_metrics = adamw_update(
-            params, grads, opt_state, tcfg.optimizer, lr_scale)
+            params, grads, opt_state, tcfg.optimizer, lr_scale,
+            decay=weight_decay_mask(params, cfg))
         del grads
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return params, opt_state, metrics

@@ -661,3 +661,47 @@ def test_seed_shims_on_card(cuda, m, k, n):
                                                  w_scale=ws, out_dtype=dtype))
         assert torch.equal(got.cpu(), ops.quant_matmul_fused(
             xf.cpu(), w.cpu(), ws.cpu(), out_dtype=dtype))
+
+
+@pytest.mark.parametrize("mode,rtol", [("dense", 5e-2), ("qat", 0.15)])
+def test_mla_train_step_flash_equals_chunked(cuda, mode, rtol):
+    """One train step of an MLA model (reduced deepseek-v3's first 2
+    layers, dense MLA widened to the published head widths: q/k 128 + 64,
+    v 128, 4 heads, so the backward runs its 256 instance) on the card,
+    with the MTP term: the flash kernels' loss and every
+    gradient leaf against the plain chunked attention's, within the
+    bounds ``chip_smoke.py`` holds full-width models to (the two paths
+    round p and ds to bf16 at other points; QAT turns a flipped rounding
+    into a whole int8 step).  The forward, dq and dk/dv kernels launch
+    once per MLA layer (twice for the forward: remat recomputes it)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import model_init
+    from repro_torch.train.step import (TrainConfig, accumulate_grads,
+                                        make_loss_fn)
+    from repro_torch.tree import tree_paths
+    cfg = reduced(get_config("deepseek-v3-671b"))
+    cfg = cfg.replace(
+        n_layers=2, prefix_pattern=cfg.prefix_pattern[:2], d_model=256,
+        qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128, kv_lora_rank=128,
+        q_lora_rank=128, quant_mode=mode, remat=True)
+    params = model_init(cfg, seed=0, device=cuda)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=96,
+                                   global_batch=2), device=cuda).batch(0)
+    runs = {}
+    for impl in ("flash", "chunked"):
+        before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        c = cfg.replace(attn_impl=impl)
+        loss, metrics, grads = accumulate_grads(
+            make_loss_fn(c, TrainConfig(mtp_weight=0.3)), params, batch, 1)
+        after = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        runs[impl] = (loss, metrics, dict(tree_paths(grads)),
+                      tuple(a - b for a, b in zip(after, before)))
+    n_mla = cfg.n_layers
+    assert runs["flash"][3] == (2 * n_mla, n_mla, n_mla)
+    assert runs["chunked"][3] == (0, 0, 0)
+    assert abs(float(runs["flash"][0]) - float(runs["chunked"][0])) <= 1e-2
+    for path, g in runs["flash"][2].items():
+        assert torch.isfinite(g).all(), path
+        assert _rel(g.float(), runs["chunked"][2][path].float()) <= rtol, \
+            path

@@ -412,3 +412,35 @@ def test_captured_fleet_on_card(cuda, quant_mode):
     assert fleet.capture_counts == {"decode_chunk": 1}
     if quant_mode == "dense":
         assert runs[0][0] == solo
+
+
+@pytest.mark.cuda
+def test_capture_runs_with_the_cyclic_collector_off(cuda, monkeypatch):
+    """A dropped engine's graphs wait in a reference cycle for the cyclic
+    collector, and a graph destroyed while a stream captures invalidates
+    the capture (``chip_smoke.py``'s workload phase met it: a dense
+    engine's capture failed in ``cublasGemmEx`` after the collector freed
+    the engine before it).  So the collector is off during every capture
+    and back on after; a dead engine beside a second one's capture then
+    does no harm, and the streams are the first engine's."""
+    import gc
+    cfg = reduced(get_config("yi-6b")).replace(quant_mode="dense")
+    params = model_init(cfg, seed=0, device=cuda)
+    prompts = _prompts(cfg.vocab_size, 3, seed=5)
+    seen = []
+    body = eng.Engine._chunk_body
+
+    def watched(self, *args):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return body(self, *args)
+
+    monkeypatch.setattr(eng.Engine, "_chunk_body", watched)
+    first = Engine(cfg, params, _scfg(), device=cuda)
+    want = _serve(first, prompts)
+    del first                        # garbage in a cycle, graphs and all
+    second = Engine(cfg, params, _scfg(), device=cuda)
+    got = _serve(second, prompts)
+    assert got == want
+    assert seen == [False, False] and gc.isenabled()
+    assert second.capture_counts == {"decode_chunk": 1}

@@ -532,12 +532,14 @@ def test_microbatches_match_single_batch():
 
 def test_train_step_applies_grad_compression():
     """``compress_grads`` hands the optimizer the int8 round trip of the
-    gradients (``compress_tree_int8``), and nothing else changes."""
+    gradients (``compress_tree_int8``), and nothing else changes (the
+    optimizer decays what the reference decays: ``weight_decay_mask``)."""
     from repro_torch.distributed.compression import compress_tree_int8
     from repro_torch.models import model_init
     from repro_torch.optim import adamw_init, adamw_update, warmup_cosine
     from repro_torch.train.step import (TrainConfig, accumulate_grads,
-                                        make_loss_fn, make_train_step)
+                                        make_loss_fn, make_train_step,
+                                        weight_decay_mask)
     cfg = reduced(get_config("qwen3-4b")).replace(n_layers=1)
     tcfg = TrainConfig(compress_grads=True, warmup_steps=0, total_steps=4)
     toks, labels = _batch(2)
@@ -550,7 +552,8 @@ def test_train_step_applies_grad_compression():
     _, _, grads = accumulate_grads(make_loss_fn(cfg, tcfg), want, batch, 1)
     want, want_state, want_m = adamw_update(
         want, compress_tree_int8(grads)[0], adamw_init(want, tcfg.optimizer),
-        tcfg.optimizer, warmup_cosine(0, warmup=0, total=4))
+        tcfg.optimizer, warmup_cosine(0, warmup=0, total=4),
+        decay=weight_decay_mask(want, cfg))
     assert torch.equal(got_m["grad_norm"], want_m["grad_norm"])
     for tree_a, tree_b in ((got, want), (got_state, want_state)):
         for (path, a), (_, b) in zip(tree_paths(tree_a), tree_paths(tree_b)):

@@ -162,6 +162,26 @@ Phases (any failure exits non-zero and prints no result line):
    rule); dense at 4 layers: paged int8 streams equal to the dense
    slab's, and the host-swap engine's equal to the replay engine's,
    token for token.
+7t. Tensor parallelism: the serve phase's weights, settings and
+   8 requests x 32 through a tp=1 engine and a tp=2 engine over
+   ``devices=[cuda:0, cuda:0]`` (the shards share the card): streams
+   equal token for token or each divergence held to a near-tie (the
+   margin rule), ``mesh_shape`` (1, 2), 2 devices, no leak, the decode
+   chunk captured; launches per decode step 448 nibble (14 a layer) and
+   64 paged decode, 64 flash forward per prefill, each twice tp=1's on
+   the same schedule.  The row-parallel path at yi-6b's shard shapes
+   (``wo`` 2048 -> 4096 and ``down`` 5504 -> 4096 a shard, M 4 and 128:
+   each shard's exact int32 product on the nibble kernel, summed, the
+   epilogue once) equal to the unsharded fused kernel bit for bit; the
+   nibble kernel at the column shards (``wq`` 4096 -> 2048, ``wk``/``wv``
+   4096 -> 256, ``gate``/``up`` 4096 -> 5504) and paged decode at KVH 2,
+   G 8, d 128 held to their plain versions and timed beside the bound and
+   a library call; tok/s and host ms per captured decode chunk at tp=1
+   and tp=2, the largest logit difference of one paged decode step and
+   of the prefill (tp=2 against tp=1), peak memory; then gemma3-1b at
+   full width cut to 2 layers (KVH 1: its attention replicated on both
+   shards, the tied head vocab-parallel), 4 requests x 16 at tp=1 and
+   tp=2, streams held the same way.
 7b. Families (the yi-6b weights freed first): the nibble kernel at
    MLA's ``wkv_b`` (4 slots x 160 gathered latent rows) and ``wq_b``
    shapes (``torch.equal``), the flash forward at 128 heads with q/k 192
@@ -282,8 +302,12 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.quant_matmul_fused import (  # noqa: E402
     quantize_rows)
 from repro_torch.launch.train import stub_extras  # noqa: E402
+from repro_torch.core.linear import (linear_apply,  # noqa: E402
+                                     linear_apply_row)
 from repro_torch.models import (decode_step, forward,  # noqa: E402
+                                init_caches, merge_slot_paged_caches,
                                 model_init, prefill)
+from repro_torch.models.transformer import init_shard_caches  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.capacity import (Knobs, WorkloadShape,  # noqa: E402
@@ -2710,6 +2734,194 @@ def _dense_overcommit_int8(dcfg, dparams) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism inside one engine: yi-6b at tp=2 on one card
+# ---------------------------------------------------------------------------
+
+# the shards share the one card, as the CPU tests share the CPU
+TP_DEVICES = ["cuda:0", "cuda:0"]
+
+
+def _row_parallel_check(whole_params, shards, gen) -> dict:
+    """``wo`` and ``down`` of layer 0 at M 4 and 128: the row-parallel
+    path over the engine's two shards (each shard's half of K through the
+    nibble kernel's exact int32 mode, the partials summed, the epilogue
+    once) against the unsharded projection through the fused kernel, bit
+    for bit."""
+    out = {}
+    for name, (blk, lin) in (("wo", ("attn", "wo")),
+                             ("down", ("mlp", "down"))):
+        whole = whole_params["layers"][0][blk][lin]
+        parts = [p["layers"][0][blk][lin] for p in shards]
+        k, n = whole["w"].shape
+        half = parts[0]["qt8"].shape[1]
+        for m in (4, 128):
+            x = (torch.randn((m, k), device=DEV, generator=gen)
+                 * 0.5).bfloat16()
+            want = linear_apply(whole, x, mode="w8a8_nibble",
+                                backend="cuda")
+            got = linear_apply_row(parts, [x[:, :half], x[:, half:]],
+                                   mode="w8a8_nibble", backend="cuda")
+            if not all(torch.equal(g, want) for g in got):
+                diff = (got[0].float() - want.float()).abs().max().item()
+                raise AssertionError(f"row-parallel {name} at M={m} differs "
+                                     f"from the fused kernel: {diff}")
+            out[f"{name} M={m}"] = {"shard": (m, half, n), "equal": True}
+    print(f"  row-parallel int32 partials + epilogue equal to the fused "
+          f"kernel bit for bit: {sorted(out)}", flush=True)
+    return out
+
+
+def _tp_step_diff(params, tp_params, cfg, prompt) -> dict:
+    """The prompt's prefill and one paged decode step (the argmax token
+    at the next row) at tp=1 and tp=2: the largest logit difference of
+    each."""
+    ps = cfg.page_size
+    n = len(prompt)
+    grow = -(-n // ps) * ps
+    pages = list(range(1, grow // ps + 2))
+    tok = torch.as_tensor(prompt, device=DEV).long()[None]
+    table = torch.tensor([pages], device=DEV)
+    out = {}
+    logits = []
+    for p in (params, tp_params):
+        lp, one, _ = prefill(p, cfg, tok, max_len=grow)
+        if p is params:
+            pool = init_caches(cfg, 1, len(pages) * ps, device=DEV)
+        else:
+            pool = init_shard_caches(cfg, 1, len(pages) * ps, p)
+        merge_slot_paged_caches(pool, one, 0, table[0])
+        nxt = torch.argmax(lp[:, -1], dim=-1)[:, None] if not logits \
+            else logits[0][2]
+        ld, _ = decode_step(p, cfg, nxt, pool, torch.tensor([n], device=DEV),
+                            page_table=table)
+        logits.append((lp, ld, nxt))
+    out["prefill_max_abs_diff"] = (logits[0][0] - logits[1][0]).abs() \
+        .max().item()
+    out["decode_max_abs_diff"] = (logits[0][1] - logits[1][1]).abs() \
+        .max().item()
+    out["max_abs_logit"] = logits[0][1].abs().max().item()
+    return out
+
+
+def _tp_pair(cfg, params, scfg, prompts, n_new, label, serve) -> dict:
+    """``prompts`` through a tp=1 engine and a tp=2 engine on
+    ``TP_DEVICES`` (``_serve_timed``: launch counts of the timed run);
+    the streams held equal or to the margin rule, the tp=2 engine's
+    topology, capture and leaks checked."""
+    e1 = Engine(cfg, params, scfg, device=DEV)
+    s1, w1, c1 = _serve_timed(e1, prompts, n_new)
+    e2 = Engine(cfg, params, dataclasses.replace(scfg, tp=2),
+                devices=TP_DEVICES)
+    s2, w2, c2 = _serve_timed(e2, prompts, n_new)
+    if e2.mesh_shape != (1, 2) or e2.device_count != 2:
+        raise AssertionError(f"{label}: mesh {e2.mesh_shape}, "
+                             f"{e2.device_count} devices")
+    require_captured(e2, f"{label} tp=2")
+    require_no_f32(c2)
+    margins = [] if s1 == s2 else divergence_margins(params, cfg, prompts,
+                                                     s1, s2)
+    held = hold_margins(f"{label}: tp=2 against tp=1", margins,
+                        len(prompts), serve)
+    n_tok = sum(map(len, s2))
+    return {"engines": (e1, e2), "counts_tp1": c1, "counts": c2,
+            "tok_s_tp1": n_tok / w1, "tok_s": n_tok / w2, "held": held}
+
+
+def phase_tp(params, prompts, serve: dict, smi: str, gen) -> dict:
+    """Tensor parallelism on one card (docstring item 7t)."""
+    cfg = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    n_new, prefill_len = 32, 128
+    scfg = ServeConfig(batch=4, max_len=prefill_len + n_new,
+                       prefill_len=prefill_len, decode_chunk=8)
+    print(f"tp: {cfg.name} full width, all layers, w8a8_nibble on CUDA, "
+          f"paged (page 16), 4 slots; the serve phase's {len(prompts)} "
+          f"requests x {n_new} at tp=1 and at tp=2 over {TP_DEVICES} "
+          f"({smi})", flush=True)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pair = _tp_pair(cfg, params, scfg, prompts, n_new, "yi-6b", serve)
+    e1, e2 = pair.pop("engines")
+    c1, c2 = pair["counts_tp1"], pair["counts"]
+    require_launched(c2, ("nibble_matmul", "flash_attention_fwd",
+                          "paged_decode_attention"))
+    steps = c1["paged_decode_attention"] // 32
+    prefills = c1["flash_attention_fwd"] // 32
+    want = {"nibble_matmul": 448 * (steps + prefills),
+            "paged_decode_attention": 64 * steps,
+            "flash_attention_fwd": 64 * prefills}
+    got = {k: c2[k] for k in want}
+    if got != want or any(c2[k] != 2 * c1[k] for k in want):
+        raise AssertionError(f"tp=2 launches {got}, expected {want} (tp=1: "
+                             f"{ {k: c1[k] for k in want} })")
+    print(f"  launches, {steps} decode steps and {prefills} prefills: tp=2 "
+          f"{got} (448 nibble and 64 paged a step, 64 flash a prefill), "
+          f"tp=1 { {k: c1[k] for k in want} }", flush=True)
+    out = dict(pair, steps=steps, prefills=prefills,
+               mesh_shape=list(e2.mesh_shape), device_count=e2.device_count,
+               captures=e2.capture_counts)
+    reset_counts()
+    out["row_parallel"] = _row_parallel_check(params, e2.params, gen)
+    out["step_diff"] = _tp_step_diff(params, e2.params, cfg, prompts[0])
+    print(f"  one paged decode step, tp=2 against tp=1: max|dlogit| "
+          f"{out['step_diff']['decode_max_abs_diff']:.4e} (max|logit| "
+          f"{out['step_diff']['max_abs_logit']:.4f}); prefill "
+          f"{out['step_diff']['prefill_max_abs_diff']:.4e}", flush=True)
+    chunk = {"tp1": [], "tp2": []}
+    for name, eng in (("tp1", e1), ("tp2", e2), ("tp2", e2), ("tp1", e1)):
+        chunk[name].append(_chunk_ms(eng, prompts))
+    out["chunk_ms"] = {k: statistics.median(v) for k, v in chunk.items()}
+    out["chunk_runs"] = chunk
+    out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  ({smi}) tok/s tp=1 {out['tok_s_tp1']:.2f}, tp=2 "
+          f"{out['tok_s']:.2f}; host ms per captured decode chunk tp=1 "
+          f"{out['chunk_ms']['tp1']:.3f}, tp=2 {out['chunk_ms']['tp2']:.3f} "
+          f"(runs {chunk}); max memory allocated "
+          f"{out['max_memory_gib']:.2f} GiB", flush=True)
+    del e1, e2
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(2)
+    out["shapes"] = {
+        "wq shard": _nibble_case(gen, "tp wq shard", 4, 4096, 2048),
+        "wk/wv shard": _nibble_case(gen, "tp wk/wv shard", 4, 4096, 256),
+        "gate/up shard": _nibble_case(gen, "tp gate/up shard", 4, 4096,
+                                      5504),
+        "paged shard": _paged_case(gen, rng, "tp shard", 2, 8, 128, 0)}
+    out["gemma3"] = _tp_gemma3(serve, smi)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  tp phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _tp_gemma3(serve: dict, smi: str) -> dict:
+    """gemma3-1b at full width cut to 2 layers (KVH 1: attention
+    replicated on both shards, the tied head vocab-parallel): 4 requests
+    x 16 at tp=1 and tp=2, streams held as the yi-6b pair's."""
+    cfg = get_config("gemma3-1b").replace(
+        n_layers=2, quant_mode="w8a8_nibble", quant_backend="cuda",
+        attn_impl="flash", cache_mode="paged", page_size=16)
+    params = model_init(cfg, seed=0, device=DEV)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(32, 129, 4)]
+    scfg = ServeConfig(batch=4, max_len=128 + 16, prefill_len=128,
+                       decode_chunk=8)
+    pair = _tp_pair(cfg, params, scfg, prompts, 16, "gemma3-1b 2 layers",
+                    serve)
+    pair.pop("engines")
+    require_launched(pair["counts"], ("nibble_matmul", "flash_attention_fwd",
+                                      "paged_decode_attention"))
+    print(f"  gemma3-1b 2 layers ({smi}): tok/s tp=1 "
+          f"{pair['tok_s_tp1']:.2f}, tp=2 {pair['tok_s']:.2f}; launches "
+          f"tp=2 {pair['counts']}", flush=True)
+    return pair
+
+
+# ---------------------------------------------------------------------------
 # Families: MLA + MoE (deepseek-v3), MoE over GQA (llama4), gemma3-1b
 # ---------------------------------------------------------------------------
 
@@ -4187,6 +4399,14 @@ def main() -> int:
     int8kv = phase_int8_kv(params, prompts, smi)
     for r in rows[:3]:
         r["int8kv_launches"] = int8kv["counts"][r["name"]]
+    tp = phase_tp(params, prompts, serve, smi, gen)
+    for r in rows[:3]:
+        r["tp_launches"] = {"yi-6b": tp["counts"][r["name"]],
+                            "gemma3-1b 2 layers":
+                            tp["gemma3"]["counts"][r["name"]]}
+    rows[0]["tp_shapes"] = {k: tp["shapes"][k] for k in
+                            ("wq shard", "wk/wv shard", "gate/up shard")}
+    rows[2]["tp_shapes"] = {"paged shard": tp["shapes"]["paged shard"]}
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4239,7 +4459,7 @@ def main() -> int:
                        "cache_token_bytes": CACHE_BYTES,
                        "prefix_swap": prefix_swap,
                        "spec_wave": spec_wave, "graphs": graphs,
-                       "lut_serve": lut, "int8_kv": int8kv,
+                       "lut_serve": lut, "int8_kv": int8kv, "tp": tp,
                        "families": families, "ssm": ssm,
                        "encdec_vlm": encdec_vlm, "train": train,
                        "train_families": train_families,
@@ -4257,7 +4477,8 @@ def main() -> int:
              "tail_launches", "families_launches", "families_shapes",
              "ssm_launches", "ssm_shapes", "int8kv_launches",
              "encdec_vlm_launches", "encdec_vlm_shapes", "paper_launches",
-             "train_families_launches", "train_families_shapes")
+             "train_families_launches", "train_families_shapes",
+             "tp_launches", "tp_shapes")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

@@ -11,8 +11,11 @@ complete checkpoints; ``keep`` bounds how many stay on disk.
 
 ``save`` snapshots the tensors to host memory in the caller's thread
 (the training step may overwrite them in place right after) and hands
-the file writing to a background thread; ``wait`` joins it.  Restoring
-under a different ``mesh_shape`` (re-sharding) is not ported yet.
+the file writing to a background thread; ``wait`` joins it.  A
+checkpoint holds whole (gathered) tensors, so it restores under any
+``mesh_shape``, as the reference's does: the mesh it was saved under is
+read from the manifest and reported (``saved_mesh_shape``), never
+refused.
 """
 
 from __future__ import annotations
@@ -55,6 +58,8 @@ class Checkpointer:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        # the mesh the last restored checkpoint was saved under
+        self.saved_mesh_shape: tuple | None = None
         os.makedirs(directory, exist_ok=True)
 
     def _steps(self) -> list[int]:
@@ -122,7 +127,11 @@ class Checkpointer:
                 host_id: int = 0, mesh_shape=None):
         """Restore into the structure, devices and dtypes of ``template``;
         returns (state, step).  Raises with the differing paths when the
-        checkpoint and the template disagree."""
+        checkpoint and the template disagree.  ``mesh_shape`` is the
+        caller's mesh, which may differ from the one the checkpoint was
+        saved under (kept in ``saved_mesh_shape``): the tensors are whole
+        either way."""
+        del mesh_shape
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -131,11 +140,7 @@ class Checkpointer:
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, _MANIFEST)) as f:
             manifest = json.load(f)
-        if manifest["mesh_shape"] != list(mesh_shape or []):
-            raise NotImplementedError(
-                f"checkpoint saved under mesh {manifest['mesh_shape']}, "
-                f"restoring under {list(mesh_shape or [])}: re-sharding is "
-                f"not ported yet")
+        self.saved_mesh_shape = tuple(manifest["mesh_shape"]) or None
         flat_t = dict(tree_paths(template))
         missing = sorted(set(flat_t) - set(manifest["keys"]))
         extra = sorted(set(manifest["keys"]) - set(flat_t))

@@ -26,6 +26,15 @@ Weights are stored ``(in, out)`` like the reference.  Serving quantizes
 each weight once (:func:`prepare_quantized`) - the values are a pure
 function of the weight, identical to quantizing on every call - and keeps
 the int8 copy N-major, the layout the kernels read.
+
+Tensor parallelism (``distributed.sharding``): a column-parallel
+projection is :func:`linear_apply` on each shard's slice of N (the input
+is replicated, so every shard takes the same per-tensor activation
+scale).  A row-parallel one is :func:`linear_apply_row`: each shard holds
+a slice of K, and in the int modes the shards agree on the activation
+scale (a max of their amaxes), take their exact int32 partial products,
+sum them and apply the epilogue once, so the result is the unsharded
+projection bit for bit.
 """
 
 from __future__ import annotations
@@ -33,12 +42,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quantize as q
+from repro_torch.distributed.collectives import all_reduce_max, \
+    broadcast, reduce_sum
 from repro_torch.kernels import ops
 from repro_torch.kernels.lut_matmul import lut_matmul_plain
 from repro_torch.kernels.nibble_matmul import nibble_matmul_plain
 
-__all__ = ["linear_init", "linear_apply", "prepare_quantized",
-           "weight_bits"]
+__all__ = ["linear_init", "linear_apply", "linear_apply_row",
+           "prepare_quantized", "weight_bits"]
 
 _INT_MODES = ("w8a8_nibble", "w4a8_nibble", "lut")   # int8 activations
 
@@ -104,13 +115,55 @@ def linear_apply(params: dict, x: torch.Tensor, *, mode: str = "dense",
     if backend == "cuda" and mode != "lut":
         return ops.quant_matmul(x_qt.values, w_q, x_scale=x_qt.scale,
                                 w_scale=w_scale, out_dtype=x.dtype)
-    if backend == "cuda":
-        matmul = lambda a, b: ops.quant_matmul(a, b, w_format="lut")
-    elif backend == "torch":
-        matmul = lut_matmul_plain if mode == "lut" else nibble_matmul_plain
-    else:
-        raise ValueError(f"quant_backend must be 'torch' or 'cuda', got "
-                         f"{backend!r}")
-    acc = matmul(x_qt.values, w_q)
+    acc = _int_product(x_qt.values, w_q, mode, backend)
     out = acc.to(torch.float32) * x_qt.scale * w_scale
     return out.to(x.dtype)
+
+
+def _int_product(x_q, w_q, mode: str, backend: str) -> torch.Tensor:
+    """The exact int32 product of int8 activations and weights: the LUT
+    kernel or the nibble kernel's unscaled mode on ``"cuda"`` (their
+    plain versions on CPU tensors), the reference's formulas on
+    ``"torch"``."""
+    if backend == "cuda":
+        return ops.quant_matmul(x_q, w_q,
+                                w_format="lut" if mode == "lut" else "int8")
+    if backend == "torch":
+        matmul = lut_matmul_plain if mode == "lut" else nibble_matmul_plain
+        return matmul(x_q, w_q)
+    raise ValueError(f"quant_backend must be 'torch' or 'cuda', got "
+                     f"{backend!r}")
+
+
+def linear_apply_row(shards: list, xs: list, *, mode: str = "dense",
+                     backend: str = "torch") -> list:
+    """A row-parallel projection: shard ``s`` holds rows ``[s K/tp, (s +
+    1) K/tp)`` of the weight (its ``qt{bits}`` the same K slice, its
+    scales whole) and ``xs[s]`` the matching columns of the input.
+    Returns the whole output on every shard.  In the int modes: the
+    activation amax is reduced by max, so the per-tensor scale is the
+    unsharded one; each shard's exact int32 partial product is summed in
+    shard order; the epilogue ``(float(acc) * x_scale) * w_scale`` then
+    the cast run once on the sum: bit for bit the unsharded projection.
+    ``dense`` sums f32 partial products and rounds once."""
+    dtype = xs[0].dtype
+    devices = [x.device for x in xs]
+    if mode == "dense":
+        parts = [torch.matmul(x.to(torch.float32),
+                              p["w"].to(torch.float32))
+                 for p, x in zip(shards, xs)]
+        return broadcast(reduce_sum(parts).to(dtype), devices)
+    if mode not in _INT_MODES:
+        raise NotImplementedError(f"quant mode {mode!r} has no "
+                                  f"row-parallel projection")
+    bits = weight_bits(mode)
+    amax = all_reduce_max([x.to(torch.float32).abs().max() for x in xs])
+    accs = []
+    for p, x, a in zip(shards, xs, amax):
+        x_q = q.quantize(x.to(torch.float32), bits=8,
+                         scale=q.scale_from_amax(a)).values
+        accs.append(_int_product(x_q, _weight(p, bits)[0], mode, backend))
+    # the epilogue once, on shard 0's device, then a copy per device
+    out = (reduce_sum(accs).to(torch.float32)
+           * q.scale_from_amax(amax[0])) * _weight(shards[0], bits)[1]
+    return broadcast(out.to(dtype), devices)

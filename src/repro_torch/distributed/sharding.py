@@ -1,0 +1,422 @@
+"""Partition rules and model-axis shards (port of
+``repro.distributed.sharding``).
+
+The rule functions are the reference's, as plain functions over this
+package's trees: a spec is a tuple with one entry per dimension, each
+``None``, an axis name or a tuple of axis names (``PartitionSpec``'s
+layout).  The port's layers are unrolled, so no path holds ``blocks`` and
+no spec carries the reference's leading block axis.  Conventions on a
+``(data, model)`` mesh:
+
+* **FSDP axes** = ("pod", "data") on a multi-pod mesh, else ("data",).
+* **TP axis** = "model": megatron column/row pairs (``_COL_PARENTS``,
+  ``_ROW_PARENTS``), MoE experts and the vocab dimension.
+* **Caches**: KV heads on "model" when they divide it, else the sequence
+  axis (in-page for paged pools); batch on the FSDP axes.
+
+The port's prepared int8 leaves follow their weight: ``qt8`` / ``qt4``
+(N-major, ``(out, in)``) take the weight's spec reversed, and the
+per-channel scales ``s8`` / ``s4`` ``(1, out)`` take its out axis, so a
+row-parallel weight keeps its scales whole (each is the amax over the
+whole K column).
+
+:func:`shard_params` and :func:`shard_caches` apply the specs' "model"
+axis: one tree per model shard on that shard's device (:class:`Shards`).
+Where the kv heads do not divide the axis, the port runs each attention
+block replicated on every shard, weights and pools whole, where the
+reference splits the pools' in-page sequence axis; replication is always
+valid (``_fit_spec``), and the two differ only in memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from repro_torch.configs.base import ModelConfig
+
+__all__ = ["TP_AXIS", "fsdp_axes", "param_specs", "opt_state_specs",
+           "batch_specs", "cache_specs", "page_table_spec", "TPLayout",
+           "tp_layout", "check_tp_supported", "Shards", "shard_params",
+           "shard_caches", "split_dim"]
+
+TP_AXIS = "model"
+
+# where ROADMAP.md places the configurations tensor parallelism refuses
+TP_ROADMAP = "ROADMAP queue 1 item 4, the next tensor-parallel slice"
+
+
+def fsdp_axes(mesh) -> tuple:
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+# ---------------------------------------------------------------------------
+# Parameter rules
+# ---------------------------------------------------------------------------
+
+# parent-key of a linear's ``w`` -> spec builder.  COL = (fsdp, tp);
+# ROW = (tp, fsdp)
+_COL_PARENTS = {"wq", "wk", "wv", "gate", "up", "wq_b", "wkv_b", "in_proj",
+                "lm_head"}
+_ROW_PARENTS = {"wo", "down", "out_proj"}
+_PLAIN_PARENTS = {"wq_a", "wkv_a"}       # low-rank downs: FSDP only
+_QUANT_VALUES = ("qt8", "qt4")           # the port's prepared int8 weights
+_QUANT_SCALES = ("s8", "s4")             # and their per-channel scales
+
+
+def _w_rule(parent: str, fsdp: tuple) -> tuple:
+    if parent in _COL_PARENTS:
+        return (fsdp, TP_AXIS)
+    if parent in _ROW_PARENTS:
+        return (TP_AXIS, fsdp)
+    return (fsdp, None)                  # low-rank downs, unknown linears
+
+
+def _param_rule(path: tuple, leaf, fsdp: tuple) -> tuple:
+    keys = list(path)
+    leafk = keys[-1]
+    parent = keys[-2] if len(keys) >= 2 else ""
+    stacked = "blocks" in keys           # the reference's layout only
+
+    def wrap(*spec):
+        return ((None,) + spec) if stacked else spec
+
+    if leafk == "emb":
+        # (V, D): vocab on TP, D replicated (sharding D on the data axes
+        # makes the embedding-grad contraction doubly data-sharded)
+        return wrap(TP_AXIS, None)
+    if leafk == "w":
+        return wrap(*_w_rule(parent, fsdp))
+    if leafk in _QUANT_VALUES:           # (out, in): the weight transposed
+        return wrap(*reversed(_w_rule(parent, fsdp)))
+    if leafk in _QUANT_SCALES:           # (1, out): the weight's out axis
+        return wrap(None, _w_rule(parent, fsdp)[1])
+    if leafk in ("w_gate", "w_up"):      # (E, D, F): EP x FSDP storage
+        return wrap(TP_AXIS, fsdp, None)
+    if leafk == "w_down":                # (E, F, D)
+        return wrap(TP_AXIS, None, fsdp)
+    if leafk == "router":                # small, replicate
+        return wrap(None, None)
+    if leafk == "conv_w":                # (W, C): channels on TP
+        return wrap(None, TP_AXIS)
+    if leafk == "conv_b":
+        return wrap(TP_AXIS)
+    # norms, A_log, D, dt_bias, scalars: replicated
+    return wrap(*([None] * (leaf.ndim - (1 if stacked else 0))))
+
+
+def _fit_spec(spec: tuple, shape, mesh) -> tuple:
+    """Drop sharded axes that do not divide the dimension they shard
+    (odd vocab sizes, batch-1 cells, tiny head counts); replication is
+    always valid."""
+    out = []
+    for i, dim in enumerate(shape):
+        axes = spec[i] if i < len(spec) else None
+        if axes is None:
+            out.append(None)
+            continue
+        size = 1
+        for a in (axes if isinstance(axes, tuple) else (axes,)):
+            size *= mesh.shape[a]
+        out.append(axes if dim % size == 0 else None)
+    return tuple(out)
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over dict / list nodes; a tuple is a leaf (a
+    spec), as in a spec tree."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (str(i),))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_specs(params: Any, mesh) -> Any:
+    fsdp = fsdp_axes(mesh)
+    return _map_with_path(
+        lambda path, leaf: _fit_spec(_param_rule(path, leaf, fsdp),
+                                     leaf.shape, mesh), params)
+
+
+def opt_state_specs(opt_state: Any, params_spec: Any) -> Any:
+    """Moments mirror the parameter specs; int8-moment scales are
+    replicated."""
+    def moment(pspec, node):
+        if isinstance(node, dict) and "q" in node:
+            return {"q": pspec, "scale": ()}
+        if isinstance(node, dict):
+            return {k: moment(pspec[k], v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [moment(s, v) for s, v in zip(pspec, node)]
+        return pspec
+
+    return {"step": (), "mu": moment(params_spec, opt_state["mu"]),
+            "nu": moment(params_spec, opt_state["nu"])}
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache rules
+# ---------------------------------------------------------------------------
+
+def batch_specs(cfg: ModelConfig, mesh) -> dict:
+    dp = fsdp_axes(mesh)                 # batch over pod + data
+    spec = {"tokens": (dp, None), "labels": (dp, None)}
+    if cfg.family == "vlm":
+        spec["patch_embeds"] = (dp, None, None)
+    if cfg.is_encdec:
+        spec["frames"] = (dp, None, None)
+    return spec
+
+
+def _kv_spec(cfg: ModelConfig, mesh, batch: int, stacked: bool,
+             seq_to_dp: bool) -> tuple:
+    """(B, S, KVH, D) spec."""
+    tp_size = mesh.shape[TP_AXIS]
+    dp = fsdp_axes(mesh)
+    if seq_to_dp:                        # batch-1 long-context cells
+        head_ax = TP_AXIS if cfg.n_kv_heads % tp_size == 0 else None
+        spec = (None, dp, head_ax, None)
+    elif cfg.n_kv_heads % tp_size == 0:
+        spec = (dp, None, TP_AXIS, None)
+    else:                                # few KV heads: sequence on TP
+        spec = (dp, TP_AXIS, None, None)
+    return ((None,) + spec) if stacked else spec
+
+
+def _mla_spec(mesh, stacked: bool, seq_to_dp: bool) -> tuple:
+    dp = fsdp_axes(mesh)
+    spec = (None, dp, None) if seq_to_dp else (dp, None, None)
+    return ((None,) + spec) if stacked else spec
+
+
+def _paged_kv_spec(cfg: ModelConfig, mesh, stacked: bool) -> tuple:
+    """(num_pages, page_size, KVH, D-or-1) pool spec: KV heads on the TP
+    axis when they divide it, else the in-page sequence axis; the page-id
+    axis is never sharded (page ids are data)."""
+    if cfg.n_kv_heads % mesh.shape[TP_AXIS] == 0:
+        spec = (None, None, TP_AXIS, None)
+    else:
+        spec = (None, TP_AXIS, None, None)
+    return ((None,) + spec) if stacked else spec
+
+
+def _paged_mla_spec(stacked: bool) -> tuple:
+    """(num_pages, page_size, rank) latent pool: no head axis, so the
+    in-page sequence axis is the only shardable one."""
+    spec = (None, TP_AXIS, None)
+    return ((None,) + spec) if stacked else spec
+
+
+def page_table_spec(mesh) -> tuple:
+    """The (batch, max_pages) page table stays host-authored and fully
+    replicated: every shard walks the same logical table."""
+    del mesh
+    return (None, None)
+
+
+def _mamba_cache_spec(mesh, leafk: str, stacked: bool) -> tuple:
+    dp = fsdp_axes(mesh)
+    if leafk == "conv":                  # (B, W-1, C)
+        spec = (dp, None, TP_AXIS)
+    else:                                # ssm state (B, H, N, P)
+        spec = (dp, TP_AXIS, None, None)
+    return ((None,) + spec) if stacked else spec
+
+
+def cache_specs(cfg: ModelConfig, caches: Any, mesh, *, batch: int) -> Any:
+    seq_to_dp = batch == 1
+    paged = cfg.cache_mode == "paged"
+
+    def rule(path, leaf):
+        stacked = "blocks" in path
+        leafk = path[-1]
+        if leafk in ("k", "v", "k_scale", "v_scale"):
+            spec = (_paged_kv_spec(cfg, mesh, stacked) if paged
+                    else _kv_spec(cfg, mesh, batch, stacked, seq_to_dp))
+        elif leafk in ("c_kv", "k_rope"):
+            spec = (_paged_mla_spec(stacked) if paged
+                    else _mla_spec(mesh, stacked, seq_to_dp))
+        elif leafk in ("conv", "ssm"):
+            spec = _mamba_cache_spec(mesh, leafk, stacked)
+        else:
+            spec = (None,) * leaf.ndim
+        return _fit_spec(spec, leaf.shape, mesh)
+
+    return _map_with_path(rule, caches)
+
+
+def split_dim(spec: tuple) -> int | None:
+    """The dimension a spec shards over the "model" axis, or None."""
+    for i, axes in enumerate(spec):
+        if axes == TP_AXIS or (isinstance(axes, tuple) and TP_AXIS in axes):
+            return i
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Model-axis shards
+# ---------------------------------------------------------------------------
+
+def check_tp_supported(cfg: ModelConfig, tp: int) -> None:
+    """Tensor parallelism covers GQA attention + MLP stacks (yi-6b,
+    qwen3-4b, gemma-7b, gemma3-1b); the other families raise under
+    ``tp > 1``."""
+    if tp <= 1:
+        return
+    kinds = []
+    if any(s.attn_kind == "mla" for s in cfg.layer_specs):
+        kinds.append("MLA attention")
+    if any(s.ffn == "moe" for s in cfg.layer_specs):
+        kinds.append("MoE blocks")
+    if any(s.mixer == "mamba" for s in cfg.layer_specs):
+        kinds.append("mamba mixers")
+    if cfg.is_encdec:
+        kinds.append("the encoder-decoder")
+    if cfg.family == "vlm":
+        kinds.append("the VLM")
+    if cfg.quant_mode == "qat":
+        kinds.append("quant_mode='qat' (its per-row activation scales "
+                     "would need a max over the row-parallel shards)")
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name} at tp={tp}: tensor parallelism covers GQA "
+            f"attention with MLP blocks; {', '.join(kinds)} under tp > 1 "
+            f"is not ported yet ({TP_ROADMAP})")
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """How a model splits over ``tp`` model shards: attention blocks by
+    kv heads where they divide ``tp`` (else replicated), MLPs by ``d_ff``
+    and the embedding and head by vocab where those divide (else
+    replicated), as ``_fit_spec`` decides for their weights."""
+    tp: int
+    heads: bool
+    ffn: bool
+    vocab: bool
+
+    def shard_cfg(self, cfg: ModelConfig) -> ModelConfig:
+        """The config one shard's attention runs: its share of the query
+        and kv heads, or the whole model where heads are replicated."""
+        if not self.heads:
+            return cfg
+        return cfg.replace(n_heads=cfg.n_heads // self.tp,
+                           n_kv_heads=cfg.n_kv_heads // self.tp)
+
+
+def tp_layout(cfg: ModelConfig, tp: int) -> TPLayout:
+    return TPLayout(tp=tp, heads=cfg.n_kv_heads % tp == 0,
+                    ffn=cfg.d_ff % tp == 0, vocab=cfg.vocab_size % tp == 0)
+
+
+@dataclasses.dataclass
+class Shards:
+    """One tree per model shard, shard ``s`` on ``devices[s]`` (a device
+    may repeat), split as ``layout`` says.  Replicated leaves are one
+    tensor per distinct device."""
+    trees: list
+    devices: list
+    layout: TPLayout
+
+    def __len__(self) -> int:
+        return len(self.trees)
+
+    def __getitem__(self, i):
+        return self.trees[i]
+
+    def __iter__(self):
+        return iter(self.trees)
+
+
+def _copy_nodes(tree):
+    """The dict / list skeleton copied, the tensors shared."""
+    if isinstance(tree, dict):
+        return {k: _copy_nodes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_nodes(v) for v in tree]
+    return tree
+
+
+def _split_tree(tree, specs, devices, keep_whole, *, copy_whole: bool):
+    """One tree per shard: each leaf narrowed along its spec's model axis
+    (a contiguous copy on the shard's device) or kept whole (one tensor
+    per distinct device: the leaf itself where it already lies, unless
+    ``copy_whole``, else one copy)."""
+    tp = len(devices)
+    whole: dict = {}
+
+    def leaf_for(s, path, leaf, spec):
+        dev = devices[s]
+        dim = None if keep_whole(path) else split_dim(spec)
+        if dim is None:
+            key = (path, str(dev))
+            if key not in whole:
+                same = leaf.device == dev and not copy_whole
+                whole[key] = leaf if same else leaf.to(dev, copy=True)
+            return whole[key]
+        n = leaf.shape[dim] // tp
+        part = leaf.narrow(dim, s * n, n)
+        return part.to(dev, copy=True).contiguous() \
+            if part.device != dev or copy_whole else part.contiguous()
+
+    def walk(s, node, spec, path=()):
+        if isinstance(node, dict):
+            return {k: walk(s, v, spec[k], path + (k,))
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(s, v, spec[i], path + (str(i),))
+                    for i, v in enumerate(node)]
+        return leaf_for(s, path, node, spec)
+
+    return [walk(s, tree, specs) for s in range(tp)]
+
+
+def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
+    """One parameter tree per model shard of ``mesh`` (its data row 0),
+    on that shard's device.  The weights are quantized for
+    ``cfg.quant_mode`` first (as ``prepare_params`` does, on a copy of the
+    tree's nodes: the caller's tree is never changed) and split after, so
+    every int8 value and scale is the unsharded one.  Each leaf splits
+    where its spec (``param_specs``) names the model axis, except the
+    attention blocks when their kv heads do not divide it, which stay
+    whole.  A whole leaf is the caller's tensor on its own device and
+    one copy per other device; a split leaf is a contiguous piece (a view
+    where the split is along rows)."""
+    from repro_torch.models.transformer import prepare_params
+
+    tp = mesh.shape[TP_AXIS]
+    check_tp_supported(cfg, tp)
+    layout = tp_layout(cfg, tp)
+    src = prepare_params(_copy_nodes(params), cfg)
+    specs = param_specs(src, mesh)
+    devices = mesh.model_devices
+
+    def keep_whole(path):
+        return not layout.heads and "attn" in path
+
+    trees = _split_tree(src, specs, devices, keep_whole, copy_whole=False)
+    return Shards(trees, devices, layout)
+
+
+def shard_caches(caches: list, cfg: ModelConfig, mesh, batch: int) -> Shards:
+    """One cache list per model shard, on that shard's device, in the
+    layout the sharded engine serves from: KV (and int8 scale) leaves
+    split along the head axis where ``cache_specs`` puts the model axis
+    there; every other leaf whole (the in-page sequence split the
+    reference takes for indivisible heads is replicated here).  Every
+    leaf is a copy: the shards are written in place, the caller's tree
+    never."""
+    tp = mesh.shape[TP_AXIS]
+    check_tp_supported(cfg, tp)
+    layout = tp_layout(cfg, tp)
+    specs = cache_specs(cfg, caches, mesh, batch=batch)
+
+    def keep_whole(path):
+        return not layout.heads
+
+    trees = _split_tree(caches, specs, mesh.model_devices, keep_whole,
+                        copy_whole=True)
+    return Shards(trees, mesh.model_devices, layout)

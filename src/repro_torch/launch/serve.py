@@ -1,5 +1,5 @@
 """Serving launcher (port of ``repro.launch.serve``): the continuous-
-batching engine on one card.
+batching engine on one card, or tensor-parallel over a mesh of devices.
 
 Batch mode (lockstep generate):
 
@@ -56,6 +56,18 @@ model (``--autotune``, no model run; the counterpart of the reference's
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --workload uniform --autotune max-tok-s --ttft-slo-ms 100
 
+Tensor parallelism: ``--tp 2`` shards each engine's weights and KV pools
+over a (1, 2) mesh (``--mesh DATAxMODEL`` names the shape; a data axis
+above 1 inside one engine is refused); ``--dp 2 --tp 2`` serves two such
+engines behind the router, each on its own slice of devices.  On the card
+the mesh is the visible cards, so ``--tp 2`` needs two; with ``--device
+cpu`` it is the CPU repeated.  ``--verify`` re-runs the workload on the
+tp=1 / dp=1 engine and holds the streams equal:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen3-4b --workload uniform --cache-mode paged \
+        --page-size 4 --tp 2 --verify
+
 ``--temperature 0.7`` samples (any workload, also with ``--spec-decode``)
 under the reference's index-derived keys; ``--verify`` needs greedy
 streams.  On the card the decode chunk (the draft and the verify under
@@ -74,8 +86,7 @@ device, every projection through the CUDA kernels
 kernels, unless ``--device cpu`` is given: there the same wrappers run
 their plain versions, and ``--quant-backend torch`` is allowed too.  The
 warm-up (which builds the kernels on first use) is timed apart from the
-steady state.  The flags of tensor parallelism (``--tp``, ``--mesh``), not
-ported yet, stay in the parser and raise ``NotImplementedError``.
+steady state.
 """
 
 from __future__ import annotations
@@ -90,21 +101,23 @@ from repro_torch.models import model_init
 from repro_torch.serve import Engine, Router, ServeConfig, \
     run_timed_workload
 
-# flag -> (default, where ROADMAP.md places the work that ports it)
-_UNPORTED_FLAGS = {
-    "tp": (1, "queue 1 item 4, tensor parallelism on torch.distributed"),
-    "mesh": (None, "queue 1 item 4, tensor parallelism on "
-                   "torch.distributed"),
-}
+def _parse_mesh(spec: str | None):
+    """``"DATAxMODEL"`` (e.g. ``1x2``) -> per-engine mesh shape tuple."""
+    if spec is None:
+        return None
+    try:
+        dp, tp = spec.lower().split("x")
+        return (int(dp), int(tp))
+    except ValueError:
+        raise SystemExit(f"--mesh expects DATAxMODEL (e.g. 1x2), "
+                         f"got {spec!r}")
 
 
-def _check_ported(args) -> None:
-    for name, (default, item) in _UNPORTED_FLAGS.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag}={getattr(args, name)!r} is not ported yet "
-                f"(ROADMAP {item})")
+def _meshed(args) -> bool:
+    return args.tp > 1 or args.mesh is not None
+
+
+def _check_backend(args) -> None:
     if args.device != "cpu" and args.quant_backend != "cuda":
         raise SystemExit("--quant-backend torch runs the plain PyTorch "
                          "formulas; on the card the launcher serves "
@@ -121,9 +134,11 @@ def _config(args):
 def _build(args, reference=False):
     """Build the engine (a ``Router`` of ``--dp`` replicas when above 1)
     for ``args``; ``reference=True`` builds the baseline of ``--verify``
-    from the same flags: one engine, with every tail-latency mechanism off
-    (monolithic prefill, serialized admission, replay-only resume), as the
-    reference's launcher does."""
+    from the same flags: one single-device engine (tp=1, dp=1, no mesh),
+    with every tail-latency mechanism off (monolithic prefill, serialized
+    admission, replay-only resume), as the reference's launcher does.
+    On ``--device cpu`` a mesh is the CPU repeated; on the card, the
+    visible cards."""
     cfg = _config(args)
     params = model_init(cfg, seed=0, device=args.device)
     max_len = args.prompt_len + args.new_tokens
@@ -149,11 +164,19 @@ def _build(args, reference=False):
                        prefill_chunk=0 if reference else args.prefill_chunk,
                        admit_group=1 if reference else args.admit_group,
                        swap_mode="off" if reference else args.swap_mode,
-                       host_pages=args.host_pages)
+                       host_pages=args.host_pages,
+                       tp=1 if reference else args.tp,
+                       mesh_shape=None if reference
+                       else _parse_mesh(args.mesh))
+    devices = None
+    if args.device == "cpu" and not reference and _meshed(args):
+        shape = scfg.mesh_shape or (1, scfg.tp)
+        devices = ["cpu"] * (args.dp * shape[0] * shape[1])
     if args.dp > 1 and not reference:
         return cfg, params, Router(cfg, params, scfg, replicas=args.dp,
-                                   device=args.device)
-    return cfg, params, Engine(cfg, params, scfg, device=args.device)
+                                   device=args.device, devices=devices)
+    return cfg, params, Engine(cfg, params, scfg, device=args.device,
+                               devices=devices)
 
 
 def run_batch(args, cfg, engine):
@@ -210,8 +233,9 @@ def _check_leaks(args, engine):
 def _verify(args, cfg, r):
     """Re-run the identical workload on a reference build and demand
     token-for-token equality (greedy streams).  The reference's baseline
-    is one engine with every tail-latency mechanism off (the prefix cache
-    stays, as in the reference).  Dense only when ``--dp > 1``: w8a8
+    is one single-device engine with every tail-latency mechanism off
+    (the prefix cache stays, as in the reference).  Dense only when
+    ``--dp > 1``: w8a8
     activation scales span the batch, and placement changes which
     requests share a decode chunk."""
     if args.temperature > 0:
@@ -251,9 +275,9 @@ def _workload_shape(args):
 def _predict(args, engine, r):
     """Calibrate the engine and print the capacity model's prediction
     for the workload just measured, beside the measurement."""
-    if args.dp > 1:
-        print("  capacity model: (skipped: it covers one engine; a --dp "
-              "fleet carries no prediction)")
+    if args.dp > 1 or _meshed(args):
+        print("  capacity model: (skipped: it covers the single-device "
+              "engine; tp/dp rows carry no prediction)")
         return None
     from repro_torch.capacity import Knobs, predict
     from repro_torch.capacity.calibrate import calibrate_engine
@@ -439,8 +463,9 @@ def main(argv=None):
                     help="queue-wait seconds per +1 effective priority "
                          "(anti-starvation aging; 0 = strict priorities)")
     ap.add_argument("--verify", action="store_true",
-                    help="re-run the workload on the reference build and "
-                         "require token-for-token stream equality")
+                    help="re-run the workload on the single-device (tp=1, "
+                         "dp=1) reference build and require token-for-"
+                         "token stream equality")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share read-only prompt-prefix pages across "
                          "requests (paged cache; COW on a fully covered "
@@ -476,7 +501,17 @@ def main(argv=None):
                     help="data-parallel engine replicas behind one "
                          "admission router (least-loaded placement with "
                          "priority ordering and prefix-cache affinity), "
-                         "sharing the device and the weights")
+                         "sharing the device and the weights; with --tp "
+                         "or --mesh each replica gets its own disjoint "
+                         "device slice")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shards per engine: weights and "
+                         "KV pools shard over a (1, tp) device mesh's "
+                         "\"model\" axis (greedy streams stay equal to "
+                         "tp=1)")
+    ap.add_argument("--mesh", default=None,
+                    help="per-engine mesh shape DATAxMODEL (e.g. 1x2); "
+                         "overrides --tp when set")
     ap.add_argument("--predict", action="store_true",
                     help="after the measured run, calibrate the engine's "
                          "per-dispatch stage costs and print the capacity "
@@ -492,13 +527,9 @@ def main(argv=None):
     ap.add_argument("--ttft-slo-ms", type=float, default=None,
                     help="p99 TTFT SLO an --autotune max-tok-s winner must "
                          "meet")
-    # the reference's flags of tensor parallelism, not ported yet: kept so
-    # that a command line written for the reference fails loudly
-    ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--mesh", default=None)
     args = ap.parse_args(argv)
 
-    _check_ported(args)
+    _check_backend(args)
     if args.workload == "batch" and args.dp > 1:
         raise SystemExit("--dp applies to request workloads "
                          "(uniform/staggered/bursty), not batch mode")

@@ -30,7 +30,7 @@ from repro_torch.core.quantize import scale_from_amax
 from repro_torch.kernels.ops import flash_mha, paged_flash_decode
 from repro_torch.models.layers import apply_rope, rms_norm, rms_norm_init, rope
 
-__all__ = ["attn_init", "attn_apply", "attention_core", "init_kv_cache",
+__all__ = ["attn_init", "attn_apply", "attn_heads", "attention_core", "init_kv_cache",
            "init_paged_kv_cache", "mla_init", "mla_apply", "init_mla_cache",
            "init_paged_mla_cache", "scatter_cache_rows",
            "scatter_paged_rows", "scatter_prefill_rows", "gather_pages"]
@@ -249,9 +249,29 @@ def attn_apply(params, cfg, x, *, positions, kind: str = "full",
                kv_source=None, causal: bool = True,
                return_cache: bool = False, page_table=None,
                context_start=None):
-    """Returns (out, new_cache).  ``cache=None``: K/V from ``x`` (forward
-    / prefill; prefill hands the post-RoPE K/V back, quantized under the
-    int8 KV cache), or from ``kv_source`` for a cross-attention (no RoPE,
+    """Returns (out, new_cache): :func:`attn_heads`, then ``wo``."""
+    out, new_cache = attn_heads(
+        params, cfg, x, positions=positions, kind=kind, cache=cache,
+        cache_index=cache_index, kv_source=kv_source, causal=causal,
+        return_cache=return_cache, page_table=page_table,
+        context_start=context_start)
+    return linear_apply(params["wo"], out, mode=cfg.quant_mode,
+                        backend=cfg.quant_backend), new_cache
+
+
+def attn_heads(params, cfg, x, *, positions, kind: str = "full",
+               cache: dict | None = None, cache_index=None,
+               kv_source=None, causal: bool = True,
+               return_cache: bool = False, page_table=None,
+               context_start=None):
+    """The attention block up to ``wo``: returns (heads (B, S, H * hd),
+    new_cache).  Under tensor parallelism each shard runs it with its
+    share of the heads (``cfg`` holding the shard's ``n_heads`` and
+    ``n_kv_heads``, ``params`` its ``wq``/``wk``/``wv`` columns, ``cache``
+    its pools) and ``wo`` runs row-parallel.
+
+    ``cache=None``: K/V from ``x`` (forward / prefill; prefill hands the
+    post-RoPE K/V back, quantized under the int8 KV cache), or from ``kv_source`` for a cross-attention (no RoPE,
     keys at ``[0, S_kv)``, never causal).  ``causal=False`` makes a
     self-attention bidirectional (the encoder).  With ``cache``: the new
     rows are written at ``cache_index`` (scalar or (B,) per slot) and the
@@ -355,9 +375,7 @@ def attn_apply(params, cfg, x, *, positions, kind: str = "full",
         out = attention_core(q, k_full, v_full, positions, k_pos,
                              scale=scale, causal=is_causal_self,
                              window=window, softcap=softcap)
-    out = linear_apply(params["wo"], out.reshape(b, s, h * hd), mode=mode,
-                       backend=backend)
-    return out, new_cache
+    return out.reshape(b, s, h * hd), new_cache
 
 
 # ---------------------------------------------------------------------------

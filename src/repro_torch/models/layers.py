@@ -1,7 +1,9 @@
 """Shared building blocks (port of ``repro.models.layers``).
 
 Parameters are nested dicts of tensors, as in the reference; every
-projection goes through ``repro_torch.core.linear``.
+projection goes through ``repro_torch.core.linear``.  The vocab-parallel
+embedding and logits take one tree per model shard (each holding its
+slice of the vocabulary) and return the whole result on every shard.
 """
 
 from __future__ import annotations
@@ -10,10 +12,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.linear import linear_apply, linear_init
+from repro_torch.distributed.collectives import all_gather, all_reduce_sum
 
 __all__ = ["rms_norm_init", "rms_norm", "rope", "apply_rope", "mlp_init",
-           "mlp_apply", "embed_init", "embed_apply", "embed_logits",
-           "bf16_matmul"]
+           "mlp_apply", "mlp_hidden", "embed_init", "embed_apply",
+           "embed_logits", "bf16_matmul", "vocab_parallel_embed",
+           "vocab_parallel_logits"]
 
 
 def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,9 +77,10 @@ def mlp_init(d_model: int, d_ff: int, *, generator, device) -> dict:
                                 device=device)}
 
 
-def mlp_apply(params: dict, x: torch.Tensor, *, act: str = "silu",
-              quant_mode: str = "dense", quant_backend: str = "torch"):
-    """Gated MLP (SwiGLU / GeGLU), activation in f32."""
+def mlp_hidden(params: dict, x: torch.Tensor, *, act: str = "silu",
+               quant_mode: str = "dense", quant_backend: str = "torch"):
+    """The gated hidden state ``act(x @ gate) * (x @ up)``, activation in
+    f32: the input of ``down`` (a column-parallel shard's slice of it)."""
     g = linear_apply(params["gate"], x, mode=quant_mode,
                      backend=quant_backend)
     u = linear_apply(params["up"], x, mode=quant_mode, backend=quant_backend)
@@ -83,8 +88,16 @@ def mlp_apply(params: dict, x: torch.Tensor, *, act: str = "silu",
         g = F.gelu(g.to(torch.float32), approximate="tanh").to(x.dtype)
     else:
         g = F.silu(g.to(torch.float32)).to(x.dtype)
-    return linear_apply(params["down"], g * u, mode=quant_mode,
-                        backend=quant_backend)
+    return g * u
+
+
+def mlp_apply(params: dict, x: torch.Tensor, *, act: str = "silu",
+              quant_mode: str = "dense", quant_backend: str = "torch"):
+    """Gated MLP (SwiGLU / GeGLU), activation in f32."""
+    return linear_apply(params["down"],
+                        mlp_hidden(params, x, act=act, quant_mode=quant_mode,
+                                   quant_backend=quant_backend),
+                        mode=quant_mode, backend=quant_backend)
 
 
 def embed_init(vocab: int, d_model: int, *, generator, device) -> dict:
@@ -96,12 +109,46 @@ def embed_init(vocab: int, d_model: int, *, generator, device) -> dict:
 def embed_apply(params: dict, tokens: torch.Tensor, *,
                 scale_by_sqrt_dim: bool = False):
     x = params["emb"][tokens.long()]
-    if scale_by_sqrt_dim:
-        x = x * torch.sqrt(torch.tensor(float(x.shape[-1]))).to(x.dtype)
-    return x
+    return _scale_embed(x) if scale_by_sqrt_dim else x
+
+
+def _scale_embed(x):
+    return x * torch.sqrt(torch.tensor(float(x.shape[-1]))).to(x.dtype)
 
 
 def embed_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: x @ emb^T with f32 accumulation and f32 output."""
     return torch.matmul(x.to(torch.float32),
                         params["emb"].to(torch.float32).t())
+
+
+def vocab_parallel_embed(shards: list, tokens: list, *,
+                         scale_by_sqrt_dim: bool = False) -> list:
+    """Embedding lookup with the table split by vocab: shard ``s`` holds
+    rows ``[s V/tp, (s + 1) V/tp)`` (``shards[s]["emb"]``) and looks up the
+    tokens it owns, zeros elsewhere; the shards' rows are summed.  Exactly
+    one shard adds a non-zero row for each token, so the sum is the
+    unsharded lookup.  ``tokens`` is one copy per shard."""
+    parts = []
+    for s, (p, tok) in enumerate(zip(shards, tokens)):
+        emb = p["emb"]
+        local = tok.long() - s * emb.shape[0]
+        hit = (local >= 0) & (local < emb.shape[0])
+        rows = emb[torch.where(hit, local, torch.zeros_like(local))]
+        parts.append(torch.where(hit[..., None], rows,
+                                 torch.zeros_like(rows)))
+    xs = all_reduce_sum(parts)
+    return [_scale_embed(x) for x in xs] if scale_by_sqrt_dim else xs
+
+
+def vocab_parallel_logits(shards: list, xs: list, *, tied: bool) -> list:
+    """f32 logits with the head split by vocab: each shard's slice (the
+    tied ``emb`` transposed, or an untied ``lm_head``'s columns through
+    :func:`bf16_matmul`), gathered in shard order, so the vocabulary is
+    in the unsharded order before an argmax or a sampler sees it."""
+    if tied:
+        parts = [embed_logits(p, x) for p, x in zip(shards, xs)]
+    else:
+        parts = [bf16_matmul(x, p["w"].to(x.dtype)).to(torch.float32)
+                 for p, x in zip(shards, xs)]
+    return all_gather(parts, dim=-1)

@@ -34,6 +34,20 @@ scatter, the copy-on-write page copy) and its host tier (page payloads
 to and from CPU tensors, each pool's bytes as they are); they take every
 sequence pool as it comes, of any key, row shape and dtype, and leave
 the recurrent state alone.
+
+Tensor parallelism: ``prefill`` and ``decode_step`` take the ``Shards``
+of ``distributed.sharding.shard_params`` (one parameter tree per model
+shard) and caches from :func:`init_shard_caches` or ``shard_caches`` (one
+cache list per shard), and run every layer over the shards: the norms
+and residual adds replicated, each attention block on its shard's heads
+and pools (or replicated where the kv heads do not divide the shards),
+the column-parallel projections on their shard's columns and ``wo`` /
+``down`` row-parallel, the embedding and head vocab-parallel.  The
+logits come back whole on shard 0's device.  Work that is replicated
+runs once per distinct device; shards that share a device share its
+replicated tensors.  The page helpers act on every shard, and a host
+payload keeps the unsharded layout (the shards' heads concatenated in
+shard order), so the host tiers hold the same bytes at any ``tp``.
 """
 
 from __future__ import annotations
@@ -43,10 +57,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.core.linear import linear_init, prepare_quantized
+from repro_torch.core.linear import linear_apply_row, linear_init, \
+    prepare_quantized
+from repro_torch.distributed.collectives import broadcast
+from repro_torch.distributed.sharding import TP_ROADMAP, Shards
 from repro_torch.models.attention import (
     KV_CACHE_DTYPES,
     attn_apply,
+    attn_heads,
     attn_init,
     init_kv_cache,
     init_mla_cache,
@@ -68,9 +86,12 @@ from repro_torch.models.layers import (
     embed_init,
     embed_logits,
     mlp_apply,
+    mlp_hidden,
     mlp_init,
     rms_norm,
     rms_norm_init,
+    vocab_parallel_embed,
+    vocab_parallel_logits,
 )
 from repro_torch.models.moe import moe_apply, moe_init
 
@@ -80,7 +101,8 @@ __all__ = ["model_init", "load_jax_params", "unstack_jax_tree",
            "init_paged_caches",
            "merge_slot_caches", "merge_slot_paged_caches",
            "scatter_prefill_paged_caches", "copy_paged_cache_page",
-           "extract_cache_pages", "insert_cache_pages"]
+           "extract_cache_pages", "insert_cache_pages", "init_shard_caches",
+           "sequence_pools", "cache_bytes"]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -334,6 +356,121 @@ def _logits(params, cfg: ModelConfig, x):
         .to(torch.float32)
 
 
+# ---------------------------------------------------------------------------
+# The stack over model shards (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+def _per_device(devices, fn) -> list:
+    """``fn(i)`` for the first shard on each distinct device, shared by
+    the other shards on it: replicated work runs once per device."""
+    seen, out = {}, []
+    for i, dev in enumerate(devices):
+        key = str(dev)
+        if key not in seen:
+            seen[key] = fn(i)
+        out.append(seen[key])
+    return out
+
+
+def _shard_locals(devices, **tensors) -> list:
+    """Per shard, the step's host-authored inputs (positions, cache
+    index, page table, context start) on its device; non-tensors and
+    ``None`` as they are."""
+    per = {k: broadcast(v, devices) if isinstance(v, torch.Tensor)
+           else [v] * len(devices) for k, v in tensors.items()}
+    return [{k: per[k][i] for k in tensors} for i in range(len(devices))]
+
+
+def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
+                    loc: list, caches, mode: str):
+    """One pre-norm layer over the shards ``ps`` (one parameter dict
+    each); ``xs`` is the replicated residual stream, ``caches`` one cache
+    dict per shard (or None).  Returns (xs, per-shard new caches)."""
+    devs = [x.device for x in xs]
+    mq = dict(mode=cfg.quant_mode, backend=cfg.quant_backend)
+
+    def attn_kw(i):
+        return dict(kind=spec.attn_kind, positions=loc[i]["positions"],
+                    cache=None if caches is None else caches[i],
+                    cache_index=loc[i]["cache_index"],
+                    return_cache=(mode == "prefill"),
+                    page_table=loc[i]["page_table"],
+                    context_start=loc[i]["context_start"])
+
+    hs = _per_device(devs, lambda i: rms_norm(ps[i]["mixer_norm"], xs[i],
+                                              cfg.norm_eps))
+    if layout.heads:
+        scfg = layout.shard_cfg(cfg)
+        res = [attn_heads(p["attn"], scfg, h, **attn_kw(i))
+               for i, (p, h) in enumerate(zip(ps, hs))]
+        outs = linear_apply_row([p["attn"]["wo"] for p in ps],
+                                [o for o, _ in res], **mq)
+    else:
+        res = _per_device(devs, lambda i: attn_apply(ps[i]["attn"], cfg,
+                                                     hs[i], **attn_kw(i)))
+        outs = [o for o, _ in res]
+    cs = [c for _, c in res]
+    xs = _per_device(devs, lambda i: xs[i] + outs[i])
+    if spec.ffn == "none":
+        return xs, cs
+    hs = _per_device(devs, lambda i: rms_norm(ps[i]["ffn_norm"], xs[i],
+                                              cfg.norm_eps))
+    act = dict(act=cfg.act, quant_mode=cfg.quant_mode,
+               quant_backend=cfg.quant_backend)
+    if layout.ffn:
+        outs = linear_apply_row(
+            [p["mlp"]["down"] for p in ps],
+            [mlp_hidden(p["mlp"], h, **act) for p, h in zip(ps, hs)], **mq)
+    else:
+        outs = _per_device(devs, lambda i: mlp_apply(ps[i]["mlp"], hs[i],
+                                                     **act))
+    return _per_device(devs, lambda i: xs[i] + outs[i]), cs
+
+
+def _tp_stack_apply(params: Shards, cfg: ModelConfig, xs: list, *, loc,
+                    caches=None, mode: str):
+    """The decoder stack over the shards; returns (xs, per-shard caches
+    as ``Shards``)."""
+    per_shard = [[] for _ in params]
+    for li, spec in enumerate(cfg.layer_specs):
+        xs, cs = _tp_layer_apply(
+            [p["layers"][li] for p in params], cfg, params.layout, spec, xs,
+            loc=loc, caches=None if caches is None
+            else [c[li] for c in caches], mode=mode)
+        for lst, c in zip(per_shard, cs):
+            lst.append(c)
+    return xs, Shards(per_shard, params.devices, params.layout)
+
+
+def _tp_embed(params: Shards, cfg: ModelConfig, tokens) -> list:
+    toks = broadcast(tokens, params.devices)
+    scale = cfg.emb_scale_by_sqrt_dim
+    if params.layout.vocab:
+        return vocab_parallel_embed([p["embed"] for p in params], toks,
+                                    scale_by_sqrt_dim=scale)
+    return _per_device(params.devices, lambda i: embed_apply(
+        params[i]["embed"], toks[i], scale_by_sqrt_dim=scale))
+
+
+def _tp_logits(params: Shards, cfg: ModelConfig, xs: list):
+    """f32 logits, whole, on shard 0's device."""
+    if not params.layout.vocab:
+        return _logits(params[0], cfg, xs[0])
+    xs = _per_device(params.devices, lambda i: rms_norm(
+        params[i]["final_norm"], xs[i], cfg.norm_eps))
+    tied = cfg.tie_embeddings
+    heads = [p["embed"] if tied else p["lm_head"] for p in params]
+    return vocab_parallel_logits(heads, xs, tied=tied)[0]
+
+
+def _refuse_extras(frames, extra_embeds) -> None:
+    if frames is not None or extra_embeds is not None:
+        raise NotImplementedError(
+            f"frames and patch embeddings under tensor parallelism: the "
+            f"encoder-decoder and the VLM are not sharded yet "
+            f"({TP_ROADMAP})")
+
+
 def encode(params, cfg: ModelConfig, frames):
     """The encoder over stub-frontend frame embeddings (B, S_enc, D):
     bidirectional self-attention (with RoPE, in ``attention_core``) + MLP
@@ -397,32 +534,55 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     layer's state is the prompt's whole: end padding would run through it,
     so its prompts come unpadded (the engine prefills them at their exact
     length)."""
-    enc_out = encode(params, cfg, frames) if frames is not None else None
-    x = _embed_inputs(params, cfg, tokens, extra_embeds)
-    b, s, _ = x.shape
-    pos = torch.arange(s, device=x.device)[None, :]
+    sharded = isinstance(params, Shards)
+    if sharded:
+        _refuse_extras(frames, extra_embeds)
+        enc_out = None
+        xs = _tp_embed(params, cfg, tokens)
+        dev = params.devices[0]
+    else:
+        enc_out = encode(params, cfg, frames) if frames is not None \
+            else None
+        xs = [_embed_inputs(params, cfg, tokens, extra_embeds)]
+        dev = xs[0].device
+    b, s, _ = xs[0].shape
+    pos = torch.arange(s, device=dev)[None, :]
     if ctx_start is not None:
-        pos = pos + torch.as_tensor(ctx_start, device=x.device)
+        pos = pos + torch.as_tensor(ctx_start, device=dev)
     pos = torch.broadcast_to(pos, (b, s))
-    x, caches, _ = _stack_apply(params, cfg, x, positions=pos,
-                                enc_out=enc_out, mode="prefill",
-                                caches=ctx_caches, page_table=ctx_table,
-                                context_start=ctx_start)
+    if sharded:
+        loc = _shard_locals(params.devices, positions=pos, cache_index=None,
+                            page_table=ctx_table, context_start=ctx_start)
+        xs, caches = _tp_stack_apply(params, cfg, xs, loc=loc,
+                                     caches=ctx_caches, mode="prefill")
+    else:
+        x, caches, _ = _stack_apply(params, cfg, xs[0], positions=pos,
+                                    enc_out=enc_out, mode="prefill",
+                                    caches=ctx_caches, page_table=ctx_table,
+                                    context_start=ctx_start)
+        xs = [x]
     if logits_index is None:
-        x_last = x[:, -1:]
+        x_last = [x[:, -1:] for x in xs]
     else:
         idx = torch.broadcast_to(
-            torch.as_tensor(logits_index, device=x.device).reshape(-1).long(),
+            torch.as_tensor(logits_index, device=dev).reshape(-1).long(),
             (b,))
-        x_last = x[torch.arange(b, device=x.device), idx][:, None]
-    logits = _logits(params, cfg, x_last)
+        x_last = [x[torch.arange(b, device=x.device), i][:, None]
+                  for x, i in zip(xs, broadcast(idx, [x.device for x in xs]))]
+    if sharded:
+        logits = _tp_logits(params, cfg, x_last)
+    else:
+        logits = _logits(params, cfg, x_last[0])
     if max_len is not None and max_len > s:
         # the sequence axis is 1 in every sequence leaf; the recurrent
         # state has none
-        caches = [{k: torch.nn.functional.pad(
+        grown = [[{k: torch.nn.functional.pad(
             v, (0, 0) * (v.ndim - 2) + (0, max_len - s))
             if k in _SEQ_CACHE_KEYS else v
-            for k, v in c.items()} for c in caches]
+            for k, v in c.items()} for c in tree]
+            for tree in (caches if sharded else [caches])]
+        caches = (Shards(grown, caches.devices, caches.layout) if sharded
+                  else grown[0])
     return logits, caches, enc_out
 
 
@@ -436,6 +596,19 @@ def decode_step(params, cfg: ModelConfig, token, caches, index, *,
     cross-attends it.  Caches are updated in place (a mamba layer's state
     included; it takes S == 1 only).  Returns (logits (B, S, V),
     caches)."""
+    if isinstance(params, Shards):
+        _refuse_extras(enc_out, None)
+        xs = _tp_embed(params, cfg, token)
+        b, s = token.shape
+        dev = params.devices[0]
+        index = torch.as_tensor(index, device=dev).to(torch.int64)
+        pos = (torch.broadcast_to(index.reshape(-1, 1), (b, 1))
+               + torch.arange(s, device=dev)[None, :])
+        loc = _shard_locals(params.devices, positions=pos, cache_index=index,
+                            page_table=page_table, context_start=None)
+        xs, _ = _tp_stack_apply(params, cfg, xs, loc=loc, caches=caches,
+                                mode="decode")
+        return _tp_logits(params, cfg, xs), caches
     x = _embed_inputs(params, cfg, token)
     b, s = x.shape[0], token.shape[1]
     index = torch.as_tensor(index, device=x.device).to(torch.int64)
@@ -495,20 +668,77 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
             for spec in cfg.layer_specs]
 
 
-def sequence_pools(caches: list) -> list:
+def init_shard_caches(cfg: ModelConfig, batch: int, max_len: int,
+                      params: Shards) -> Shards:
+    """:func:`init_caches` for the model shards ``params``: each shard's
+    pools hold its share of the kv heads on its device, or, where the
+    heads do not divide the shards, the whole pools, one set per distinct
+    device (shared by the shards on it)."""
+    layout = params.layout
+    if layout.heads:
+        trees = [init_caches(layout.shard_cfg(cfg), batch, max_len,
+                             device=dev) for dev in params.devices]
+    else:
+        trees = _per_device(params.devices, lambda i: init_caches(
+            cfg, batch, max_len, device=params.devices[i]))
+    return Shards(trees, params.devices, layout)
+
+
+def _unique(leaves):
+    seen = set()
+    for leaf in leaves:
+        if id(leaf) not in seen:
+            seen.add(id(leaf))
+            yield leaf
+
+
+def sequence_pools(caches) -> list:
     """Every sequence leaf of every layer (a slab or a page pool),
     layer-major, in key order; mamba's recurrent state has no sequence
-    axis and is left out.  The page helpers and the engine's byte count
-    take these leaves only."""
-    return [pool for c in caches for k, pool in c.items()
-            if k in _SEQ_CACHE_KEYS]
+    axis and is left out.  Over ``Shards``: every shard's, each tensor
+    once.  The page helpers take these leaves only."""
+    trees = caches if isinstance(caches, Shards) else [caches]
+    return list(_unique(pool for tree in trees for c in tree
+                        for k, pool in c.items() if k in _SEQ_CACHE_KEYS))
 
 
-def _leaves(big: list, one: list):
-    """``(key, big leaf, one leaf)`` for every cache leaf, layer-major."""
-    for b_c, s_c in zip(big, one):
-        for key in b_c:
-            yield key, b_c[key], s_c[key]
+def _logical_pools(caches):
+    """Per sequence leaf of the unsharded layout, layer-major in key
+    order: ``(pools, split)``: one pool per shard, split along the head
+    axis (``split``), or the replicated pool's copies, one per distinct
+    device (unsharded caches: the pool alone)."""
+    if not isinstance(caches, Shards):
+        return [([pool], False) for pool in sequence_pools(caches)]
+    split = caches.layout.heads
+    per = [[pool for c in tree for k, pool in c.items()
+            if k in _SEQ_CACHE_KEYS] for tree in caches]
+    return [(list(pools) if split else list(_unique(pools)), split)
+            for pools in zip(*per)]
+
+
+def cache_bytes(caches) -> int:
+    """Bytes of every sequence leaf in the unsharded layout (what one
+    device holds at ``tp=1``): shards' head slices summed, a replicated
+    pool once."""
+    return sum(sum(p.numel() * p.element_size()
+                   for p in (pools if split else pools[:1]))
+               for pools, split in _logical_pools(caches))
+
+
+def _leaves(big, one):
+    """``(key, big leaf, one leaf)`` for every cache leaf, layer-major;
+    over ``Shards`` every shard's, each big leaf once."""
+    if isinstance(big, Shards):
+        pairs = list(zip(big, one))
+    else:
+        pairs = [(big, one)]
+    seen = set()
+    for b_tree, s_tree in pairs:
+        for b_c, s_c in zip(b_tree, s_tree):
+            for key in b_c:
+                if id(b_c[key]) not in seen:
+                    seen.add(id(b_c[key]))
+                    yield key, b_c[key], s_c[key]
 
 
 def merge_slot_caches(big: list, one: list, slot: int) -> list:
@@ -546,10 +776,11 @@ def scatter_prefill_paged_caches(big: list, one: list, slot: int, row,
     ``start + [0, S)``) through one slot's table ``row`` into the pools,
     in place.  Shared prefix pages below ``start`` are never touched."""
     del slot                      # pools are shared; the row routes the slot
-    row = torch.as_tensor(row, device=sequence_pools(big)[0].device)
+    row = torch.as_tensor(row)
     for key, b_leaf, s_leaf in _leaves(big, one):
         if key in _SEQ_CACHE_KEYS:
-            scatter_prefill_rows(b_leaf, s_leaf, row, start)
+            scatter_prefill_rows(b_leaf, s_leaf, row.to(b_leaf.device),
+                                 start)
     return big
 
 
@@ -561,11 +792,11 @@ def copy_paged_cache_page(caches: list, src, dst) -> list:
     pairs (a wave's lanes; every source is read before any write); the
     no-COW default ``0, 0`` rewrites the trash page with itself."""
     pools = sequence_pools(caches)
-    dev = pools[0].device
-    src = torch.as_tensor(src, device=dev).reshape(-1).long()
-    dst = torch.as_tensor(dst, device=dev).reshape(-1).long()
+    src = torch.as_tensor(src, device=pools[0].device).reshape(-1).long()
+    dst = torch.as_tensor(dst, device=pools[0].device).reshape(-1).long()
     for pool in pools:
-        pool.index_copy_(0, dst, pool.index_select(0, src))
+        pool.index_copy_(0, dst.to(pool.device),
+                         pool.index_select(0, src.to(pool.device)))
     return caches
 
 
@@ -589,11 +820,18 @@ def extract_cache_pages(caches: list, pages, pad_to: int | None = None
     and prefix demotion).  ``pad_to`` pads the gather with the trash page,
     so every call has one shape; the padded rows are dropped."""
     pages = list(pages)
-    pools = sequence_pools(caches)
-    idx = torch.as_tensor(_pad_pages(pages, pad_to), device=pools[0].device)
-    rows = torch.cat([pool[idx].reshape(len(idx), -1).view(torch.uint8)
-                      for pool in pools], dim=1).cpu()
-    dtypes = {pool.dtype for pool in pools}
+    logical = _logical_pools(caches)
+    dev = logical[0][0][0].device
+    idx = torch.as_tensor(_pad_pages(pages, pad_to), device=dev)
+    parts = []
+    for pools, split in logical:
+        got = [pool[idx.to(pool.device)].to(dev)
+               for pool in (pools if split else pools[:1])]
+        # a page of a head-split pool: the shards' heads side by side
+        page = torch.cat(got, dim=2)
+        parts.append(page.reshape(len(idx), -1).view(torch.uint8))
+    rows = torch.cat(parts, dim=1).cpu()
+    dtypes = {pools[0].dtype for pools, _ in logical}
     if len(dtypes) == 1:
         rows = rows.view(dtypes.pop())
     return [rows[j].clone() for j in range(len(pages))]
@@ -610,16 +848,26 @@ def insert_cache_pages(caches: list, pages, payloads, pad_to: int | None = None
     if len(pages) != len(payloads):
         raise ValueError(f"{len(pages)} pages but {len(payloads)} payloads")
     padded = _pad_pages(pages, pad_to)
-    pools = sequence_pools(caches)
-    dev = pools[0].device
+    logical = _logical_pools(caches)
+    dev = logical[0][0][0].device
     rows = torch.stack(list(payloads)).view(torch.uint8)
     if len(padded) > len(pages):
         rows = torch.cat([rows, rows.new_zeros(
             (len(padded) - len(pages), rows.shape[1]))])
     rows = rows.to(dev)
     idx = torch.as_tensor(padded, device=dev)
-    width = [pool[0].numel() * pool.element_size() for pool in pools]
-    for pool, part in zip(pools, torch.split(rows, width, dim=1)):
-        pool[idx] = part.contiguous().view(pool.dtype).reshape(
-            len(padded), *pool.shape[1:])
+    width = [sum(p[0].numel() * p.element_size()
+                 for p in (pools if split else pools[:1]))
+             for pools, split in logical]
+    for (pools, split), part in zip(logical, torch.split(rows, width,
+                                                         dim=1)):
+        shape = list(pools[0].shape[1:])
+        if split:
+            shape[1] *= len(pools)
+        page = part.contiguous().view(pools[0].dtype).reshape(
+            len(padded), *shape)
+        heads = (torch.chunk(page, len(pools), dim=2) if split
+                 else [page] * len(pools))
+        for pool, rows_s in zip(pools, heads):
+            pool[idx.to(pool.device)] = rows_s.to(pool.device)
     return caches

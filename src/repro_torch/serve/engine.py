@@ -85,9 +85,20 @@ Each batch slot is an independent sequence sharing one model:
   row would be attended dequantized where a solo prefill attends full
   precision); the host swap and speculative decoding run.
 
-Not ported yet (the knobs raise ``NotImplementedError``): tensor
-parallelism and the device mesh.  Data parallelism is ``serve.router``:
-N engines behind one admission queue.
+* **Tensor parallelism** (``tp`` / ``mesh_shape``).  One engine spans a
+  ``(1, tp)`` mesh of devices (``launch.mesh``), which may repeat a
+  device: its weights split over the "model" axis (``shard_params``:
+  column- and row-parallel projections, vocab-parallel embedding and
+  head), its paged pools or dense slab by kv heads (replicated where the
+  heads do not divide ``tp``), and every stage runs all shards from this
+  process with explicit collectives.  Greedy streams equal the
+  single-device engine's (every integer projection is bit for bit the
+  unsharded one), and every mechanism above keeps its rule.  When all
+  shards share one card the captured stages are captured as before; over
+  several cards they run eagerly.  A data axis above 1 inside an engine,
+  and the MLA, MoE, mamba, encoder-decoder and VLM families under ``tp >
+  1``, raise.  Data parallelism is ``serve.router``: N engines (each on
+  its own device slice when meshed) behind one admission queue.
 """
 
 from __future__ import annotations
@@ -103,19 +114,23 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, spec_split
+from repro_torch.distributed.sharding import TP_ROADMAP, \
+    check_tp_supported, shard_params
 from repro_torch.kernels.ops import add_launch_counts, launch_counts
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.transformer import (
+    cache_bytes,
     copy_paged_cache_page,
     decode_step,
     extract_cache_pages,
     init_caches,
+    init_shard_caches,
     insert_cache_pages,
     merge_slot_caches,
     merge_slot_paged_caches,
     prefill,
     prepare_params,
     scatter_prefill_paged_caches,
-    sequence_pools,
 )
 from repro_torch.serve.paging import (
     HostPagePool,
@@ -176,12 +191,12 @@ class ServeConfig:
     #   this many tokens per scheduler step (the wave program); paged only
     admit_group: int = 1              # prefilling lanes a wave advances
     #   together; > 1 with prefill_chunk 0 makes prefill_len the chunk
-    # reference knobs outside the port: non-default values raise
-    tp: int = 1
-    mesh_shape: tuple | None = None
-
-
-_UNPORTED = (("tp", 1), ("mesh_shape", None))
+    tp: int = 1                       # tensor-parallel width: the
+    #   weights and the KV pools split over a (1, tp) mesh's "model" axis
+    #   (``distributed.sharding``); 1 = no mesh, the single-device engine
+    mesh_shape: tuple | None = None   # explicit (data, model) in-engine
+    #   mesh shape; overrides ``tp`` (the two must agree when both are
+    #   given).  None = derived from ``tp``
 
 
 def _apply_overrides(cfg: ModelConfig, scfg: ServeConfig) -> ModelConfig:
@@ -493,27 +508,41 @@ class Engine:
     decoding and the wave prefill.
     ``params`` come from ``model_init`` or ``load_jax_params`` on the
     same device; ``device`` defaults to CUDA and raises without a card.
-    ``capture`` replays the decode chunk (draft and verify under
-    ``spec_decode``) from CUDA graphs: ``None`` captures on CUDA and runs
-    eagerly on the CPU; ``False`` runs eagerly on the card (the eager
-    side of a comparison).  ``True`` is kept apart from ``None`` so that
-    asking for graphs on the CPU raises instead of running eagerly: the
-    hot path has no silent fallback."""
+    Under ``tp`` / ``mesh_shape`` the mesh takes ``devices`` (entries may
+    repeat: shards then share a device), by default every visible card,
+    or on ``device="cpu"`` the CPU once; ``self.device`` is shard 0's and
+    ``params`` are sharded onto the mesh (the caller's tree is not
+    changed).  ``capture`` replays the decode chunk (draft and verify
+    under ``spec_decode``) from CUDA graphs: ``None`` captures on CUDA
+    (when every shard shares one card) and runs eagerly otherwise;
+    ``False`` runs eagerly on the card (the eager side of a comparison).
+    ``True`` is kept apart from ``None`` so that asking for graphs where
+    they are not taken raises instead of running eagerly: the hot path
+    has no silent fallback."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, *,
-                 device="cuda", capture: bool | None = None):
-        self.device = resolve_device(device)
+                 device="cuda", devices=None, capture: bool | None = None):
+        self.scfg = scfg
+        self._mesh = self._build_mesh(device, devices)
+        if self._mesh is not None:
+            self.device = self._mesh.model_devices[0]
+        elif devices is not None:
+            self.device = resolve_device(list(devices)[0])
+        else:
+            self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
         if capture and not on_card:
             raise ValueError("capture=True needs a CUDA device: CUDA "
                              "graphs replay on the card only")
-        self._capture = on_card if capture is None else bool(capture)
-        for field, default in _UNPORTED:
-            if getattr(scfg, field) != default:
-                raise NotImplementedError(
-                    f"ServeConfig.{field}={getattr(scfg, field)!r} is not "
-                    f"ported yet (ROADMAP queue 1 item 4, tensor "
-                    f"parallelism on torch.distributed)")
+        several = self._mesh is not None and len(
+            {str(d) for d in self._mesh.model_devices}) > 1
+        if capture and several:
+            raise NotImplementedError(
+                f"capture=True over a mesh of several cards: a CUDA graph "
+                f"is captured on one card ({TP_ROADMAP}: capture across "
+                f"cards)")
+        self._capture = (on_card and not several if capture is None
+                         else bool(capture))
         if scfg.alloc_mode not in ("reserve", "incremental"):
             raise ValueError(f"alloc_mode must be 'reserve' or "
                              f"'incremental', got {scfg.alloc_mode!r}")
@@ -524,7 +553,6 @@ class Engine:
             raise ValueError(f"decode_chunk must be >= 1, got "
                              f"{scfg.decode_chunk}")
         self.cfg = _apply_overrides(cfg, scfg)
-        self.params, self.scfg = params, scfg
         self._paged = self.cfg.cache_mode == "paged"
         self._incremental = scfg.alloc_mode == "incremental"
         if self._incremental and not self._paged:
@@ -558,13 +586,25 @@ class Engine:
             # the bf16 ``w`` the verifier reads
             self._draft_cfg, self.cfg = spec_split(self.cfg,
                                                    scfg.spec_quant_mode)
-            prepare_params(params, self._draft_cfg)
         self._wave = scfg.prefill_chunk > 0 or scfg.admit_group > 1
         if self._wave:
             self._wave_chunk = scfg.prefill_chunk or scfg.prefill_len
             self._wave_group = scfg.admit_group
-        self._caches = init_caches(self.cfg, scfg.batch, scfg.max_len,
-                                   device=self.device)
+        if self._mesh is None:
+            if self._spec:
+                prepare_params(params, self._draft_cfg)
+            self.params = params
+            self._caches = init_caches(self.cfg, scfg.batch, scfg.max_len,
+                                       device=self.device)
+        else:
+            tp = self._mesh.shape["model"]
+            check_tp_supported(self.cfg, tp)
+            # quantized for the draft's mode where there is one (the
+            # verifier reads the bf16 ``w`` beside it)
+            self.params = shard_params(params, self._draft_cfg or self.cfg,
+                                       self._mesh)
+            self._caches = init_shard_caches(self.cfg, scfg.batch,
+                                             scfg.max_len, self.params)
         self._stages = {
             "prefill": _StageCounter(self._prefix_body if scfg.prefix_cache
                                      else self._prefill_body, self.device),
@@ -576,6 +616,52 @@ class Engine:
                                                 self._capture)
         self._next_id = 0
         self.reset()
+
+    # ------------------------------------------------------------------
+    # the mesh
+    # ------------------------------------------------------------------
+
+    def _build_mesh(self, device, devices):
+        """The in-engine ``(data, model)`` mesh, or None for the
+        single-device engine (the reference's checks and messages)."""
+        scfg = self.scfg
+        if scfg.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {scfg.tp}")
+        shape = scfg.mesh_shape
+        if shape is not None:
+            shape = tuple(int(x) for x in shape)
+            if len(shape) != 2:
+                raise ValueError(f"mesh_shape must be (data, model), got "
+                                 f"{scfg.mesh_shape!r}")
+            if scfg.tp != 1 and shape[1] != scfg.tp:
+                raise ValueError(f"mesh_shape {shape} disagrees with "
+                                 f"tp={scfg.tp} on the model axis")
+        elif scfg.tp > 1:
+            shape = (1, scfg.tp)
+        if shape is None or shape == (1, 1):
+            return None
+        if shape[0] != 1:
+            raise NotImplementedError(
+                f"mesh_shape {shape}: a data axis above 1 inside one "
+                f"engine (FSDP weight storage) is not ported ({TP_ROADMAP}"
+                f"); serve data parallelism through serve.router")
+        if devices is None and resolve_device(device).type == "cpu":
+            devices = ["cpu"]
+        return make_local_mesh(dp=shape[0], tp=shape[1], devices=devices)
+
+    @property
+    def mesh_shape(self) -> tuple:
+        """(data, model) shape of the in-engine mesh; (1, 1) unmeshed."""
+        if self._mesh is None:
+            return (1, 1)
+        return (self._mesh.shape["data"], self._mesh.shape["model"])
+
+    @property
+    def device_count(self) -> int:
+        """Devices this engine's stages span, counted as mesh entries (1
+        without a mesh): a mesh that repeats a card counts it per entry,
+        as the reference's forced host devices count."""
+        return 1 if self._mesh is None else self._mesh.size
 
     def _validate_mechanisms(self) -> None:
         """The config rules of the prefix cache, the host swap,
@@ -825,13 +911,12 @@ class Engine:
         """KV-cache bytes per cached token, summed over every layer's
         sequence leaves (K and V, with their f32 scales under the int8 KV
         cache, or MLA's latents and rope keys; a mamba layer's per-slot
-        state holds no token's row); times a request's ``cache_rows`` is
+        state holds no token's row), in the unsharded layout under a mesh
+        (``transformer.cache_bytes``); times a request's ``cache_rows`` is
         its cache footprint."""
         rows = (self._num_pages * self._page_size if self._paged
                 else self.scfg.batch * self.scfg.max_len)
-        total = sum(t.numel() * t.element_size()
-                    for t in sequence_pools(self._caches))
-        return total // rows
+        return cache_bytes(self._caches) // rows
 
     def _pages_for(self, req: Request) -> int:
         """Worst-case pages: prompt rows plus one row per decode step but

@@ -29,11 +29,13 @@ sampled stream's key is derived from its id, two replicas never draw
 correlated streams.
 
 The replicas share one ``params`` tree, so the weights are not copied:
-by default every replica runs on ``device``, as the reference's unmeshed
-replicas share its one device.  ``devices`` places replica ``i`` on
-``devices[i]`` (the weights then go once to each distinct device).
-Tensor parallelism inside a replica is not ported: ``ServeConfig.tp`` and
-``mesh_shape`` raise in the engine.
+by default every unmeshed replica runs on ``device``, as the reference's
+unmeshed replicas share its one device.  ``devices`` places replica ``i``
+on ``devices[i]`` (the weights then go once to each distinct device).
+Meshed replicas (``ServeConfig.tp`` or ``mesh_shape``) each take their own
+disjoint slice of ``dp * tp`` entries of ``devices`` (``_device_groups``,
+the reference's rule; entries may repeat a card), by default the visible
+cards, or on ``device="cpu"`` the CPU once.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import canonical_device
 from repro_torch.serve.engine import Engine, Request, ServeConfig, \
     _PriorityQueue
 from repro_torch.serve.paging import hash_chunks
@@ -55,13 +58,6 @@ __all__ = ["Router"]
 _ID_BLOCK = 1 << 20
 
 
-def _canonical(device: torch.device) -> torch.device:
-    """``cuda`` and ``cuda:<current>`` name one card."""
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 class Router:
     """Admission router over ``replicas`` engine replicas.  Mirrors the
     engine's serving surface (``submit`` / ``run`` / ``start`` / ``step``
@@ -72,28 +68,17 @@ class Router:
                  device="cuda", devices=None):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
-        if devices is None:
-            placed = [resolve_device(device)] * replicas
-        else:
-            devices = [resolve_device(d) for d in devices]
-            if len(devices) < replicas:
-                raise ValueError(
-                    f"{replicas} replicas need {replicas} devices (one "
-                    f"each) but only {len(devices)} devices were given")
-            placed = devices[:replicas]
         self.cfg = cfg
         self.scfg = scfg
-        self.device = placed[0]
-        trees = {}
-        for dev in placed:
-            key = str(_canonical(dev))
-            if key not in trees:
-                trees[key] = tree_map(
-                    lambda t, dev=dev: t.to(dev)
-                    if isinstance(t, torch.Tensor) else t, params)
-        self.replicas = [Engine(cfg, trees[str(_canonical(dev))], scfg,
-                                device=dev) for dev in placed]
-        self._devices = {str(_canonical(dev)) for dev in placed}
+        groups = self._device_groups(scfg, replicas, devices, device)
+        if groups is None:
+            self.replicas = self._unmeshed(cfg, params, scfg, replicas,
+                                           device, devices)
+        else:
+            # each meshed replica shards the shared tree onto its slice
+            self.replicas = [Engine(cfg, params, scfg, devices=g)
+                             for g in groups]
+        self.device = self.replicas[0].device
         for i, eng in enumerate(self.replicas):
             eng._next_id = i * _ID_BLOCK
         self._prefix = bool(scfg.prefix_cache)
@@ -105,6 +90,54 @@ class Router:
         self.placements = [0] * replicas
         self.affinity_hits = [0] * replicas
         self.placement_order: list[int] = []
+
+    @staticmethod
+    def _unmeshed(cfg, params, scfg, replicas, device, devices) -> list:
+        """Unmeshed replicas: all on ``device``, sharing ``params``, or
+        replica ``i`` on ``devices[i]`` (the weights once per distinct
+        device)."""
+        if devices is None:
+            placed = [resolve_device(device)] * replicas
+        else:
+            devices = [resolve_device(d) for d in devices]
+            if len(devices) < replicas:
+                raise ValueError(
+                    f"{replicas} replicas need {replicas} devices (one "
+                    f"each) but only {len(devices)} devices were given")
+            placed = devices[:replicas]
+        trees = {}
+        for dev in placed:
+            key = str(canonical_device(dev))
+            if key not in trees:
+                trees[key] = tree_map(
+                    lambda t, dev=dev: t.to(dev)
+                    if isinstance(t, torch.Tensor) else t, params)
+        return [Engine(cfg, trees[str(canonical_device(dev))], scfg,
+                       device=dev) for dev in placed]
+
+    @staticmethod
+    def _device_groups(scfg: ServeConfig, replicas: int, devices, device):
+        """Disjoint device slices of ``dp * tp`` entries, one per meshed
+        replica (the reference's rule and error), or None for unmeshed
+        replicas, which keep the placement above."""
+        shape = scfg.mesh_shape or (1, scfg.tp)
+        per = int(shape[0]) * int(shape[1])
+        if per <= 1 and scfg.mesh_shape is None:
+            return None
+        if devices is None:
+            if resolve_device(device).type == "cpu":
+                devices = ["cpu"]
+            else:
+                devices = [torch.device("cuda", i)
+                           for i in range(torch.cuda.device_count())]
+        devices = [canonical_device(d) for d in devices]
+        if replicas * per > len(devices):
+            raise ValueError(
+                f"{replicas} replicas x {per} devices/replica needs "
+                f"{replicas * per} devices but only {len(devices)} are "
+                f"available")
+        return [devices[i * per:(i + 1) * per] for i in range(replicas)]
+
 
     # ------------------------------------------------------------------
     # admission
@@ -288,14 +321,18 @@ class Router:
 
     @property
     def mesh_shape(self) -> tuple:
-        """Per-replica (data, model) mesh shape: (1, 1), one device each."""
-        return (1, 1)
+        """Per-replica (data, model) mesh shape (replicas are uniform)."""
+        return self.replicas[0].mesh_shape
 
     @property
     def device_count(self) -> int:
-        """Distinct devices the fleet spans (replicas sharing one device
-        count it once)."""
-        return len(self._devices)
+        """Devices the fleet spans: distinct ones for unmeshed replicas
+        (replicas sharing one device count it once), every mesh entry
+        of meshed ones (their slices are disjoint)."""
+        if self.replicas[0]._mesh is not None:
+            return sum(eng.device_count for eng in self.replicas)
+        return len({str(canonical_device(eng.device))
+                    for eng in self.replicas})
 
     def release_prefix_cache(self) -> None:
         for eng in self.replicas:

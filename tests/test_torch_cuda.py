@@ -17,6 +17,8 @@ sums differs from the plain versions: F32_TOL = 1e-4 (absolute on o and
 lse, relative Frobenius norm on the gradients).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -705,3 +707,74 @@ def test_mla_train_step_flash_equals_chunked(cuda, mode, rtol):
         assert torch.isfinite(g).all(), path
         assert _rel(g.float(), runs["chunked"][2][path].float()) <= rtol, \
             path
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism on the card
+# ---------------------------------------------------------------------------
+
+def _row_shards(params, tp, bits):
+    """A row-parallel split of one prepared linear: rows of ``w`` and the
+    matching K columns of ``qt{bits}``, its scales whole."""
+    h = params["w"].shape[0] // tp
+    return [{"w": params["w"][i * h:(i + 1) * h],
+             f"qt{bits}": params[f"qt{bits}"][:, i * h:(i + 1) * h]
+             .contiguous(),
+             f"s{bits}": params[f"s{bits}"]} for i in range(tp)]
+
+
+@pytest.mark.parametrize("mode", ["w8a8_nibble", "w4a8_nibble", "lut"])
+@pytest.mark.parametrize("m,k,n", [
+    # yi-6b's wo and down at tp=2 (K 2048 and 5504 a shard), decode and
+    # prefill rows
+    (4, 4096, 4096), (128, 4096, 4096), (4, 11008, 4096),
+    (128, 11008, 4096)])
+def test_row_parallel_equals_fused_kernel_at_shard_shapes(cuda, mode, m, k,
+                                                          n):
+    """Each shard's exact int32 product (nibble kernel, or the LUT kernel
+    in ``lut``), summed, then the epilogue once: bit for bit the
+    unsharded projection through the fused kernel."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    params = tlin.linear_init(k, n, generator=g, device=cuda)
+    tlin.prepare_quantized(params, mode)
+    x = (torch.randn((m, k), generator=g, device=cuda) * 0.5).bfloat16()
+    want = tlin.linear_apply(params, x, mode=mode, backend="cuda")
+    before = (nm.launches, lm.lut_launches)
+    got = tlin.linear_apply_row(
+        _row_shards(params, 2, tlin.weight_bits(mode)),
+        [x[:, :k // 2], x[:, k // 2:]], mode=mode, backend="cuda")
+    assert (nm.launches - before[0], lm.lut_launches - before[1]) == \
+        ((0, 2) if mode == "lut" else (2, 0))
+    assert all(torch.equal(t, want) for t in got)
+
+
+def test_tp2_engine_on_one_card_captures(cuda):
+    """A tp=2 engine over ``[cuda:0, cuda:0]`` (the shards share the card)
+    captures its decode chunk, launches twice tp=1's nibble and paged
+    kernels on the same schedule, and serves tp=1's streams."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model_init
+    from repro_torch.serve import Engine, ServeConfig
+    cfg = reduced(get_config("yi-6b")).replace(
+        n_layers=2, quant_mode="w8a8_nibble", quant_backend="cuda",
+        attn_impl="flash", cache_mode="paged", page_size=8)
+    params = model_init(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in (5, 8, 3, 7)]
+    scfg = ServeConfig(batch=2, max_len=32, prefill_len=8, decode_chunk=4)
+    out = {}
+    for tp in (1, 2):
+        eng = Engine(cfg, params, dataclasses.replace(scfg, tp=tp),
+                     devices=[cuda, cuda][:tp] if tp > 1 else None,
+                     device=cuda)
+        before = (nm.launches, fa.paged_launches)
+        ids = [eng.submit(p, 9) for p in prompts]
+        done = eng.run()
+        out[tp] = ([done[i].tokens for i in ids],
+                   (nm.launches - before[0], fa.paged_launches - before[1]),
+                   eng.capture_counts, eng.mesh_shape)
+    assert out[2][0] == out[1][0]
+    assert out[2][1] == tuple(2 * c for c in out[1][1])
+    assert out[2][2] == out[1][2] == {"decode_chunk": 1}
+    assert out[2][3] == (1, 2)

@@ -71,12 +71,27 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize("field,value", [
     ("tp", 2), ("mesh_shape", (1, 2))])
 def test_unported_serve_knobs_raise(field, value):
+    """A (1, 2) mesh, by ``tp`` or ``mesh_shape``, builds over two CPU
+    entries and serves two equal greedy streams without a leak; what tensor
+    parallelism does not cover raises ``NotImplementedError``: a data
+    axis above 1 inside one engine, and MLA at tp=2."""
     cfg = reduced(get_config("yi-6b")).replace(cache_mode="paged",
                                                page_size=4)
     params = model_init(cfg, device="cpu")
-    scfg = ServeConfig(batch=2, max_len=16, **{field: value})
-    with pytest.raises(NotImplementedError):
-        Engine(cfg, params, scfg, device="cpu")
+    scfg = ServeConfig(batch=2, max_len=16, prefill_len=8, **{field: value})
+    engine = Engine(cfg, params, scfg, device="cpu", devices=["cpu", "cpu"])
+    assert engine.mesh_shape == (1, 2) and engine.device_count == 2
+    ids = [engine.submit([1, 2, 3, 4, 5, 6], 8) for _ in range(2)]
+    done = engine.run()
+    assert done[ids[0]].tokens == done[ids[1]].tokens
+    assert len(done[ids[0]].tokens) == 8 and engine.leaked_pages() == 0
+    refused = {"tp": (reduced(get_config("deepseek-v3-671b")), {}),
+               "mesh_shape": (cfg, {"mesh_shape": (2, 1)})}[field]
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+        Engine(refused[0], model_init(refused[0], device="cpu"),
+               ServeConfig(batch=2, max_len=16, **{field: value,
+                                                   **refused[1]}),
+               device="cpu", devices=["cpu"] * 2)
 
 
 @pytest.mark.parametrize("field,value", [

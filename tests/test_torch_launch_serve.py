@@ -4,8 +4,9 @@ workloads, an overcommitted incremental pool that must preempt, the
 prefix cache and the host swap, speculative decoding and the wave
 prefill, temperature sampling, the ``--verify`` re-run, the DP fleet
 (``--dp``), the capacity model (``--predict``, ``--autotune``,
-``--ttft-slo-ms``), and a ``NotImplementedError`` for the flags of tensor
-parallelism, which the port does not run yet."""
+``--ttft-slo-ms``), and tensor parallelism (``--tp``, ``--mesh``, ``--dp``
+x ``--tp``) over repeated CPU entries, held by ``--verify`` to the
+single-device engine."""
 
 import json
 
@@ -148,10 +149,24 @@ def test_spec_and_wave_flags_serve(monkeypatch, capsys, flags):
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--mesh", "1x2"]],
                          ids=lambda f: f[0])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 4, tensor parallelism"):
-        serve.main(BASE + ["--workload", "uniform"] + flag)
+def test_unported_flags_raise(monkeypatch, capsys, flag):
+    """``--tp 2`` and ``--mesh 1x2`` serve over a (1, 2) mesh of CPU
+    entries, ``--verify`` holding the streams to the tp=1 engine's, and
+    ``--predict`` is skipped; what the mesh does not cover raises: a data
+    axis above 1 (``--mesh 2x1``), MLA under ``--tp 2``."""
+    r, engine = _run_requests(monkeypatch, "uniform", "--verify",
+                              "--predict", "--quant", "w8a8_nibble",
+                              *OVERCOMMIT, *flag)
+    out = capsys.readouterr().out
+    assert engine.mesh_shape == (1, 2) and r["device_count"] == 2
+    assert "per-engine mesh (1, 2)" in out
+    assert "verify: 5 streams bit-match" in out
+    assert "capacity model: (skipped" in out
+    assert r["preemptions"] >= 1 and engine.leaked_pages() == 0
+    refused = (["--mesh", "2x1"] if flag[0] == "--mesh"
+               else ["--arch", "deepseek-v3-671b"] + flag)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+        serve.main(BASE + ["--workload", "uniform"] + refused)
 
 
 @pytest.mark.parametrize("extra", [[], PREFIX],

@@ -198,16 +198,21 @@ def test_timed_workload_runs_a_fleet(monkeypatch):
 
 def test_fleet_sizing_and_devices():
     """``replicas < 1``, and fewer ``devices`` than replicas, raise
-    ``ValueError``; tensor parallelism stays refused by the engine; the
-    replicas share the weights and the device, or sit one per device."""
+    ``ValueError``; tensor-parallel replicas take disjoint ``dp * tp``
+    slices (the reference's error when too few); the unmeshed replicas
+    share the weights and the device, or sit one per device."""
     _, _, tcfg, tp = _weights()
     scfg = ServeConfig(**_kw())
     with pytest.raises(ValueError, match="replicas must be >= 1"):
         Router(tcfg, tp, scfg, replicas=0, device="cpu")
     with pytest.raises(ValueError, match="devices"):
         Router(tcfg, tp, scfg, replicas=3, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="2 replicas x 2 devices/replica "
+                                         "needs 4 devices but only 1"):
         Router(tcfg, tp, ServeConfig(**_kw(tp=2)), device="cpu")
+    meshed = Router(tcfg, tp, ServeConfig(**_kw(tp=2)),
+                    devices=["cpu"] * 4)
+    assert meshed.device_count == 4 and meshed.mesh_shape == (1, 2)
     shared = Router(tcfg, tp, scfg, replicas=3, device="cpu")
     assert shared.device_count == 1 and shared.mesh_shape == (1, 1)
     ptrs = [t.data_ptr() for t in tree_leaves(tp)]

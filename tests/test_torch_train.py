@@ -642,8 +642,14 @@ def test_checkpointer_keeps_layout_and_refuses_mismatch(tmp_path):
     back, step = ck.restore(state, mesh_shape=(1, 1))
     assert step == 3 and back["w"].dtype == torch.bfloat16
     assert torch.equal(back["w"], state["w"])
-    with pytest.raises(NotImplementedError):
-        ck.restore(state, mesh_shape=(2, 1))
+    # the tensors are whole, so a checkpoint saved under one mesh restores
+    # under any other (the reference's rule); the saved mesh is reported
+    ck.save(4, state, mesh_shape=(1, 2))
+    for mesh in (None, (2, 1)):
+        back, step = ck.restore(state, mesh_shape=mesh)
+        assert step == 4 and ck.saved_mesh_shape == (1, 2)
+        for (path, a), (_, b) in zip(tree_paths(back), tree_paths(state)):
+            assert torch.equal(a, b), path
     with pytest.raises(ValueError, match="mismatch"):
         ck.restore({"w": state["w"]}, mesh_shape=(1, 1))
 

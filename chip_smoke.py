@@ -201,7 +201,22 @@ Phases (any failure exits non-zero and prints no result line):
    end w8a8 difference printed).  deepseek-v3 also runs dense: an
    overcommitted incremental pool with the prefix cache and the host
    swap against a reserve pool (preemptions and swap-ins required;
-   streams equal or each divergence a near-tie).
+   streams equal or each divergence a near-tie).  TP families, MoE part
+   (each model on the weights it was served with, before they are
+   freed): the nibble kernel at the shard shapes new to it (MLA ``wkv_b``
+   at decode (640, 512, 16384) and ``wq_b`` (4, 1536, 12288) at 64 heads
+   a shard, the shared expert's ``gate``/``up`` (4, 7168, 1024)) and
+   paged decode at llama4's shard (KVH 4, G 5, d 128), held to their
+   plain versions and timed; then deepseek-v3's 8 requests x 32 and
+   llama4's 4 x 16 through a tp=1 engine and a tp=2 engine over
+   ``devices=[cuda:0, cuda:0]`` (experts split by expert, the MLA latent
+   part and pools once on the shared card): streams equal or near-ties,
+   the prefill's and one decode step's logits equal or within one bf16
+   ulp of the largest logit, the tp=2 chunk captured, launches a decode
+   step and a prefill held to ``TP_FAMILY_LAUNCHES`` (deepseek-v3 32
+   nibble at tp=1, 56 at tp=2; llama4 14 nibble and 2 paged, 28 and 4;
+   flash twice tp=1's), tok/s, host ms per captured chunk at both widths
+   in turns, peak memory.
 7c. SSM (the families' weights freed first): the nibble kernel at
    mamba2-780m's ``in_proj`` (N 6448) and ``out_proj`` at decode, its
    ``in_proj`` at a 512-token prefill and jamba's ``in_proj`` (N 16544)
@@ -231,9 +246,16 @@ Phases (any failure exits non-zero and prints no result line):
    dense caches (whisper's cross-attending ``enc_out``; nibble and flash
    launched), that prefill held to the plain path kernel by kernel with
    the same inputs, then the model served text-only as the families are
-   (rows 1-3 launched, row 3 at d 96 and 64); then 4 QAT steps of
-   whisper-base through ``Trainer(extra_batch_fn=)`` at batch 8 x seq 128
-   (finite losses; rows 2 and 4 launched).
+   (rows 1-3 launched, row 3 at d 96 and 64), then at tp=2 on
+   ``[cuda:0, cuda:0]`` (TP families, enc-dec and VLM part): the same
+   stub-input requests through ``prefill`` and 32 decode steps on shards
+   (the encoder over the shards, patches prepended on the shared card),
+   streams equal or near-ties, the prefill's and first step's logits
+   equal or within one bf16 ulp, nibble and flash launches twice tp=1's;
+   and 4 of the served requests x 16 text-only through a tp=1 and a tp=2
+   engine, held the same way (rows 1-3 twice tp=1's, captured); then 4
+   QAT steps of whisper-base through ``Trainer(extra_batch_fn=)`` at
+   batch 8 x seq 128 (finite losses; rows 2 and 4 launched).
 8. Train: full-width qwen3-4b (all 36 layers), QAT, flash attention
    (forward, remat recompute and the backward kernels), remat, batch 8 x
    seq 256, 4 AdamW steps through ``Trainer.run`` on ``SyntheticLM``
@@ -302,6 +324,8 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.quant_matmul_fused import (  # noqa: E402
     quantize_rows)
 from repro_torch.launch.train import stub_extras  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.distributed.sharding import shard_params  # noqa: E402
 from repro_torch.core.linear import (linear_apply,  # noqa: E402
                                      linear_apply_row)
 from repro_torch.models import (decode_step, forward,  # noqa: E402
@@ -2130,11 +2154,14 @@ def _cached_rows(prompts, page_size) -> list:
     return out
 
 
-def divergence_margins(params, cfg, prompts, want, got) -> list:
+def divergence_margins(params, cfg, prompts, want, got, extras=None
+                       ) -> list:
     """``(request, token, margin)`` for each stream of ``got`` that differs
     from ``want``: at its first divergence ``i``, a dense ``prefill``
-    under ``cfg`` over the prompt plus ``want[:i]`` gives the logits, and
-    the margin is ``l(want[i]) - l(got[i])`` (a tie reads ~0)."""
+    under ``cfg`` over the prompt plus ``want[:i]`` (with the request's
+    ``extras[n]``, a VLM's patches or an encoder's frames, where given)
+    gives the logits, and the margin is ``l(want[i]) - l(got[i])`` (a tie
+    reads ~0)."""
     out = []
     for n, (p, w, g) in enumerate(zip(prompts, want, got)):
         if len(w) != len(g):
@@ -2146,7 +2173,8 @@ def divergence_margins(params, cfg, prompts, want, got) -> list:
         i = diff[0]
         toks = np.concatenate([p, np.asarray(w[:i], np.int32)])
         logits, _, _ = prefill(params, cfg, torch.as_tensor(
-            toks, device=DEV).long()[None])
+            toks, device=DEV).long()[None],
+            **({} if extras is None else extras[n]))
         lg = logits[0, -1].float()
         out.append((n, i, float(lg[w[i]] - lg[g[i]])))
     return out
@@ -2800,6 +2828,7 @@ def _tp_step_diff(params, tp_params, cfg, prompt) -> dict:
     out["decode_max_abs_diff"] = (logits[0][1] - logits[1][1]).abs() \
         .max().item()
     out["max_abs_logit"] = logits[0][1].abs().max().item()
+    out["max_abs_prefill_logit"] = logits[0][0].abs().max().item()
     return out
 
 
@@ -2919,6 +2948,218 @@ def _tp_gemma3(serve: dict, smi: str) -> dict:
           f"{pair['tok_s_tp1']:.2f}, tp=2 {pair['tok_s']:.2f}; launches "
           f"tp=2 {pair['counts']}", flush=True)
     return pair
+
+
+# ---------------------------------------------------------------------------
+# TP families: MLA, MoE, the encoder-decoder and the VLM at tp=2
+# ---------------------------------------------------------------------------
+
+# launches of one decode step (and of one prefill, whose projections are
+# the same) at tp=1 and tp=2, counted from the code: deepseek-v3 (4
+# layers) runs 8 nibble projections a layer (wq_a, wq_b, wkv_a, wkv_b, wo
+# and the MLP's or the shared expert's gate, up, down), at tp=2 the
+# latent wq_a / wkv_a once on the shared card and the rest on both
+# shards (14 a layer); llama4 (2 layers) 7 a layer and one paged decode,
+# every one on both shards at tp=2.  The flash forward runs once a layer
+# a prefill, at tp=2 once a shard.
+TP_FAMILY_LAUNCHES = {
+    "deepseek-v3-671b": ({"nibble_matmul": 32, "flash_attention_fwd": 4,
+                          "paged_decode_attention": 0},
+                         {"nibble_matmul": 56, "flash_attention_fwd": 8,
+                          "paged_decode_attention": 0}),
+    "llama4-maverick-400b-a17b": (
+        {"nibble_matmul": 14, "flash_attention_fwd": 2,
+         "paged_decode_attention": 2},
+        {"nibble_matmul": 28, "flash_attention_fwd": 4,
+         "paged_decode_attention": 4})}
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at ``|x|`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
+
+
+def hold_tp_logits(label: str, diff: dict) -> dict:
+    """tp=2's prefill and decode logits against tp=1's: equal, or the
+    largest gap within one bf16 ulp of the largest logit."""
+    big = max(diff["max_abs_logit"], diff["max_abs_prefill_logit"])
+    worst = max(diff["prefill_max_abs_diff"], diff["decode_max_abs_diff"])
+    tol = _bf16_ulp(big)
+    print(f"  {label}: tp=2 against tp=1, max|dlogit| prefill "
+          f"{diff['prefill_max_abs_diff']:.4e}, one decode step "
+          f"{diff['decode_max_abs_diff']:.4e} (max|logit| {big:.4f}, one "
+          f"bf16 ulp {tol:.4e})", flush=True)
+    if worst > tol:
+        raise AssertionError(f"{label}: tp=2 logits {worst} from tp=1's, "
+                             f"above one bf16 ulp {tol}")
+    return dict(diff, ulp=tol)
+
+
+def _hold_per_step(label, counts, per, prefills) -> int:
+    """Decode steps of a run from its nibble launches (a prefill and a
+    step launch the same projections), then every kernel's count held to
+    ``per`` a step and a prefill; returns the steps."""
+    units, rest = divmod(counts["nibble_matmul"], per["nibble_matmul"])
+    steps = units - prefills
+    want = {"nibble_matmul": per["nibble_matmul"] * units,
+            "flash_attention_fwd": per["flash_attention_fwd"] * prefills,
+            "paged_decode_attention":
+                per["paged_decode_attention"] * steps}
+    got = {k: counts[k] for k in want}
+    if rest or steps <= 0 or got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want} "
+                             f"({prefills} prefills)")
+    return steps
+
+
+def _chunks_in_turns(e1, e2, prompts) -> dict:
+    chunk = {"tp1": [], "tp2": []}
+    for name, eng in (("tp1", e1), ("tp2", e2), ("tp2", e2), ("tp1", e1)):
+        chunk[name].append(_chunk_ms(eng, prompts))
+    return {"chunk_ms": {k: statistics.median(v) for k, v in chunk.items()},
+            "chunk_runs": chunk}
+
+
+def tp_family_moe(cfg, run: dict, serve: dict, smi: str) -> dict:
+    """A MoE model of the families phase at tp=2 (docstring item 7b,
+    last part): its served requests through a tp=1 engine and a tp=2
+    engine on ``TP_DEVICES`` (the same weights), streams and logits held,
+    launches per decode step and prefill held to ``TP_FAMILY_LAUNCHES``,
+    host ms per captured chunk in turns, tok/s and peak memory."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, prompts = run["params"], run["prompts"]
+    n_new = len(run["streams"][0])
+    pair = _tp_pair(cfg, params, run["scfg"], prompts, n_new,
+                    f"tp families {cfg.name}", serve)
+    e1, e2 = pair.pop("engines")
+    per1, per2 = TP_FAMILY_LAUNCHES[cfg.name]
+    n = len(prompts)
+    steps = _hold_per_step(f"{cfg.name} tp=1", pair["counts_tp1"], per1, n)
+    if _hold_per_step(f"{cfg.name} tp=2", pair["counts"], per2, n) != steps:
+        raise AssertionError(f"{cfg.name}: tp=2 ran another schedule")
+    require_launched(pair["counts"], [k for k, v in per2.items() if v])
+    pair.update(steps=steps, prefills=n, per_step={"tp1": per1, "tp2": per2},
+                layout=dataclasses.asdict(e2.tp_layout),
+                captures=e2.capture_counts)
+    if not (e2.tp_layout.experts and e2.tp_layout.shared):
+        raise AssertionError(f"{cfg.name}: experts not split at tp=2: "
+                             f"{e2.tp_layout}")
+    pair["step_diff"] = hold_tp_logits(
+        f"tp families {cfg.name}",
+        _tp_step_diff(params, e2.params, cfg, prompts[0]))
+    pair.update(_chunks_in_turns(e1, e2, prompts))
+    pair["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  tp families {cfg.name} ({smi}): {n} x {n_new}, {steps} decode "
+          f"steps, {n} prefills; launches a step and a prefill {per1} at "
+          f"tp=1, {per2} at tp=2 (held); tok/s tp=1 {pair['tok_s_tp1']:.2f},"
+          f" tp=2 {pair['tok_s']:.2f}; host ms per captured decode chunk "
+          f"tp=1 {pair['chunk_ms']['tp1']:.3f}, tp=2 "
+          f"{pair['chunk_ms']['tp2']:.3f} (runs {pair['chunk_runs']}); max "
+          f"memory allocated {pair['max_memory_gib']:.2f} GiB (both engines,"
+          f" one weight tree, the expert stacks' shards views); layout "
+          f"{pair['layout']}", flush=True)
+    del e1, e2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pair
+
+
+def _tp2_params(params, cfg):
+    return shard_params(params, cfg, make_local_mesh(tp=2,
+                                                     devices=TP_DEVICES))
+
+
+def tp_family_extras(cfg, params, prompts, extra, direct: dict,
+                     served: dict, serve: dict, smi: str) -> dict:
+    """An enc-dec or VLM model of the enc-dec + VLM phase at tp=2
+    (docstring item 7d, last part): its requests with their stub inputs
+    through ``prefill`` and 32 greedy decode steps on tp=2 shards against
+    ``direct`` (the same at tp=1): streams equal or near-ties, the
+    prefill's and the first step's logits equal or within one bf16 ulp,
+    nibble and flash launches twice tp=1's; then 4 of the served requests
+    x 16 text-only through a tp=1 and a tp=2 engine, held the same way
+    (launches twice tp=1's, the chunk captured)."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tp2 = _tp2_params(params, cfg)
+    got = _direct_decode(tp2, cfg, prompts, extra)
+    want = {k: direct["counts"][k] * 2 for k in ("nibble_matmul",
+                                                 "flash_attention_fwd")}
+    if {k: got["counts"][k] for k in want} != want:
+        raise AssertionError(f"{cfg.name} tp=2 direct launches "
+                             f"{got['counts']}, expected {want}")
+    require_no_f32(got["counts"])
+    key = next(iter(extra))
+    per_req = [{key: extra[key][i:i + 1]} for i in range(len(prompts))]
+    dcfg = cfg.replace(cache_mode="dense")
+    margins = ([] if got["streams"] == direct["streams"] else
+               divergence_margins(params, dcfg, prompts, direct["streams"],
+                                  got["streams"], extras=per_req))
+    held = hold_margins(f"tp families {cfg.name} with {key}, 32 direct "
+                        f"steps", margins, len(prompts), serve)
+    (p1, d1), (p2, d2) = direct["logits"], got["logits"]
+    diff = hold_tp_logits(f"tp families {cfg.name} with {key}", {
+        "prefill_max_abs_diff": (p1 - p2).abs().max().item(),
+        "decode_max_abs_diff": (d1 - d2).abs().max().item(),
+        "max_abs_logit": d1.abs().max().item(),
+        "max_abs_prefill_logit": p1.abs().max().item()})
+    out = {"direct_counts": got["counts"], "direct_held": held,
+           "direct_step_diff": diff,
+           "direct_decode_step_ms": {"tp1": direct["decode_step_ms"],
+                                     "tp2": got["decode_step_ms"]},
+           "direct_prefill_ms": {"tp1": direct["prefill_ms"],
+                                 "tp2": got["prefill_ms"]}}
+    del tp2, got
+    text = served["prompts"][:4]
+    pair = _tp_pair(cfg, params, served["scfg"], text, 16,
+                    f"tp families {cfg.name} text-only", serve)
+    e1, e2 = pair.pop("engines")
+    c1, c2 = pair["counts_tp1"], pair["counts"]
+    if any(c2[k] != 2 * c1[k] for k in FAMILY_KERNELS):
+        raise AssertionError(f"{cfg.name} text-only tp=2 launches {c2}, "
+                             f"expected twice tp=1's {c1}")
+    require_launched(c2, FAMILY_KERNELS)
+    pair.update(_chunks_in_turns(e1, e2, text))
+    del e1, e2
+    out.update(pair, max_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"  tp families {cfg.name} ({smi}): direct (eager, dense caches) "
+          f"prefill {out['direct_prefill_ms']} ms, decode step "
+          f"{out['direct_decode_step_ms']} ms; launches tp=2 "
+          f"{ {k: out['direct_counts'][k] for k in want} } (twice tp=1's); "
+          f"text-only 4 x 16: tok/s tp=1 {pair['tok_s_tp1']:.2f}, tp=2 "
+          f"{pair['tok_s']:.2f}, launches tp=2 "
+          f"{ {k: c2[k] for k in FAMILY_KERNELS} } (twice tp=1's); host ms "
+          f"per captured chunk tp=1 {out['chunk_ms']['tp1']:.3f}, tp=2 "
+          f"{out['chunk_ms']['tp2']:.3f}; max memory allocated "
+          f"{out['max_memory_gib']:.2f} GiB", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_tp_family_shapes(gen) -> dict:
+    """Rows 1 and 3 at the shard shapes the tp families give them first,
+    held to their plain versions and timed beside the bound and a library
+    call: the nibble kernel at deepseek-v3's MLA ``wkv_b`` at decode (4
+    slots x 160 gathered latent rows, 64 heads a shard), ``wq_b`` (64
+    heads a shard) and the shared expert's ``gate`` / ``up`` (1024 a
+    shard); paged decode at llama4's shard (KVH 4, G 5, d 128)."""
+    rng = np.random.default_rng(8)
+    return {
+        "nibble_matmul": {
+            label: _nibble_case(gen, f"tp {label}", *shape)
+            for label, shape in (
+                ("MLA wkv_b decode shard", (640, 512, 16384)),
+                ("MLA wq_b shard", (4, 1536, 12288)),
+                ("shared gate/up shard", (4, 7168, 1024)))},
+        "paged_decode_attention": {
+            "llama4 shard": _paged_case(gen, rng, "tp llama4 shard", 4, 5,
+                                        128, 0)}}
 
 
 # ---------------------------------------------------------------------------
@@ -3337,11 +3578,11 @@ FAMILY_KERNELS = ("nibble_matmul", "flash_attention_fwd",
                   "paged_decode_attention")
 
 
-def phase_families(smi: str) -> dict:
-    """deepseek-v3 (full width, 4 layers: 3 dense MLA + 1 MoE) served and
-    its dense prefix + swap check, llama4 (full width, 2 layers: dense +
-    MoE) served, gemma3-1b (full width and depth) served; each model's
-    weights freed before the next."""
+def phase_families(smi: str, serve: dict) -> dict:
+    """deepseek-v3 (full width, 4 layers: 3 dense MLA + 1 MoE) served, its
+    dense prefix + swap check and its tp=2 pair, llama4 (full width, 2
+    layers: dense + MoE) served and its tp=2 pair, gemma3-1b (full width
+    and depth) served; each model's weights freed before the next."""
     t_phase = time.perf_counter()
     print(f"families: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
           f"allocated before the first model", flush=True)
@@ -3363,6 +3604,7 @@ def phase_families(smi: str) -> dict:
     r["dense_check"] = _dense_overcommit(run["params"], cfg, r, "deepseek",
                                          prefix_cache=True,
                                          swap_mode="host")
+    r["tp"] = tp_family_moe(cfg, run, serve, smi)
     out[cfg.name] = r
     del run
     gc.collect()
@@ -3375,8 +3617,10 @@ def phase_families(smi: str) -> dict:
           f"{cfg.top_k} + {cfg.n_shared_experts} shared, d_ff_expert "
           f"{cfg.d_ff_expert}); {cfg.n_heads}/{cfg.n_kv_heads} heads (group "
           f"{cfg.n_heads // cfg.n_kv_heads})", flush=True)
-    out[cfg.name], _ = _serve_family(
+    out[cfg.name], run = _serve_family(
         cfg, smi, 4, 16, expect=dict.fromkeys(FAMILY_KERNELS, True))
+    out[cfg.name]["tp"] = tp_family_moe(cfg, run, serve, smi)
+    del run
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3602,10 +3846,12 @@ def _direct_decode(params, cfg, prompts, extra, n_steps=32) -> dict:
     prefill_ms = (time.perf_counter() - t) * 1e3
     finite = bool(torch.isfinite(logits).all())
     tok = logits[:, -1].argmax(-1, keepdim=True)
-    pos, out = n_pre + lens, [tok]
+    pos, out, first = n_pre + lens, [tok], []
     t = time.perf_counter()
     for _ in range(n_steps):
         lg, caches = decode_step(params, dcfg, tok, caches, pos, enc_out=enc)
+        if not first:
+            first.append(lg)
         finite &= bool(torch.isfinite(lg).all())
         tok = lg[:, -1].argmax(-1, keepdim=True)
         pos = pos + 1
@@ -3619,10 +3865,11 @@ def _direct_decode(params, cfg, prompts, extra, n_steps=32) -> dict:
     _check_streams(dict(enumerate(streams)), n_steps + 1, cfg.vocab_size)
     return {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
             "counts": counts, "first_tokens": [s_[:8] for s_ in streams],
-            "enc_out": None if enc is None else list(enc.shape)}
+            "enc_out": None if enc is None else list(enc.shape),
+            "streams": streams, "logits": (logits, first[0])}
 
 
-def _encdec_vlm_model(cfg, smi, seed, prompt_lens) -> tuple:
+def _encdec_vlm_model(cfg, smi, seed, prompt_lens, serve) -> tuple:
     """Weights (seed 0), then the requests with their stub inputs
     through ``_direct_decode`` (rows 1 and 2 launched), the first
     request's prefill held kernel by kernel with its own extras, then the
@@ -3659,15 +3906,17 @@ def _encdec_vlm_model(cfg, smi, seed, prompt_lens) -> tuple:
           f"to end in w8a8, measured {held['end_to_end']}", flush=True)
     served, run = _serve_family(cfg, smi, 8, 32, params=params,
                                 expect=dict.fromkeys(FAMILY_KERNELS, True))
-    del run, params
+    tp = tp_family_extras(cfg, params, prompts, extra, direct, run, serve,
+                          smi)
+    del run, params, direct["logits"], direct["streams"]
     gc.collect()
     torch.cuda.empty_cache()
     return {"init_s": init_s, "gib_allocated": mem, "direct": direct,
             "held_with_extras": held, "served": served,
-            "counts": served["counts"]}
+            "counts": served["counts"], "tp": tp}
 
 
-def phase_encdec_vlm(smi: str) -> dict:
+def phase_encdec_vlm(smi: str, serve: dict) -> dict:
     """phi-3-vision-4.2b at full width and depth: 4 requests of 576 stub
     patch embeddings + 32-128 prompt tokens through ``prefill`` and 32
     greedy decode steps, the prefill held kernel by kernel, then served
@@ -3688,14 +3937,14 @@ def phase_encdec_vlm(smi: str) -> dict:
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied; "
           f"{cfg.n_patches} stub patch embeddings)", flush=True)
     lens = np.random.default_rng(11).integers(32, 129, 4).tolist()
-    out[cfg.name] = _encdec_vlm_model(cfg, smi, 11, lens)
+    out[cfg.name] = _encdec_vlm_model(cfg, smi, 11, lens, serve)
     cfg = get_config("whisper-base").replace(**paged)
     print(f"  {cfg.name}: full width and depth ({cfg.n_enc_layers} encoder "
           f"+ {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, GELU, "
           f"vocab {cfg.vocab_size}, tied; {cfg.enc_seq_len} stub frames)",
           flush=True)
-    out[cfg.name] = _encdec_vlm_model(cfg, smi, 12, [16] * 4)
+    out[cfg.name] = _encdec_vlm_model(cfg, smi, 12, [16] * 4, serve)
     out["whisper-base train"] = _train_whisper(smi)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"  enc-dec + vlm phase {out['wall_s']:.1f} s", flush=True)
@@ -4411,11 +4660,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     shapes = check_family_shapes(gen)
-    families = phase_families(smi)
+    tp_shapes = check_tp_family_shapes(gen)
+    families = phase_families(smi, serve)
     ssm_shapes = check_ssm_shapes(gen)
     ssm = phase_ssm(smi)
     ev_shapes = check_encdec_vlm_shapes(gen)
-    encdec_vlm = phase_encdec_vlm(smi)
+    encdec_vlm = phase_encdec_vlm(smi, serve)
+    tp_families = {name: f["tp"] for phase in (families, encdec_vlm)
+                   for name, f in phase.items()
+                   if isinstance(f, dict) and "tp" in f}
+    print(f"tp families: {sorted(tp_families)} at tp=2 on {TP_DEVICES}",
+          flush=True)
     for r in rows[:3]:
         r["families_shapes"] = shapes[r["name"]]
         r["ssm_shapes"] = ssm_shapes[r["name"]]
@@ -4429,6 +4684,13 @@ def main() -> int:
                     "served": f["counts"][r["name"]]} if "direct" in f
                    else f["counts"][r["name"]])
             for name, f in encdec_vlm.items() if isinstance(f, dict)}
+    for r in rows[:3]:
+        r["tp_families_launches"] = {
+            name: {"tp1": t["counts_tp1"][r["name"]],
+                   "tp2": t["counts"][r["name"]]}
+            for name, t in tp_families.items()}
+        if r["name"] in tp_shapes:
+            r["tp_families_shapes"] = tp_shapes[r["name"]]
     tc = encdec_vlm["whisper-base train"]["counts"]
     rows[3]["encdec_vlm_launches"] = {"whisper-base train": (
         tc["flash_attention_bwd_dq"] + tc["flash_attention_bwd_dkv"])}
@@ -4478,7 +4740,8 @@ def main() -> int:
              "ssm_launches", "ssm_shapes", "int8kv_launches",
              "encdec_vlm_launches", "encdec_vlm_shapes", "paper_launches",
              "train_families_launches", "train_families_shapes",
-             "tp_launches", "tp_shapes")
+             "tp_launches", "tp_shapes", "tp_families_launches",
+             "tp_families_shapes")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

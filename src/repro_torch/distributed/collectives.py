@@ -18,7 +18,19 @@ from __future__ import annotations
 import torch
 
 __all__ = ["all_reduce_sum", "all_reduce_max", "all_gather", "broadcast",
-           "reduce_sum"]
+           "reduce_sum", "per_device"]
+
+
+def per_device(devices, fn) -> list:
+    """``fn(i)`` for the first shard on each distinct device, shared by
+    the other shards on it: replicated work runs once per device."""
+    seen, out = {}, []
+    for i, dev in enumerate(devices):
+        key = str(dev)
+        if key not in seen:
+            seen[key] = fn(i)
+        out.append(seen[key])
+    return out
 
 
 def broadcast(t: torch.Tensor, devices) -> list:

@@ -22,10 +22,14 @@ whole K column).
 
 :func:`shard_params` and :func:`shard_caches` apply the specs' "model"
 axis: one tree per model shard on that shard's device (:class:`Shards`).
-Where the kv heads do not divide the axis, the port runs each attention
+Where the heads do not divide the axis, the port runs each attention
 block replicated on every shard, weights and pools whole, where the
-reference splits the pools' in-page sequence axis; replication is always
-valid (``_fit_spec``), and the two differ only in memory.
+reference splits the pools' in-page sequence axis; MLA's latent pools
+have no head axis and are always whole, one per distinct device (the
+reference splits their in-page axis too).  Replication is always valid
+(``_fit_spec``), and the two differ only in memory.  Expert stacks split
+by expert (``experts % tp == 0``) or stay whole, as the reference's
+engine falls back to its local MoE path.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from repro_torch.configs.base import ModelConfig
 __all__ = ["TP_AXIS", "fsdp_axes", "param_specs", "opt_state_specs",
            "batch_specs", "cache_specs", "page_table_spec", "TPLayout",
            "tp_layout", "check_tp_supported", "Shards", "shard_params",
-           "shard_caches", "split_dim"]
+           "shard_caches", "split_dim", "MLA_CACHE_KEYS"]
 
 TP_AXIS = "model"
 
@@ -260,56 +264,70 @@ def split_dim(spec: tuple) -> int | None:
 # Model-axis shards
 # ---------------------------------------------------------------------------
 
-def check_tp_supported(cfg: ModelConfig, tp: int) -> None:
-    """Tensor parallelism covers GQA attention + MLP stacks (yi-6b,
-    qwen3-4b, gemma-7b, gemma3-1b); the other families raise under
-    ``tp > 1``."""
-    if tp <= 1:
-        return
+def check_tp_supported(cfg: ModelConfig, tp: int, dp: int = 1) -> None:
+    """Tensor parallelism covers attention (GQA, MLA, the encoder's and
+    the cross-attention) with MLP or MoE blocks, and a VLM's patches;
+    mamba mixers, ``qat`` and a data axis above 1 inside one engine
+    raise under ``tp > 1`` (the data axis at any ``tp``)."""
     kinds = []
-    if any(s.attn_kind == "mla" for s in cfg.layer_specs):
-        kinds.append("MLA attention")
-    if any(s.ffn == "moe" for s in cfg.layer_specs):
-        kinds.append("MoE blocks")
-    if any(s.mixer == "mamba" for s in cfg.layer_specs):
+    if dp > 1:
+        kinds.append("a data axis above 1 inside one engine (FSDP weight "
+                     "storage; serve data parallelism through "
+                     "serve.router)")
+    if tp > 1 and any(s.mixer == "mamba" for s in cfg.layer_specs):
         kinds.append("mamba mixers")
-    if cfg.is_encdec:
-        kinds.append("the encoder-decoder")
-    if cfg.family == "vlm":
-        kinds.append("the VLM")
-    if cfg.quant_mode == "qat":
+    if tp > 1 and cfg.quant_mode == "qat":
         kinds.append("quant_mode='qat' (its per-row activation scales "
                      "would need a max over the row-parallel shards)")
     if kinds:
         raise NotImplementedError(
-            f"{cfg.name} at tp={tp}: tensor parallelism covers GQA "
-            f"attention with MLP blocks; {', '.join(kinds)} under tp > 1 "
-            f"is not ported yet ({TP_ROADMAP})")
+            f"{cfg.name} at tp={tp}: tensor parallelism covers attention "
+            f"with MLP or MoE blocks; {', '.join(kinds)} is not ported yet "
+            f"({TP_ROADMAP})")
 
 
 @dataclasses.dataclass(frozen=True)
 class TPLayout:
-    """How a model splits over ``tp`` model shards: attention blocks by
-    kv heads where they divide ``tp`` (else replicated), MLPs by ``d_ff``
-    and the embedding and head by vocab where those divide (else
-    replicated), as ``_fit_spec`` decides for their weights."""
+    """How a model splits over ``tp`` model shards, as ``_fit_spec``
+    decides for their weights: GQA attention blocks by kv heads
+    (``heads``), MLA blocks by query heads (``mla_heads``: MLA has no kv
+    heads of its own), MLPs by ``d_ff``, MoE expert stacks by expert
+    (``experts``) and the shared expert by its ``d_ff`` (``shared``), the
+    embedding and head by vocab; each whole and run replicated on every
+    shard where it does not divide."""
     tp: int
     heads: bool
     ffn: bool
     vocab: bool
+    mla_heads: bool = False
+    experts: bool = False
+    shared: bool = False
 
     def shard_cfg(self, cfg: ModelConfig) -> ModelConfig:
-        """The config one shard's attention runs: its share of the query
-        and kv heads, or the whole model where heads are replicated."""
+        """The config one shard's GQA attention runs: its share of the
+        query and kv heads, or the whole model where heads are
+        replicated."""
         if not self.heads:
             return cfg
         return cfg.replace(n_heads=cfg.n_heads // self.tp,
                            n_kv_heads=cfg.n_kv_heads // self.tp)
 
+    def mla_cfg(self, cfg: ModelConfig) -> ModelConfig:
+        """The config one shard's MLA heads run: its share of the query
+        heads, or the whole model where they are replicated."""
+        if not self.mla_heads:
+            return cfg
+        return cfg.replace(n_heads=cfg.n_heads // self.tp)
+
 
 def tp_layout(cfg: ModelConfig, tp: int) -> TPLayout:
+    shared_ff = cfg.d_ff_expert * cfg.n_shared_experts
     return TPLayout(tp=tp, heads=cfg.n_kv_heads % tp == 0,
-                    ffn=cfg.d_ff % tp == 0, vocab=cfg.vocab_size % tp == 0)
+                    ffn=cfg.d_ff % tp == 0, vocab=cfg.vocab_size % tp == 0,
+                    mla_heads=cfg.n_heads % tp == 0 and any(
+                        s.attn_kind == "mla" for s in cfg.layer_specs),
+                    experts=cfg.n_experts > 0 and cfg.n_experts % tp == 0,
+                    shared=shared_ff > 0 and shared_ff % tp == 0)
 
 
 @dataclasses.dataclass
@@ -342,9 +360,12 @@ def _copy_nodes(tree):
 
 def _split_tree(tree, specs, devices, keep_whole, *, copy_whole: bool):
     """One tree per shard: each leaf narrowed along its spec's model axis
-    (a contiguous copy on the shard's device) or kept whole (one tensor
-    per distinct device: the leaf itself where it already lies, unless
-    ``copy_whole``, else one copy)."""
+    or kept whole (one tensor per distinct device: the leaf itself where
+    it already lies, unless ``copy_whole``, else one copy).  A narrowed
+    piece on the leaf's own device is a view where the split is along
+    dimension 0 (expert stacks, N-major int8 weights, embedding rows) and
+    a contiguous copy otherwise; on another device, or under
+    ``copy_whole``, always a copy."""
     tp = len(devices)
     whole: dict = {}
 
@@ -374,6 +395,18 @@ def _split_tree(tree, specs, devices, keep_whole, *, copy_whole: bool):
     return [walk(s, tree, specs) for s in range(tp)]
 
 
+def _attn_kind(cfg: ModelConfig, path: tuple) -> str | None:
+    """"mla" or "gqa" for a leaf of an attention block (a decoder layer's
+    self-attention, its cross-attention, or an encoder layer's), else
+    None."""
+    if "attn" not in path and "cross" not in path:
+        return None
+    if path[0] == "layers" and "attn" in path \
+            and cfg.layer_specs[int(path[1])].attn_kind == "mla":
+        return "mla"
+    return "gqa"
+
+
 def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
     """One parameter tree per model shard of ``mesh`` (its data row 0),
     on that shard's device.  The weights are quantized for
@@ -381,10 +414,14 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
     tree's nodes: the caller's tree is never changed) and split after, so
     every int8 value and scale is the unsharded one.  Each leaf splits
     where its spec (``param_specs``) names the model axis, except the
-    attention blocks when their kv heads do not divide it, which stay
-    whole.  A whole leaf is the caller's tensor on its own device and
-    one copy per other device; a split leaf is a contiguous piece (a view
-    where the split is along rows)."""
+    attention blocks whose heads do not divide it (kv heads for GQA,
+    query heads for MLA), which stay whole; MLA's ``wq_b`` / ``wkv_b``
+    split by whole heads (their outputs are head-major) and its ``wo``
+    along K by heads, while ``wq_a``, ``wkv_a``, the latent norms and the
+    MoE router stay whole.  A whole leaf is the caller's tensor on its
+    own device and one copy per other device; a split leaf on its own
+    device is a view where the split is along rows (an expert stack's
+    shard is its experts' rows of the caller's stack), else a copy."""
     from repro_torch.models.transformer import prepare_params
 
     tp = mesh.shape[TP_AXIS]
@@ -395,10 +432,16 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
     devices = mesh.model_devices
 
     def keep_whole(path):
-        return not layout.heads and "attn" in path
+        kind = _attn_kind(cfg, path)
+        if kind is None:
+            return False
+        return not (layout.mla_heads if kind == "mla" else layout.heads)
 
     trees = _split_tree(src, specs, devices, keep_whole, copy_whole=False)
     return Shards(trees, devices, layout)
+
+
+MLA_CACHE_KEYS = ("c_kv", "k_rope")
 
 
 def shard_caches(caches: list, cfg: ModelConfig, mesh, batch: int) -> Shards:
@@ -406,16 +449,16 @@ def shard_caches(caches: list, cfg: ModelConfig, mesh, batch: int) -> Shards:
     layout the sharded engine serves from: KV (and int8 scale) leaves
     split along the head axis where ``cache_specs`` puts the model axis
     there; every other leaf whole (the in-page sequence split the
-    reference takes for indivisible heads is replicated here).  Every
-    leaf is a copy: the shards are written in place, the caller's tree
-    never."""
+    reference takes for indivisible heads and for MLA's latent pools is
+    replicated here).  Every leaf is a copy: the shards are written in
+    place, the caller's tree never."""
     tp = mesh.shape[TP_AXIS]
     check_tp_supported(cfg, tp)
     layout = tp_layout(cfg, tp)
     specs = cache_specs(cfg, caches, mesh, batch=batch)
 
     def keep_whole(path):
-        return not layout.heads
+        return not layout.heads or path[-1] in MLA_CACHE_KEYS
 
     trees = _split_tree(caches, specs, mesh.model_devices, keep_whole,
                         copy_whole=True)

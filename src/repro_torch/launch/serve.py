@@ -59,7 +59,9 @@ model (``--autotune``, no model run; the counterpart of the reference's
 Tensor parallelism: ``--tp 2`` shards each engine's weights and KV pools
 over a (1, 2) mesh (``--mesh DATAxMODEL`` names the shape; a data axis
 above 1 inside one engine is refused); ``--dp 2 --tp 2`` serves two such
-engines behind the router, each on its own slice of devices.  On the card
+engines behind the router, each on its own slice of devices.  Every arch
+but the mamba families shards (a ``tp layout`` line says which blocks
+split and which run replicated).  On the card
 the mesh is the visible cards, so ``--tp 2`` needs two; with ``--device
 cpu`` it is the CPU repeated.  ``--verify`` re-runs the workload on the
 tp=1 / dp=1 engine and holds the streams equal:
@@ -344,6 +346,9 @@ def run_requests(args, cfg, engine):
     print(f"  topology: {r['device_count']} device(s) ({engine.device}), "
           f"per-engine mesh {tuple(r['mesh_shape'])}, "
           f"dp_replicas={r['dp_replicas']}")
+    if _meshed(args):
+        # what splits over the shards and what runs replicated
+        print(f"  tp layout: {engine.tp_layout}")
     print(f"  compile+warmup: {r['compile_s']:.2f}s   "
           f"(compilations: {r['compile_counts']}, CUDA graphs: "
           f"{engine.capture_counts})")

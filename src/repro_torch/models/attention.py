@@ -23,6 +23,8 @@ returns the same dict, which saves a copy of every cache per step.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core.linear import linear_apply, linear_init
@@ -31,8 +33,9 @@ from repro_torch.kernels.ops import flash_mha, paged_flash_decode
 from repro_torch.models.layers import apply_rope, rms_norm, rms_norm_init, rope
 
 __all__ = ["attn_init", "attn_apply", "attn_heads", "attention_core", "init_kv_cache",
-           "init_paged_kv_cache", "mla_init", "mla_apply", "init_mla_cache",
-           "init_paged_mla_cache", "scatter_cache_rows",
+           "init_paged_kv_cache", "mla_init", "mla_apply", "mla_latent",
+           "mla_heads", "init_mla_cache", "init_paged_mla_cache",
+           "CoreCall", "attend_per_device", "scatter_cache_rows",
            "scatter_paged_rows", "scatter_prefill_rows", "gather_pages"]
 
 _NEG_INF = -2.0 ** 30
@@ -156,6 +159,52 @@ def attention_core(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
     return out.reshape(b, sq, h, dv).to(v.dtype)
 
 
+@dataclasses.dataclass
+class CoreCall:
+    """An ``attention_core`` call not made yet (``attn_heads`` /
+    ``mla_heads`` with ``defer=True``): its arguments, heads on axis 2."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    q_pos: torch.Tensor
+    k_pos: torch.Tensor
+    kw: dict
+
+    def run(self) -> torch.Tensor:
+        """The heads (B, Sq, H * Dv)."""
+        return attention_core(self.q, self.k, self.v, self.q_pos,
+                              self.k_pos, **self.kw) \
+            .reshape(*self.q.shape[:2], -1)
+
+
+def attend_per_device(outs: list) -> list:
+    """Under tensor parallelism: each shard's heads (B, S, H_s * Dv),
+    where ``outs[s]`` is shard ``s``'s result of ``attn_heads`` /
+    ``mla_heads`` with ``defer=True``.  The ``CoreCall``s of the shards on
+    one device run as one ``attention_core`` call over their heads
+    concatenated in shard order: on a shared device that is tp=1's call,
+    its inputs and shapes, so its result bit for bit (cuBLAS picks its
+    batched-GEMM kernel, and with it the sum order, by the batch count).
+    A kernel's output passes through."""
+    groups: dict = {}
+    for i, o in enumerate(outs):
+        if isinstance(o, CoreCall):
+            groups.setdefault(str(o.q.device), []).append(i)
+    res = list(outs)
+    for idx in groups.values():
+        calls = [outs[i] for i in idx]
+        first = calls[0]
+        merged = attention_core(
+            torch.cat([c.q for c in calls], dim=2),
+            torch.cat([c.k for c in calls], dim=2),
+            torch.cat([c.v for c in calls], dim=2), first.q_pos,
+            first.k_pos, **first.kw)
+        parts = torch.split(merged, [c.q.shape[2] for c in calls], dim=2)
+        for i, part in zip(idx, parts):
+            res[i] = part.reshape(*part.shape[:2], -1)
+    return res
+
+
 def _flash_local(q, k, v, *, scale, window, softcap):
     """Head-major flatten -> flash forward -> restore (heads ordered
     (kv_head, group), so flat head ``bh`` reads K/V row ``bh // group``)."""
@@ -263,12 +312,14 @@ def attn_heads(params, cfg, x, *, positions, kind: str = "full",
                cache: dict | None = None, cache_index=None,
                kv_source=None, causal: bool = True,
                return_cache: bool = False, page_table=None,
-               context_start=None):
+               context_start=None, defer: bool = False):
     """The attention block up to ``wo``: returns (heads (B, S, H * hd),
     new_cache).  Under tensor parallelism each shard runs it with its
     share of the heads (``cfg`` holding the shard's ``n_heads`` and
     ``n_kv_heads``, ``params`` its ``wq``/``wk``/``wv`` columns, ``cache``
-    its pools) and ``wo`` runs row-parallel.
+    its pools) and ``wo`` runs row-parallel; with ``defer`` an
+    ``attention_core`` call comes back as a ``CoreCall`` in place of the
+    heads, for ``attend_per_device``.
 
     ``cache=None``: K/V from ``x`` (forward / prefill; prefill hands the
     post-RoPE K/V back, quantized under the int8 KV cache), or from ``kv_source`` for a cross-attention (no RoPE,
@@ -372,9 +423,10 @@ def attn_heads(params, cfg, x, *, positions, kind: str = "full",
         out = _flash_local(q, k, v, scale=scale, window=window,
                            softcap=softcap)
     else:
-        out = attention_core(q, k_full, v_full, positions, k_pos,
-                             scale=scale, causal=is_causal_self,
-                             window=window, softcap=softcap)
+        call = CoreCall(q, k_full, v_full, positions, k_pos,
+                        dict(scale=scale, causal=is_causal_self,
+                             window=window, softcap=softcap))
+        return (call if defer else call.run()), new_cache
     return out.reshape(b, s, h * hd), new_cache
 
 
@@ -414,31 +466,26 @@ def init_paged_mla_cache(cfg, num_pages: int, page_size: int, device) -> dict:
                                   **kw)}
 
 
-def mla_apply(params, cfg, x, *, positions, cache=None, cache_index=None,
-              return_cache: bool = False, page_table=None,
-              context_start=None):
-    """Returns (out, new_cache); the modes of :func:`attn_apply`.  The
-    caches hold latents ``c_kv`` and rope keys ``k_rope``; every branch
-    re-expands K and V from the latents through ``wkv_b`` (at decode over
-    every gathered row), then attends through ``attention_core``, or the
-    flash forward under ``attn_impl="flash"`` without a cache.  Paged
-    decode gathers the pages back into position order, as the reference
-    does: the paged-decode kernel does not run on MLA layers."""
+def mla_latent(params, cfg, x, *, positions, cache=None, cache_index=None,
+               return_cache: bool = False, page_table=None,
+               context_start=None):
+    """MLA's latent part, which has no head axis (under tensor
+    parallelism it runs once per distinct device): ``wq_a`` with
+    ``q_a_norm``, and ``wkv_a`` with ``kv_a_norm`` and the rope key.  It
+    writes the new latents ``c_kv`` and rope keys ``k_rope`` into the
+    cache (slab or pools) and reads back every row, or splices them below
+    a context prefill's cached rows.  Returns (latents, new_cache):
+    ``latents`` is what :func:`mla_heads` takes (``q_a``, the attended
+    ``c_kv`` and ``k_rope`` rows, their positions, the rope tables, and
+    whether a cache was read)."""
     b, s, _ = x.shape
-    h = cfg.n_heads
-    r_kv = cfg.kv_lora_rank
-    d_nope, d_rope, d_v = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r_kv, d_rope = cfg.kv_lora_rank, cfg.qk_rope_dim
     mode, backend = cfg.quant_mode, cfg.quant_backend
 
     q_a = rms_norm(params["q_a_norm"],
                    linear_apply(params["wq_a"], x, mode=mode,
                                 backend=backend), cfg.norm_eps)
-    q = linear_apply(params["wq_b"], q_a, mode=mode, backend=backend) \
-        .reshape(b, s, h, d_nope + d_rope)
-    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
     sin, cos = rope(positions, d_rope, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, sin, cos).to(x.dtype)
-
     kv_a = linear_apply(params["wkv_a"], x, mode=mode, backend=backend)
     c_kv = rms_norm(params["kv_a_norm"], kv_a[..., :r_kv], cfg.norm_eps)
     k_rope_new = apply_rope(kv_a[..., r_kv:].reshape(b, s, 1, d_rope),
@@ -473,23 +520,69 @@ def mla_apply(params, cfg, x, *, positions, cache=None, cache_index=None,
         if return_cache:
             new_cache = {"c_kv": c_kv.to(torch.bfloat16),
                          "k_rope": k_rope_new.to(torch.bfloat16)}
+    latents = {"q_a": q_a, "c_kv": c_kv_f, "k_rope": k_rope_f,
+               "k_pos": k_pos, "sin": sin, "cos": cos,
+               "cached": cache is not None}
+    return latents, new_cache
 
+
+def mla_heads(params, cfg, latents: dict, *, positions,
+              defer: bool = False):
+    """MLA's head part, the counterpart of :func:`attn_heads`: ``wq_b``
+    and ``wkv_b`` over ``cfg.n_heads`` heads (under tensor parallelism a
+    shard's config holds its share, its ``wq_b`` / ``wkv_b`` those heads'
+    columns), K and V re-expanded from the latents (at decode over every
+    cached row), then ``attention_core``, or the flash forward under
+    ``attn_impl="flash"`` without a cache.  Returns the heads before
+    ``wo``, (B, S, H * v_head_dim), or with ``defer`` an
+    ``attention_core`` call as a ``CoreCall`` (``attn_heads``)."""
+    q_a = latents["q_a"]
+    b, s, _ = q_a.shape
+    h = cfg.n_heads
+    d_nope, d_rope, d_v = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    mode, backend = cfg.quant_mode, cfg.quant_backend
+    dtype = q_a.dtype
+
+    q = linear_apply(params["wq_b"], q_a, mode=mode, backend=backend) \
+        .reshape(b, s, h, d_nope + d_rope)
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    q_rope = apply_rope(q_rope, latents["sin"], latents["cos"]).to(dtype)
+
+    c_kv_f, k_rope_f = latents["c_kv"], latents["k_rope"]
     sk = c_kv_f.shape[1]
     kv = linear_apply(params["wkv_b"], c_kv_f, mode=mode, backend=backend) \
         .reshape(b, sk, h, d_nope + d_v)
     k_nope, v = kv[..., :d_nope], kv[..., d_nope:]
-    k_rope_b = torch.broadcast_to(k_rope_f[:, :, None, :].to(x.dtype),
+    k_rope_b = torch.broadcast_to(k_rope_f[:, :, None, :].to(dtype),
                                   (b, sk, h, d_rope))
-    q_full = torch.cat([q_nope, q_rope], dim=-1).to(x.dtype)
-    k_full = torch.cat([k_nope, k_rope_b], dim=-1).to(x.dtype)
+    q_full = torch.cat([q_nope, q_rope], dim=-1).to(dtype)
+    k_full = torch.cat([k_nope, k_rope_b], dim=-1).to(dtype)
 
     scale = 1.0 / (d_nope + d_rope) ** 0.5
-    if cfg.attn_impl == "flash" and cache is None:
+    if cfg.attn_impl == "flash" and not latents["cached"]:
         out = _flash_local(q_full, k_full, v, scale=scale, window=0,
                            softcap=0.0)
     else:
-        out = attention_core(q_full, k_full, v, positions, k_pos,
-                             scale=scale, causal=True)
-    out = linear_apply(params["wo"], out.reshape(b, s, h * d_v), mode=mode,
-                       backend=backend)
-    return out, new_cache
+        call = CoreCall(q_full, k_full, v, positions, latents["k_pos"],
+                        dict(scale=scale, causal=True))
+        return call if defer else call.run()
+    return out.reshape(b, s, h * d_v)
+
+
+def mla_apply(params, cfg, x, *, positions, cache=None, cache_index=None,
+              return_cache: bool = False, page_table=None,
+              context_start=None):
+    """Returns (out, new_cache); the modes of :func:`attn_apply`:
+    :func:`mla_latent`, :func:`mla_heads`, then ``wo``.  The caches hold
+    latents ``c_kv`` and rope keys ``k_rope``; every branch re-expands K
+    and V from the latents through ``wkv_b`` (at decode over every
+    gathered row).  Paged decode gathers the pages back into position
+    order, as the reference does: the paged-decode kernel does not run on
+    MLA layers."""
+    latents, new_cache = mla_latent(
+        params, cfg, x, positions=positions, cache=cache,
+        cache_index=cache_index, return_cache=return_cache,
+        page_table=page_table, context_start=context_start)
+    out = mla_heads(params, cfg, latents, positions=positions)
+    return linear_apply(params["wo"], out, mode=cfg.quant_mode,
+                        backend=cfg.quant_backend), new_cache

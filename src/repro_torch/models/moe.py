@@ -19,9 +19,17 @@ ascending expert order, one add at a time, the order in which the
 reference's scatter-add visits them (an atomic ``index_add_`` would sum
 in a different order on every CUDA run).
 
-The reference's expert-parallel path (``_moe_sharded``, a ``shard_map``
-over a device mesh) waits for the scale-out slice; without a mesh the
-reference runs the local path ported here.
+Expert parallelism (:func:`moe_apply_shards`) splits the expert stacks
+over the model shards by expert and keeps tp=1's values bit for bit: the
+router runs once per distinct device, each shard dispatches and runs only
+its own experts (every other assignment dropped), the shards' per-
+assignment rows (each non-zero on exactly one shard) are summed, which is
+exact, and the ordered combine runs once per distinct device.  This is
+the reference engine's semantics: its engine installs no ambient mesh,
+so GSPMD partitions ``_moe_local`` by expert and its tp=2 streams equal
+its tp=1's.  The reference's ``_moe_sharded`` (a ``shard_map`` that sums
+each shard's bf16 output with ``psum``) runs only under its dry run's
+ambient mesh, and is not this path.
 """
 
 from __future__ import annotations
@@ -29,9 +37,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import bf16_matmul, mlp_apply, mlp_init
+from repro_torch.core.linear import linear_apply_row
+from repro_torch.distributed.collectives import all_reduce_sum, per_device
+from repro_torch.models.layers import bf16_matmul, mlp_apply, mlp_hidden, \
+    mlp_init
 
-__all__ = ["moe_init", "moe_apply"]
+__all__ = ["moe_init", "moe_apply", "moe_apply_shards"]
 
 
 def moe_init(cfg, *, generator, device) -> dict:
@@ -86,20 +97,29 @@ def _route(params, cfg, xt):
     return top_w, top_e, aux
 
 
-def _dispatch_compute_combine(cfg, xt, top_w, top_e, w_gate, w_up, w_down,
-                              *, cap: int):
-    """Sort-dispatch every assignment onto the expert stack, run the
-    SwiGLU experts, combine back to (T, D) in the input's dtype."""
+def _sort(top_e):
+    """The stable sort of the (token, k) assignments by expert id
+    (token-major within an expert): ``order`` and the sorted ids."""
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    return order, flat_e[order]
+
+
+def _expert_rows(cfg, xt, top_w, top_e, sort, w_gate, w_up, w_down, *,
+                 cap: int, e_lo: int = 0):
+    """Sort-dispatch the assignments of experts ``[e_lo, e_lo + E_s)`` (the
+    stacks' experts, E_s = ``w_gate.shape[0]``) onto the stacks, run the
+    SwiGLU experts and return each assignment's weighted output row
+    ``(T * k, D)`` f32 in sorted order: zero where the assignment was
+    dropped (past its expert's capacity, or another shard's expert).
+    Segments and positions are over every expert's sorted ids, so each
+    expert keeps tp=1's segment and capacity drops."""
     t, d = xt.shape
     k = cfg.top_k
-    e = cfg.n_experts
     dev = xt.device
-
-    flat_e = top_e.reshape(-1)
+    order, e_sorted = sort
     flat_w = top_w.reshape(-1).to(torch.float32)
     n = t * k
-    order = torch.argsort(flat_e, stable=True)
-    e_sorted = flat_e[order]
     tok_sorted = order // k
     w_sorted = flat_w[order]
 
@@ -107,14 +127,18 @@ def _dispatch_compute_combine(cfg, xt, top_w, top_e, w_gate, w_up, w_down,
     idx = torch.arange(n, device=dev)
     pos_in_e = idx - torch.searchsorted(e_sorted, e_sorted)
     keep = pos_in_e < cap
+    if w_gate.shape[0] != cfg.n_experts:         # one shard's experts
+        keep = keep & (e_sorted >= e_lo) \
+            & (e_sorted < e_lo + w_gate.shape[0])
 
-    slot_e = torch.where(keep, e_sorted, 0)
+    slot_e = torch.where(keep, e_sorted - e_lo, 0)
     slot_c = torch.where(keep, pos_in_e, 0)
     w_eff = torch.where(keep, w_sorted, 0.0)
 
     contrib_in = torch.where(keep[:, None], xt[tok_sorted],
                              torch.zeros((), dtype=xt.dtype, device=dev))
-    expert_in = torch.zeros((e, cap, d), dtype=xt.dtype, device=dev)
+    expert_in = torch.zeros((w_gate.shape[0], cap, d), dtype=xt.dtype,
+                            device=dev)
     # one real row per slot plus exact zeros (the dropped rows at (0, 0)):
     # exact in any order
     expert_in.index_put_((slot_e, slot_c), contrib_in, accumulate=True)
@@ -123,8 +147,16 @@ def _dispatch_compute_combine(cfg, xt, top_w, top_e, w_gate, w_up, w_down,
     u = bf16_matmul(expert_in, w_up.to(xt.dtype))
     g = F.silu(g.to(torch.float32)).to(xt.dtype)
     expert_out = bf16_matmul(g * u, w_down.to(xt.dtype))
+    return expert_out[slot_e, slot_c].to(torch.float32) * w_eff[:, None]
 
-    contrib = expert_out[slot_e, slot_c].to(torch.float32) * w_eff[:, None]
+
+def _combine(contrib, top_e, sort, dtype):
+    """The sorted rows back to (T, D) in ``dtype``: each token's k rows
+    summed in ascending expert order, one add at a time."""
+    t, k = top_e.shape
+    d = contrib.shape[-1]
+    order = sort[0]
+    idx = torch.arange(t * k, device=contrib.device)
     # back to (T, k) in ascending expert order per token (the sort is
     # stable and token-major, so a token's rows arrive by expert id); the
     # inverse permutation is a scatter of distinct indices
@@ -133,10 +165,20 @@ def _dispatch_compute_combine(cfg, xt, top_w, top_e, w_gate, w_up, w_down,
     per_tok = contrib[inv].reshape(t, k, d)
     per_tok = torch.gather(per_tok, 1,
                            tok_rank[:, :, None].expand(t, k, d))
-    out = torch.zeros((t, d), dtype=torch.float32, device=dev)
+    out = torch.zeros((t, d), dtype=torch.float32, device=contrib.device)
     for j in range(k):
         out = out + per_tok[:, j]
-    return out.to(xt.dtype)
+    return out.to(dtype)
+
+
+def _dispatch_compute_combine(cfg, xt, top_w, top_e, w_gate, w_up, w_down,
+                              *, cap: int):
+    """Sort-dispatch every assignment onto the expert stack, run the
+    SwiGLU experts, combine back to (T, D) in the input's dtype."""
+    sort = _sort(top_e)
+    rows = _expert_rows(cfg, xt, top_w, top_e, sort, w_gate, w_up, w_down,
+                        cap=cap)
+    return _combine(rows, top_e, sort, xt.dtype)
 
 
 def moe_apply(params, cfg, x):
@@ -157,3 +199,48 @@ def moe_apply(params, cfg, x):
                            quant_backend=cfg.quant_backend)
         out = out + shared.reshape(b, s, d)
     return out, aux
+
+
+def moe_apply_shards(ps: list, cfg, xs: list, layout):
+    """:func:`moe_apply` over model shards: ``ps`` one MoE dict per shard
+    (``layout.experts``: its ``E / tp`` experts' rows of the stacks,
+    shard ``s`` holding ``[s E/tp, (s + 1) E/tp)``; else the whole
+    stacks), ``xs`` the replicated input per shard.  Returns (one output
+    per shard, shared by the shards on a device; aux), bit for bit
+    :func:`moe_apply`'s.  Experts that do not divide the shards run
+    replicated, once per distinct device, as the reference's engine runs
+    its local path; the shared expert is row-parallel where its ``d_ff``
+    divides (``layout.shared``), else replicated."""
+    devs = [x.device for x in xs]
+    b, s, d = xs[0].shape
+    xts = [x.reshape(b * s, d) for x in xs]
+    routes = per_device(devs, lambda i: _route(ps[i], cfg, xts[i]))
+    cap = _capacity(cfg, b * s, cfg.n_experts)
+    if layout.experts:
+        sorts = per_device(devs, lambda i: _sort(routes[i][1]))
+        rows = all_reduce_sum([
+            _expert_rows(cfg, xts[i], routes[i][0], routes[i][1], sorts[i],
+                         p["w_gate"], p["w_up"], p["w_down"], cap=cap,
+                         e_lo=i * p["w_gate"].shape[0])
+            for i, p in enumerate(ps)])
+        outs = per_device(devs, lambda i: _combine(
+            rows[i], routes[i][1], sorts[i], xs[i].dtype))
+    else:
+        outs = per_device(devs, lambda i: _dispatch_compute_combine(
+            cfg, xts[i], routes[i][0], routes[i][1], ps[i]["w_gate"],
+            ps[i]["w_up"], ps[i]["w_down"], cap=cap))
+    if cfg.n_shared_experts:
+        act = dict(act=cfg.act, quant_mode=cfg.quant_mode,
+                   quant_backend=cfg.quant_backend)
+        if layout.shared:
+            shared = linear_apply_row(
+                [p["shared"]["down"] for p in ps],
+                [mlp_hidden(p["shared"], xt, **act)
+                 for p, xt in zip(ps, xts)],
+                mode=cfg.quant_mode, backend=cfg.quant_backend)
+        else:
+            shared = per_device(devs, lambda i: mlp_apply(
+                ps[i]["shared"], xts[i], **act))
+        outs = per_device(devs, lambda i: outs[i] + shared[i])
+    return per_device(devs, lambda i: outs[i].reshape(b, s, d)), \
+        routes[0][2]

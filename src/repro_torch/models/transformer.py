@@ -39,15 +39,21 @@ Tensor parallelism: ``prefill`` and ``decode_step`` take the ``Shards``
 of ``distributed.sharding.shard_params`` (one parameter tree per model
 shard) and caches from :func:`init_shard_caches` or ``shard_caches`` (one
 cache list per shard), and run every layer over the shards: the norms
-and residual adds replicated, each attention block on its shard's heads
-and pools (or replicated where the kv heads do not divide the shards),
-the column-parallel projections on their shard's columns and ``wo`` /
-``down`` row-parallel, the embedding and head vocab-parallel.  The
-logits come back whole on shard 0's device.  Work that is replicated
-runs once per distinct device; shards that share a device share its
-replicated tensors.  The page helpers act on every shard, and a host
-payload keeps the unsharded layout (the shards' heads concatenated in
-shard order), so the host tiers hold the same bytes at any ``tp``.
+and residual adds replicated; each GQA attention block (self-, cross- and
+the encoder's) on its shard's heads and pools, or replicated where the kv
+heads do not divide the shards; MLA's latent part once per device into
+that device's whole latent pools, its heads split by query heads; the
+column-parallel projections on their shard's columns and ``wo`` /
+``down`` row-parallel; MoE blocks expert-parallel
+(``moe.moe_apply_shards``); the embedding and head vocab-parallel.  A
+VLM's patches are prepended on every device and an encoder-decoder's
+encoder runs over the shards the same way.  The logits (and an
+``enc_out``) come back whole on shard 0's device.  Work that is
+replicated runs once per distinct device; shards that share a device
+share its replicated tensors.  The page helpers act on every shard, and
+a host payload keeps the unsharded layout (the shards' heads
+concatenated in shard order, a replicated pool once), so the host tiers
+hold the same bytes at any ``tp``.
 """
 
 from __future__ import annotations
@@ -59,10 +65,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.linear import linear_apply_row, linear_init, \
     prepare_quantized
-from repro_torch.distributed.collectives import broadcast
-from repro_torch.distributed.sharding import TP_ROADMAP, Shards
+from repro_torch.distributed.collectives import broadcast, per_device
+from repro_torch.distributed.sharding import MLA_CACHE_KEYS, Shards
 from repro_torch.models.attention import (
     KV_CACHE_DTYPES,
+    attend_per_device,
     attn_apply,
     attn_heads,
     attn_init,
@@ -71,7 +78,9 @@ from repro_torch.models.attention import (
     init_paged_kv_cache,
     init_paged_mla_cache,
     mla_apply,
+    mla_heads,
     mla_init,
+    mla_latent,
     scatter_prefill_rows,
 )
 from repro_torch.models.mamba import (
@@ -93,7 +102,7 @@ from repro_torch.models.layers import (
     vocab_parallel_embed,
     vocab_parallel_logits,
 )
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import moe_apply, moe_apply_shards, moe_init
 
 __all__ = ["model_init", "load_jax_params", "unstack_jax_tree",
            "prepare_params", "encode",
@@ -360,18 +369,6 @@ def _logits(params, cfg: ModelConfig, x):
 # The stack over model shards (tensor parallelism)
 # ---------------------------------------------------------------------------
 
-def _per_device(devices, fn) -> list:
-    """``fn(i)`` for the first shard on each distinct device, shared by
-    the other shards on it: replicated work runs once per device."""
-    seen, out = {}, []
-    for i, dev in enumerate(devices):
-        key = str(dev)
-        if key not in seen:
-            seen[key] = fn(i)
-        out.append(seen[key])
-    return out
-
-
 def _shard_locals(devices, **tensors) -> list:
     """Per shard, the step's host-authored inputs (positions, cache
     index, page table, context start) on its device; non-tensors and
@@ -381,65 +378,124 @@ def _shard_locals(devices, **tensors) -> list:
     return [{k: per[k][i] for k in tensors} for i in range(len(devices))]
 
 
-def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
-                    loc: list, caches, mode: str):
-    """One pre-norm layer over the shards ``ps`` (one parameter dict
-    each); ``xs`` is the replicated residual stream, ``caches`` one cache
-    dict per shard (or None).  Returns (xs, per-shard new caches)."""
-    devs = [x.device for x in xs]
+def _tp_attn(ps, cfg, layout, spec, hs, *, loc, caches, mode, causal):
+    """The self-attention block over the shards: per shard over its heads
+    (the shards on a device attend in one ``attention_core`` call where
+    the kernels do not run: ``attend_per_device``) then ``wo``
+    row-parallel, or replicated once per device where the heads do not
+    divide.  MLA's latent part (no head axis) runs once per device and
+    writes that device's pools.  Returns (outs, caches)."""
+    devs = [h.device for h in hs]
     mq = dict(mode=cfg.quant_mode, backend=cfg.quant_backend)
 
-    def attn_kw(i):
-        return dict(kind=spec.attn_kind, positions=loc[i]["positions"],
+    def kw(i):
+        return dict(positions=loc[i]["positions"],
                     cache=None if caches is None else caches[i],
                     cache_index=loc[i]["cache_index"],
                     return_cache=(mode == "prefill"),
                     page_table=loc[i]["page_table"],
                     context_start=loc[i]["context_start"])
 
-    hs = _per_device(devs, lambda i: rms_norm(ps[i]["mixer_norm"], xs[i],
-                                              cfg.norm_eps))
-    if layout.heads:
-        scfg = layout.shard_cfg(cfg)
-        res = [attn_heads(p["attn"], scfg, h, **attn_kw(i))
-               for i, (p, h) in enumerate(zip(ps, hs))]
-        outs = linear_apply_row([p["attn"]["wo"] for p in ps],
-                                [o for o, _ in res], **mq)
-    else:
-        res = _per_device(devs, lambda i: attn_apply(ps[i]["attn"], cfg,
-                                                     hs[i], **attn_kw(i)))
-        outs = [o for o, _ in res]
-    cs = [c for _, c in res]
-    xs = _per_device(devs, lambda i: xs[i] + outs[i])
+    if spec.attn_kind == "mla":
+        if not layout.mla_heads:
+            res = per_device(devs, lambda i: mla_apply(ps[i]["attn"], cfg,
+                                                       hs[i], **kw(i)))
+            return [o for o, _ in res], [c for _, c in res]
+        lat = per_device(devs, lambda i: mla_latent(ps[i]["attn"], cfg,
+                                                    hs[i], **kw(i)))
+        mcfg = layout.mla_cfg(cfg)
+        heads = attend_per_device([
+            mla_heads(p["attn"], mcfg, lat[i][0],
+                      positions=loc[i]["positions"], defer=True)
+            for i, p in enumerate(ps)])
+        return (linear_apply_row([p["attn"]["wo"] for p in ps], heads, **mq),
+                [c for _, c in lat])
+    akw = dict(kind=spec.attn_kind, causal=causal)
+    if not layout.heads:
+        res = per_device(devs, lambda i: attn_apply(ps[i]["attn"], cfg, hs[i],
+                                                    **akw, **kw(i)))
+        return [o for o, _ in res], [c for _, c in res]
+    scfg = layout.shard_cfg(cfg)
+    res = [attn_heads(p["attn"], scfg, h, defer=True, **akw, **kw(i))
+           for i, (p, h) in enumerate(zip(ps, hs))]
+    return (linear_apply_row([p["attn"]["wo"] for p in ps],
+                             attend_per_device([o for o, _ in res]), **mq),
+            [c for _, c in res])
+
+
+def _tp_cross(ps, cfg, layout, hs, *, loc, enc_outs) -> list:
+    """The cross-attention over ``enc_outs`` (one per shard): per shard
+    over its heads then ``wo`` row-parallel, or replicated."""
+    devs = [h.device for h in hs]
+    kw = [dict(positions=loc[i]["positions"], kv_source=enc_outs[i],
+               causal=False) for i in range(len(ps))]
+    if not layout.heads:
+        return per_device(devs, lambda i: attn_apply(ps[i]["cross"], cfg,
+                                                     hs[i], **kw[i])[0])
+    scfg = layout.shard_cfg(cfg)
+    heads = attend_per_device([
+        attn_heads(p["cross"], scfg, h, defer=True, **kw[i])[0]
+        for i, (p, h) in enumerate(zip(ps, hs))])
+    return linear_apply_row([p["cross"]["wo"] for p in ps], heads,
+                            mode=cfg.quant_mode, backend=cfg.quant_backend)
+
+
+def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
+                    loc: list, caches, mode: str, causal: bool = True,
+                    enc_outs=None):
+    """One pre-norm layer over the shards ``ps`` (one parameter dict
+    each); ``xs`` is the replicated residual stream, ``caches`` one cache
+    dict per shard (or None), ``enc_outs`` the encoder output per shard
+    for a cross-attention (or None).  Returns (xs, per-shard new caches);
+    serving reads no MoE aux loss, as at tp=1."""
+    devs = [x.device for x in xs]
+
+    def norm(key, xs):
+        return per_device(devs, lambda i: rms_norm(ps[i][key], xs[i],
+                                                   cfg.norm_eps))
+
+    def add(xs, outs):
+        return per_device(devs, lambda i: xs[i] + outs[i])
+
+    outs, cs = _tp_attn(ps, cfg, layout, spec, norm("mixer_norm", xs),
+                        loc=loc, caches=caches, mode=mode, causal=causal)
+    xs = add(xs, outs)
+    if "cross" in ps[0] and enc_outs is not None:
+        xs = add(xs, _tp_cross(ps, cfg, layout, norm("cross_norm", xs),
+                               loc=loc, enc_outs=enc_outs))
     if spec.ffn == "none":
         return xs, cs
-    hs = _per_device(devs, lambda i: rms_norm(ps[i]["ffn_norm"], xs[i],
-                                              cfg.norm_eps))
+    hs = norm("ffn_norm", xs)
     act = dict(act=cfg.act, quant_mode=cfg.quant_mode,
                quant_backend=cfg.quant_backend)
-    if layout.ffn:
+    if spec.ffn == "moe":
+        outs, _ = moe_apply_shards([p["moe"] for p in ps], cfg, hs, layout)
+    elif layout.ffn:
         outs = linear_apply_row(
             [p["mlp"]["down"] for p in ps],
-            [mlp_hidden(p["mlp"], h, **act) for p, h in zip(ps, hs)], **mq)
+            [mlp_hidden(p["mlp"], h, **act) for p, h in zip(ps, hs)],
+            mode=cfg.quant_mode, backend=cfg.quant_backend)
     else:
-        outs = _per_device(devs, lambda i: mlp_apply(ps[i]["mlp"], hs[i],
-                                                     **act))
-    return _per_device(devs, lambda i: xs[i] + outs[i]), cs
+        outs = per_device(devs, lambda i: mlp_apply(ps[i]["mlp"], hs[i],
+                                                    **act))
+    return add(xs, outs), cs
 
 
-def _tp_stack_apply(params: Shards, cfg: ModelConfig, xs: list, *, loc,
-                    caches=None, mode: str):
-    """The decoder stack over the shards; returns (xs, per-shard caches
-    as ``Shards``)."""
-    per_shard = [[] for _ in params]
+def _tp_stack_apply(layers: list, cfg: ModelConfig, layout, xs: list, *,
+                    loc, caches=None, mode: str, causal: bool = True,
+                    enc_outs=None):
+    """A stack over the shards (``layers``: one layer list per shard, in
+    ``cfg.layer_specs`` order, the decoder's or with ``_enc_cfg`` the
+    encoder's); returns (xs, per-shard caches as lists)."""
+    per_shard = [[] for _ in layers]
     for li, spec in enumerate(cfg.layer_specs):
         xs, cs = _tp_layer_apply(
-            [p["layers"][li] for p in params], cfg, params.layout, spec, xs,
-            loc=loc, caches=None if caches is None
-            else [c[li] for c in caches], mode=mode)
+            [p[li] for p in layers], cfg, layout, spec, xs, loc=loc,
+            caches=None if caches is None else [c[li] for c in caches],
+            mode=mode, causal=causal, enc_outs=enc_outs)
         for lst, c in zip(per_shard, cs):
             lst.append(c)
-    return xs, Shards(per_shard, params.devices, params.layout)
+    return xs, per_shard
 
 
 def _tp_embed(params: Shards, cfg: ModelConfig, tokens) -> list:
@@ -448,7 +504,7 @@ def _tp_embed(params: Shards, cfg: ModelConfig, tokens) -> list:
     if params.layout.vocab:
         return vocab_parallel_embed([p["embed"] for p in params], toks,
                                     scale_by_sqrt_dim=scale)
-    return _per_device(params.devices, lambda i: embed_apply(
+    return per_device(params.devices, lambda i: embed_apply(
         params[i]["embed"], toks[i], scale_by_sqrt_dim=scale))
 
 
@@ -456,19 +512,28 @@ def _tp_logits(params: Shards, cfg: ModelConfig, xs: list):
     """f32 logits, whole, on shard 0's device."""
     if not params.layout.vocab:
         return _logits(params[0], cfg, xs[0])
-    xs = _per_device(params.devices, lambda i: rms_norm(
+    xs = per_device(params.devices, lambda i: rms_norm(
         params[i]["final_norm"], xs[i], cfg.norm_eps))
     tied = cfg.tie_embeddings
     heads = [p["embed"] if tied else p["lm_head"] for p in params]
     return vocab_parallel_logits(heads, xs, tied=tied)[0]
 
 
-def _refuse_extras(frames, extra_embeds) -> None:
-    if frames is not None or extra_embeds is not None:
-        raise NotImplementedError(
-            f"frames and patch embeddings under tensor parallelism: the "
-            f"encoder-decoder and the VLM are not sharded yet "
-            f"({TP_ROADMAP})")
+def _tp_encode(params: Shards, cfg: ModelConfig, frames) -> list:
+    """:func:`encode` over the shards (the decoder's head and MLP split,
+    bidirectional attention): the encoder output once per device."""
+    devs = params.devices
+    ecfg = _enc_cfg(cfg)
+    b, s, _ = frames.shape
+    pos = torch.broadcast_to(
+        torch.arange(s, device=frames.device)[None, :], (b, s))
+    loc = _shard_locals(devs, positions=pos, cache_index=None,
+                        page_table=None, context_start=None)
+    xs, _ = _tp_stack_apply([p["encoder"]["layers"] for p in params],
+                            ecfg, params.layout, broadcast(frames, devs),
+                            loc=loc, mode="train", causal=False)
+    return per_device(devs, lambda i: rms_norm(params[i]["encoder"]["norm"],
+                                               xs[i], cfg.norm_eps))
 
 
 def encode(params, cfg: ModelConfig, frames):
@@ -536,10 +601,16 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     length)."""
     sharded = isinstance(params, Shards)
     if sharded:
-        _refuse_extras(frames, extra_embeds)
-        enc_out = None
+        devs = params.devices
+        enc_outs = None if frames is None else _tp_encode(params, cfg,
+                                                          frames)
+        enc_out = None if enc_outs is None else enc_outs[0]
         xs = _tp_embed(params, cfg, tokens)
-        dev = params.devices[0]
+        if extra_embeds is not None:
+            pre = broadcast(extra_embeds, devs)
+            xs = per_device(devs, lambda i: torch.cat(
+                [pre[i].to(xs[i].dtype), xs[i]], dim=1))
+        dev = devs[0]
     else:
         enc_out = encode(params, cfg, frames) if frames is not None \
             else None
@@ -551,10 +622,12 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
         pos = pos + torch.as_tensor(ctx_start, device=dev)
     pos = torch.broadcast_to(pos, (b, s))
     if sharded:
-        loc = _shard_locals(params.devices, positions=pos, cache_index=None,
+        loc = _shard_locals(devs, positions=pos, cache_index=None,
                             page_table=ctx_table, context_start=ctx_start)
-        xs, caches = _tp_stack_apply(params, cfg, xs, loc=loc,
-                                     caches=ctx_caches, mode="prefill")
+        xs, caches = _tp_stack_apply(
+            [p["layers"] for p in params], cfg, params.layout, xs, loc=loc,
+            caches=ctx_caches, mode="prefill", enc_outs=enc_outs)
+        caches = Shards(caches, devs, params.layout)
     else:
         x, caches, _ = _stack_apply(params, cfg, xs[0], positions=pos,
                                     enc_out=enc_out, mode="prefill",
@@ -597,17 +670,19 @@ def decode_step(params, cfg: ModelConfig, token, caches, index, *,
     included; it takes S == 1 only).  Returns (logits (B, S, V),
     caches)."""
     if isinstance(params, Shards):
-        _refuse_extras(enc_out, None)
+        devs = params.devices
         xs = _tp_embed(params, cfg, token)
         b, s = token.shape
-        dev = params.devices[0]
+        dev = devs[0]
         index = torch.as_tensor(index, device=dev).to(torch.int64)
         pos = (torch.broadcast_to(index.reshape(-1, 1), (b, 1))
                + torch.arange(s, device=dev)[None, :])
-        loc = _shard_locals(params.devices, positions=pos, cache_index=index,
+        loc = _shard_locals(devs, positions=pos, cache_index=index,
                             page_table=page_table, context_start=None)
-        xs, _ = _tp_stack_apply(params, cfg, xs, loc=loc, caches=caches,
-                                mode="decode")
+        xs, _ = _tp_stack_apply(
+            [p["layers"] for p in params], cfg, params.layout, xs, loc=loc,
+            caches=caches, mode="decode",
+            enc_outs=None if enc_out is None else broadcast(enc_out, devs))
         return _tp_logits(params, cfg, xs), caches
     x = _embed_inputs(params, cfg, token)
     b, s = x.shape[0], token.shape[1]
@@ -639,6 +714,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
     dense slab plus the trash page).  A mamba layer's state is per-slot
     in both modes."""
     device = resolve_device(device)
+    return [_layer_cache(cfg, spec, batch, max_len, device)
+            for spec in cfg.layer_specs]
+
+
+def _layer_cache(cfg: ModelConfig, spec, batch: int, max_len: int,
+                 device) -> dict:
+    """One layer's cache as :func:`init_caches` builds it."""
     if cfg.cache_mode == "paged":
         ps = cfg.page_size
         if ps < 1:
@@ -647,11 +729,18 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"page_size {ps}")
         num_pages = cfg.num_pages or batch * (max_len // ps) + 1
-        return init_paged_caches(cfg, batch, num_pages, ps, device=device)
-    return [init_mamba_cache(cfg, batch, device) if spec.mixer == "mamba"
-            else (init_mla_cache if spec.attn_kind == "mla"
-                  else init_kv_cache)(cfg, batch, max_len, device)
-            for spec in cfg.layer_specs]
+        return _paged_layer_cache(cfg, spec, batch, num_pages, ps, device)
+    if spec.mixer == "mamba":
+        return init_mamba_cache(cfg, batch, device)
+    return (init_mla_cache if spec.attn_kind == "mla"
+            else init_kv_cache)(cfg, batch, max_len, device)
+
+
+def _paged_layer_cache(cfg, spec, batch, num_pages, page_size, device):
+    if spec.mixer == "mamba":
+        return init_mamba_cache(cfg, batch, device)
+    return (init_paged_mla_cache if spec.attn_kind == "mla"
+            else init_paged_kv_cache)(cfg, num_pages, page_size, device)
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
@@ -661,27 +750,31 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
     kv_lora_rank)`` latents and ``(num_pages, page_size, qk_rope_dim)``
     rope keys; a mamba layer keeps its per-slot state beside them."""
     device = resolve_device(device)
-    return [init_mamba_cache(cfg, batch, device) if spec.mixer == "mamba"
-            else (init_paged_mla_cache if spec.attn_kind == "mla"
-                  else init_paged_kv_cache)(cfg, num_pages, page_size,
-                                            device)
-            for spec in cfg.layer_specs]
+    return [_paged_layer_cache(cfg, spec, batch, num_pages, page_size,
+                               device) for spec in cfg.layer_specs]
 
 
 def init_shard_caches(cfg: ModelConfig, batch: int, max_len: int,
                       params: Shards) -> Shards:
-    """:func:`init_caches` for the model shards ``params``: each shard's
-    pools hold its share of the kv heads on its device, or, where the
-    heads do not divide the shards, the whole pools, one set per distinct
-    device (shared by the shards on it)."""
-    layout = params.layout
-    if layout.heads:
-        trees = [init_caches(layout.shard_cfg(cfg), batch, max_len,
-                             device=dev) for dev in params.devices]
-    else:
-        trees = _per_device(params.devices, lambda i: init_caches(
-            cfg, batch, max_len, device=params.devices[i]))
-    return Shards(trees, params.devices, layout)
+    """:func:`init_caches` for the model shards ``params``: a GQA layer's
+    pools hold each shard's share of the kv heads on its device; where
+    the heads do not divide the shards, and for MLA's latent pools (no
+    head axis), the whole pools, one set per distinct device (shared by
+    the shards on it)."""
+    layout, devs = params.layout, params.devices
+    scfg = layout.shard_cfg(cfg)
+    trees = [[] for _ in devs]
+    for spec in cfg.layer_specs:
+        if layout.heads and spec.mixer == "attn" \
+                and spec.attn_kind != "mla":
+            cs = [_layer_cache(scfg, spec, batch, max_len, dev)
+                  for dev in devs]
+        else:
+            cs = per_device(devs, lambda i: _layer_cache(
+                cfg, spec, batch, max_len, devs[i]))
+        for tree, c in zip(trees, cs):
+            tree.append(c)
+    return Shards(trees, devs, layout)
 
 
 def _unique(leaves):
@@ -705,15 +798,21 @@ def sequence_pools(caches) -> list:
 def _logical_pools(caches):
     """Per sequence leaf of the unsharded layout, layer-major in key
     order: ``(pools, split)``: one pool per shard, split along the head
-    axis (``split``), or the replicated pool's copies, one per distinct
-    device (unsharded caches: the pool alone)."""
+    axis (``split``: a GQA pool under head-split attention), or the
+    replicated pool's copies, one per distinct device (an MLA latent
+    pool, or heads that do not divide; unsharded caches: the pool
+    alone)."""
     if not isinstance(caches, Shards):
         return [([pool], False) for pool in sequence_pools(caches)]
-    split = caches.layout.heads
-    per = [[pool for c in tree for k, pool in c.items()
+    heads = caches.layout.heads
+    per = [[(k, pool) for c in tree for k, pool in c.items()
             if k in _SEQ_CACHE_KEYS] for tree in caches]
-    return [(list(pools) if split else list(_unique(pools)), split)
-            for pools in zip(*per)]
+    out = []
+    for leaves in zip(*per):
+        pools = [pool for _, pool in leaves]
+        split = heads and leaves[0][0] not in MLA_CACHE_KEYS
+        out.append((pools if split else list(_unique(pools)), split))
+    return out
 
 
 def cache_bytes(caches) -> int:

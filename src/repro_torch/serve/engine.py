@@ -88,17 +88,20 @@ Each batch slot is an independent sequence sharing one model:
 * **Tensor parallelism** (``tp`` / ``mesh_shape``).  One engine spans a
   ``(1, tp)`` mesh of devices (``launch.mesh``), which may repeat a
   device: its weights split over the "model" axis (``shard_params``:
-  column- and row-parallel projections, vocab-parallel embedding and
-  head), its paged pools or dense slab by kv heads (replicated where the
-  heads do not divide ``tp``), and every stage runs all shards from this
-  process with explicit collectives.  Greedy streams equal the
-  single-device engine's (every integer projection is bit for bit the
-  unsharded one), and every mechanism above keeps its rule.  When all
+  column- and row-parallel projections, GQA heads by kv heads and MLA
+  heads by query heads, MoE experts by expert, vocab-parallel embedding
+  and head), its paged pools or dense slab by kv heads (MLA's latent
+  pools, and heads that do not divide ``tp``, whole, one per distinct
+  device), and every stage runs all shards from this process with
+  explicit collectives.  Greedy streams equal the single-device
+  engine's (every integer projection is bit for bit the unsharded one,
+  the expert rows are summed exactly), and every mechanism above keeps
+  its rule; what runs replicated is reported (``tp_layout``).  When all
   shards share one card the captured stages are captured as before; over
   several cards they run eagerly.  A data axis above 1 inside an engine,
-  and the MLA, MoE, mamba, encoder-decoder and VLM families under ``tp >
-  1``, raise.  Data parallelism is ``serve.router``: N engines (each on
-  its own device slice when meshed) behind one admission queue.
+  mamba mixers and ``qat`` under ``tp > 1`` raise.  Data parallelism is
+  ``serve.router``: N engines (each on its own device slice when meshed)
+  behind one admission queue.
 """
 
 from __future__ import annotations
@@ -523,7 +526,7 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig, *,
                  device="cuda", devices=None, capture: bool | None = None):
         self.scfg = scfg
-        self._mesh = self._build_mesh(device, devices)
+        self._mesh = self._build_mesh(cfg, device, devices)
         if self._mesh is not None:
             self.device = self._mesh.model_devices[0]
         elif devices is not None:
@@ -597,8 +600,6 @@ class Engine:
             self._caches = init_caches(self.cfg, scfg.batch, scfg.max_len,
                                        device=self.device)
         else:
-            tp = self._mesh.shape["model"]
-            check_tp_supported(self.cfg, tp)
             # quantized for the draft's mode where there is one (the
             # verifier reads the bf16 ``w`` beside it)
             self.params = shard_params(params, self._draft_cfg or self.cfg,
@@ -621,7 +622,7 @@ class Engine:
     # the mesh
     # ------------------------------------------------------------------
 
-    def _build_mesh(self, device, devices):
+    def _build_mesh(self, cfg, device, devices):
         """The in-engine ``(data, model)`` mesh, or None for the
         single-device engine (the reference's checks and messages)."""
         scfg = self.scfg
@@ -640,11 +641,7 @@ class Engine:
             shape = (1, scfg.tp)
         if shape is None or shape == (1, 1):
             return None
-        if shape[0] != 1:
-            raise NotImplementedError(
-                f"mesh_shape {shape}: a data axis above 1 inside one "
-                f"engine (FSDP weight storage) is not ported ({TP_ROADMAP}"
-                f"); serve data parallelism through serve.router")
+        check_tp_supported(_apply_overrides(cfg, scfg), shape[1], shape[0])
         if devices is None and resolve_device(device).type == "cpu":
             devices = ["cpu"]
         return make_local_mesh(dp=shape[0], tp=shape[1], devices=devices)
@@ -655,6 +652,13 @@ class Engine:
         if self._mesh is None:
             return (1, 1)
         return (self._mesh.shape["data"], self._mesh.shape["model"])
+
+    @property
+    def tp_layout(self):
+        """How the weights split over the model shards
+        (``distributed.sharding.TPLayout``: which blocks split and which
+        run replicated), None unmeshed."""
+        return None if self._mesh is None else self.params.layout
 
     @property
     def device_count(self) -> int:

@@ -325,6 +325,11 @@ class Router:
         return self.replicas[0].mesh_shape
 
     @property
+    def tp_layout(self):
+        """The replicas' ``TPLayout`` (uniform), None unmeshed."""
+        return self.replicas[0].tp_layout
+
+    @property
     def device_count(self) -> int:
         """Devices the fleet spans: distinct ones for unmeshed replicas
         (replicas sharing one device count it once), every mesh entry

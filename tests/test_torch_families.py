@@ -139,6 +139,8 @@ class _Routes:
         """(B, S) mask of rows to leave out of this call's logit check:
         each flipped choice held to a tie, later positions of a flipped
         row's sequence left out too.  Clears the records."""
+        # the reference's callbacks run asynchronously: wait for them
+        jax.effects_barrier()
         assert len(self.j) == len(self.t), (len(self.j), len(self.t))
         mask = np.zeros(b * s, bool)
         for li, ((je, lg), te_) in enumerate(zip(self.j, self.t)):

@@ -298,17 +298,21 @@ def test_shard_caches_split_heads_and_copy(arch, kv_dtype):
 
 
 def test_tp_refuses_the_other_families():
-    """MLA, MoE, mamba mixers, the encoder-decoder, the VLM and QAT under
-    tp > 1 raise naming ROADMAP; tp=1 checks nothing."""
-    for arch in ("deepseek-v3-671b", "llama4-maverick-400b-a17b",
-                 "mamba2-780m", "jamba-v0.1-52b", "whisper-base",
-                 "phi-3-vision-4.2b"):
+    """Mamba mixers, QAT and a data axis above 1 under tp > 1 raise naming
+    ROADMAP; MLA, MoE, the encoder-decoder and the VLM pass; tp=1 checks
+    nothing."""
+    for arch in ("mamba2-780m", "jamba-v0.1-52b"):
         cfg = reduced(get_config(arch))
         tsh.check_tp_supported(cfg, 1)
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             tsh.check_tp_supported(cfg, 2)
+    for arch in ("deepseek-v3-671b", "llama4-maverick-400b-a17b",
+                 "whisper-base", "phi-3-vision-4.2b"):
+        tsh.check_tp_supported(reduced(get_config(arch)), 2)
     with pytest.raises(NotImplementedError, match="qat"):
         tsh.check_tp_supported(
             reduced(get_config("yi-6b")).replace(quant_mode="qat"), 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        tsh.check_tp_supported(reduced(get_config("yi-6b")), 2, dp=2)
     assert isinstance(_mesh(), LocalMesh)
     np.testing.assert_equal(tsh.split_dim((None, ("data", "model"))), 1)

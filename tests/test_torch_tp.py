@@ -25,7 +25,10 @@ the reference tests' forced host device count.  What is held:
   non-spec, wave = monolithic, in ``dense``), and equals tp=1 with the
   same counters; gemma3-1b (KVH 1: attention replicated, tied head) at
   tp=2; a ``--dp 2 --tp 2`` fleet over four repeated CPU devices; the
-  host payloads keep the unsharded layout; the refusals.
+  host payloads keep the unsharded layout; the families once refused
+  (MLA, MoE, the encoder-decoder, the VLM) serve at tp=2; the refusals
+  that remain (mamba mixers, ``qat``, a data axis).  MLA, MoE, whisper
+  and phi-3-vision at tp=2 in depth: ``tests/test_torch_tp_families.py``.
 """
 
 import dataclasses
@@ -405,11 +408,8 @@ def test_router_dp2_tp2_over_four_devices():
 @pytest.mark.parametrize("arch,over,match", [
     ("yi-6b", dict(mesh_shape=(2, 1)), "data axis above 1"),
     ("yi-6b", dict(mesh_shape=(2, 2)), "data axis above 1"),
-    ("deepseek-v3-671b", dict(tp=2), "MLA attention"),
-    ("llama4-maverick-400b-a17b", dict(tp=2), "MoE blocks"),
     ("mamba2-780m", dict(tp=2), "mamba mixers"),
-    ("whisper-base", dict(tp=2), "encoder-decoder"),
-    ("phi-3-vision-4.2b", dict(tp=2), "VLM"),
+    ("jamba-v0.1-52b", dict(tp=2), "mamba mixers"),
     ("yi-6b", dict(tp=2, quant_mode="qat"), "qat"),
 ])
 def test_tp_refusals_name_the_roadmap(arch, over, match):
@@ -419,6 +419,25 @@ def test_tp_refusals_name_the_roadmap(arch, over, match):
     with pytest.raises(NotImplementedError, match=match) as err:
         Engine(cfg, params, scfg, device="cpu", devices=["cpu"] * 4)
     assert "ROADMAP queue 1 item 4" in str(err.value)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
+                                  "llama4-maverick-400b-a17b",
+                                  "whisper-base", "phi-3-vision-4.2b"])
+def test_tp2_serves_the_families_once_refused(arch):
+    """The families tp=2 refused until MLA, MoE, the encoder-decoder and
+    the VLM were sharded: each engine builds at tp=2 over four repeated
+    CPU devices (the mesh takes two) and serves tp=1's greedy streams
+    (``dense``, reduced, 4 prompts of 4-8 tokens x 6)."""
+    cfg = reduced(get_config(arch)).replace(attn_impl="flash")
+    params = model_init(cfg, device="cpu")
+    prompts = _mesh_prompts(cfg.vocab_size)
+    kw = dict(batch=2, max_len=16, prefill_len=8, decode_chunk=3)
+    want, _ = _serve(cfg, params, ServeConfig(**kw), prompts, n_new=6)
+    got, eng = _serve(cfg, params, ServeConfig(tp=2, **kw), prompts,
+                      n_new=6, devices=["cpu"] * 4)
+    assert got == want
+    assert eng.mesh_shape == (1, 2) and eng.leaked_pages() == 0
 
 
 def test_mesh_config_errors():

@@ -333,6 +333,7 @@ from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 model_init, prefill)
 from repro_torch.models.transformer import init_shard_caches  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.attention import attention_core  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.capacity import (Knobs, WorkloadShape,  # noqa: E402
                                   analytic_cache_token_bytes, predict)
@@ -2921,8 +2922,200 @@ def phase_tp(params, prompts, serve: dict, smi: str, gen) -> dict:
                                       5504),
         "paged shard": _paged_case(gen, rng, "tp shard", 2, 8, 128, 0)}
     out["gemma3"] = _tp_gemma3(serve, smi)
+    out["qat"] = _tp_qat(params, prompts, serve, smi)
+    out["attention_core_heads"] = check_attention_core_heads(gen)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"  tp phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def _tp_qat(params, prompts, serve: dict, smi: str) -> dict:
+    """The serve cell's full-width yi-6b in ``qat`` (fake-quantized
+    operands, f32 products) at tp=1 and tp=2 on ``TP_DEVICES``, 4
+    requests x 16: a row-parallel ``qat`` projection takes the shards'
+    amaxes by max and sums f32 partials, so tp=2 is within a rounding of
+    tp=1, not bit for bit.  The prefill's and one decode step's logits
+    are held within the serve phase's logit tolerance (the dense bound of
+    the margin rule), the streams equal or diverging only at a near-tie
+    (``hold_margins``)."""
+    cfg = get_config("yi-6b").replace(
+        quant_mode="qat", attn_impl="flash", cache_mode="paged",
+        page_size=16)
+    scfg = ServeConfig(batch=4, max_len=128 + 16, prefill_len=128,
+                       decode_chunk=8)
+    pair = _tp_pair(cfg, params, scfg, prompts[:4], 16, "yi-6b qat",
+                    serve)
+    e1, e2 = pair.pop("engines")
+    diff = _tp_step_diff(params, e2.params, cfg, prompts[0])
+    worst = max(diff["prefill_max_abs_diff"], diff["decode_max_abs_diff"])
+    print(f"  yi-6b qat ({smi}): tp=2 against tp=1 max|dlogit| prefill "
+          f"{diff['prefill_max_abs_diff']:.4e}, one decode step "
+          f"{diff['decode_max_abs_diff']:.4e} (max|logit| "
+          f"{diff['max_abs_logit']:.4f}; bound {serve['logit_tol']:.4f}); "
+          f"tok/s tp=1 {pair['tok_s_tp1']:.2f}, tp=2 {pair['tok_s']:.2f}",
+          flush=True)
+    if worst > serve["logit_tol"]:
+        raise AssertionError(f"yi-6b qat: tp=2 logits {worst} from tp=1's,"
+                             f" above {serve['logit_tol']}")
+    del e1, e2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(pair, step_diff=diff)
+
+
+def check_attention_core_heads(gen) -> dict:
+    """Queue 3 lead 1, directly: ``attention_core`` over each tp=2 shard's
+    heads alone (as a card of its own runs them) against the same rows of
+    the whole call, bit for bit, at MLA's decode (4 slots, 128 heads of
+    q/k 192 and v 128 against 2 x 64, 160 rows) and phi-3-vision's (32
+    heads of d 96 against 2 x 16, 736 rows)."""
+    out = {}
+    for label, (b, h, d, dv, sk) in (
+            ("MLA decode 64 of 128 heads", (4, 128, 192, 128, 160)),
+            ("phi-3-vision decode 16 of 32 heads", (4, 32, 96, 96, 736))):
+        q = torch.randn((b, 1, h, d), device=DEV, generator=gen).bfloat16()
+        k = torch.randn((b, sk, h, d), device=DEV, generator=gen).bfloat16()
+        v = torch.randn((b, sk, h, dv), device=DEV, generator=gen) \
+            .bfloat16()
+        qp = torch.full((b, 1), sk - 1, device=DEV)
+        kp = torch.arange(sk, device=DEV)[None].expand(b, sk)
+        scale = 1.0 / d ** 0.5
+        whole = attention_core(q, k, v, qp, kp, scale=scale)
+        half = h // 2
+        diff = max((attention_core(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                   qp, kp, scale=scale)
+                    - whole[:, :, sl]).abs().max().item()
+                   for sl in (slice(0, half), slice(half, h)))
+        out[label] = diff
+    print(f"  attention_core per shard against the whole call, max diff "
+          f"{out}", flush=True)
+    if any(out.values()):
+        raise AssertionError(f"attention_core rows depend on the heads "
+                             f"beside them: {out}")
+    return out
+
+
+def _attend_block_einsums(q, k, v, q_pos, k_pos, *, scale, causal, window,
+                          softcap):
+    """``attention_core``'s products before they were made independent of
+    the head count: one f32 einsum each over a batch of every (slot, kv
+    head), kept for ``attention_core_ab``."""
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    dq = q_pos[:, None, None, :, None]
+    dk = k_pos[:, None, None, None, :]
+    mask = torch.ones((), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (dk <= dq)
+    if window:
+        mask = mask & (dq - dk < window)
+    logits = torch.where(mask, logits, torch.full_like(logits, -2.0 ** 30))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd",
+                        probs.to(v.dtype).to(torch.float32),
+                        v.to(torch.float32))
+
+
+def _kernel_launches(fn) -> int:
+    """CUDA kernels one eager ``fn()`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@torch.no_grad()
+def attention_core_ab(smi: str) -> dict:
+    """Each path that attends in ``attention_core``, under the earlier
+    formulation (``_attend_block_einsums``) and the current one
+    (``fixed_bmm`` entries of one shape), in turns (old, new, new, old; the medians):
+    device ms of one call captured in a CUDA graph (the decode steps) or
+    CUDA-event ms of an eager call (the prefills and the encoder, which
+    run eagerly in the engine), and the CUDA kernels one eager call
+    launches.  Paths, at full width: MLA decode (deepseek-v3 cut to its
+    first layer, 4 slots x 160 paged rows), the spec verify at S = 5
+    (yi-6b cut to 4 layers, ``dense`` as the verify runs), the int8-KV
+    decode (yi-6b 4 layers, ``w8a8_nibble``), a wave chunk (S 32) and a
+    context prefill (S 128) against 64 cached rows (yi-6b 4 layers), and
+    whisper-base's encoder over 4 x 1500 stub frames."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.models import encode
+    paged = dict(quant_backend="cuda", attn_impl="flash", cache_mode="paged",
+                 page_size=16)
+    b, rows = 4, 160
+    table = torch.arange(1, 1 + b * rows // 16, device=DEV).reshape(b, -1)
+    pos = torch.tensor([150, 120, 100, 159], device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+
+    def toks(cfg, s, n=b):
+        return torch.randint(0, cfg.vocab_size, (n, s), device=DEV,
+                             generator=gen)
+
+    def decode_case(cfg, s=1):
+        params = model_init(cfg, seed=0, device=DEV)
+        pools = init_caches(cfg, b, rows, device=DEV)
+        tok = toks(cfg, s)
+        return (lambda: decode_step(params, cfg, tok, pools, pos,
+                                    page_table=table)), True
+
+    cases = {}
+    cases["MLA decode (deepseek-v3, 1 layer)"] = decode_case(
+        get_config("deepseek-v3-671b").replace(
+            n_layers=1, quant_mode="w8a8_nibble", **paged))
+    yi4 = get_config("yi-6b").replace(n_layers=4, **paged)
+    cases["spec verify S=5 (yi-6b, 4 layers, dense)"] = decode_case(
+        yi4.replace(quant_mode="dense"), s=5)
+    cases["int8-KV decode (yi-6b, 4 layers)"] = decode_case(
+        yi4.replace(quant_mode="w8a8_nibble", kv_cache_dtype="int8"))
+    wcfg = yi4.replace(quant_mode="w8a8_nibble")
+    wparams = model_init(wcfg, seed=0, device=DEV)
+    wpools = init_caches(wcfg, b, rows, device=DEV)
+    for label, s in (("wave chunk S=32", 32), ("context prefill S=128", 128)):
+        tok = toks(wcfg, s, 1)
+        cases[f"{label} (yi-6b, 4 layers)"] = (
+            lambda tok=tok: prefill(wparams, wcfg, tok, ctx_caches=wpools,
+                                    ctx_table=table[:1],
+                                    ctx_start=torch.tensor(64, device=DEV)),
+            False)
+    ecfg = get_config("whisper-base").replace(quant_mode="w8a8_nibble",
+                                              **paged)
+    eparams = model_init(ecfg, seed=0, device=DEV)
+    frames = _stub_inputs(ecfg, b, 0)["frames"]
+    cases["encoder (whisper-base, 4 x 1500)"] = (
+        lambda: encode(eparams, ecfg, frames), False)
+    new_block = attn_mod._attend_block
+    runs = {label: {"old": [], "new": []} for label in cases}
+    launches = {label: {} for label in cases}
+    try:
+        for variant in ("old", "new", "new", "old"):
+            attn_mod._attend_block = (_attend_block_einsums
+                                      if variant == "old" else new_block)
+            for label, (fn, captured) in cases.items():
+                if variant not in launches[label]:
+                    launches[label][variant] = _kernel_launches(fn)
+                runs[label][variant].append(
+                    graph_ms(fn, reps=5) if captured else cuda_ms(fn,
+                                                                  iters=10))
+    finally:
+        attn_mod._attend_block = new_block
+    out = {}
+    for label in cases:
+        ms = {v: statistics.median(runs[label][v]) for v in ("old", "new")}
+        out[label] = {"ms": ms, "runs": runs[label],
+                      "launches": launches[label],
+                      "captured": cases[label][1]}
+        print(f"  attention_core A/B, {label} ({smi}): "
+              f"{'graph' if cases[label][1] else 'eager'} ms old "
+              f"{ms['old']:.4f}, new {ms['new']:.4f} (runs "
+              f"{runs[label]}); kernel launches a call old "
+              f"{launches[label]['old']}, new {launches[label]['new']}",
+              flush=True)
     return out
 
 
@@ -3328,7 +3521,9 @@ def check_ssm_shapes(gen) -> dict:
     heads, d 128) at S 128 and at an uneven S 114, the length of the
     phase's first jamba prompt (the engine prefills a model with mamba
     mixers at the exact prompt length, so the tile tail runs); paged
-    decode at jamba's group 4."""
+    decode at jamba's group 4; and each at the shapes a tp=2 shard gives
+    it (mamba2's ``in_proj`` shard N 3352 and ``out_proj`` shard K 1536,
+    jamba's ``in_proj`` shard N 8288; 16/4 heads; KVH 4)."""
     rng = np.random.default_rng(6)
     return {
         "nibble_matmul": {
@@ -3336,13 +3531,20 @@ def check_ssm_shapes(gen) -> dict:
                 ("mamba2 in_proj decode", (4, 1536, 6448)),
                 ("mamba2 out_proj decode", (4, 3072, 1536)),
                 ("mamba2 in_proj prefill 512", (512, 1536, 6448)),
-                ("jamba in_proj decode", (4, 4096, 16544)))},
+                ("jamba in_proj decode", (4, 4096, 16544)),
+                ("mamba2 in_proj decode tp=2 shard", (4, 1536, 3352)),
+                ("mamba2 out_proj decode tp=2 shard", (4, 1536, 1536)),
+                ("jamba in_proj decode tp=2 shard", (4, 4096, 8288)))},
         "flash_attention_fwd": {
             f"jamba prefill S={n}": _flash_case(gen, f"jamba prefill S={n}",
                                                 32, 4, n, 128)
-            for n in (128, 114)},
+            for n in (128, 114)} | {
+            "jamba prefill S=114 tp=2 shard": _flash_case(
+                gen, "jamba prefill S=114 tp=2 shard", 16, 4, 114, 128)},
         "paged_decode_attention": {
-            "jamba G=4": _paged_case(gen, rng, "jamba G=4", 8, 4, 128, 0)}}
+            "jamba G=4": _paged_case(gen, rng, "jamba G=4", 8, 4, 128, 0),
+            "jamba G=4 tp=2 shard": _paged_case(
+                gen, rng, "jamba G=4 tp=2 shard", 4, 4, 128, 0)}}
 
 
 def _chunk_ms(engine, prompts, reps=3) -> float:
@@ -3734,14 +3936,121 @@ def _mamba2_extra(cfg, r, run) -> None:
     r["dense_check"] = _dense_overcommit(run["params"], cfg, r, cfg.name)
 
 
-def phase_ssm(smi: str) -> dict:
+# launches of one decode step and one prefill of the ssm models at tp=1
+# and tp=2, counted from the code: mamba2-780m runs in_proj and out_proj a
+# layer (2 x 48); jamba (one block of 8) in_proj / out_proj on its seven
+# mamba layers, wq / wk / wv / wo on its attention layer and gate / up /
+# down on its four dense MLPs (its MoE experts run no kernel), one paged
+# decode a step and one flash forward a prefill; at tp=2 every one of
+# them on both shards
+TP_SSM_LAUNCHES = {
+    "mamba2-780m": ({"nibble_matmul": 96, "flash_attention_fwd": 0,
+                     "paged_decode_attention": 0},
+                    {"nibble_matmul": 192, "flash_attention_fwd": 0,
+                     "paged_decode_attention": 0}),
+    "jamba-v0.1-52b": ({"nibble_matmul": 30, "flash_attention_fwd": 1,
+                        "paged_decode_attention": 1},
+                       {"nibble_matmul": 60, "flash_attention_fwd": 2,
+                        "paged_decode_attention": 2})}
+
+
+def tp_family_ssm(cfg, run: dict, serve: dict, smi: str) -> dict:
+    """A model of the ssm phase at tp=2 on ``TP_DEVICES``, on its served
+    weights: its requests (mamba2: the 8 x 32 and the 512-token prompt)
+    through a tp=1 and a tp=2 engine, every stream equal (no margin rule:
+    each SSD head's state, each attention row and every integer
+    projection is tp=1's bit for bit) and equal to the ssm cell's; the
+    prefill's and one decode step's logits equal (max |dlogit| 0) on the
+    first and the longest prompt; launches a step and a prefill held to
+    ``TP_SSM_LAUNCHES``; the captured tp=2 engine against a
+    ``capture=False`` one on the first 4 prompts; host ms per captured
+    chunk in turns, tok/s, peak memory."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, prompts, scfg = run["params"], run["prompts"], run["scfg"]
+    n_new = len(run["streams"][0])
+    e1 = Engine(cfg, params, scfg, device=DEV)
+    s1, w1, c1 = _serve_timed(e1, prompts, n_new)
+    e2 = Engine(cfg, params, dataclasses.replace(scfg, tp=2),
+                devices=TP_DEVICES)
+    s2, w2, c2 = _serve_timed(e2, prompts, n_new)
+    label = f"tp ssm {cfg.name}"
+    if e2.mesh_shape != (1, 2) or e2.device_count != 2 \
+            or not e2.tp_layout.ssm_heads:
+        raise AssertionError(f"{label}: mesh {e2.mesh_shape}, "
+                             f"{e2.device_count} devices, layout "
+                             f"{e2.tp_layout}")
+    require_captured(e2, f"{label} tp=2")
+    require_no_f32(c2)
+    equal = [a == b for a, b in zip(s1, s2)]
+    served = [a == b for a, b in zip(s1, run["streams"])]
+    print(f"  {label}: tp=2 streams equal tp=1's {sum(equal)}/{len(equal)}"
+          f" (prompt lengths {[len(p) for p in prompts]}); tp=1 equal to "
+          f"the ssm cell's {sum(served)}/{len(served)}", flush=True)
+    if not all(equal) or not all(served):
+        raise AssertionError(f"{label}: streams differ: tp=2 {equal}, "
+                             f"the cell's {served}")
+    per1, per2 = TP_SSM_LAUNCHES[cfg.name]
+    n = len(prompts)
+    steps = _hold_per_step(f"{cfg.name} tp=1", c1, per1, n)
+    if _hold_per_step(f"{cfg.name} tp=2", c2, per2, n) != steps:
+        raise AssertionError(f"{cfg.name}: tp=2 ran another schedule")
+    require_launched(c2, [k for k, v in per2.items() if v])
+    diffs = {}
+    for name, p in (("first", prompts[0]),
+                    ("longest", max(prompts, key=len))):
+        d = _tp_step_diff(params, e2.params, cfg, p)
+        diffs[f"{name} ({len(p)} tokens)"] = d
+        print(f"  {label}, {name} prompt ({len(p)} tokens): tp=2 against "
+              f"tp=1 max|dlogit| prefill {d['prefill_max_abs_diff']}, one "
+              f"decode step {d['decode_max_abs_diff']}", flush=True)
+        if d["prefill_max_abs_diff"] or d["decode_max_abs_diff"]:
+            raise AssertionError(f"{label}: tp=2 logits differ from tp=1's:"
+                                 f" {d}")
+    few = prompts[:4]
+    eager = Engine(cfg, params, dataclasses.replace(scfg, tp=2),
+                   devices=TP_DEVICES, capture=False)
+    se, _, _ = _serve_timed(eager, few, n_new)
+    sc, _, _ = _serve_timed(e2, few, n_new)
+    if any(eager.capture_counts.values()) or se != sc:
+        raise AssertionError(f"{label}: capture=False streams differ from "
+                             f"the captured tp=2 engine's (graphs "
+                             f"{eager.capture_counts})")
+    del eager
+    n_tok = sum(map(len, s2))
+    out = {"counts_tp1": c1, "counts": c2, "steps": steps, "prefills": n,
+           "per_step": {"tp1": per1, "tp2": per2}, "streams_equal":
+           sum(equal), "step_diff": diffs, "tok_s_tp1": n_tok / w1,
+           "tok_s": n_tok / w2, "layout": dataclasses.asdict(e2.tp_layout),
+           "captures": e2.capture_counts, "eager_equal": len(few)}
+    out.update(_chunks_in_turns(e1, e2, prompts))
+    out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {label} ({smi}): {n} x {n_new}, {steps} decode steps, {n} "
+          f"prefills; launches a step and a prefill {per1} at tp=1, {per2} "
+          f"at tp=2 (held); capture=False at tp=2 equal on {len(few)} "
+          f"prompts; tok/s tp=1 {out['tok_s_tp1']:.2f}, tp=2 "
+          f"{out['tok_s']:.2f}; host ms per captured decode chunk tp=1 "
+          f"{out['chunk_ms']['tp1']:.3f}, tp=2 {out['chunk_ms']['tp2']:.3f}"
+          f" (runs {out['chunk_runs']}); max memory allocated "
+          f"{out['max_memory_gib']:.2f} GiB; layout {out['layout']}",
+          flush=True)
+    del e1, e2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm(smi: str, serve: dict) -> dict:
     """mamba2-780m at full width and depth, 8 requests of 32-128 prompt
     tokens and one of 512 (two SSD chunks of 256, the inter-chunk loop),
     the nibble kernel launched and the attention kernels never, its
     prefill bit for bit the plain path's (``hold_exact_served``), then
-    ``_mamba2_extra``; then jamba-v0.1-52b at full width cut to one block
-    of 8 layers, rows 1-3 launched, its prefill held kernel by kernel at
-    the exact length the engine runs; each served as the families are
+    ``_mamba2_extra`` and its tp=2 pair (``tp_family_ssm``); then
+    jamba-v0.1-52b at full width cut to one block of 8 layers, rows 1-3
+    launched, its prefill held kernel by kernel at the exact length the
+    engine runs, and its tp=2 pair; each served as the families are
     (``_serve_family``), each model's weights freed before the next."""
     t_phase = time.perf_counter()
     print(f"ssm: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
@@ -3762,6 +4071,7 @@ def phase_ssm(smi: str) -> dict:
                                "flash_attention_fwd": False,
                                "paged_decode_attention": False})
     _mamba2_extra(cfg, r, run)
+    r["tp"] = tp_family_ssm(cfg, run, serve, smi)
     out[cfg.name] = r
     del run
     gc.collect()
@@ -3776,8 +4086,10 @@ def phase_ssm(smi: str) -> dict:
           f"d_ff_expert {cfg.d_ff_expert}) on odd layers, dense d_ff "
           f"{cfg.d_ff} on even; vocab {cfg.vocab_size}, untied)",
           flush=True)
-    out[cfg.name], _ = _serve_family(
+    out[cfg.name], run = _serve_family(
         cfg, smi, 8, 32, expect=dict.fromkeys(FAMILY_KERNELS, True))
+    out[cfg.name]["tp"] = tp_family_ssm(cfg, run, serve, smi)
+    del run
     gc.collect()
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t_phase
@@ -4663,10 +4975,10 @@ def main() -> int:
     tp_shapes = check_tp_family_shapes(gen)
     families = phase_families(smi, serve)
     ssm_shapes = check_ssm_shapes(gen)
-    ssm = phase_ssm(smi)
+    ssm = phase_ssm(smi, serve)
     ev_shapes = check_encdec_vlm_shapes(gen)
     encdec_vlm = phase_encdec_vlm(smi, serve)
-    tp_families = {name: f["tp"] for phase in (families, encdec_vlm)
+    tp_families = {name: f["tp"] for phase in (families, ssm, encdec_vlm)
                    for name, f in phase.items()
                    if isinstance(f, dict) and "tp" in f}
     print(f"tp families: {sorted(tp_families)} at tp=2 on {TP_DEVICES}",

@@ -34,7 +34,9 @@ scale).  A row-parallel one is :func:`linear_apply_row`: each shard holds
 a slice of K, and in the int modes the shards agree on the activation
 scale (a max of their amaxes), take their exact int32 partial products,
 sum them and apply the epilogue once, so the result is the unsharded
-projection bit for bit.
+projection bit for bit.  ``dense`` and ``qat`` sum f32 partial products
+in shard order and round once (``qat`` with the unsharded fake-quant
+scales): within a rounding of the unsharded projection.
 """
 
 from __future__ import annotations
@@ -145,13 +147,32 @@ def linear_apply_row(shards: list, xs: list, *, mode: str = "dense",
     unsharded one; each shard's exact int32 partial product is summed in
     shard order; the epilogue ``(float(acc) * x_scale) * w_scale`` then
     the cast run once on the sum: bit for bit the unsharded projection.
-    ``dense`` sums f32 partial products and rounds once."""
+    ``dense`` sums f32 partial products and rounds once; ``qat`` takes
+    the activation's per-row and the weight's per-column scales from the
+    max of the shards' amaxes (the unsharded scales), fake-quantizes each
+    shard's slices with them and sums the f32 partial products the same
+    way: within a rounding of the unsharded projection, not bit for
+    bit."""
     dtype = xs[0].dtype
     devices = [x.device for x in xs]
     if mode == "dense":
         parts = [torch.matmul(x.to(torch.float32),
                               p["w"].to(torch.float32))
                  for p, x in zip(shards, xs)]
+        return broadcast(reduce_sum(parts).to(dtype), devices)
+    if mode == "qat":
+        # the per-row activation scale and the per-column weight scale
+        # each span the whole K: a max of the shards' amaxes
+        xs = [x.to(torch.float32) for x in xs]
+        ws = [p["w"].to(torch.float32) for p in shards]
+        x_amax = all_reduce_max([x.abs().amax(dim=-1, keepdim=True)
+                                 for x in xs])
+        w_amax = all_reduce_max([w.abs().amax(dim=0, keepdim=True)
+                                 for w in ws])
+        parts = [torch.matmul(
+            q.fake_quant(x, bits=8, scale=q.scale_from_amax(xa)),
+            q.fake_quant(w, bits=8, scale=q.scale_from_amax(wa)))
+            for x, w, xa, wa in zip(xs, ws, x_amax, w_amax)]
         return broadcast(reduce_sum(parts).to(dtype), devices)
     if mode not in _INT_MODES:
         raise NotImplementedError(f"quant mode {mode!r} has no "

@@ -107,10 +107,13 @@ class _FakeQuant(torch.autograd.Function):
 
 def fake_quant(x: torch.Tensor, bits: int = 8,
                granularity: Granularity = "per_channel",
-               axis: int = -1) -> torch.Tensor:
+               axis: int = -1, scale: torch.Tensor | None = None
+               ) -> torch.Tensor:
     """Quantize-dequantize with a straight-through gradient (QAT): the
     forward equals quantize -> dequantize bit for bit, the backward passes
     gradients through the rounding and the clip (with the reference's tie
-    rule at the bounds)."""
-    scale = abs_max_scale(x.detach(), bits, granularity, axis)
+    rule at the bounds).  ``scale`` given (a tensor-parallel shard's, from
+    the whole tensor's amax) replaces the one taken from ``x``."""
+    if scale is None:
+        scale = abs_max_scale(x.detach(), bits, granularity, axis)
     return _FakeQuant.apply(x, scale, _QMAX[bits])

@@ -26,10 +26,13 @@ Where the heads do not divide the axis, the port runs each attention
 block replicated on every shard, weights and pools whole, where the
 reference splits the pools' in-page sequence axis; MLA's latent pools
 have no head axis and are always whole, one per distinct device (the
-reference splits their in-page axis too).  Replication is always valid
-(``_fit_spec``), and the two differ only in memory.  Expert stacks split
-by expert (``experts % tp == 0``) or stay whole, as the reference's
-engine falls back to its local MoE path.
+reference splits their in-page axis too).  A mamba mixer splits by SSD
+head: its fused ``in_proj`` columns and conv channels per segment
+(``ssm_segments``), which the reference's contiguous channel rule does
+not express, so the splitter cuts them, not the specs.  Replication is
+always valid (``_fit_spec``), and the two differ only in memory.
+Expert stacks split by expert (``experts % tp == 0``) or stay whole, as
+the reference's engine falls back to its local MoE path.
 """
 
 from __future__ import annotations
@@ -37,12 +40,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 
 __all__ = ["TP_AXIS", "fsdp_axes", "param_specs", "opt_state_specs",
            "batch_specs", "cache_specs", "page_table_spec", "TPLayout",
            "tp_layout", "check_tp_supported", "Shards", "shard_params",
-           "shard_caches", "split_dim", "MLA_CACHE_KEYS"]
+           "shard_caches", "split_dim", "MLA_CACHE_KEYS", "SSM_CACHE_KEYS",
+           "SSMSegments", "ssm_segments"]
 
 TP_AXIS = "model"
 
@@ -265,25 +271,16 @@ def split_dim(spec: tuple) -> int | None:
 # ---------------------------------------------------------------------------
 
 def check_tp_supported(cfg: ModelConfig, tp: int, dp: int = 1) -> None:
-    """Tensor parallelism covers attention (GQA, MLA, the encoder's and
-    the cross-attention) with MLP or MoE blocks, and a VLM's patches;
-    mamba mixers, ``qat`` and a data axis above 1 inside one engine
-    raise under ``tp > 1`` (the data axis at any ``tp``)."""
-    kinds = []
+    """Tensor parallelism covers every mixer (GQA, MLA, the encoder's and
+    the cross-attention, the mamba mixer) with MLP or MoE blocks, a VLM's
+    patches and every quant mode; a data axis above 1 inside one engine
+    raises (at any ``tp``)."""
+    del cfg, tp
     if dp > 1:
-        kinds.append("a data axis above 1 inside one engine (FSDP weight "
-                     "storage; serve data parallelism through "
-                     "serve.router)")
-    if tp > 1 and any(s.mixer == "mamba" for s in cfg.layer_specs):
-        kinds.append("mamba mixers")
-    if tp > 1 and cfg.quant_mode == "qat":
-        kinds.append("quant_mode='qat' (its per-row activation scales "
-                     "would need a max over the row-parallel shards)")
-    if kinds:
         raise NotImplementedError(
-            f"{cfg.name} at tp={tp}: tensor parallelism covers attention "
-            f"with MLP or MoE blocks; {', '.join(kinds)} is not ported yet "
-            f"({TP_ROADMAP})")
+            f"a data axis above 1 inside one engine (FSDP weight storage) "
+            f"is not ported yet; serve data parallelism through "
+            f"serve.router ({TP_ROADMAP})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,7 +288,9 @@ class TPLayout:
     """How a model splits over ``tp`` model shards, as ``_fit_spec``
     decides for their weights: GQA attention blocks by kv heads
     (``heads``), MLA blocks by query heads (``mla_heads``: MLA has no kv
-    heads of its own), MLPs by ``d_ff``, MoE expert stacks by expert
+    heads of its own), mamba mixers by SSD head (``ssm_heads``; their B
+    and C by group where the groups divide, ``ssm_groups``, else whole on
+    every shard), MLPs by ``d_ff``, MoE expert stacks by expert
     (``experts``) and the shared expert by its ``d_ff`` (``shared``), the
     embedding and head by vocab; each whole and run replicated on every
     shard where it does not divide."""
@@ -302,6 +301,8 @@ class TPLayout:
     mla_heads: bool = False
     experts: bool = False
     shared: bool = False
+    ssm_heads: bool = False
+    ssm_groups: bool = False
 
     def shard_cfg(self, cfg: ModelConfig) -> ModelConfig:
         """The config one shard's GQA attention runs: its share of the
@@ -322,12 +323,74 @@ class TPLayout:
 
 def tp_layout(cfg: ModelConfig, tp: int) -> TPLayout:
     shared_ff = cfg.d_ff_expert * cfg.n_shared_experts
+    ssm = any(s.mixer == "mamba" for s in cfg.layer_specs) \
+        and cfg.ssm_heads % tp == 0
     return TPLayout(tp=tp, heads=cfg.n_kv_heads % tp == 0,
                     ffn=cfg.d_ff % tp == 0, vocab=cfg.vocab_size % tp == 0,
                     mla_heads=cfg.n_heads % tp == 0 and any(
                         s.attn_kind == "mla" for s in cfg.layer_specs),
                     experts=cfg.n_experts > 0 and cfg.n_experts % tp == 0,
-                    shared=shared_ff > 0 and shared_ff % tp == 0)
+                    shared=shared_ff > 0 and shared_ff % tp == 0,
+                    ssm_heads=ssm, ssm_groups=ssm and cfg.ssm_groups % tp == 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMSegments:
+    """Shard ``s``'s pieces of a mamba mixer split by SSD head: its heads
+    ``[head_lo, head_lo + heads)`` and its B/C groups ``[group_lo,
+    group_lo + groups)`` (all of them where the groups do not divide);
+    ``proj`` the ``(start, length)`` column ranges of ``in_proj``'s fused
+    ``[z | x | B | C | dt]`` output it takes, in that order, and ``conv``
+    those of the conv channels ``[x | B | C]``."""
+    head_lo: int
+    heads: int
+    group_lo: int
+    groups: int
+    proj: tuple
+    conv: tuple
+
+
+def ssm_segments(cfg: ModelConfig, layout: TPLayout, s: int) -> SSMSegments:
+    """Shard ``s``'s pieces of a mamba mixer under ``layout``."""
+    tp = layout.tp
+    d_in, n, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups
+    di, hs = d_in // tp, cfg.ssm_heads // tp
+    gs = g // tp if layout.ssm_groups else g
+    g0 = s * gs if layout.ssm_groups else 0
+    conv = ((s * di, di),                            # x
+            (d_in + g0 * n, gs * n),                 # B
+            (d_in + (g + g0) * n, gs * n))           # C
+    proj = (((s * di, di),)                          # z
+            + tuple((d_in + a, ln) for a, ln in conv)
+            + ((2 * d_in + 2 * g * n + s * hs, hs),))  # dt
+    return SSMSegments(head_lo=s * hs, heads=hs, group_lo=g0, groups=gs,
+                       proj=proj, conv=conv)
+
+
+# a mamba mixer's leaves split per segment (``ssm_segments``): leaf ->
+# (dimension, which ranges)
+_SSM_SPLITS = {"w": (1, "proj"), "qt8": (0, "proj"), "qt4": (0, "proj"),
+               "s8": (1, "proj"), "s4": (1, "proj"), "conv_w": (1, "conv"),
+               "conv_b": (0, "conv"), "conv": (2, "conv"),
+               "A_log": (0, "heads"), "D": (0, "heads"),
+               "dt_bias": (0, "heads"), "ssm": (1, "heads")}
+
+
+def _ssm_piece(cfg, layout, s, path, leaf):
+    """Shard ``s``'s piece of a mamba mixer leaf (``in_proj``'s leaves,
+    the conv, the per-head scalars, the conv and SSM state), its segments
+    concatenated in order; None for a leaf split as its spec says
+    (``out_proj``, row-parallel) or kept whole (the norm)."""
+    leafk = path[-1]
+    if leafk not in _SSM_SPLITS or (leafk in _QUANT_VALUES + _QUANT_SCALES
+                                    + ("w",) and "in_proj" not in path):
+        return None
+    dim, which = _SSM_SPLITS[leafk]
+    seg = ssm_segments(cfg, layout, s)
+    ranges = ((seg.head_lo, seg.heads),) if which == "heads" \
+        else getattr(seg, which)
+    parts = [leaf.narrow(dim, a, ln) for a, ln in ranges]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
 @dataclasses.dataclass
@@ -358,19 +421,25 @@ def _copy_nodes(tree):
     return tree
 
 
-def _split_tree(tree, specs, devices, keep_whole, *, copy_whole: bool):
-    """One tree per shard: each leaf narrowed along its spec's model axis
-    or kept whole (one tensor per distinct device: the leaf itself where
-    it already lies, unless ``copy_whole``, else one copy).  A narrowed
-    piece on the leaf's own device is a view where the split is along
-    dimension 0 (expert stacks, N-major int8 weights, embedding rows) and
-    a contiguous copy otherwise; on another device, or under
-    ``copy_whole``, always a copy."""
+def _split_tree(tree, specs, devices, keep_whole, *, copy_whole: bool,
+                piece=None):
+    """One tree per shard: each leaf narrowed along its spec's model axis,
+    cut by ``piece(s, path, leaf)`` where that gives a tensor (a mamba
+    mixer's per-segment split), or kept whole (one tensor per distinct
+    device: the leaf itself where it already lies, unless ``copy_whole``,
+    else one copy).  A narrowed piece on the leaf's own device is a view
+    where the split is along dimension 0 (expert stacks, N-major int8
+    weights, embedding rows) and a contiguous copy otherwise; on another
+    device, or under ``copy_whole``, always a copy."""
     tp = len(devices)
     whole: dict = {}
 
     def leaf_for(s, path, leaf, spec):
         dev = devices[s]
+        got = None if piece is None else piece(s, path, leaf)
+        if got is not None:
+            return got.to(dev, copy=True).contiguous() \
+                if got.device != dev or copy_whole else got.contiguous()
         dim = None if keep_whole(path) else split_dim(spec)
         if dim is None:
             key = (path, str(dev))
@@ -418,10 +487,16 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
     query heads for MLA), which stay whole; MLA's ``wq_b`` / ``wkv_b``
     split by whole heads (their outputs are head-major) and its ``wo``
     along K by heads, while ``wq_a``, ``wkv_a``, the latent norms and the
-    MoE router stay whole.  A whole leaf is the caller's tensor on its
-    own device and one copy per other device; a split leaf on its own
-    device is a view where the split is along rows (an expert stack's
-    shard is its experts' rows of the caller's stack), else a copy."""
+    MoE router stay whole.  A mamba mixer splits by SSD head where the
+    heads divide (else it stays whole): ``in_proj`` (its ``w``, int8 copy
+    and scales) takes each shard's columns of z, x, B, C and dt, the conv
+    its channels of x, B and C (``ssm_segments``: B and C by group, or
+    whole), ``A_log`` / ``D`` / ``dt_bias`` its heads, ``out_proj`` rows
+    as any row-parallel weight, the gated norm whole.  A whole leaf is
+    the caller's tensor on its own device and one copy per other device;
+    a split leaf on its own device is a view where the split is along
+    rows (an expert stack's shard is its experts' rows of the caller's
+    stack), else a copy (a mamba mixer's gathered segments)."""
     from repro_torch.models.transformer import prepare_params
 
     tp = mesh.shape[TP_AXIS]
@@ -432,25 +507,36 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
     devices = mesh.model_devices
 
     def keep_whole(path):
+        if "mamba" in path:
+            return not layout.ssm_heads
         kind = _attn_kind(cfg, path)
         if kind is None:
             return False
         return not (layout.mla_heads if kind == "mla" else layout.heads)
 
-    trees = _split_tree(src, specs, devices, keep_whole, copy_whole=False)
+    def piece(s, path, leaf):
+        if "mamba" not in path or not layout.ssm_heads:
+            return None
+        return _ssm_piece(cfg, layout, s, path, leaf)
+
+    trees = _split_tree(src, specs, devices, keep_whole, copy_whole=False,
+                        piece=piece)
     return Shards(trees, devices, layout)
 
 
 MLA_CACHE_KEYS = ("c_kv", "k_rope")
+SSM_CACHE_KEYS = ("conv", "ssm")
 
 
 def shard_caches(caches: list, cfg: ModelConfig, mesh, batch: int) -> Shards:
     """One cache list per model shard, on that shard's device, in the
     layout the sharded engine serves from: KV (and int8 scale) leaves
     split along the head axis where ``cache_specs`` puts the model axis
-    there; every other leaf whole (the in-page sequence split the
-    reference takes for indivisible heads and for MLA's latent pools is
-    replicated here).  Every leaf is a copy: the shards are written in
+    there, a mamba layer's conv history and SSM state by its shard's
+    channels and heads (``ssm_segments``) where the SSD heads divide;
+    every other leaf whole (the in-page sequence split the reference
+    takes for indivisible heads and for MLA's latent pools is replicated
+    here).  Every leaf is a copy: the shards are written in
     place, the caller's tree never."""
     tp = mesh.shape[TP_AXIS]
     check_tp_supported(cfg, tp)
@@ -458,8 +544,15 @@ def shard_caches(caches: list, cfg: ModelConfig, mesh, batch: int) -> Shards:
     specs = cache_specs(cfg, caches, mesh, batch=batch)
 
     def keep_whole(path):
+        if path[-1] in SSM_CACHE_KEYS:
+            return not layout.ssm_heads
         return not layout.heads or path[-1] in MLA_CACHE_KEYS
 
+    def piece(s, path, leaf):
+        if path[-1] not in SSM_CACHE_KEYS or not layout.ssm_heads:
+            return None
+        return _ssm_piece(cfg, layout, s, path, leaf)
+
     trees = _split_tree(caches, specs, mesh.model_devices, keep_whole,
-                        copy_whole=True)
+                        copy_whole=True, piece=piece)
     return Shards(trees, mesh.model_devices, layout)

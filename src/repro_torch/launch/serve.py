@@ -60,8 +60,9 @@ Tensor parallelism: ``--tp 2`` shards each engine's weights and KV pools
 over a (1, 2) mesh (``--mesh DATAxMODEL`` names the shape; a data axis
 above 1 inside one engine is refused); ``--dp 2 --tp 2`` serves two such
 engines behind the router, each on its own slice of devices.  Every arch
-but the mamba families shards (a ``tp layout`` line says which blocks
-split and which run replicated).  On the card
+and every quant mode shards (a ``tp layout`` line says which blocks
+split and which run replicated; the mamba mixers split by SSD head).  On
+the card
 the mesh is the visible cards, so ``--tp 2`` needs two; with ``--device
 cpu`` it is the CPU repeated.  ``--verify`` re-runs the workload on the
 tp=1 / dp=1 engine and holds the streams equal:

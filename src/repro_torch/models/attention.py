@@ -23,19 +23,18 @@ returns the same dict, which saves a copy of every cache per step.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.core.quantize import scale_from_amax
 from repro_torch.kernels.ops import flash_mha, paged_flash_decode
-from repro_torch.models.layers import apply_rope, rms_norm, rms_norm_init, rope
+from repro_torch.models.layers import apply_rope, fixed_bmm, rms_norm, \
+    rms_norm_init, rope
 
 __all__ = ["attn_init", "attn_apply", "attn_heads", "attention_core", "init_kv_cache",
            "init_paged_kv_cache", "mla_init", "mla_apply", "mla_latent",
            "mla_heads", "init_mla_cache", "init_paged_mla_cache",
-           "CoreCall", "attend_per_device", "scatter_cache_rows",
+           "scatter_cache_rows",
            "scatter_paged_rows", "scatter_prefill_rows", "gather_pages"]
 
 _NEG_INF = -2.0 ** 30
@@ -126,30 +125,40 @@ def _splice_context(ctx, new, context_start):
 # ---------------------------------------------------------------------------
 
 def _attend_block(q, k, v, q_pos, k_pos, *, scale, causal, window, softcap):
-    """q: (B,Sq,KVH,G,D); k/v: (B,Sk,KVH,Dk/Dv) -> (B,Sq,KVH,G,Dv) f32."""
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
-                          k.to(torch.float32)) * scale
+    """q: (B,Sq,KVH,G,D); k/v: (B,Sk,KVH,Dk/Dv) -> (B,Sq,KVH,G,Dv) f32.
+    Both products are ``fixed_bmm``s over entries (kv head, slot), kv
+    heads outermost: each entry's sums run in an order fixed by its
+    shape, never by how many heads or slots share the call."""
+    b, sq, kvh, g, d = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    qb = q.to(torch.float32).permute(2, 0, 3, 1, 4).reshape(kvh * b, g * sq, d)
+    kb = k.to(torch.float32).permute(2, 0, 3, 1).reshape(kvh * b, d, sk)
+    logits = fixed_bmm(qb, kb).reshape(kvh, b, g, sq, sk) * scale
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
-    dq = q_pos[:, None, None, :, None]
-    dk = k_pos[:, None, None, None, :]
+    dq = q_pos[None, :, None, :, None]
+    dk = k_pos[None, :, None, None, :]
     mask = torch.ones((), dtype=torch.bool, device=q.device)
     if causal:
         mask = mask & (dk <= dq)
     if window:
         mask = mask & (dq - dk < window)
     logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhgqk,bkhd->bqhgd",
-                        probs.to(v.dtype).to(torch.float32),
-                        v.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype).to(torch.float32)
+    vb = v.to(torch.float32).permute(2, 0, 1, 3).reshape(kvh * b, sk, dv)
+    out = fixed_bmm(probs.reshape(kvh * b, g * sq, sk), vb)
+    return out.reshape(kvh, b, g, sq, dv).permute(1, 3, 0, 2, 4)
 
 
 def attention_core(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
                    softcap=0.0):
     """q: (B,Sq,H,Dk) grouped against k/v: (B,Sk,KVH,.); f32 math, output
-    in v.dtype.  (The reference chunks long query axes to bound memory;
-    every chunk scores against all keys, so rows are unchanged.)"""
+    in v.dtype.  Every row of the output is a function of that row's
+    inputs alone: no head or slot beside it in the call changes its sum
+    order (``_attend_block``), so attending a subset of the heads gives
+    those heads' rows of the whole call bit for bit.  (The reference
+    chunks long query axes to bound memory; every chunk scores against
+    all keys, so rows are unchanged.)"""
     b, sq, h, dk = q.shape
     kvh = k.shape[2]
     dv = v.shape[-1]
@@ -157,52 +166,6 @@ def attention_core(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
     out = _attend_block(qg, k, v, q_pos, k_pos, scale=scale, causal=causal,
                         window=window, softcap=softcap)
     return out.reshape(b, sq, h, dv).to(v.dtype)
-
-
-@dataclasses.dataclass
-class CoreCall:
-    """An ``attention_core`` call not made yet (``attn_heads`` /
-    ``mla_heads`` with ``defer=True``): its arguments, heads on axis 2."""
-    q: torch.Tensor
-    k: torch.Tensor
-    v: torch.Tensor
-    q_pos: torch.Tensor
-    k_pos: torch.Tensor
-    kw: dict
-
-    def run(self) -> torch.Tensor:
-        """The heads (B, Sq, H * Dv)."""
-        return attention_core(self.q, self.k, self.v, self.q_pos,
-                              self.k_pos, **self.kw) \
-            .reshape(*self.q.shape[:2], -1)
-
-
-def attend_per_device(outs: list) -> list:
-    """Under tensor parallelism: each shard's heads (B, S, H_s * Dv),
-    where ``outs[s]`` is shard ``s``'s result of ``attn_heads`` /
-    ``mla_heads`` with ``defer=True``.  The ``CoreCall``s of the shards on
-    one device run as one ``attention_core`` call over their heads
-    concatenated in shard order: on a shared device that is tp=1's call,
-    its inputs and shapes, so its result bit for bit (cuBLAS picks its
-    batched-GEMM kernel, and with it the sum order, by the batch count).
-    A kernel's output passes through."""
-    groups: dict = {}
-    for i, o in enumerate(outs):
-        if isinstance(o, CoreCall):
-            groups.setdefault(str(o.q.device), []).append(i)
-    res = list(outs)
-    for idx in groups.values():
-        calls = [outs[i] for i in idx]
-        first = calls[0]
-        merged = attention_core(
-            torch.cat([c.q for c in calls], dim=2),
-            torch.cat([c.k for c in calls], dim=2),
-            torch.cat([c.v for c in calls], dim=2), first.q_pos,
-            first.k_pos, **first.kw)
-        parts = torch.split(merged, [c.q.shape[2] for c in calls], dim=2)
-        for i, part in zip(idx, parts):
-            res[i] = part.reshape(*part.shape[:2], -1)
-    return res
 
 
 def _flash_local(q, k, v, *, scale, window, softcap):
@@ -312,14 +275,14 @@ def attn_heads(params, cfg, x, *, positions, kind: str = "full",
                cache: dict | None = None, cache_index=None,
                kv_source=None, causal: bool = True,
                return_cache: bool = False, page_table=None,
-               context_start=None, defer: bool = False):
+               context_start=None):
     """The attention block up to ``wo``: returns (heads (B, S, H * hd),
     new_cache).  Under tensor parallelism each shard runs it with its
     share of the heads (``cfg`` holding the shard's ``n_heads`` and
     ``n_kv_heads``, ``params`` its ``wq``/``wk``/``wv`` columns, ``cache``
-    its pools) and ``wo`` runs row-parallel; with ``defer`` an
-    ``attention_core`` call comes back as a ``CoreCall`` in place of the
-    heads, for ``attend_per_device``.
+    its pools) and ``wo`` runs row-parallel; its ``attention_core`` rows
+    equal the unsharded call's bit for bit, on a shared device or on
+    distinct ones (a row does not depend on the heads beside it).
 
     ``cache=None``: K/V from ``x`` (forward / prefill; prefill hands the
     post-RoPE K/V back, quantized under the int8 KV cache), or from ``kv_source`` for a cross-attention (no RoPE,
@@ -423,10 +386,9 @@ def attn_heads(params, cfg, x, *, positions, kind: str = "full",
         out = _flash_local(q, k, v, scale=scale, window=window,
                            softcap=softcap)
     else:
-        call = CoreCall(q, k_full, v_full, positions, k_pos,
-                        dict(scale=scale, causal=is_causal_self,
-                             window=window, softcap=softcap))
-        return (call if defer else call.run()), new_cache
+        out = attention_core(q, k_full, v_full, positions, k_pos,
+                             scale=scale, causal=is_causal_self,
+                             window=window, softcap=softcap)
     return out.reshape(b, s, h * hd), new_cache
 
 
@@ -526,16 +488,14 @@ def mla_latent(params, cfg, x, *, positions, cache=None, cache_index=None,
     return latents, new_cache
 
 
-def mla_heads(params, cfg, latents: dict, *, positions,
-              defer: bool = False):
+def mla_heads(params, cfg, latents: dict, *, positions):
     """MLA's head part, the counterpart of :func:`attn_heads`: ``wq_b``
     and ``wkv_b`` over ``cfg.n_heads`` heads (under tensor parallelism a
     shard's config holds its share, its ``wq_b`` / ``wkv_b`` those heads'
     columns), K and V re-expanded from the latents (at decode over every
     cached row), then ``attention_core``, or the flash forward under
     ``attn_impl="flash"`` without a cache.  Returns the heads before
-    ``wo``, (B, S, H * v_head_dim), or with ``defer`` an
-    ``attention_core`` call as a ``CoreCall`` (``attn_heads``)."""
+    ``wo``, (B, S, H * v_head_dim)."""
     q_a = latents["q_a"]
     b, s, _ = q_a.shape
     h = cfg.n_heads
@@ -563,9 +523,8 @@ def mla_heads(params, cfg, latents: dict, *, positions,
         out = _flash_local(q_full, k_full, v, scale=scale, window=0,
                            softcap=0.0)
     else:
-        call = CoreCall(q_full, k_full, v, positions, latents["k_pos"],
-                        dict(scale=scale, causal=True))
-        return call if defer else call.run()
+        out = attention_core(q_full, k_full, v, positions,
+                             latents["k_pos"], scale=scale, causal=True)
     return out.reshape(b, s, h * d_v)
 
 

@@ -16,8 +16,9 @@ from repro_torch.distributed.collectives import all_gather, all_reduce_sum
 
 __all__ = ["rms_norm_init", "rms_norm", "rope", "apply_rope", "mlp_init",
            "mlp_apply", "mlp_hidden", "embed_init", "embed_apply",
-           "embed_logits", "bf16_matmul", "vocab_parallel_embed",
-           "vocab_parallel_logits"]
+           "embed_logits", "bf16_matmul", "fixed_bmm", "fixed_cumsum",
+           "entries_per_call",
+           "vocab_parallel_embed", "vocab_parallel_logits"]
 
 
 def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -32,6 +33,75 @@ def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a.to(torch.float32),
                             b.to(torch.float32)).to(a.dtype)
     return torch.matmul(a, b)
+
+
+# f32 bytes of one ``fixed_bmm`` call's operands and result, at most
+# (beyond ``_MIN_ENTRIES`` entries), the fewest and the most entries a
+# call takes, and the rows of one ``fixed_cumsum`` call
+_CALL_BYTES = 8 << 20
+_MIN_ENTRIES = 4
+_CALL_ENTRIES = 64
+_SCAN_ROWS = 64
+
+
+def entries_per_call(m: int, k: int, n: int) -> int:
+    """The entries of each ``fixed_bmm`` call at an (m, k) x (k, n)
+    entry: the largest power of two from ``_MIN_ENTRIES`` up to
+    ``_CALL_ENTRIES`` whose f32 operands and result fit ``_CALL_BYTES``
+    (the fewest where one entry alone exceeds a quarter of it)."""
+    per = 4 * (m * k + k * n + m * n)
+    p = _MIN_ENTRIES
+    while p < _CALL_ENTRIES and 2 * p * per <= _CALL_BYTES:
+        p *= 2
+    return p
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its first element is not 16-byte aligned (a
+    fresh allocation's alignment, which the library may pick kernels
+    by)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _in_fixed_calls(fn, p: int, *ts):
+    """``fn(*ts)`` over the leading dimension of ``ts``, run as calls of
+    exactly ``p`` contiguous entries each (the last call overlaps the one
+    before it; fewer than ``p`` entries are zero-padded to ``p``), so
+    every call has one shape whatever the entry count."""
+    ts = [t.contiguous() for t in ts]
+    total = ts[0].shape[0]
+    if total < p:
+        ts = [torch.cat([t, t.new_zeros((p - total,) + t.shape[1:])])
+              for t in ts]
+        return fn(*ts)[:total]
+    outs = []
+    for start in range(0, total, p):
+        lo = min(start, total - p)
+        outs.append(fn(*[_aligned(t[lo:lo + p]) for t in ts])[start - lo:])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def fixed_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` for a (N, m, k) and b (N, k, n), in calls of
+    ``entries_per_call(m, k, n)`` entries (``_in_fixed_calls``).  cuBLAS
+    picks its batched-GEMM kernel, and with it the sum order, by the
+    batch count too; here every entry is summed in the order its
+    (m, k, n) fixes, so an entry's result does not depend on how many
+    heads or slots share the batch (a tensor-parallel shard's heads equal
+    the unsharded call's rows bit for bit).  Differentiable."""
+    return _in_fixed_calls(torch.bmm,
+                           entries_per_call(a.shape[1], a.shape[2],
+                                            b.shape[2]), a, b)
+
+
+def fixed_cumsum(a: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(a, -1)`` in calls of ``_SCAN_ROWS`` rows
+    (``_in_fixed_calls``): torch's CUDA scan shapes its thread block, and
+    with it the sum order within a row, by the row count too, so a
+    tensor-parallel shard's rows would leave the unsharded call's."""
+    rows = a.reshape(-1, a.shape[-1])
+    return _in_fixed_calls(lambda t: torch.cumsum(t, dim=-1), _SCAN_ROWS,
+                           rows).reshape(a.shape)
 
 
 def rms_norm_init(dim: int, device) -> dict:

@@ -24,27 +24,64 @@ cuDNN convolution (which runs TF32 unless told otherwise).  Nothing here
 reads the device from the host, so a decode step captures into a CUDA
 graph; :func:`mamba_step` writes the new state into the cache tensors in
 place.
+
+Tensor parallelism (:func:`mamba_apply_shards`): each shard runs its SSD
+heads (its columns of z, x and dt, the B/C groups of its heads, its conv
+channels and state; :class:`SSMDims` names the widths a call runs at),
+the gated norm runs whole on each device over the shards' outputs
+gathered in shard order, and ``out_proj`` is row-parallel.  Every batched
+product and scan of the SSD runs in calls of one shape
+(``layers.fixed_bmm``, ``layers.fixed_cumsum``), so a shard's heads
+equal the unsharded call's bit for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.linear import linear_apply, linear_init
-from repro_torch.models.layers import rms_norm, rms_norm_init
+from repro_torch.core.linear import linear_apply, linear_apply_row, \
+    linear_init
+from repro_torch.distributed.collectives import all_gather, per_device
+from repro_torch.distributed.sharding import ssm_segments
+from repro_torch.models.layers import fixed_bmm, fixed_cumsum, rms_norm, \
+    rms_norm_init
 
-__all__ = ["mamba_init", "mamba_apply", "mamba_step", "init_mamba_cache"]
+__all__ = ["mamba_init", "mamba_apply", "mamba_step", "init_mamba_cache",
+           "mamba_apply_shards", "SSMDims", "ssm_dims"]
 
 
-def _dims(cfg):
-    d_in = cfg.d_inner
-    h = cfg.ssm_heads
-    p = cfg.ssm_head_dim
-    g = cfg.ssm_groups
-    n = cfg.ssm_state
-    conv_ch = d_in + 2 * g * n
-    return d_in, h, p, g, n, conv_ch
+@dataclasses.dataclass(frozen=True)
+class SSMDims:
+    """The widths one mixer call runs at: the whole mixer, or one
+    tensor-parallel shard's heads (``d_inner``, ``heads``), its B/C
+    ``groups`` and, where it holds every group, the offset ``head_lo`` of
+    its heads among the groups' repeated heads (``rep`` heads a group)."""
+    d_inner: int
+    heads: int
+    head_dim: int
+    groups: int
+    state: int
+    rep: int
+    head_lo: int = 0
+
+    @property
+    def conv_ch(self) -> int:
+        return self.d_inner + 2 * self.groups * self.state
+
+
+def ssm_dims(cfg, seg=None) -> SSMDims:
+    """The whole mixer's widths, or those of the shard whose pieces
+    ``seg`` (``distributed.sharding.ssm_segments``) names."""
+    rep = cfg.ssm_heads // cfg.ssm_groups
+    if seg is None:
+        return SSMDims(cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim,
+                       cfg.ssm_groups, cfg.ssm_state, rep)
+    return SSMDims(seg.heads * cfg.ssm_head_dim, seg.heads,
+                   cfg.ssm_head_dim, seg.groups, cfg.ssm_state, rep,
+                   seg.head_lo - seg.group_lo * rep)
 
 
 def mamba_init(cfg, *, generator, device) -> dict:
@@ -52,9 +89,10 @@ def mamba_init(cfg, *, generator, device) -> dict:
     normal x 0.1 in bf16, ``conv_b`` zeros, ``A_log = log(1..H)``, ``D``
     ones and ``dt_bias`` zeros in f32, a zero norm gain."""
     d = cfg.d_model
-    d_in, h, p, g, n, conv_ch = _dims(cfg)
+    dm = ssm_dims(cfg)
+    d_in, h, conv_ch = dm.d_inner, dm.heads, dm.conv_ch
     kw = dict(generator=generator, device=device)
-    proj_out = 2 * d_in + 2 * g * n + h      # z, x, B, C, dt
+    proj_out = d_in + conv_ch + h            # z, x, B, C, dt
     in_proj = linear_init(d, proj_out, **kw)
     conv_w = (torch.randn((cfg.conv_width, conv_ch), dtype=torch.float32,
                           **kw) * 0.1).to(torch.bfloat16)
@@ -72,9 +110,18 @@ def mamba_init(cfg, *, generator, device) -> dict:
     }
 
 
-def _split_proj(cfg, proj):
-    d_in, h, p, g, n, _ = _dims(cfg)
-    return torch.split(proj, [d_in, d_in + 2 * g * n, h], dim=-1)
+def _split_proj(dm: SSMDims, proj):
+    return torch.split(proj, [dm.d_inner, dm.conv_ch, dm.heads], dim=-1)
+
+
+def _heads_bc(dm: SSMDims, t, lead):
+    """B or C (..., groups * N) to the call's heads (..., heads, N): the
+    groups repeated to their heads (``jnp.repeat``), then this call's
+    heads among them."""
+    t = _repeat_groups(t.reshape(*lead, dm.groups, dm.state), dm.rep)
+    if t.shape[-2] != dm.heads:
+        t = t[..., dm.head_lo:dm.head_lo + dm.heads, :]
+    return t
 
 
 def _causal_conv(xbc, conv_w, conv_b, carry=None):
@@ -106,11 +153,21 @@ def _repeat_groups(t, rep: int):
     return t[..., None, :].expand(*lead, g, rep, n).reshape(*lead, g * rep, n)
 
 
+def _matmul(a, b):
+    """``a @ b`` over equal leading (batch) dims through ``fixed_bmm``:
+    every (slot, chunk, head) entry is summed in an order its shape fixes,
+    whatever the number of heads beside it (a tensor-parallel shard's
+    heads equal the unsharded call's bit for bit)."""
+    out = fixed_bmm(a.reshape(-1, *a.shape[-2:]),
+                    b.reshape(-1, *b.shape[-2:]))
+    return out.reshape(*a.shape[:-2], *out.shape[-2:])
+
+
 def _segsum(a):
     """Lower-triangular pairwise cumulative sums: out[..., i, j] =
     sum(a[..., j+1:i+1]), -inf above the diagonal.  a: (..., L)."""
     l = a.shape[-1]
-    cum = torch.cumsum(a, dim=-1)
+    cum = fixed_cumsum(a)
     diff = cum[..., :, None] - cum[..., None, :]
     mask = torch.ones((l, l), dtype=torch.bool, device=a.device).tril()
     return diff.masked_fill(~mask, float("-inf"))
@@ -137,7 +194,7 @@ def _ssd_chunked(x, dt, a_coef, b_in, c_in, chunk):
     bc, cc = bc.to(torch.float32), cc.to(torch.float32)
     a = dtc * a_coef[None, None, None, :]            # (B,NC,L,H) log-decay
     a = a.permute(0, 1, 3, 2)                        # (B,NC,H,L)
-    a_cum = torch.cumsum(a, dim=-1)
+    a_cum = fixed_cumsum(a)
 
     xdt = xc * dtc[..., None]                        # (B,NC,L,H,P) f32
     xdt_h = xdt.permute(0, 1, 3, 2, 4)               # (B,NC,H,L,P)
@@ -147,13 +204,13 @@ def _ssd_chunked(x, dt, a_coef, b_in, c_in, chunk):
     # intra-chunk (diagonal) term, "bclhn,bcshn,bchls,bcshp->bclhp": C.B
     # over n, times the decay matrix, then over s with x*dt
     l_mat = torch.exp(_segsum(a))                    # (B,NC,H,L,L)
-    scores = torch.matmul(c_h, b_h) * l_mat          # (B,NC,H,L,S)
-    y_diag = torch.matmul(scores, xdt_h)             # (B,NC,H,L,P)
+    scores = _matmul(c_h, b_h) * l_mat          # (B,NC,H,L,S)
+    y_diag = _matmul(scores, xdt_h)             # (B,NC,H,L,P)
 
     # chunk-final states, "bcshn,bchs,bcshp->bchnp": x*dt times the decay
     # to the chunk's end, then B over s
     decay_to_end = torch.exp(a_cum[..., -1:] - a_cum)      # (B,NC,H,L)
-    states = torch.matmul(b_h, xdt_h * decay_to_end[..., None])
+    states = _matmul(b_h, xdt_h * decay_to_end[..., None])
 
     # inter-chunk recurrence, in chunk order; each chunk reads the state
     # entering it
@@ -170,9 +227,9 @@ def _ssd_chunked(x, dt, a_coef, b_in, c_in, chunk):
     # and scales C by exp(a_cum) first where N < P (jamba)
     exp_cum = torch.exp(a_cum)[..., None]            # (B,NC,H,L,1)
     if n < p:
-        y_off = torch.matmul(c_h * exp_cum, prev_states)
+        y_off = _matmul(c_h * exp_cum, prev_states)
     else:
-        y_off = torch.matmul(c_h, prev_states) * exp_cum
+        y_off = _matmul(c_h, prev_states) * exp_cum
     y = (y_diag + y_off).permute(0, 1, 3, 2, 4).reshape(bsz, s, h, p)
     return y, prev
 
@@ -184,30 +241,34 @@ def _chunk_len(cfg, s: int) -> int:
     return s if s % chunk else chunk
 
 
-def _gated_out(params, cfg, y, z, x):
-    """``y * silu(z)`` in f32, the norm in ``x``'s dtype, ``out_proj``."""
-    y = y * F.silu(z.to(torch.float32))
-    y = rms_norm(params["norm"], y.to(x.dtype), cfg.norm_eps)
+def _gated(y, z, x):
+    """``y * silu(z)`` in f32, back to ``x``'s dtype: the gated norm's
+    input."""
+    return (y * F.silu(z.to(torch.float32))).to(x.dtype)
+
+
+def _norm_out(params, cfg, gated):
+    """The gated norm over all of ``d_inner``, then ``out_proj``."""
+    y = rms_norm(params["norm"], gated, cfg.norm_eps)
     return linear_apply(params["out_proj"], y, mode=cfg.quant_mode,
                         backend=cfg.quant_backend)
 
 
-def mamba_apply(params, cfg, x, *, return_cache: bool = False):
-    """Full-sequence SSD pass.  x: (B, S, D).  Returns ``(out,
-    cache_or_None)``; with ``return_cache`` (prefill) the cache holds the
-    conv tail and the final SSM state for decode to continue from."""
+def _apply_heads(params, cfg, dm: SSMDims, x, *, return_cache: bool):
+    """The SSD pass over the heads ``dm`` names, up to the gated norm:
+    returns ``(gated (B, S, dm.d_inner), cache_or_None)``."""
     bsz, s, _ = x.shape
-    d_in, h, p, g, n, _ = _dims(cfg)
     proj = linear_apply(params["in_proj"], x, mode=cfg.quant_mode,
                         backend=cfg.quant_backend)
-    z, xbc, dt_raw = _split_proj(cfg, proj)
+    z, xbc, dt_raw = _split_proj(dm, proj)
     xbc, conv_carry = _causal_conv(xbc, params["conv_w"].to(torch.float32),
                                    params["conv_b"].to(torch.float32))
 
-    xs, b_in, c_in = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
-    xs = xs.reshape(bsz, s, h, p)
-    b_in = _repeat_groups(b_in.reshape(bsz, s, g, n), h // g)
-    c_in = _repeat_groups(c_in.reshape(bsz, s, g, n), h // g)
+    gn = dm.groups * dm.state
+    xs, b_in, c_in = torch.split(xbc, [dm.d_inner, gn, gn], dim=-1)
+    xs = xs.reshape(bsz, s, dm.heads, dm.head_dim)
+    b_in = _heads_bc(dm, b_in, (bsz, s))
+    c_in = _heads_bc(dm, c_in, (bsz, s))
 
     dt = _softplus(dt_raw.to(torch.float32)
                    + params["dt_bias"][None, None, :])
@@ -216,46 +277,56 @@ def mamba_apply(params, cfg, x, *, return_cache: bool = False):
     y, final_state = _ssd_chunked(xs, dt, a_coef, b_in, c_in,
                                   _chunk_len(cfg, s))
     y = y + params["D"][None, None, :, None] * xs.to(torch.float32)
-    out = _gated_out(params, cfg, y.reshape(bsz, s, d_in), z, x)
+    gated = _gated(y.reshape(bsz, s, dm.d_inner), z, x)
 
     cache = None
     if return_cache:
         cache = {"conv": conv_carry.to(torch.bfloat16),
                  "ssm": final_state.to(torch.float32)}
-    return out, cache
+    return gated, cache
 
 
-def init_mamba_cache(cfg, batch: int, device) -> dict:
+def mamba_apply(params, cfg, x, *, return_cache: bool = False):
+    """Full-sequence SSD pass.  x: (B, S, D).  Returns ``(out,
+    cache_or_None)``; with ``return_cache`` (prefill) the cache holds the
+    conv tail and the final SSM state for decode to continue from."""
+    gated, cache = _apply_heads(params, cfg, ssm_dims(cfg), x,
+                                return_cache=return_cache)
+    return _norm_out(params, cfg, gated), cache
+
+
+def init_mamba_cache(cfg, batch: int, device, dims: SSMDims | None = None
+                     ) -> dict:
     """Per-slot decode state: the (B, W-1, C) conv history in bf16 and
-    the (B, H, N, P) SSM state in f32."""
-    d_in, h, p, g, n, conv_ch = _dims(cfg)
-    return {"conv": torch.zeros((batch, cfg.conv_width - 1, conv_ch),
+    the (B, H, N, P) SSM state in f32 (a shard's channels and heads with
+    its ``dims``)."""
+    dm = dims or ssm_dims(cfg)
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1, dm.conv_ch),
                                 dtype=torch.bfloat16, device=device),
-            "ssm": torch.zeros((batch, h, n, p), dtype=torch.float32,
-                               device=device)}
+            "ssm": torch.zeros((batch, dm.heads, dm.state, dm.head_dim),
+                               dtype=torch.float32, device=device)}
 
 
-def mamba_step(params, cfg, x, cache):
-    """Single-token decode, the O(1) state update.  x: (B, 1, D).  The new
-    conv history and SSM state are written into ``cache``'s tensors in
-    place (a captured graph replays against them); returns ``(out,
-    cache)``."""
+def _step_heads(params, cfg, dm: SSMDims, x, cache):
+    """One decode step over the heads ``dm`` names, up to the gated norm;
+    writes the new conv history and SSM state into ``cache`` in place."""
     bsz, s, _ = x.shape
     if s != 1:
         raise ValueError(f"a mamba decode step takes one token a slot, got "
                          f"{s}")
-    d_in, h, p, g, n, _ = _dims(cfg)
+    h, p, n = dm.heads, dm.head_dim, dm.state
     proj = linear_apply(params["in_proj"], x, mode=cfg.quant_mode,
                         backend=cfg.quant_backend)
-    z, xbc, dt_raw = _split_proj(cfg, proj)
+    z, xbc, dt_raw = _split_proj(dm, proj)
     xbc, conv_carry = _causal_conv(
         xbc, params["conv_w"].to(torch.float32),
         params["conv_b"].to(torch.float32), carry=cache["conv"])
 
-    xs, b_in, c_in = torch.split(xbc[:, 0], [d_in, g * n, g * n], dim=-1)
+    gn = dm.groups * n
+    xs, b_in, c_in = torch.split(xbc[:, 0], [dm.d_inner, gn, gn], dim=-1)
     xs = xs.reshape(bsz, h, p).to(torch.float32)
-    b_in = _repeat_groups(b_in.reshape(bsz, g, n), h // g).to(torch.float32)
-    c_in = _repeat_groups(c_in.reshape(bsz, g, n), h // g).to(torch.float32)
+    b_in = _heads_bc(dm, b_in, (bsz,)).to(torch.float32)
+    c_in = _heads_bc(dm, c_in, (bsz,)).to(torch.float32)
 
     dt = _softplus(dt_raw[:, 0].to(torch.float32)
                    + params["dt_bias"][None, :])              # (B,H)
@@ -269,10 +340,53 @@ def mamba_step(params, cfg, x, cache):
     else:
         update = (b_in * dt[..., None])[..., :, None] * xs[..., None, :]
     state = decay[..., None, None] * cache["ssm"] + update
-    y = torch.matmul(c_in[..., None, :], state)[..., 0, :] \
+    y = _matmul(c_in[..., None, :], state)[..., 0, :] \
         + params["D"][None, :, None] * xs                     # (B,H,P)
 
-    out = _gated_out(params, cfg, y.reshape(bsz, 1, d_in), z, x)
+    gated = _gated(y.reshape(bsz, 1, dm.d_inner), z, x)
     cache["conv"].copy_(conv_carry)
     cache["ssm"].copy_(state)
-    return out, cache
+    return gated
+
+
+def mamba_step(params, cfg, x, cache):
+    """Single-token decode, the O(1) state update.  x: (B, 1, D).  The new
+    conv history and SSM state are written into ``cache``'s tensors in
+    place (a captured graph replays against them); returns ``(out,
+    cache)``."""
+    gated = _step_heads(params, cfg, ssm_dims(cfg), x, cache)
+    return _norm_out(params, cfg, gated), cache
+
+
+def mamba_apply_shards(ps: list, cfg, xs: list, layout, *, mode: str,
+                       caches: list | None = None):
+    """The mixer over tensor-parallel shards split by SSD head
+    (``layout.ssm_heads``): ``ps[s]`` holds shard ``s``'s pieces
+    (``distributed.sharding.ssm_segments``), ``xs`` the replicated input,
+    ``caches`` (decode) each shard's conv history and SSM state.  Each
+    shard runs its heads (``mode`` "prefill" / "train": the SSD pass,
+    "decode": one step, its state written in place); the gated norm
+    needs all of ``d_inner``, so the shards' gated outputs are gathered
+    in shard order and the norm runs whole once a device, exactly tp=1's;
+    each shard's columns of it then go through ``out_proj``
+    row-parallel.  Returns (outs, per-shard caches or Nones)."""
+    gated, cs = [], []
+    for i, (p, x) in enumerate(zip(ps, xs)):
+        dm = ssm_dims(cfg, ssm_segments(cfg, layout, i))
+        if mode == "decode":
+            gated.append(_step_heads(p, cfg, dm, x, caches[i]))
+            cs.append(caches[i])
+        else:
+            g, c = _apply_heads(p, cfg, dm, x,
+                                return_cache=(mode == "prefill"))
+            gated.append(g)
+            cs.append(c)
+    whole = all_gather(gated)
+    devs = [x.device for x in xs]
+    normed = per_device(devs, lambda i: rms_norm(ps[i]["norm"], whole[i],
+                                                 cfg.norm_eps))
+    cols = [n.narrow(-1, sum(g.shape[-1] for g in gated[:i]),
+                     gated[i].shape[-1]) for i, n in enumerate(normed)]
+    outs = linear_apply_row([p["out_proj"] for p in ps], cols,
+                            mode=cfg.quant_mode, backend=cfg.quant_backend)
+    return outs, cs

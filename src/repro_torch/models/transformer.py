@@ -42,8 +42,10 @@ cache list per shard), and run every layer over the shards: the norms
 and residual adds replicated; each GQA attention block (self-, cross- and
 the encoder's) on its shard's heads and pools, or replicated where the kv
 heads do not divide the shards; MLA's latent part once per device into
-that device's whole latent pools, its heads split by query heads; the
-column-parallel projections on their shard's columns and ``wo`` /
+that device's whole latent pools, its heads split by query heads; each
+mamba mixer on its shard's SSD heads and state, the gated norm whole
+(``mamba.mamba_apply_shards``), or replicated; the column-parallel
+projections on their shard's columns and ``wo`` /
 ``down`` row-parallel; MoE blocks expert-parallel
 (``moe.moe_apply_shards``); the embedding and head vocab-parallel.  A
 VLM's patches are prepended on every device and an encoder-decoder's
@@ -66,10 +68,10 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.linear import linear_apply_row, linear_init, \
     prepare_quantized
 from repro_torch.distributed.collectives import broadcast, per_device
-from repro_torch.distributed.sharding import MLA_CACHE_KEYS, Shards
+from repro_torch.distributed.sharding import MLA_CACHE_KEYS, Shards, \
+    ssm_segments
 from repro_torch.models.attention import (
     KV_CACHE_DTYPES,
-    attend_per_device,
     attn_apply,
     attn_heads,
     attn_init,
@@ -86,8 +88,10 @@ from repro_torch.models.attention import (
 from repro_torch.models.mamba import (
     init_mamba_cache,
     mamba_apply,
+    mamba_apply_shards,
     mamba_init,
     mamba_step,
+    ssm_dims,
 )
 from repro_torch.models.layers import (
     bf16_matmul,
@@ -380,11 +384,11 @@ def _shard_locals(devices, **tensors) -> list:
 
 def _tp_attn(ps, cfg, layout, spec, hs, *, loc, caches, mode, causal):
     """The self-attention block over the shards: per shard over its heads
-    (the shards on a device attend in one ``attention_core`` call where
-    the kernels do not run: ``attend_per_device``) then ``wo``
-    row-parallel, or replicated once per device where the heads do not
-    divide.  MLA's latent part (no head axis) runs once per device and
-    writes that device's pools.  Returns (outs, caches)."""
+    (each shard's ``attention_core`` call alone, as on a card of its own)
+    then ``wo`` row-parallel, or replicated once per device where the
+    heads do not divide.  MLA's latent part
+    (no head axis) runs once per device and writes that device's pools.
+    Returns (outs, caches)."""
     devs = [h.device for h in hs]
     mq = dict(mode=cfg.quant_mode, backend=cfg.quant_backend)
 
@@ -404,10 +408,9 @@ def _tp_attn(ps, cfg, layout, spec, hs, *, loc, caches, mode, causal):
         lat = per_device(devs, lambda i: mla_latent(ps[i]["attn"], cfg,
                                                     hs[i], **kw(i)))
         mcfg = layout.mla_cfg(cfg)
-        heads = attend_per_device([
-            mla_heads(p["attn"], mcfg, lat[i][0],
-                      positions=loc[i]["positions"], defer=True)
-            for i, p in enumerate(ps)])
+        heads = [mla_heads(p["attn"], mcfg, lat[i][0],
+                           positions=loc[i]["positions"])
+                 for i, p in enumerate(ps)]
         return (linear_apply_row([p["attn"]["wo"] for p in ps], heads, **mq),
                 [c for _, c in lat])
     akw = dict(kind=spec.attn_kind, causal=causal)
@@ -416,11 +419,29 @@ def _tp_attn(ps, cfg, layout, spec, hs, *, loc, caches, mode, causal):
                                                     **akw, **kw(i)))
         return [o for o, _ in res], [c for _, c in res]
     scfg = layout.shard_cfg(cfg)
-    res = [attn_heads(p["attn"], scfg, h, defer=True, **akw, **kw(i))
+    res = [attn_heads(p["attn"], scfg, h, **akw, **kw(i))
            for i, (p, h) in enumerate(zip(ps, hs))]
     return (linear_apply_row([p["attn"]["wo"] for p in ps],
-                             attend_per_device([o for o, _ in res]), **mq),
+                             [o for o, _ in res], **mq),
             [c for _, c in res])
+
+
+def _tp_mamba(ps, cfg, layout, hs, *, caches, mode):
+    """The mamba mixer over the shards: each on its SSD heads with the
+    gated norm whole and ``out_proj`` row-parallel
+    (``mamba.mamba_apply_shards``), or replicated once per device where
+    the heads do not divide.  Returns (outs, caches)."""
+    if layout.ssm_heads:
+        return mamba_apply_shards([p["mamba"] for p in ps], cfg, hs, layout,
+                                  mode=mode, caches=caches)
+    devs = [h.device for h in hs]
+    if mode == "decode":
+        res = per_device(devs, lambda i: mamba_step(ps[i]["mamba"], cfg,
+                                                    hs[i], caches[i]))
+    else:
+        res = per_device(devs, lambda i: mamba_apply(
+            ps[i]["mamba"], cfg, hs[i], return_cache=(mode == "prefill")))
+    return [o for o, _ in res], [c for _, c in res]
 
 
 def _tp_cross(ps, cfg, layout, hs, *, loc, enc_outs) -> list:
@@ -433,9 +454,8 @@ def _tp_cross(ps, cfg, layout, hs, *, loc, enc_outs) -> list:
         return per_device(devs, lambda i: attn_apply(ps[i]["cross"], cfg,
                                                      hs[i], **kw[i])[0])
     scfg = layout.shard_cfg(cfg)
-    heads = attend_per_device([
-        attn_heads(p["cross"], scfg, h, defer=True, **kw[i])[0]
-        for i, (p, h) in enumerate(zip(ps, hs))])
+    heads = [attn_heads(p["cross"], scfg, h, **kw[i])[0]
+             for i, (p, h) in enumerate(zip(ps, hs))]
     return linear_apply_row([p["cross"]["wo"] for p in ps], heads,
                             mode=cfg.quant_mode, backend=cfg.quant_backend)
 
@@ -457,8 +477,13 @@ def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
     def add(xs, outs):
         return per_device(devs, lambda i: xs[i] + outs[i])
 
-    outs, cs = _tp_attn(ps, cfg, layout, spec, norm("mixer_norm", xs),
-                        loc=loc, caches=caches, mode=mode, causal=causal)
+    if spec.mixer == "mamba":
+        outs, cs = _tp_mamba(ps, cfg, layout, norm("mixer_norm", xs),
+                             caches=caches, mode=mode)
+    else:
+        outs, cs = _tp_attn(ps, cfg, layout, spec, norm("mixer_norm", xs),
+                            loc=loc, caches=caches, mode=mode,
+                            causal=causal)
     xs = add(xs, outs)
     if "cross" in ps[0] and enc_outs is not None:
         xs = add(xs, _tp_cross(ps, cfg, layout, norm("cross_norm", xs),
@@ -757,15 +782,20 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
 def init_shard_caches(cfg: ModelConfig, batch: int, max_len: int,
                       params: Shards) -> Shards:
     """:func:`init_caches` for the model shards ``params``: a GQA layer's
-    pools hold each shard's share of the kv heads on its device; where
-    the heads do not divide the shards, and for MLA's latent pools (no
-    head axis), the whole pools, one set per distinct device (shared by
-    the shards on it)."""
+    pools hold each shard's share of the kv heads on its device, a mamba
+    layer's state each shard's conv channels and SSD heads; where the
+    heads do not divide the shards, and for MLA's latent pools (no head
+    axis), the whole pools or state, one set per distinct device (shared
+    by the shards on it)."""
     layout, devs = params.layout, params.devices
     scfg = layout.shard_cfg(cfg)
     trees = [[] for _ in devs]
     for spec in cfg.layer_specs:
-        if layout.heads and spec.mixer == "attn" \
+        if layout.ssm_heads and spec.mixer == "mamba":
+            cs = [init_mamba_cache(cfg, batch, dev, ssm_dims(
+                cfg, ssm_segments(cfg, layout, i)))
+                for i, dev in enumerate(devs)]
+        elif layout.heads and spec.mixer == "attn" \
                 and spec.attn_kind != "mla":
             cs = [_layer_cache(scfg, spec, batch, max_len, dev)
                   for dev in devs]

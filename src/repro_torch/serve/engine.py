@@ -89,19 +89,21 @@ Each batch slot is an independent sequence sharing one model:
   ``(1, tp)`` mesh of devices (``launch.mesh``), which may repeat a
   device: its weights split over the "model" axis (``shard_params``:
   column- and row-parallel projections, GQA heads by kv heads and MLA
-  heads by query heads, MoE experts by expert, vocab-parallel embedding
-  and head), its paged pools or dense slab by kv heads (MLA's latent
-  pools, and heads that do not divide ``tp``, whole, one per distinct
-  device), and every stage runs all shards from this process with
+  heads by query heads, mamba mixers by SSD head, MoE experts by expert,
+  vocab-parallel embedding and head), its paged pools or dense slab by
+  kv heads and a mamba layer's state by SSD head (MLA's latent pools,
+  and heads that do not divide ``tp``, whole, one per distinct device),
+  and every stage runs all shards from this process with
   explicit collectives.  Greedy streams equal the single-device
   engine's (every integer projection is bit for bit the unsharded one,
   the expert rows are summed exactly), and every mechanism above keeps
   its rule; what runs replicated is reported (``tp_layout``).  When all
   shards share one card the captured stages are captured as before; over
-  several cards they run eagerly.  A data axis above 1 inside an engine,
-  mamba mixers and ``qat`` under ``tp > 1`` raise.  Data parallelism is
-  ``serve.router``: N engines (each on its own device slice when meshed)
-  behind one admission queue.
+  several cards they run eagerly.  Every quant mode shards (``dense``
+  and ``qat`` within a rounding of tp=1: a row-parallel projection sums
+  f32 partials); a data axis above 1 inside an engine raises.  Data
+  parallelism is ``serve.router``: N engines (each on its own device
+  slice when meshed) behind one admission queue.
 """
 
 from __future__ import annotations

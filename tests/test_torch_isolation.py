@@ -74,7 +74,8 @@ def test_unported_serve_knobs_raise(field, value):
     """A (1, 2) mesh, by ``tp`` or ``mesh_shape``, builds over two CPU
     entries and serves two equal greedy streams without a leak; what tensor
     parallelism does not cover raises ``NotImplementedError``: a data
-    axis above 1 inside one engine, and mamba mixers at tp=2."""
+    axis above 1 inside one engine (a (2, 1) mesh, and a (2, 2) mesh
+    beside ``tp=2``)."""
     cfg = reduced(get_config("yi-6b")).replace(cache_mode="paged",
                                                page_size=4)
     params = model_init(cfg, device="cpu")
@@ -85,7 +86,7 @@ def test_unported_serve_knobs_raise(field, value):
     done = engine.run()
     assert done[ids[0]].tokens == done[ids[1]].tokens
     assert len(done[ids[0]].tokens) == 8 and engine.leaked_pages() == 0
-    refused = {"tp": (reduced(get_config("mamba2-780m")), {}),
+    refused = {"tp": (cfg, {"mesh_shape": (2, 2)}),
                "mesh_shape": (cfg, {"mesh_shape": (2, 1)})}[field]
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
         Engine(refused[0], model_init(refused[0], device="cpu"),

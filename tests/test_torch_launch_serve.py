@@ -153,7 +153,8 @@ def test_unported_flags_raise(monkeypatch, capsys, flag):
     """``--tp 2`` and ``--mesh 1x2`` serve over a (1, 2) mesh of CPU
     entries, ``--verify`` holding the streams to the tp=1 engine's, and
     ``--predict`` is skipped; what the mesh does not cover raises: a data
-    axis above 1 (``--mesh 2x1``), mamba mixers under ``--tp 2``."""
+    axis above 1 (``--mesh 2x1``, and ``--mesh 2x2`` beside ``--tp
+    2``)."""
     r, engine = _run_requests(monkeypatch, "uniform", "--verify",
                               "--predict", "--quant", "w8a8_nibble",
                               *OVERCOMMIT, *flag)
@@ -164,7 +165,7 @@ def test_unported_flags_raise(monkeypatch, capsys, flag):
     assert "capacity model: (skipped" in out
     assert r["preemptions"] >= 1 and engine.leaked_pages() == 0
     refused = (["--mesh", "2x1"] if flag[0] == "--mesh"
-               else ["--arch", "mamba2-780m"] + flag)
+               else flag + ["--mesh", "2x2"])
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
         serve.main(BASE + ["--workload", "uniform"] + refused)
 

@@ -298,21 +298,19 @@ def test_shard_caches_split_heads_and_copy(arch, kv_dtype):
 
 
 def test_tp_refuses_the_other_families():
-    """Mamba mixers, QAT and a data axis above 1 under tp > 1 raise naming
-    ROADMAP; MLA, MoE, the encoder-decoder and the VLM pass; tp=1 checks
+    """A data axis above 1 raises naming ROADMAP, at any tp; every
+    family (MLA, MoE, the encoder-decoder, the VLM, the mamba mixers)
+    and every quant mode (``qat`` too) pass at tp=2; tp=1 checks
     nothing."""
-    for arch in ("mamba2-780m", "jamba-v0.1-52b"):
-        cfg = reduced(get_config(arch))
-        tsh.check_tp_supported(cfg, 1)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tsh.check_tp_supported(cfg, 2)
     for arch in ("deepseek-v3-671b", "llama4-maverick-400b-a17b",
-                 "whisper-base", "phi-3-vision-4.2b"):
+                 "whisper-base", "phi-3-vision-4.2b", "mamba2-780m",
+                 "jamba-v0.1-52b"):
+        tsh.check_tp_supported(reduced(get_config(arch)), 1)
         tsh.check_tp_supported(reduced(get_config(arch)), 2)
-    with pytest.raises(NotImplementedError, match="qat"):
-        tsh.check_tp_supported(
-            reduced(get_config("yi-6b")).replace(quant_mode="qat"), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tsh.check_tp_supported(reduced(get_config("yi-6b")), 2, dp=2)
+    tsh.check_tp_supported(
+        reduced(get_config("yi-6b")).replace(quant_mode="qat"), 2)
+    for tp in (1, 2):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            tsh.check_tp_supported(reduced(get_config("yi-6b")), tp, dp=2)
     assert isinstance(_mesh(), LocalMesh)
     np.testing.assert_equal(tsh.split_dim((None, ("data", "model"))), 1)

@@ -9,7 +9,8 @@ the reference tests' forced host device count.  What is held:
   tp=4) are bit-equal to tp=1 in ``w8a8_nibble``, ``w4a8_nibble`` and
   ``lut`` on both backends; ``dense`` row-parallel sums f32 partials and
   rounds once, within one bf16 rounding (2**-7 relative) of tp=1's bf16
-  product, and column-parallel is exact.
+  product, and column-parallel is exact; ``qat`` row-parallel (the
+  shards' amaxes reduced by max) within the same rounding.
 * A prefill and decode steps at tp=2 against tp=1 (equal bit for bit,
   measured on a CPU) and against the reference compiled by
   ``test_torch_model.exact_jit`` (within its LOGIT_ATOL), over paged
@@ -25,10 +26,12 @@ the reference tests' forced host device count.  What is held:
   non-spec, wave = monolithic, in ``dense``), and equals tp=1 with the
   same counters; gemma3-1b (KVH 1: attention replicated, tied head) at
   tp=2; a ``--dp 2 --tp 2`` fleet over four repeated CPU devices; the
-  host payloads keep the unsharded layout; the families once refused
-  (MLA, MoE, the encoder-decoder, the VLM) serve at tp=2; the refusals
-  that remain (mamba mixers, ``qat``, a data axis).  MLA, MoE, whisper
-  and phi-3-vision at tp=2 in depth: ``tests/test_torch_tp_families.py``.
+  host payloads keep the unsharded layout; the families and the quant
+  mode once refused (MLA, MoE, the encoder-decoder, the VLM, the mamba
+  mixers, ``qat``) serve at tp=2; the refusal that remains (a data
+  axis).  MLA, MoE, whisper and phi-3-vision at tp=2 in depth:
+  ``tests/test_torch_tp_families.py``; the mamba mixers and ``qat``:
+  ``tests/test_torch_tp_ssm.py``.
 """
 
 import dataclasses
@@ -134,10 +137,23 @@ def test_dense_projections_within_one_rounding():
 
 
 def test_qat_has_no_row_parallel_projection():
+    """``qat`` was refused a row-parallel projection until its scales
+    were shared; now each of the activation's per-row and the weight's
+    per-column fake-quant scales is the max of the shards' amaxes (the
+    unsharded scale), and the f32 partial products summed in shard order
+    and rounded once are within one bf16 rounding (2**-7 relative) of the
+    unsharded ``qat`` projection, at tp=2 and tp=4."""
     p, x = _linear("dense")
-    with pytest.raises(NotImplementedError, match="qat"):
-        linear_apply_row(_split(p, 2, 0), [x[..., :48], x[..., 48:]],
-                         mode="qat")
+    want = linear_apply(p, x, mode="qat")
+    for tp in (2, 4):
+        k = x.shape[-1] // tp
+        got = linear_apply_row(_split(p, tp, 0),
+                               [x[..., i * k:(i + 1) * k]
+                                for i in range(tp)], mode="qat")
+        assert len(got) == tp and got[0] is got[1]
+        assert got[0].dtype == want.dtype
+        diff = (got[0].float() - want.float()).abs()
+        assert (diff <= 2.0 ** -7 * want.float().abs()).all()
 
 
 # ---------------------------------------------------------------------------
@@ -408,9 +424,6 @@ def test_router_dp2_tp2_over_four_devices():
 @pytest.mark.parametrize("arch,over,match", [
     ("yi-6b", dict(mesh_shape=(2, 1)), "data axis above 1"),
     ("yi-6b", dict(mesh_shape=(2, 2)), "data axis above 1"),
-    ("mamba2-780m", dict(tp=2), "mamba mixers"),
-    ("jamba-v0.1-52b", dict(tp=2), "mamba mixers"),
-    ("yi-6b", dict(tp=2, quant_mode="qat"), "qat"),
 ])
 def test_tp_refusals_name_the_roadmap(arch, over, match):
     cfg = reduced(get_config(arch))
@@ -421,15 +434,19 @@ def test_tp_refusals_name_the_roadmap(arch, over, match):
     assert "ROADMAP queue 1 item 4" in str(err.value)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
-                                  "llama4-maverick-400b-a17b",
-                                  "whisper-base", "phi-3-vision-4.2b"])
-def test_tp2_serves_the_families_once_refused(arch):
-    """The families tp=2 refused until MLA, MoE, the encoder-decoder and
-    the VLM were sharded: each engine builds at tp=2 over four repeated
-    CPU devices (the mesh takes two) and serves tp=1's greedy streams
-    (``dense``, reduced, 4 prompts of 4-8 tokens x 6)."""
-    cfg = reduced(get_config(arch)).replace(attn_impl="flash")
+@pytest.mark.parametrize("arch,mode", [
+    ("deepseek-v3-671b", "dense"), ("llama4-maverick-400b-a17b", "dense"),
+    ("whisper-base", "dense"), ("phi-3-vision-4.2b", "dense"),
+    ("mamba2-780m", "dense"), ("jamba-v0.1-52b", "dense"),
+    ("yi-6b", "qat")])
+def test_tp2_serves_the_families_once_refused(arch, mode):
+    """The families and the quant mode tp=2 refused until they were
+    sharded (MLA, MoE, the encoder-decoder and the VLM; the mamba mixers
+    and ``qat``): each engine builds at tp=2 over four repeated CPU
+    devices (the mesh takes two) and serves tp=1's greedy streams
+    (reduced, 4 prompts of 4-8 tokens x 6)."""
+    cfg = reduced(get_config(arch)).replace(attn_impl="flash",
+                                            quant_mode=mode)
     params = model_init(cfg, device="cpu")
     prompts = _mesh_prompts(cfg.vocab_size)
     kw = dict(batch=2, max_len=16, prefill_len=8, decode_chunk=3)

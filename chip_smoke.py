@@ -182,6 +182,29 @@ Phases (any failure exits non-zero and prints no result line):
    full width cut to 2 layers (KVH 1: its attention replicated on both
    shards, the tied head vocab-parallel), 4 requests x 16 at tp=1 and
    tp=2, streams held the same way.
+7p. A data axis inside one engine (before the serve phase,
+   ``check_fixed_mean``: each row of an ``rms_norm`` mean call of 1-1024
+   rows equal to the row alone, at the models' widths): the serve
+   phase's weights, settings
+   and 8 requests x 32 at mesh (1, 1), (2, 1) and (2, 2) over cuda:0
+   repeated 1, 2 and 4 times (each entry stores its FSDP pieces, every
+   step gathers each layer's weights at use, slots split over the data
+   rows): every stream equal to (1, 1)'s, the decode chunk captured;
+   launches held a decode step (224 nibble and 32 paged decode per
+   entry: every row runs its slots) and a batch-1 prefill (224 nibble
+   and 32 flash forward per model shard: one row runs it); the paged
+   decode plan at each shape's slots a row and KV heads a shard must be
+   one split count and span; the first four prompts prefilled into four slots and one
+   decode step of all four at (2, 1) and (2, 2) against (1, 1): max
+   |dlogit| 0; parameter bytes stored per entry, weight bytes gathered
+   per decode step, tok/s and peak memory per shape; host ms per
+   captured decode chunk at each shape in turns and the ratio to (1,
+   1); then ``dense`` at (2, 1): that step's logits within the serve
+   phase's logit tolerance.  The families phase adds llama4 (2 layers)
+   at (2, 1) after its tp pair, 4 x 16, eagerly (a full-width expert
+   layer gathers 32 GB at use), and the ssm phase mamba2-780m at (2, 1),
+   8 x 32 and the 512-token prompt: each stream equal to the (1, 1)
+   cell's.
 7b. Families (the yi-6b weights freed first): the nibble kernel at
    MLA's ``wkv_b`` (4 slots x 160 gathered latent rows) and ``wq_b``
    shapes (``torch.equal``), the flash forward at 128 heads with q/k 192
@@ -334,6 +357,7 @@ from repro_torch.models import (decode_step, forward,  # noqa: E402
 from repro_torch.models.transformer import init_shard_caches  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.attention import attention_core  # noqa: E402
+from repro_torch.models.layers import fixed_mean  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.capacity import (Knobs, WorkloadShape,  # noqa: E402
                                   analytic_cache_token_bytes, predict)
@@ -2963,6 +2987,271 @@ def _tp_qat(params, prompts, serve: dict, smi: str) -> dict:
     return dict(pair, step_diff=diff)
 
 
+# ``fixed_mean``'s check: the models' widths, and row counts a call takes
+MEAN_WIDTHS = (64, 96, 128, 256, 512, 1152, 1536, 2048, 2560, 3072, 3584,
+               4096, 5120, 7168, 8192, 14336)
+MEAN_ROW_COUNTS = (1, 2, 3, 4, 8, 15, 16, 17, 64, 257, 1024)
+
+
+def check_fixed_mean() -> dict:
+    """``layers.fixed_mean`` (``rms_norm``'s mean of squares) on the card:
+    every row of a call of R rows must equal the same row in a call of
+    its own, at the models' widths and R from 1 to 1024 (a data row's
+    slots against the whole batch's); the rows where the plain
+    ``torch.mean`` differs that way are counted beside it (printed, no
+    limit)."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    t = time.perf_counter()
+    n = max(MEAN_ROW_COUNTS)
+    plain, bad = {}, {}
+    for d in MEAN_WIDTHS:
+        x = torch.randn((n, d), device=DEV, generator=gen) ** 2
+        alone = torch.cat([fixed_mean(x[i:i + 1]) for i in range(n)])
+        alone_plain = torch.cat([torch.mean(x[i:i + 1], -1, keepdim=True)
+                                 for i in range(n)])
+        for r in MEAN_ROW_COUNTS:
+            miss = int((fixed_mean(x[:r]) != alone[:r]).sum())
+            if miss:
+                bad[f"{d}x{r}"] = miss
+            miss = int((torch.mean(x[:r], -1, keepdim=True)
+                        != alone_plain[:r]).sum())
+            if miss:
+                plain[f"{d}x{r}"] = miss
+    out = {"plain_rows_differing": plain, "seconds":
+           time.perf_counter() - t}
+    print(f"fixed_mean: every row of a call of 1-1024 rows equals its row "
+          f"alone at widths {MEAN_WIDTHS}: "
+          f"{'yes' if not bad else bad}; plain torch.mean rows that differ "
+          f"(width x rows: rows) {plain} ({out['seconds']:.1f} s)",
+          flush=True)
+    if bad:
+        raise AssertionError(f"fixed_mean depends on the row count: {bad}")
+    return out
+
+
+# the data-axis shapes on the one card: (dp, tp) -> its entries
+DP_SHAPES = ((1, 1), (2, 1), (2, 2))
+
+
+def _dp_devices(shape) -> list:
+    return [DEV + ":0"] * (shape[0] * shape[1])
+
+
+def _dp_step_diff(params, dp_params, cfg, prompts) -> dict:
+    """The first four prompts prefilled alone into four slots over paged
+    pools (slots 0-1 on data row 0, 2-3 on row 1 at dp=2), then one
+    decode step of all four at per-slot positions, on the single-device
+    tree and on ``dp_params``: the largest difference of the prefills'
+    logits and of the step's."""
+    ps, b = cfg.page_size, 4
+    prompts = prompts[:b]
+    per_slot = -(-(max(map(len, prompts)) + 1) // ps)
+    table = torch.arange(1, 1 + b * per_slot, device=DEV).reshape(b, -1)
+    c = cfg.replace(num_pages=1 + b * per_slot)
+    lens = torch.tensor([len(p) for p in prompts], device=DEV)
+    out, nxt = [], None
+    for p in (params, dp_params):
+        caches = (init_caches(c, b, per_slot * ps, device=DEV)
+                  if p is params else
+                  init_shard_caches(c, b, per_slot * ps, p))
+        pre = []
+        for slot, prompt in enumerate(prompts):
+            tok = torch.as_tensor(prompt, device=DEV).long()[None]
+            lp, one, _ = prefill(p, c, tok, max_len=-(-len(prompt) // ps)
+                                 * ps)
+            merge_slot_paged_caches(caches, one, slot, table[slot])
+            pre.append(lp)
+        pre = torch.cat(pre)
+        if nxt is None:
+            nxt = torch.argmax(pre[:, -1], dim=-1)[:, None]
+        ld, _ = decode_step(p, c, nxt, caches, lens, page_table=table)
+        out.append((pre, ld))
+    return {"prefill_max_abs_diff": (out[0][0] - out[1][0]).abs().max()
+            .item(),
+            "decode_max_abs_diff": (out[0][1] - out[1][1]).abs().max()
+            .item(),
+            "max_abs_logit": out[0][1].abs().max().item(),
+            "max_abs_prefill_logit": out[0][0].abs().max().item()}
+
+
+def _dp_per_unit(shape) -> dict:
+    """yi-6b's launches at ``shape``: a decode step runs every data row's
+    slots (``dp * tp`` copies of the 224 projections and 32 paged decodes
+    of tp=1), a batch-1 prefill one row (``tp`` copies of its 224
+    projections and 32 flash forwards)."""
+    dp, tp = shape
+    return {"step": {"nibble_matmul": 224 * dp * tp,
+                     "paged_decode_attention": 32 * dp * tp},
+            "prefill": {"nibble_matmul": 224 * tp,
+                        "flash_attention_fwd": 32 * tp}}
+
+
+def phase_dp(params, prompts, serve: dict, smi: str) -> dict:
+    """A data axis above 1 inside one engine on one card (docstring item
+    7p): the serve cell at (1, 1), (2, 1) and (2, 2)."""
+    cfg = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    n_new, prefill_len = 32, 128
+    scfg = ServeConfig(batch=4, max_len=prefill_len + n_new,
+                       prefill_len=prefill_len, decode_chunk=8)
+    print(f"dp: {cfg.name} full width, all layers, w8a8_nibble on CUDA, "
+          f"paged (page 16), 4 slots; the serve phase's {len(prompts)} "
+          f"requests x {n_new} at {list(DP_SHAPES)} over cuda:0 repeated "
+          f"({smi})", flush=True)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plans = {str(shape): fa.paged_plan(
+        scfg.max_len, scfg.batch // shape[0],
+        cfg.n_kv_heads // shape[1], cfg.n_heads // cfg.n_kv_heads,
+        _sms())._asdict() for shape in DP_SHAPES}
+    print(f"  paged decode plans (capacity {scfg.max_len}, slots a row, KV "
+          f"heads a shard): {plans}: one split count and span",
+          flush=True)
+    # the grid follows the slots and heads; the splits and their span fix
+    # each row's combine order
+    if len({(v["n_split"], v["span"]) for v in plans.values()}) != 1:
+        raise AssertionError(f"the paged plan changes with the data axis: "
+                             f"{plans}")
+    engines, streams_at, out = {}, {}, {"plans": plans}
+    for shape in DP_SHAPES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, dataclasses.replace(scfg,
+                                                      mesh_shape=shape),
+                     devices=_dp_devices(shape))
+        streams, wall, counts = _serve_timed(eng, prompts, n_new)
+        if eng.mesh_shape != shape or eng.device_count != len(
+                _dp_devices(shape)):
+            raise AssertionError(f"dp {shape}: mesh {eng.mesh_shape}, "
+                                 f"{eng.device_count} devices")
+        require_captured(eng, f"dp {shape}")
+        require_no_f32(counts)
+        require_launched(counts, ("nibble_matmul", "flash_attention_fwd",
+                                  "paged_decode_attention"))
+        n_tok = sum(map(len, streams))
+        streams_at[shape] = streams
+        out[str(shape)] = {
+            "counts": counts, "tok_s": n_tok / wall,
+            "param_bytes": eng.param_bytes,
+            "gathered_bytes_per_step": eng.gathered_bytes_per_step,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "captures": eng.capture_counts}
+        engines[shape] = eng
+    base = out[str((1, 1))]
+    prefills = base["counts"]["flash_attention_fwd"] // 32
+    steps = base["counts"]["paged_decode_attention"] // 32
+    for shape in DP_SHAPES:
+        r = out[str(shape)]
+        per = _dp_per_unit(shape)
+        want = {k: per["step"].get(k, 0) * steps
+                + per["prefill"].get(k, 0) * prefills
+                for k in ("nibble_matmul", "paged_decode_attention",
+                          "flash_attention_fwd")}
+        got = {k: r["counts"][k] for k in want}
+        equal = [a == b for a, b in zip(streams_at[shape],
+                                        streams_at[(1, 1)])]
+        print(f"  dp {shape}: streams equal (1, 1)'s {sum(equal)}/"
+              f"{len(equal)}; launches {got} for {steps} decode steps and "
+              f"{prefills} prefills (a step {per['step']}, a prefill "
+              f"{per['prefill']}); tok/s {r['tok_s']:.2f}; parameter bytes "
+              f"stored per entry {r['param_bytes']}; weight bytes gathered "
+              f"per decode step {r['gathered_bytes_per_step']}; peak memory "
+              f"{r['peak_gib']:.2f} GiB", flush=True)
+        if not all(equal):
+            raise AssertionError(f"dp {shape}: streams differ from (1, 1)'s:"
+                                 f" {equal}")
+        if got != want:
+            raise AssertionError(f"dp {shape}: launches {got}, expected "
+                                 f"{want}")
+        r["steps"], r["prefills"], r["per_unit"] = steps, prefills, per
+    reset_counts()
+    for shape in DP_SHAPES[1:]:
+        d = _dp_step_diff(params, engines[shape].params, cfg, prompts)
+        out[str(shape)]["step_diff"] = d
+        print(f"  dp {shape} against (1, 1), four slots: max|dlogit| "
+              f"prefill {d['prefill_max_abs_diff']}, one decode step "
+              f"{d['decode_max_abs_diff']} (max|logit| "
+              f"{d['max_abs_logit']:.4f})", flush=True)
+        if d["prefill_max_abs_diff"] or d["decode_max_abs_diff"]:
+            raise AssertionError(f"dp {shape}: logits differ from (1, 1)'s:"
+                                 f" {d}")
+    runs = {str(s): [] for s in DP_SHAPES}
+    for shape in DP_SHAPES + DP_SHAPES[::-1]:
+        runs[str(shape)].append(_chunk_ms(engines[shape], prompts))
+    chunk = {k: statistics.median(v) for k, v in runs.items()}
+    out["chunk_ms"], out["chunk_runs"] = chunk, runs
+    out["chunk_ratio"] = {k: v / chunk[str((1, 1))] for k, v in chunk.items()}
+    print(f"  ({smi}) host ms per captured decode chunk, in turns: {chunk} "
+          f"(runs {runs}); ratio to (1, 1) {out['chunk_ratio']}", flush=True)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    dcfg = cfg.replace(quant_mode="dense")
+    mesh = make_local_mesh(dp=2, tp=1, devices=_dp_devices((2, 1)))
+    dense = _dp_step_diff(params, shard_params(params, dcfg, mesh), dcfg,
+                          prompts)
+    worst = max(dense["prefill_max_abs_diff"], dense["decode_max_abs_diff"])
+    print(f"  dense at (2, 1) against (1, 1), four slots: max|dlogit| "
+          f"prefill {dense['prefill_max_abs_diff']:.4e}, one decode step "
+          f"{dense['decode_max_abs_diff']:.4e} (bound: the serve phase's "
+          f"logit tolerance {serve['logit_tol']:.4f})", flush=True)
+    if worst > serve["logit_tol"]:
+        raise AssertionError(f"dense at (2, 1): logits {worst} from (1, 1)'s"
+                             f", above {serve['logit_tol']}")
+    out["dense_step_diff"] = dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  dp phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def dp_family(cfg, run: dict, smi: str, capture=None) -> dict:
+    """A family cell at (2, 1) on ``cuda:0`` repeated (docstring item 7p):
+    the model's served requests, on its served weights, must give the
+    (1, 1) cell's streams token for token.  The caller's weight tree is
+    dropped once the engine stores its pieces (``run["params"]`` is
+    popped), so a model the card holds once fits beside its pieces and
+    one layer's gather."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompts, scfg = run["prompts"], run["scfg"]
+    n_new = len(run["streams"][0])
+    eng = Engine(cfg, run.pop("params"), dataclasses.replace(
+        scfg, mesh_shape=(2, 1)), devices=_dp_devices((2, 1)),
+        capture=capture)
+    gc.collect()
+    torch.cuda.empty_cache()
+    streams, wall, counts = _serve_timed(eng, prompts, n_new)
+    equal = [a == b for a, b in zip(streams, run["streams"])]
+    out = {"counts": counts, "streams_equal": sum(equal),
+           "tok_s": sum(map(len, streams)) / wall,
+           "param_bytes": eng.param_bytes,
+           "gathered_bytes_per_step": eng.gathered_bytes_per_step,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "captures": eng.capture_counts}
+    kernels = {k: counts[k] for k in FAMILY_KERNELS}
+    print(f"  dp {cfg.name} at (2, 1) ({smi}): streams equal (1, 1)'s "
+          f"{sum(equal)}/{len(equal)} (prompt lengths "
+          f"{[len(p) for p in prompts]} x {n_new}); launches {kernels}; "
+          f"tok/s {out['tok_s']:.2f}; parameter bytes per entry "
+          f"{out['param_bytes']}; gathered per decode step "
+          f"{out['gathered_bytes_per_step']}; peak {out['peak_gib']:.2f} GiB;"
+          f" CUDA graphs {out['captures']}", flush=True)
+    if not all(equal):
+        raise AssertionError(f"dp {cfg.name}: streams differ from (1, 1)'s:"
+                             f" {equal}")
+    require_no_f32(counts)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_attention_core_heads(gen) -> dict:
     """Queue 3 lead 1, directly: ``attention_core`` over each tp=2 shard's
     heads alone (as a card of its own runs them) against the same rows of
@@ -3822,6 +4111,9 @@ def phase_families(smi: str, serve: dict) -> dict:
     out[cfg.name], run = _serve_family(
         cfg, smi, 4, 16, expect=dict.fromkeys(FAMILY_KERNELS, True))
     out[cfg.name]["tp"] = tp_family_moe(cfg, run, serve, smi)
+    # eager: a captured chunk's pool would keep the 32 GB of gathered
+    # expert stacks beside an eager prefill's gather
+    out[cfg.name]["dp"] = dp_family(cfg, run, smi, capture=False)
     del run
     gc.collect()
     torch.cuda.empty_cache()
@@ -4072,6 +4364,7 @@ def phase_ssm(smi: str, serve: dict) -> dict:
                                "paged_decode_attention": False})
     _mamba2_extra(cfg, r, run)
     r["tp"] = tp_family_ssm(cfg, run, serve, smi)
+    r["dp"] = dp_family(cfg, run, smi)
     out[cfg.name] = r
     del run
     gc.collect()
@@ -4923,6 +5216,7 @@ def main() -> int:
     paper = phase_paper()
     rows[0]["paper_launches"] = paper["counts"]["nibble_matmul"]
     rows[4]["paper_launches"] = paper["counts"]["lut_matmul"]
+    rowmean = check_fixed_mean()
     serve = phase_serve()
     engine, prompts = serve.pop("engine"), serve.pop("prompts")
     params = serve.pop("params")
@@ -4968,6 +5262,10 @@ def main() -> int:
     rows[0]["tp_shapes"] = {k: tp["shapes"][k] for k in
                             ("wq shard", "wk/wv shard", "gate/up shard")}
     rows[2]["tp_shapes"] = {"paged shard": tp["shapes"]["paged shard"]}
+    dp = phase_dp(params, prompts, serve, smi)
+    for r in rows[:3]:
+        r["dp_launches"] = {"yi-6b " + s: dp[s]["counts"][r["name"]]
+                            for s in ("(2, 1)", "(2, 2)")}
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5003,6 +5301,11 @@ def main() -> int:
             for name, t in tp_families.items()}
         if r["name"] in tp_shapes:
             r["tp_families_shapes"] = tp_shapes[r["name"]]
+    for r in rows[:3]:
+        r["dp_launches"].update({
+            f"{name} (2, 1)": f["dp"]["counts"][r["name"]]
+            for phase in (families, ssm) for name, f in phase.items()
+            if isinstance(f, dict) and "dp" in f})
     tc = encdec_vlm["whisper-base train"]["counts"]
     rows[3]["encdec_vlm_launches"] = {"whisper-base train": (
         tc["flash_attention_bwd_dq"] + tc["flash_attention_bwd_dkv"])}
@@ -5034,6 +5337,7 @@ def main() -> int:
                        "prefix_swap": prefix_swap,
                        "spec_wave": spec_wave, "graphs": graphs,
                        "lut_serve": lut, "int8_kv": int8kv, "tp": tp,
+                       "dp": dp, "fixed_mean": rowmean,
                        "families": families, "ssm": ssm,
                        "encdec_vlm": encdec_vlm, "train": train,
                        "train_families": train_families,
@@ -5053,7 +5357,7 @@ def main() -> int:
              "encdec_vlm_launches", "encdec_vlm_shapes", "paper_launches",
              "train_families_launches", "train_families_shapes",
              "tp_launches", "tp_shapes", "tp_families_launches",
-             "tp_families_shapes")
+             "tp_families_shapes", "dp_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

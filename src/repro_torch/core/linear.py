@@ -37,6 +37,12 @@ sum them and apply the epilogue once, so the result is the unsharded
 projection bit for bit.  ``dense`` and ``qat`` sum f32 partial products
 in shard order and round once (``qat`` with the unsharded fake-quant
 scales): within a rounding of the unsharded projection.
+
+A data axis (``dp`` rows, each running its own slots): the int modes'
+per-tensor activation scale spans the whole batch, so every row
+quantizes with the max of all rows' amaxes (:func:`rows_amax`, passed as
+``x_amax``) and each row's output is its slots' rows of the unsplit
+projection, bit for bit.  ``qat`` quantizes per row and needs nothing.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ from repro_torch.kernels.lut_matmul import lut_matmul_plain
 from repro_torch.kernels.nibble_matmul import nibble_matmul_plain
 
 __all__ = ["linear_init", "linear_apply", "linear_apply_row",
-           "prepare_quantized", "weight_bits"]
+           "prepare_quantized", "weight_bits", "rows_amax"]
 
 _INT_MODES = ("w8a8_nibble", "w4a8_nibble", "lut")   # int8 activations
 
@@ -99,20 +105,44 @@ def _weight(params: dict, bits: int):
     return qt.t(), s
 
 
+def _amax(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).abs().max()
+
+
+def rows_amax(rows: list, mode: str) -> list | None:
+    """The batch-wide activation amax over data rows: ``rows[d]`` holds
+    row ``d``'s inputs of one projection, one per model shard (the same
+    tensor, or copies, where the input is replicated; each shard's slice
+    for a row-parallel one).  In the int modes with more than one row,
+    the max over every input (exact in any order) on each entry's
+    device, ``[d][m]``; else None (each call takes its own)."""
+    if len(rows) < 2 or mode not in _INT_MODES:
+        return None
+    seen: dict = {}
+    for row in rows:
+        for x in row:
+            seen.setdefault(id(x), x)
+    amax = all_reduce_max([_amax(x) for x in seen.values()])[0]
+    return [broadcast(amax, [x.device for x in row]) for row in rows]
+
+
 def linear_apply(params: dict, x: torch.Tensor, *, mode: str = "dense",
-                 backend: str = "torch") -> torch.Tensor:
-    """Apply the projection; the output dtype follows ``x``."""
-    w = params["w"]
+                 backend: str = "torch", x_amax=None) -> torch.Tensor:
+    """Apply the projection; the output dtype follows ``x``.  ``x_amax``
+    (int modes) replaces the per-tensor amax of ``x`` (a data row's
+    projection takes the whole batch's, :func:`rows_amax`)."""
     if mode == "dense":
-        return torch.matmul(x, w.to(x.dtype))
+        return torch.matmul(x, params["w"].to(x.dtype))
     if mode == "qat":
         xq = q.fake_quant(x.to(torch.float32), bits=8, axis=-1)
-        wq = q.fake_quant(w.to(torch.float32), bits=8, axis=0)
+        wq = q.fake_quant(params["w"].to(torch.float32), bits=8, axis=0)
         return torch.matmul(xq, wq).to(x.dtype)
     if mode not in _INT_MODES:
         raise NotImplementedError(f"quant mode {mode!r} is not ported")
 
-    x_qt = q.quantize(x.to(torch.float32), bits=8, granularity="per_tensor")
+    x_qt = q.quantize(x.to(torch.float32), bits=8, granularity="per_tensor",
+                      scale=None if x_amax is None
+                      else q.scale_from_amax(x_amax))
     w_q, w_scale = _weight(params, weight_bits(mode))
     if backend == "cuda" and mode != "lut":
         return ops.quant_matmul(x_qt.values, w_q, x_scale=x_qt.scale,
@@ -138,7 +168,7 @@ def _int_product(x_q, w_q, mode: str, backend: str) -> torch.Tensor:
 
 
 def linear_apply_row(shards: list, xs: list, *, mode: str = "dense",
-                     backend: str = "torch") -> list:
+                     backend: str = "torch", x_amax=None) -> list:
     """A row-parallel projection: shard ``s`` holds rows ``[s K/tp, (s +
     1) K/tp)`` of the weight (its ``qt{bits}`` the same K slice, its
     scales whole) and ``xs[s]`` the matching columns of the input.
@@ -152,7 +182,12 @@ def linear_apply_row(shards: list, xs: list, *, mode: str = "dense",
     max of the shards' amaxes (the unsharded scales), fake-quantizes each
     shard's slices with them and sums the f32 partial products the same
     way: within a rounding of the unsharded projection, not bit for
-    bit."""
+    bit.  One shard is :func:`linear_apply`.  ``x_amax`` (one per shard,
+    int modes) replaces the shards' reduced amax (a data row takes the
+    whole batch's)."""
+    if len(shards) == 1:
+        return [linear_apply(shards[0], xs[0], mode=mode, backend=backend,
+                             x_amax=None if x_amax is None else x_amax[0])]
     dtype = xs[0].dtype
     devices = [x.device for x in xs]
     if mode == "dense":
@@ -178,7 +213,7 @@ def linear_apply_row(shards: list, xs: list, *, mode: str = "dense",
         raise NotImplementedError(f"quant mode {mode!r} has no "
                                   f"row-parallel projection")
     bits = weight_bits(mode)
-    amax = all_reduce_max([x.to(torch.float32).abs().max() for x in xs])
+    amax = x_amax or all_reduce_max([_amax(x) for x in xs])
     accs = []
     for p, x, a in zip(shards, xs, amax):
         x_q = q.quantize(x.to(torch.float32), bits=8,

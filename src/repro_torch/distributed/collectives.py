@@ -11,6 +11,11 @@ when the shards share a card.
 
 Quantized accumulators are int32 and reduce exactly; ``all_reduce_sum``
 over f32 partials sums in shard order.
+
+Over the data axis (FSDP storage): :func:`data_gather` concatenates one
+piece per data row, in data order, onto each device that uses the whole
+tensor, and counts the bytes it writes (``gathered_bytes``); the amax the integer modes share across
+data rows is :func:`all_reduce_max` over one value per row.
 """
 
 from __future__ import annotations
@@ -18,7 +23,15 @@ from __future__ import annotations
 import torch
 
 __all__ = ["all_reduce_sum", "all_reduce_max", "all_gather", "broadcast",
-           "reduce_sum", "per_device"]
+           "reduce_sum", "per_device", "data_gather", "gathered_bytes"]
+
+# bytes written by data_gather in this process (host-side count: a
+# replayed CUDA graph does not advance it; read differences)
+_GATHERED = [0]
+
+
+def gathered_bytes() -> int:
+    return _GATHERED[0]
 
 
 def per_device(devices, fn) -> list:
@@ -76,3 +89,18 @@ def all_gather(parts, dim: int = -1) -> list:
     dev = parts[0].device
     whole = torch.cat([p.to(dev) for p in parts], dim=dim)
     return broadcast(whole, [p.device for p in parts])
+
+
+def data_gather(pieces, dim: int, devices) -> list:
+    """The FSDP gather: ``pieces`` (one per data row, in data order)
+    concatenated along ``dim`` on each of ``devices``, one tensor per
+    distinct device (shared by the entries on it) and always a fresh
+    copy, even where every piece already lies on that device."""
+    out = {}
+    for dev in devices:
+        key = str(dev)
+        if key not in out:
+            whole = torch.cat([p.to(dev) for p in pieces], dim=dim)
+            _GATHERED[0] += whole.numel() * whole.element_size()
+            out[key] = whole
+    return [out[str(dev)] for dev in devices]

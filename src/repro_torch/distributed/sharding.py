@@ -16,9 +16,10 @@ no spec carries the reference's leading block axis.  Conventions on a
 
 The port's prepared int8 leaves follow their weight: ``qt8`` / ``qt4``
 (N-major, ``(out, in)``) take the weight's spec reversed, and the
-per-channel scales ``s8`` / ``s4`` ``(1, out)`` take its out axis, so a
-row-parallel weight keeps its scales whole (each is the amax over the
-whole K column).
+per-channel scales ``s8`` / ``s4`` ``(1, out)`` take its out axis where
+that is the model axis and are never FSDP-split, so a row-parallel
+weight keeps its scales whole (each is the amax over the whole K
+column).
 
 :func:`shard_params` and :func:`shard_caches` apply the specs' "model"
 axis: one tree per model shard on that shard's device (:class:`Shards`).
@@ -33,6 +34,17 @@ not express, so the splitter cuts them, not the specs.  Replication is
 always valid (``_fit_spec``), and the two differ only in memory.
 Expert stacks split by expert (``experts % tp == 0``) or stay whole, as
 the reference's engine falls back to its local MoE path.
+
+A data axis above 1 (``dp`` rows): entry ``(d, m)`` stores piece ``d``
+of model shard ``m``'s leaf along the leaf's FSDP dimension (where the
+spec names the data axis and ``_fit_spec`` keeps it; every other leaf
+whole, one tensor per distinct device), and :func:`gather_rows`
+rebuilds shard ``m``'s tensors in data order on each device that uses
+them, at use, one layer at a time.  The caches split by slot: slot ``b``
+lives on data row ``b // (B / dp)`` when ``dp`` divides the batch ``B``
+(its dense slab rows and mamba state), else the batch is not split and
+data row 0 holds every slot (``slot_rows``); paged pools are whole on
+each row, one copy per distinct device.
 """
 
 from __future__ import annotations
@@ -43,17 +55,20 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import data_gather
 
 __all__ = ["TP_AXIS", "fsdp_axes", "param_specs", "opt_state_specs",
            "batch_specs", "cache_specs", "page_table_spec", "TPLayout",
            "tp_layout", "check_tp_supported", "Shards", "shard_params",
-           "shard_caches", "split_dim", "MLA_CACHE_KEYS", "SSM_CACHE_KEYS",
-           "SSMSegments", "ssm_segments"]
+           "shard_caches", "split_dim", "data_dim", "slot_rows",
+           "gather_rows", "stored_bytes", "MLA_CACHE_KEYS", "SSM_CACHE_KEYS",
+           "SEQ_CACHE_KEYS", "SSMSegments", "ssm_segments"]
 
 TP_AXIS = "model"
 
-# where ROADMAP.md places the configurations tensor parallelism refuses
-TP_ROADMAP = "ROADMAP queue 1 item 4, the next tensor-parallel slice"
+# where ROADMAP.md places what a mesh inside one engine does not do yet
+TP_ROADMAP = ("ROADMAP queue 1 item 4d (capture across cards) and item 4e "
+              "(a multi-process NCCL backend)")
 
 
 def fsdp_axes(mesh) -> tuple:
@@ -100,7 +115,8 @@ def _param_rule(path: tuple, leaf, fsdp: tuple) -> tuple:
     if leafk in _QUANT_VALUES:           # (out, in): the weight transposed
         return wrap(*reversed(_w_rule(parent, fsdp)))
     if leafk in _QUANT_SCALES:           # (1, out): the weight's out axis
-        return wrap(None, _w_rule(parent, fsdp)[1])
+        out_axis = _w_rule(parent, fsdp)[1]  # on "model" only: never FSDP
+        return wrap(None, out_axis if out_axis == TP_AXIS else None)
     if leafk in ("w_gate", "w_up"):      # (E, D, F): EP x FSDP storage
         return wrap(TP_AXIS, fsdp, None)
     if leafk == "w_down":                # (E, F, D)
@@ -258,12 +274,29 @@ def cache_specs(cfg: ModelConfig, caches: Any, mesh, *, batch: int) -> Any:
     return _map_with_path(rule, caches)
 
 
-def split_dim(spec: tuple) -> int | None:
-    """The dimension a spec shards over the "model" axis, or None."""
+def _axis_dim(spec: tuple, axis: str) -> int | None:
     for i, axes in enumerate(spec):
-        if axes == TP_AXIS or (isinstance(axes, tuple) and TP_AXIS in axes):
+        if axes == axis or (isinstance(axes, tuple) and axis in axes):
             return i
     return None
+
+
+def split_dim(spec: tuple) -> int | None:
+    """The dimension a spec shards over the "model" axis, or None."""
+    return _axis_dim(spec, TP_AXIS)
+
+
+def data_dim(spec: tuple) -> int | None:
+    """The dimension a spec shards over the "data" axis (FSDP), or
+    None."""
+    return _axis_dim(spec, "data")
+
+
+def slot_rows(batch: int, dp: int) -> int:
+    """The data rows a batch of ``batch`` slots splits over: ``dp`` where
+    it divides the batch, else 1 (``_fit_spec`` drops the split and data
+    row 0 runs every slot)."""
+    return dp if batch % dp == 0 else 1
 
 
 # ---------------------------------------------------------------------------
@@ -271,16 +304,14 @@ def split_dim(spec: tuple) -> int | None:
 # ---------------------------------------------------------------------------
 
 def check_tp_supported(cfg: ModelConfig, tp: int, dp: int = 1) -> None:
-    """Tensor parallelism covers every mixer (GQA, MLA, the encoder's and
-    the cross-attention, the mamba mixer) with MLP or MoE blocks, a VLM's
-    patches and every quant mode; a data axis above 1 inside one engine
-    raises (at any ``tp``)."""
-    del cfg, tp
-    if dp > 1:
-        raise NotImplementedError(
-            f"a data axis above 1 inside one engine (FSDP weight storage) "
-            f"is not ported yet; serve data parallelism through "
-            f"serve.router ({TP_ROADMAP})")
+    """A ``(dp, tp)`` mesh inside one engine covers every mixer (GQA,
+    MLA, the encoder's and the cross-attention, the mamba mixer) with MLP
+    or MoE blocks, a VLM's patches and every quant mode, at any data
+    size; only the sizes are checked."""
+    del cfg
+    if tp < 1 or dp < 1:
+        raise ValueError(f"a mesh needs dp >= 1 and tp >= 1, got ({dp}, "
+                         f"{tp})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -395,12 +426,19 @@ def _ssm_piece(cfg, layout, s, path, leaf):
 
 @dataclasses.dataclass
 class Shards:
-    """One tree per model shard, shard ``s`` on ``devices[s]`` (a device
-    may repeat), split as ``layout`` says.  Replicated leaves are one
-    tensor per distinct device."""
+    """One tree per mesh entry: entry ``(d, m)`` (data row ``d``, model
+    shard ``m``) at ``d * tp + m``, on ``devices[d * tp + m]`` (a device
+    may repeat), split over the model axis as ``layout`` says; ``dp`` data
+    rows (1: one tree per model shard).  Replicated leaves are one tensor
+    per distinct device.  Parameters over a data axis above 1 carry
+    ``fsdp``: one tree's layout with each leaf's FSDP dimension (None:
+    stored whole), each entry holding its row's pieces
+    (:func:`gather_rows` rebuilds a shard's tensors at use)."""
     trees: list
     devices: list
     layout: TPLayout
+    dp: int = 1
+    fsdp: Any = None
 
     def __len__(self) -> int:
         return len(self.trees)
@@ -410,6 +448,17 @@ class Shards:
 
     def __iter__(self):
         return iter(self.trees)
+
+    @property
+    def tp(self) -> int:
+        return len(self.trees) // self.dp
+
+    def row(self, d: int) -> list:
+        """Data row ``d``'s trees, in model-shard order."""
+        return self.trees[d * self.tp:(d + 1) * self.tp]
+
+    def row_devices(self, d: int) -> list:
+        return self.devices[d * self.tp:(d + 1) * self.tp]
 
 
 def _copy_nodes(tree):
@@ -477,8 +526,11 @@ def _attn_kind(cfg: ModelConfig, path: tuple) -> str | None:
 
 
 def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
-    """One parameter tree per model shard of ``mesh`` (its data row 0),
-    on that shard's device.  The weights are quantized for
+    """One parameter tree per entry of ``mesh``, on that entry's device:
+    without a data axis one per model shard, above it each entry ``(d,
+    m)`` holding piece ``d`` of shard ``m``'s leaves (``_fsdp_pieces``:
+    the FSDP dimension ``param_specs`` names, each other leaf whole).
+    The weights are quantized for
     ``cfg.quant_mode`` first (as ``prepare_params`` does, on a copy of the
     tree's nodes: the caller's tree is never changed) and split after, so
     every int8 value and scale is the unsharded one.  Each leaf splits
@@ -500,7 +552,7 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
     from repro_torch.models.transformer import prepare_params
 
     tp = mesh.shape[TP_AXIS]
-    check_tp_supported(cfg, tp)
+    check_tp_supported(cfg, tp, mesh.shape["data"])
     layout = tp_layout(cfg, tp)
     src = prepare_params(_copy_nodes(params), cfg)
     specs = param_specs(src, mesh)
@@ -521,27 +573,139 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
 
     trees = _split_tree(src, specs, devices, keep_whole, copy_whole=False,
                         piece=piece)
-    return Shards(trees, devices, layout)
+    if mesh.shape["data"] == 1:
+        return Shards(trees, devices, layout)
+    dims = _map_with_path(lambda path, spec: data_dim(spec), specs)
+    return Shards(_fsdp_pieces(trees, dims, mesh), mesh.entries, layout,
+                  dp=mesh.shape["data"], fsdp=dims)
+
+
+def _fsdp_pieces(trees: list, dims, mesh) -> list:
+    """Entry ``(d, m)``'s tree: piece ``d`` of ``trees[m]``'s leaf along
+    its FSDP dimension ``dims`` says (a view where the split is along
+    rows on the leaf's own device, else a copy), a whole leaf as it is
+    where it already lies and one copy per other device."""
+    dp = mesh.shape["data"]
+    copies: dict = {}
+
+    def walk(d, dev, node, dim):
+        if isinstance(node, dict):
+            return {k: walk(d, dev, v, dim[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(d, dev, v, dm) for v, dm in zip(node, dim)]
+        if dim is None:
+            key = (id(node), str(dev))
+            if key not in copies:
+                copies[key] = node if node.device == dev \
+                    else node.to(dev, copy=True)
+            return copies[key]
+        n = node.shape[dim] // dp
+        part = node.narrow(dim, d * n, n)
+        return part.contiguous() if part.device == dev \
+            else part.to(dev, copy=True).contiguous()
+
+    return [walk(d, mesh.devices[d][m], tree, dims)
+            for d in range(dp) for m, tree in enumerate(trees)]
+
+
+# bits of the int8 weight copy each integer mode reads
+_MODE_BITS = {"w8a8_nibble": 8, "lut": 8, "w4a8_nibble": 4}
+
+
+def _read_keys(node: dict, mode: str) -> list:
+    """The leaves of ``node`` a call in ``mode`` reads: of a prepared
+    linear (``w`` beside ``qt8`` / ``qt4`` and their scales) the int8
+    copy and its scale an integer mode reads, else ``w``; every leaf of
+    any other node."""
+    if "w" not in node or not any(k in node for k in _QUANT_VALUES):
+        return list(node)
+    bits = _MODE_BITS.get(mode)
+    if bits is not None and f"qt{bits}" in node:
+        return [f"qt{bits}", f"s{bits}"]
+    return ["w"]
+
+
+def _gather_tree(pieces: list, dims, dev, mode: str, own):
+    """One shard's subtree on ``dev``: each FSDP leaf gathered from
+    ``pieces`` (the data rows' subtrees, in data order), each whole leaf
+    ``own``'s (the subtree of an entry on ``dev``)."""
+    if isinstance(own, dict):
+        return {k: _gather_tree([p[k] for p in pieces], dims[k], dev, mode,
+                                own[k]) for k in _read_keys(own, mode)}
+    if isinstance(own, list):
+        return [_gather_tree([p[i] for p in pieces], dims[i], dev, mode, o)
+                for i, o in enumerate(own)]
+    if dims is None:
+        return own
+    return data_gather(pieces, dims, [dev])[0]
+
+
+def stored_bytes(trees: list) -> list:
+    """Bytes of every tensor leaf of each tree (a tensor shared by two
+    trees counts in both): the parameter storage of each mesh entry."""
+    def size(node):
+        if isinstance(node, dict):
+            return sum(size(v) for v in node.values())
+        if isinstance(node, list):
+            return sum(size(v) for v in node)
+        return node.numel() * node.element_size()
+
+    return [size(t) for t in trees]
+
+
+def gather_rows(params: Shards, select, rows: int, mode: str) -> list:
+    """Data rows ``0 .. rows - 1``'s model shards of the subtree
+    ``select(tree)`` picks, ``[d][m]``.  Without a data axis the stored
+    trees themselves.  Above, the FSDP gather on use: each FSDP leaf of
+    shard ``m`` concatenated in data order onto each distinct device of
+    the rows' entries ``(d, m)`` (one gather a device, shared by the
+    entries on it, and a copy even where every piece already lies there,
+    as across cards), each whole leaf the entry's own; a linear's leaves
+    ``mode`` does not read are left out (``_read_keys``)."""
+    tp = params.tp
+    if params.fsdp is None:
+        return [[select(t) for t in params.row(d)] for d in range(rows)]
+    dims = select(params.fsdp)
+    out = [[None] * tp for _ in range(rows)]
+    for m in range(tp):
+        pieces = [select(params.trees[r * tp + m]) for r in range(params.dp)]
+        done: dict = {}
+        for d in range(rows):
+            dev = params.devices[d * tp + m]
+            if str(dev) not in done:
+                done[str(dev)] = _gather_tree(pieces, dims, dev, mode,
+                                              pieces[d])
+            out[d][m] = done[str(dev)]
+    return out
 
 
 MLA_CACHE_KEYS = ("c_kv", "k_rope")
 SSM_CACHE_KEYS = ("conv", "ssm")
+# cache leaves with a sequence axis (slab rows or pool pages), the
+# reference's set, int8 scales included; every other leaf is per-slot
+SEQ_CACHE_KEYS = frozenset({"k", "v", "c_kv", "k_rope", "k_scale",
+                            "v_scale"})
 
 
 def shard_caches(caches: list, cfg: ModelConfig, mesh, batch: int) -> Shards:
-    """One cache list per model shard, on that shard's device, in the
+    """One cache list per mesh entry, on that entry's device, in the
     layout the sharded engine serves from: KV (and int8 scale) leaves
     split along the head axis where ``cache_specs`` puts the model axis
     there, a mamba layer's conv history and SSM state by its shard's
     channels and heads (``ssm_segments``) where the SSD heads divide;
     every other leaf whole (the in-page sequence split the reference
     takes for indivisible heads and for MLA's latent pools is replicated
-    here).  Every leaf is a copy: the shards are written in
-    place, the caller's tree never."""
-    tp = mesh.shape[TP_AXIS]
-    check_tp_supported(cfg, tp)
+    here).  Over a data axis the slots split by row (``slot_rows``):
+    a row holds its slots of every per-slot leaf (dense slabs, mamba
+    state), and the paged pools are whole, one copy per distinct device
+    shared by the rows on it.  Every leaf is a copy: the shards are
+    written in place, the caller's tree never."""
+    tp, dp = mesh.shape[TP_AXIS], mesh.shape["data"]
     layout = tp_layout(cfg, tp)
     specs = cache_specs(cfg, caches, mesh, batch=batch)
+    paged = cfg.cache_mode == "paged"
+    rows = slot_rows(batch, dp)
+    per = batch // rows
 
     def keep_whole(path):
         if path[-1] in SSM_CACHE_KEYS:
@@ -553,6 +717,19 @@ def shard_caches(caches: list, cfg: ModelConfig, mesh, batch: int) -> Shards:
             return None
         return _ssm_piece(cfg, layout, s, path, leaf)
 
-    trees = _split_tree(caches, specs, mesh.model_devices, keep_whole,
-                        copy_whole=True, piece=piece)
-    return Shards(trees, mesh.model_devices, layout)
+    trees: list = []
+    pools: dict = {}
+    for d in range(rows):
+        src = [{k: v if paged and k in SEQ_CACHE_KEYS
+                else v.narrow(0, d * per, per) for k, v in c.items()}
+               for c in caches]
+        for m, tree in enumerate(_split_tree(
+                src, specs, mesh.row_devices(d), keep_whole,
+                copy_whole=True, piece=piece)):
+            for li, c in enumerate(tree):
+                for k in c:
+                    if paged and k in SEQ_CACHE_KEYS:
+                        c[k] = pools.setdefault(
+                            (m, li, k, str(c[k].device)), c[k])
+            trees.append(tree)
+    return Shards(trees, mesh.entries[:rows * tp], layout, dp=rows)

@@ -5,7 +5,10 @@ drives: the serve engine shards its weights and KV pools over the
 "model" axis and runs every shard from this process, with explicit
 collectives (``distributed.collectives``) where the reference's GSPMD
 partitioner inserts them.  A device may appear more than once: its shards
-then share it, which is how one card (or the CPU) runs ``tp=2``.
+then share it, which is how one card (or the CPU) runs ``tp=2``, or a
+``(2, 2)`` mesh.  Entry ``(d, m)`` is data row ``d``, model shard ``m``:
+the engine stores FSDP pieces of the weights per entry and splits its
+slots over the data rows (``distributed.sharding``).
 
 Not here yet: ``make_production_mesh`` (a TPU pod) and ``HW`` (the
 roofline's hardware constants); both come with the analysis tools that
@@ -48,6 +51,24 @@ class LocalMesh:
     def model_devices(self) -> list:
         """The model axis of data row 0: shard ``m`` runs on entry ``m``."""
         return list(self.devices[0])
+
+    def row_devices(self, d: int) -> list:
+        """The model axis of data row ``d``."""
+        return list(self.devices[d])
+
+    @property
+    def entries(self) -> list:
+        """Every entry's device, row-major: entry ``(d, m)`` at ``d * tp +
+        m``."""
+        return [dev for row in self.devices for dev in row]
+
+    @property
+    def distinct_devices(self) -> list:
+        """Each device the mesh names, once, in entry order."""
+        seen = {}
+        for dev in self.entries:
+            seen.setdefault(str(dev), dev)
+        return list(seen.values())
 
 
 def make_local_mesh(*, dp: int = 0, tp: int = 1, devices=None) -> LocalMesh:

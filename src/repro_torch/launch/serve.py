@@ -56,20 +56,24 @@ model (``--autotune``, no model run; the counterpart of the reference's
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --workload uniform --autotune max-tok-s --ttft-slo-ms 100
 
-Tensor parallelism: ``--tp 2`` shards each engine's weights and KV pools
-over a (1, 2) mesh (``--mesh DATAxMODEL`` names the shape; a data axis
-above 1 inside one engine is refused); ``--dp 2 --tp 2`` serves two such
-engines behind the router, each on its own slice of devices.  Every arch
-and every quant mode shards (a ``tp layout`` line says which blocks
-split and which run replicated; the mamba mixers split by SSD head).  On
-the card
-the mesh is the visible cards, so ``--tp 2`` needs two; with ``--device
-cpu`` it is the CPU repeated.  ``--verify`` re-runs the workload on the
-tp=1 / dp=1 engine and holds the streams equal:
+Tensor parallelism and a data axis: ``--tp 2`` shards each engine's
+weights and KV pools over a (1, 2) mesh; ``--mesh DATAxMODEL`` names the
+shape, and a data axis above 1 (``--mesh 2x1``, ``--mesh 2x2``, ``--tp 2
+--mesh 2x2``) stores the weights FSDP-split per entry, gathers them at
+use and splits the slots over the data rows (an ``fsdp`` line reports
+the bytes stored per entry and gathered per decode step); ``--dp 2 --tp
+2`` (or ``--dp 2 --mesh 2x1``) serves two such engines behind the
+router, each on its own slice of devices.  Every arch and every quant
+mode shards (a ``tp layout`` line says which blocks split and which run
+replicated; the mamba mixers split by SSD head).  On the card the mesh
+is the visible cards, so ``--tp 2`` needs two (one card runs a mesh in
+code: ``Engine(devices=["cuda:0"] * 4)``); with ``--device cpu`` it is
+the CPU repeated.  ``--verify`` re-runs the workload on the tp=1 / dp=1
+engine and holds the streams equal:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch qwen3-4b --workload uniform --cache-mode paged \
-        --page-size 4 --tp 2 --verify
+        --page-size 4 --mesh 2x2 --verify
 
 ``--temperature 0.7`` samples (any workload, also with ``--spec-decode``)
 under the reference's index-derived keys; ``--verify`` needs greedy
@@ -350,6 +354,12 @@ def run_requests(args, cfg, engine):
     if _meshed(args):
         # what splits over the shards and what runs replicated
         print(f"  tp layout: {engine.tp_layout}")
+        one = getattr(engine, "replicas", [engine])[0]
+        if one.mesh_shape[0] > 1:
+            mib = 2 ** 20
+            print(f"  fsdp: {max(one.param_bytes) / mib:.2f} MiB stored per "
+                  f"entry (most), {one.gathered_bytes_per_step / mib:.2f} MiB "
+                  f"gathered per decode step")
     print(f"  compile+warmup: {r['compile_s']:.2f}s   "
           f"(compilations: {r['compile_counts']}, CUDA graphs: "
           f"{engine.capture_counts})")
@@ -516,8 +526,8 @@ def main(argv=None):
                          "\"model\" axis (greedy streams stay equal to "
                          "tp=1)")
     ap.add_argument("--mesh", default=None,
-                    help="per-engine mesh shape DATAxMODEL (e.g. 1x2); "
-                         "overrides --tp when set")
+                    help="per-engine mesh shape DATAxMODEL (e.g. 1x2, "
+                         "2x1, 2x2); overrides --tp when set")
     ap.add_argument("--predict", action="store_true",
                     help="after the measured run, calibrate the engine's "
                          "per-dispatch stage costs and print the capacity "

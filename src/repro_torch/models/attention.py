@@ -35,7 +35,8 @@ __all__ = ["attn_init", "attn_apply", "attn_heads", "attention_core", "init_kv_c
            "init_paged_kv_cache", "mla_init", "mla_apply", "mla_latent",
            "mla_heads", "init_mla_cache", "init_paged_mla_cache",
            "scatter_cache_rows",
-           "scatter_paged_rows", "scatter_prefill_rows", "gather_pages"]
+           "scatter_paged_rows", "scatter_prefill_rows", "gather_pages",
+           "mirror_paged_rows"]
 
 _NEG_INF = -2.0 ** 30
 
@@ -78,6 +79,24 @@ def scatter_paged_rows(pool, new, table, index):
     page = torch.gather(table.long(), 1, pos // ps)
     pool[page, pos % ps] = new.to(pool.dtype)
     return pool
+
+
+def mirror_paged_rows(src, dst, table, index, s: int):
+    """Copy the rows a step of ``s`` tokens a slot wrote through ``table``
+    at ``index`` (where :func:`scatter_paged_rows` put them) from pool
+    ``src`` into its copy ``dst`` on another device, in place: a data
+    row's writes reach every copy of the pools."""
+    ps = src.shape[1]
+    b = table.shape[0]
+    index = torch.broadcast_to(
+        torch.as_tensor(index, device=src.device).reshape(-1).long(), (b,))
+    pos = torch.clamp(index[:, None]
+                      + torch.arange(s, device=src.device)[None, :],
+                      0, table.shape[1] * ps - 1)
+    page = torch.gather(table.to(src.device).long(), 1, pos // ps)
+    rows = src[page, pos % ps]
+    dst[page.to(dst.device), (pos % ps).to(dst.device)] = rows.to(dst.device)
+    return dst
 
 
 def gather_pages(pool, table):
@@ -275,7 +294,7 @@ def attn_heads(params, cfg, x, *, positions, kind: str = "full",
                cache: dict | None = None, cache_index=None,
                kv_source=None, causal: bool = True,
                return_cache: bool = False, page_table=None,
-               context_start=None):
+               context_start=None, x_amax=None, kv_amax=None):
     """The attention block up to ``wo``: returns (heads (B, S, H * hd),
     new_cache).  Under tensor parallelism each shard runs it with its
     share of the heads (``cfg`` holding the shard's ``n_heads`` and
@@ -304,18 +323,23 @@ def attn_heads(params, cfg, x, *, positions, kind: str = "full",
     ``attention_core`` attends them, as in the reference (the flash
     kernel is not used here).  The pools are not written: the suffix K/V
     come back as ``new_cache`` for the caller to scatter.  Refused over
-    the int8 KV cache (the reference's rule)."""
+    the int8 KV cache (the reference's rule).
+
+    ``x_amax`` / ``kv_amax``: the batch-wide amax of ``x`` and of
+    ``kv_source`` over data rows (int modes; ``linear.rows_amax``)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     mode, backend = cfg.quant_mode, cfg.quant_backend
 
-    q = linear_apply(params["wq"], x, mode=mode, backend=backend) \
-        .reshape(b, s, h, hd)
+    q = linear_apply(params["wq"], x, mode=mode, backend=backend,
+                     x_amax=x_amax).reshape(b, s, h, hd)
     kv_in = x if kv_source is None else kv_source
+    kv_kw = dict(mode=mode, backend=backend,
+                 x_amax=x_amax if kv_source is None else kv_amax)
     sk_new = kv_in.shape[1]
-    k = linear_apply(params["wk"], kv_in, mode=mode, backend=backend) \
+    k = linear_apply(params["wk"], kv_in, **kv_kw) \
         .reshape(b, sk_new, kvh, hd)
-    v = linear_apply(params["wv"], kv_in, mode=mode, backend=backend) \
+    v = linear_apply(params["wv"], kv_in, **kv_kw) \
         .reshape(b, sk_new, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(params["q_norm"], q, cfg.norm_eps)
@@ -430,7 +454,7 @@ def init_paged_mla_cache(cfg, num_pages: int, page_size: int, device) -> dict:
 
 def mla_latent(params, cfg, x, *, positions, cache=None, cache_index=None,
                return_cache: bool = False, page_table=None,
-               context_start=None):
+               context_start=None, x_amax=None):
     """MLA's latent part, which has no head axis (under tensor
     parallelism it runs once per distinct device): ``wq_a`` with
     ``q_a_norm``, and ``wkv_a`` with ``kv_a_norm`` and the rope key.  It
@@ -439,16 +463,16 @@ def mla_latent(params, cfg, x, *, positions, cache=None, cache_index=None,
     a context prefill's cached rows.  Returns (latents, new_cache):
     ``latents`` is what :func:`mla_heads` takes (``q_a``, the attended
     ``c_kv`` and ``k_rope`` rows, their positions, the rope tables, and
-    whether a cache was read)."""
+    whether a cache was read).  ``x_amax``: the batch-wide amax of ``x``
+    over data rows (int modes)."""
     b, s, _ = x.shape
     r_kv, d_rope = cfg.kv_lora_rank, cfg.qk_rope_dim
-    mode, backend = cfg.quant_mode, cfg.quant_backend
+    kw = dict(mode=cfg.quant_mode, backend=cfg.quant_backend, x_amax=x_amax)
 
-    q_a = rms_norm(params["q_a_norm"],
-                   linear_apply(params["wq_a"], x, mode=mode,
-                                backend=backend), cfg.norm_eps)
+    q_a = rms_norm(params["q_a_norm"], linear_apply(params["wq_a"], x, **kw),
+                   cfg.norm_eps)
     sin, cos = rope(positions, d_rope, cfg.rope_theta)
-    kv_a = linear_apply(params["wkv_a"], x, mode=mode, backend=backend)
+    kv_a = linear_apply(params["wkv_a"], x, **kw)
     c_kv = rms_norm(params["kv_a_norm"], kv_a[..., :r_kv], cfg.norm_eps)
     k_rope_new = apply_rope(kv_a[..., r_kv:].reshape(b, s, 1, d_rope),
                             sin, cos).to(x.dtype).reshape(b, s, d_rope)
@@ -488,14 +512,17 @@ def mla_latent(params, cfg, x, *, positions, cache=None, cache_index=None,
     return latents, new_cache
 
 
-def mla_heads(params, cfg, latents: dict, *, positions):
+def mla_heads(params, cfg, latents: dict, *, positions, q_amax=None,
+              kv_amax=None):
     """MLA's head part, the counterpart of :func:`attn_heads`: ``wq_b``
     and ``wkv_b`` over ``cfg.n_heads`` heads (under tensor parallelism a
     shard's config holds its share, its ``wq_b`` / ``wkv_b`` those heads'
     columns), K and V re-expanded from the latents (at decode over every
     cached row), then ``attention_core``, or the flash forward under
     ``attn_impl="flash"`` without a cache.  Returns the heads before
-    ``wo``, (B, S, H * v_head_dim)."""
+    ``wo``, (B, S, H * v_head_dim).  ``q_amax`` / ``kv_amax``: the
+    batch-wide amaxes of ``q_a`` and of the attended ``c_kv`` rows over
+    data rows (int modes)."""
     q_a = latents["q_a"]
     b, s, _ = q_a.shape
     h = cfg.n_heads
@@ -503,15 +530,15 @@ def mla_heads(params, cfg, latents: dict, *, positions):
     mode, backend = cfg.quant_mode, cfg.quant_backend
     dtype = q_a.dtype
 
-    q = linear_apply(params["wq_b"], q_a, mode=mode, backend=backend) \
-        .reshape(b, s, h, d_nope + d_rope)
+    q = linear_apply(params["wq_b"], q_a, mode=mode, backend=backend,
+                     x_amax=q_amax).reshape(b, s, h, d_nope + d_rope)
     q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
     q_rope = apply_rope(q_rope, latents["sin"], latents["cos"]).to(dtype)
 
     c_kv_f, k_rope_f = latents["c_kv"], latents["k_rope"]
     sk = c_kv_f.shape[1]
-    kv = linear_apply(params["wkv_b"], c_kv_f, mode=mode, backend=backend) \
-        .reshape(b, sk, h, d_nope + d_v)
+    kv = linear_apply(params["wkv_b"], c_kv_f, mode=mode, backend=backend,
+                      x_amax=kv_amax).reshape(b, sk, h, d_nope + d_v)
     k_nope, v = kv[..., :d_nope], kv[..., d_nope:]
     k_rope_b = torch.broadcast_to(k_rope_f[:, :, None, :].to(dtype),
                                   (b, sk, h, d_rope))

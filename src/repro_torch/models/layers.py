@@ -17,6 +17,7 @@ from repro_torch.distributed.collectives import all_gather, all_reduce_sum
 __all__ = ["rms_norm_init", "rms_norm", "rope", "apply_rope", "mlp_init",
            "mlp_apply", "mlp_hidden", "embed_init", "embed_apply",
            "embed_logits", "bf16_matmul", "fixed_bmm", "fixed_cumsum",
+           "fixed_mean",
            "entries_per_call",
            "vocab_parallel_embed", "vocab_parallel_logits"]
 
@@ -42,6 +43,8 @@ _CALL_BYTES = 8 << 20
 _MIN_ENTRIES = 4
 _CALL_ENTRIES = 64
 _SCAN_ROWS = 64
+# the fewest rows of a ``fixed_mean`` call
+_MEAN_ROWS = 16
 
 
 def entries_per_call(m: int, k: int, n: int) -> int:
@@ -108,11 +111,29 @@ def rms_norm_init(dim: int, device) -> dict:
     return {"scale": torch.zeros((dim,), dtype=torch.float32, device=device)}
 
 
+def fixed_mean(a: torch.Tensor) -> torch.Tensor:
+    """``torch.mean(a, -1, keepdim=True)`` where every row's sum order is
+    one whatever the row count: a call of fewer than ``_MEAN_ROWS`` rows
+    runs zero-padded to that many.  torch's CUDA reduction shapes its
+    thread block by the number of outputs below 16 and keeps one shape
+    from 16 up (``chip_smoke.py``'s ``check_fixed_mean`` holds this on the
+    card at the models' widths), so without the pad a data row's slots
+    would sum in another order than the whole batch's."""
+    rows = a.reshape(-1, a.shape[-1])
+    n = rows.shape[0]
+    if n >= _MEAN_ROWS:
+        return torch.mean(a, dim=-1, keepdim=True)
+    padded = F.pad(rows, (0, 0, 0, _MEAN_ROWS - n))
+    return torch.mean(padded, dim=-1, keepdim=True)[:n].reshape(
+        a.shape[:-1] + (1,))
+
+
 def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6):
-    """f32 RMSNorm with the reference's ``(1 + scale)`` gain."""
+    """f32 RMSNorm with the reference's ``(1 + scale)`` gain; the mean of
+    squares through :func:`fixed_mean`."""
     dtype = x.dtype
     x = x.to(torch.float32)
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    var = fixed_mean(torch.square(x))
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + params["scale"])).to(dtype)
 
@@ -148,12 +169,14 @@ def mlp_init(d_model: int, d_ff: int, *, generator, device) -> dict:
 
 
 def mlp_hidden(params: dict, x: torch.Tensor, *, act: str = "silu",
-               quant_mode: str = "dense", quant_backend: str = "torch"):
+               quant_mode: str = "dense", quant_backend: str = "torch",
+               x_amax=None):
     """The gated hidden state ``act(x @ gate) * (x @ up)``, activation in
-    f32: the input of ``down`` (a column-parallel shard's slice of it)."""
-    g = linear_apply(params["gate"], x, mode=quant_mode,
-                     backend=quant_backend)
-    u = linear_apply(params["up"], x, mode=quant_mode, backend=quant_backend)
+    f32: the input of ``down`` (a column-parallel shard's slice of it).
+    ``x_amax``: the batch-wide amax over data rows (int modes)."""
+    kw = dict(mode=quant_mode, backend=quant_backend, x_amax=x_amax)
+    g = linear_apply(params["gate"], x, **kw)
+    u = linear_apply(params["up"], x, **kw)
     if act == "gelu":
         g = F.gelu(g.to(torch.float32), approximate="tanh").to(x.dtype)
     else:

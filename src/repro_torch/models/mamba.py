@@ -25,11 +25,13 @@ reads the device from the host, so a decode step captures into a CUDA
 graph; :func:`mamba_step` writes the new state into the cache tensors in
 place.
 
-Tensor parallelism (:func:`mamba_apply_shards`): each shard runs its SSD
+Tensor parallelism (:func:`mamba_cols_shards`): each shard runs its SSD
 heads (its columns of z, x and dt, the B/C groups of its heads, its conv
 channels and state; :class:`SSMDims` names the widths a call runs at),
 the gated norm runs whole on each device over the shards' outputs
-gathered in shard order, and ``out_proj`` is row-parallel.  Every batched
+gathered in shard order, and the caller runs ``out_proj`` row-parallel
+(over data rows with the batch-wide amax; a replicated mixer is
+:func:`mamba_heads` then ``out_proj``).  Every batched
 product and scan of the SSD runs in calls of one shape
 (``layers.fixed_bmm``, ``layers.fixed_cumsum``), so a shard's heads
 equal the unsharded call's bit for bit.
@@ -42,15 +44,14 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.linear import linear_apply, linear_apply_row, \
-    linear_init
+from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.distributed.collectives import all_gather, per_device
 from repro_torch.distributed.sharding import ssm_segments
 from repro_torch.models.layers import fixed_bmm, fixed_cumsum, rms_norm, \
     rms_norm_init
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_step", "init_mamba_cache",
-           "mamba_apply_shards", "SSMDims", "ssm_dims"]
+           "mamba_heads", "mamba_cols_shards", "SSMDims", "ssm_dims"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,12 +255,14 @@ def _norm_out(params, cfg, gated):
                         backend=cfg.quant_backend)
 
 
-def _apply_heads(params, cfg, dm: SSMDims, x, *, return_cache: bool):
+def _apply_heads(params, cfg, dm: SSMDims, x, *, return_cache: bool,
+                 x_amax=None):
     """The SSD pass over the heads ``dm`` names, up to the gated norm:
-    returns ``(gated (B, S, dm.d_inner), cache_or_None)``."""
+    returns ``(gated (B, S, dm.d_inner), cache_or_None)``.  ``x_amax``:
+    the batch-wide amax of ``x`` over data rows (int modes)."""
     bsz, s, _ = x.shape
     proj = linear_apply(params["in_proj"], x, mode=cfg.quant_mode,
-                        backend=cfg.quant_backend)
+                        backend=cfg.quant_backend, x_amax=x_amax)
     z, xbc, dt_raw = _split_proj(dm, proj)
     xbc, conv_carry = _causal_conv(xbc, params["conv_w"].to(torch.float32),
                                    params["conv_b"].to(torch.float32))
@@ -307,7 +310,7 @@ def init_mamba_cache(cfg, batch: int, device, dims: SSMDims | None = None
                                dtype=torch.float32, device=device)}
 
 
-def _step_heads(params, cfg, dm: SSMDims, x, cache):
+def _step_heads(params, cfg, dm: SSMDims, x, cache, x_amax=None):
     """One decode step over the heads ``dm`` names, up to the gated norm;
     writes the new conv history and SSM state into ``cache`` in place."""
     bsz, s, _ = x.shape
@@ -316,7 +319,7 @@ def _step_heads(params, cfg, dm: SSMDims, x, cache):
                          f"{s}")
     h, p, n = dm.heads, dm.head_dim, dm.state
     proj = linear_apply(params["in_proj"], x, mode=cfg.quant_mode,
-                        backend=cfg.quant_backend)
+                        backend=cfg.quant_backend, x_amax=x_amax)
     z, xbc, dt_raw = _split_proj(dm, proj)
     xbc, conv_carry = _causal_conv(
         xbc, params["conv_w"].to(torch.float32),
@@ -358,26 +361,44 @@ def mamba_step(params, cfg, x, cache):
     return _norm_out(params, cfg, gated), cache
 
 
-def mamba_apply_shards(ps: list, cfg, xs: list, layout, *, mode: str,
-                       caches: list | None = None):
+def mamba_heads(params, cfg, x, *, mode: str, cache=None, x_amax=None):
+    """The whole mixer up to ``out_proj``: the SSD pass (``mode``
+    "prefill" / "train") or one decode step (its state written in place),
+    then the gated norm.  Returns ``(normed, cache_or_None)``; a data
+    row's replicated mixer runs this and then ``out_proj`` with the
+    batch-wide amax."""
+    dm = ssm_dims(cfg)
+    if mode == "decode":
+        gated = _step_heads(params, cfg, dm, x, cache, x_amax)
+    else:
+        gated, cache = _apply_heads(params, cfg, dm, x, x_amax=x_amax,
+                                    return_cache=(mode == "prefill"))
+    return rms_norm(params["norm"], gated, cfg.norm_eps), cache
+
+
+def mamba_cols_shards(ps: list, cfg, xs: list, layout, *, mode: str,
+                      caches: list | None = None, x_amax=None):
     """The mixer over tensor-parallel shards split by SSD head
-    (``layout.ssm_heads``): ``ps[s]`` holds shard ``s``'s pieces
-    (``distributed.sharding.ssm_segments``), ``xs`` the replicated input,
-    ``caches`` (decode) each shard's conv history and SSM state.  Each
-    shard runs its heads (``mode`` "prefill" / "train": the SSD pass,
-    "decode": one step, its state written in place); the gated norm
-    needs all of ``d_inner``, so the shards' gated outputs are gathered
-    in shard order and the norm runs whole once a device, exactly tp=1's;
-    each shard's columns of it then go through ``out_proj``
-    row-parallel.  Returns (outs, per-shard caches or Nones)."""
+    (``layout.ssm_heads``) up to ``out_proj``: ``ps[s]`` holds shard
+    ``s``'s pieces (``distributed.sharding.ssm_segments``), ``xs`` the
+    replicated input, ``caches`` (decode) each shard's conv history and
+    SSM state, ``x_amax`` the batch-wide amax over data rows (int modes).
+    Each shard runs its heads (``mode`` "prefill" / "train": the SSD
+    pass, "decode": one step, its state written in place); the gated
+    norm needs all of ``d_inner``, so the shards' gated outputs are
+    gathered in shard order and the norm runs whole once a device,
+    exactly tp=1's.  Returns (each shard's columns of the normed output,
+    the input of the row-parallel ``out_proj``; per-shard caches or
+    Nones)."""
     gated, cs = [], []
     for i, (p, x) in enumerate(zip(ps, xs)):
         dm = ssm_dims(cfg, ssm_segments(cfg, layout, i))
+        a = None if x_amax is None else x_amax[i]
         if mode == "decode":
-            gated.append(_step_heads(p, cfg, dm, x, caches[i]))
+            gated.append(_step_heads(p, cfg, dm, x, caches[i], a))
             cs.append(caches[i])
         else:
-            g, c = _apply_heads(p, cfg, dm, x,
+            g, c = _apply_heads(p, cfg, dm, x, x_amax=a,
                                 return_cache=(mode == "prefill"))
             gated.append(g)
             cs.append(c)
@@ -387,6 +408,4 @@ def mamba_apply_shards(ps: list, cfg, xs: list, layout, *, mode: str,
                                                  cfg.norm_eps))
     cols = [n.narrow(-1, sum(g.shape[-1] for g in gated[:i]),
                      gated[i].shape[-1]) for i, n in enumerate(normed)]
-    outs = linear_apply_row([p["out_proj"] for p in ps], cols,
-                            mode=cfg.quant_mode, backend=cfg.quant_backend)
-    return outs, cs
+    return cols, cs

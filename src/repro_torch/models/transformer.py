@@ -44,7 +44,7 @@ the encoder's) on its shard's heads and pools, or replicated where the kv
 heads do not divide the shards; MLA's latent part once per device into
 that device's whole latent pools, its heads split by query heads; each
 mamba mixer on its shard's SSD heads and state, the gated norm whole
-(``mamba.mamba_apply_shards``), or replicated; the column-parallel
+(``mamba.mamba_cols_shards``), or replicated; the column-parallel
 projections on their shard's columns and ``wo`` /
 ``down`` row-parallel; MoE blocks expert-parallel
 (``moe.moe_apply_shards``); the embedding and head vocab-parallel.  A
@@ -56,20 +56,36 @@ share its replicated tensors.  The page helpers act on every shard, and
 a host payload keeps the unsharded layout (the shards' heads
 concatenated in shard order, a replicated pool once), so the host tiers
 hold the same bytes at any ``tp``.
+
+A data axis (``Shards`` of ``dp`` rows, FSDP pieces per entry): each
+layer's weights are gathered at use (``sharding.gather_rows``), the
+batch splits over ``slot_rows`` data rows and each row runs the path
+above on its slots (a batch-1 prefill runs on row 0).  The rows meet
+where the unsplit batch does: every integer projection quantizes with
+the max of all rows' amaxes, the MoE block runs once over the whole
+batch on row 0, and the final norm and head run over the rows' hidden
+states gathered in slot order on row 0.  Dense slabs and mamba state
+are split by slot; the paged pools are whole on every row, one copy
+per distinct device, and a decode step's pool rows are mirrored into
+the other copies.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.core.linear import linear_apply_row, linear_init, \
-    prepare_quantized
-from repro_torch.distributed.collectives import broadcast, per_device
-from repro_torch.distributed.sharding import MLA_CACHE_KEYS, Shards, \
-    ssm_segments
+from repro_torch.core.linear import linear_apply, linear_apply_row, \
+    linear_init, prepare_quantized, rows_amax
+from repro_torch.distributed.collectives import broadcast, \
+    gathered_bytes, per_device
+from repro_torch.kernels.ops import add_launch_counts, launch_counts
+from repro_torch.distributed.sharding import MLA_CACHE_KEYS, \
+    SEQ_CACHE_KEYS, Shards, gather_rows, slot_rows, ssm_segments
 from repro_torch.models.attention import (
     KV_CACHE_DTYPES,
     attn_apply,
@@ -83,12 +99,14 @@ from repro_torch.models.attention import (
     mla_heads,
     mla_init,
     mla_latent,
+    mirror_paged_rows,
     scatter_prefill_rows,
 )
 from repro_torch.models.mamba import (
     init_mamba_cache,
     mamba_apply,
-    mamba_apply_shards,
+    mamba_cols_shards,
+    mamba_heads,
     mamba_init,
     mamba_step,
     ssm_dims,
@@ -115,7 +133,7 @@ __all__ = ["model_init", "load_jax_params", "unstack_jax_tree",
            "merge_slot_caches", "merge_slot_paged_caches",
            "scatter_prefill_paged_caches", "copy_paged_cache_page",
            "extract_cache_pages", "insert_cache_pages", "init_shard_caches",
-           "sequence_pools", "cache_bytes"]
+           "sequence_pools", "cache_bytes", "decode_gather_bytes"]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -370,8 +388,24 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 # ---------------------------------------------------------------------------
-# The stack over model shards (tensor parallelism)
+# The stack over the mesh (tensor parallelism and a data axis)
 # ---------------------------------------------------------------------------
+#
+# Every function below takes nested lists ``[d][m]``: data row ``d``'s
+# model shard ``m`` (one row without a data axis).  A row runs its own
+# slots; within a row the residual stream is replicated over the shards.
+# The rows meet where the reference's batch-wide values meet: the int
+# modes' per-tensor activation scale (``rows_amax``), the MoE block's
+# routing and capacity (``_moe_rows``) and the head (``_logits_rows``).
+
+def _row_split(t, rows: int) -> list:
+    """``t``'s leading (batch) axis in ``rows`` equal parts; a scalar, a
+    0-d tensor or None repeated."""
+    if not isinstance(t, torch.Tensor) or t.ndim == 0 or rows == 1:
+        return [t] * rows
+    n = t.shape[0] // rows
+    return [t[d * n:(d + 1) * n] for d in range(rows)]
+
 
 def _shard_locals(devices, **tensors) -> list:
     """Per shard, the step's host-authored inputs (positions, cache
@@ -382,100 +416,195 @@ def _shard_locals(devices, **tensors) -> list:
     return [{k: per[k][i] for k in tensors} for i in range(len(devices))]
 
 
+def _row_locals(params: Shards, rows: int, **tensors) -> list:
+    """:func:`_shard_locals` per data row, each row taking its slots'
+    part of every batch-leading input."""
+    split = {k: _row_split(v, rows) for k, v in tensors.items()}
+    return [_shard_locals(params.row_devices(d),
+                          **{k: v[d] for k, v in split.items()})
+            for d in range(rows)]
+
+
+def _devs(xs) -> list:
+    return [[x.device for x in row] for row in xs]
+
+
+def _at(t, d, i):
+    return None if t is None else t[d][i]
+
+
+def _rows_row_parallel(ws, xs, cfg) -> list:
+    """A row-parallel projection per data row (``linear_apply_row`` over
+    the row's shards), the int modes' amax over every row's slices."""
+    amax = rows_amax(xs, cfg.quant_mode)
+    return [linear_apply_row(ws[d], xs[d], mode=cfg.quant_mode,
+                             backend=cfg.quant_backend,
+                             x_amax=None if amax is None else amax[d])
+            for d in range(len(xs))]
+
+
+def _rows_replicated(ws, xs, cfg) -> list:
+    """A whole projection over a replicated input, once per distinct
+    device of each row, the int modes' amax over every row's input."""
+    amax = rows_amax(xs, cfg.quant_mode)
+    devs = _devs(xs)
+    return [per_device(devs[d], lambda i: linear_apply(
+        ws[d][i], xs[d][i], mode=cfg.quant_mode, backend=cfg.quant_backend,
+        x_amax=_at(amax, d, i))) for d in range(len(xs))]
+
+
 def _tp_attn(ps, cfg, layout, spec, hs, *, loc, caches, mode, causal):
-    """The self-attention block over the shards: per shard over its heads
+    """The self-attention block over the mesh: per shard over its heads
     (each shard's ``attention_core`` call alone, as on a card of its own)
     then ``wo`` row-parallel, or replicated once per device where the
-    heads do not divide.  MLA's latent part
-    (no head axis) runs once per device and writes that device's pools.
-    Returns (outs, caches)."""
-    devs = [h.device for h in hs]
-    mq = dict(mode=cfg.quant_mode, backend=cfg.quant_backend)
+    heads do not divide.  MLA's latent part (no head axis) runs once per
+    device and writes that device's pools.  Returns (outs, caches)."""
+    rows = range(len(hs))
+    devs = _devs(hs)
+    amax = rows_amax(hs, cfg.quant_mode)
 
-    def kw(i):
-        return dict(positions=loc[i]["positions"],
-                    cache=None if caches is None else caches[i],
-                    cache_index=loc[i]["cache_index"],
+    def kw(d, i):
+        return dict(positions=loc[d][i]["positions"],
+                    cache=_at(caches, d, i),
+                    cache_index=loc[d][i]["cache_index"],
                     return_cache=(mode == "prefill"),
-                    page_table=loc[i]["page_table"],
-                    context_start=loc[i]["context_start"])
+                    page_table=loc[d][i]["page_table"],
+                    context_start=loc[d][i]["context_start"])
+
+    def wo(d):
+        return [p["attn"]["wo"] for p in ps[d]]
 
     if spec.attn_kind == "mla":
-        if not layout.mla_heads:
-            res = per_device(devs, lambda i: mla_apply(ps[i]["attn"], cfg,
-                                                       hs[i], **kw(i)))
-            return [o for o, _ in res], [c for _, c in res]
-        lat = per_device(devs, lambda i: mla_latent(ps[i]["attn"], cfg,
-                                                    hs[i], **kw(i)))
-        mcfg = layout.mla_cfg(cfg)
-        heads = [mla_heads(p["attn"], mcfg, lat[i][0],
-                           positions=loc[i]["positions"])
-                 for i, p in enumerate(ps)]
-        return (linear_apply_row([p["attn"]["wo"] for p in ps], heads, **mq),
-                [c for _, c in lat])
+        lat = [per_device(devs[d], lambda i: mla_latent(
+            ps[d][i]["attn"], cfg, hs[d][i], x_amax=_at(amax, d, i),
+            **kw(d, i))) for d in rows]
+        q_amax, kv_amax = (rows_amax([[lt[0][k] for lt in lat[d]]
+                                      for d in rows], cfg.quant_mode)
+                           for k in ("q_a", "c_kv"))
+
+        def heads(d, i, c):
+            return mla_heads(ps[d][i]["attn"], c, lat[d][i][0],
+                             positions=loc[d][i]["positions"],
+                             q_amax=_at(q_amax, d, i),
+                             kv_amax=_at(kv_amax, d, i))
+
+        if layout.mla_heads:
+            mcfg = layout.mla_cfg(cfg)
+            outs = _rows_row_parallel(
+                [wo(d) for d in rows],
+                [[heads(d, i, mcfg) for i in range(len(ps[d]))]
+                 for d in rows], cfg)
+        else:
+            outs = _rows_replicated(
+                [wo(d) for d in rows],
+                [per_device(devs[d], lambda i: heads(d, i, cfg))
+                 for d in rows], cfg)
+        return outs, [[c for _, c in lat[d]] for d in rows]
     akw = dict(kind=spec.attn_kind, causal=causal)
-    if not layout.heads:
-        res = per_device(devs, lambda i: attn_apply(ps[i]["attn"], cfg, hs[i],
-                                                    **akw, **kw(i)))
-        return [o for o, _ in res], [c for _, c in res]
-    scfg = layout.shard_cfg(cfg)
-    res = [attn_heads(p["attn"], scfg, h, **akw, **kw(i))
-           for i, (p, h) in enumerate(zip(ps, hs))]
-    return (linear_apply_row([p["attn"]["wo"] for p in ps],
-                             [o for o, _ in res], **mq),
-            [c for _, c in res])
+    if layout.heads:
+        scfg = layout.shard_cfg(cfg)
+        res = [[attn_heads(p["attn"], scfg, hs[d][i], x_amax=_at(amax, d, i),
+                           **akw, **kw(d, i)) for i, p in enumerate(ps[d])]
+               for d in rows]
+        project = _rows_row_parallel
+    else:
+        res = [per_device(devs[d], lambda i: attn_heads(
+            ps[d][i]["attn"], cfg, hs[d][i], x_amax=_at(amax, d, i), **akw,
+            **kw(d, i))) for d in rows]
+        project = _rows_replicated
+    outs = project([wo(d) for d in rows],
+                   [[o for o, _ in res[d]] for d in rows], cfg)
+    return outs, [[c for _, c in res[d]] for d in rows]
 
 
 def _tp_mamba(ps, cfg, layout, hs, *, caches, mode):
-    """The mamba mixer over the shards: each on its SSD heads with the
+    """The mamba mixer over the mesh: each shard on its SSD heads with the
     gated norm whole and ``out_proj`` row-parallel
-    (``mamba.mamba_apply_shards``), or replicated once per device where
+    (``mamba.mamba_cols_shards``), or replicated once per device where
     the heads do not divide.  Returns (outs, caches)."""
+    rows = range(len(hs))
+    amax = rows_amax(hs, cfg.quant_mode)
+    out_proj = [[p["mamba"]["out_proj"] for p in ps[d]] for d in rows]
     if layout.ssm_heads:
-        return mamba_apply_shards([p["mamba"] for p in ps], cfg, hs, layout,
-                                  mode=mode, caches=caches)
-    devs = [h.device for h in hs]
-    if mode == "decode":
-        res = per_device(devs, lambda i: mamba_step(ps[i]["mamba"], cfg,
-                                                    hs[i], caches[i]))
-    else:
-        res = per_device(devs, lambda i: mamba_apply(
-            ps[i]["mamba"], cfg, hs[i], return_cache=(mode == "prefill")))
-    return [o for o, _ in res], [c for _, c in res]
+        res = [mamba_cols_shards(
+            [p["mamba"] for p in ps[d]], cfg, hs[d], layout, mode=mode,
+            caches=None if caches is None else caches[d],
+            x_amax=None if amax is None else amax[d]) for d in rows]
+        return (_rows_row_parallel(out_proj, [c for c, _ in res], cfg),
+                [cs for _, cs in res])
+    devs = _devs(hs)
+    res = [per_device(devs[d], lambda i: mamba_heads(
+        ps[d][i]["mamba"], cfg, hs[d][i], mode=mode,
+        cache=_at(caches, d, i), x_amax=_at(amax, d, i))) for d in rows]
+    return (_rows_replicated(out_proj, [[n for n, _ in res[d]] for d in rows],
+                             cfg),
+            [[c for _, c in res[d]] for d in rows])
 
 
 def _tp_cross(ps, cfg, layout, hs, *, loc, enc_outs) -> list:
-    """The cross-attention over ``enc_outs`` (one per shard): per shard
+    """The cross-attention over ``enc_outs`` (one per entry): per shard
     over its heads then ``wo`` row-parallel, or replicated."""
-    devs = [h.device for h in hs]
-    kw = [dict(positions=loc[i]["positions"], kv_source=enc_outs[i],
-               causal=False) for i in range(len(ps))]
-    if not layout.heads:
-        return per_device(devs, lambda i: attn_apply(ps[i]["cross"], cfg,
-                                                     hs[i], **kw[i])[0])
-    scfg = layout.shard_cfg(cfg)
-    heads = [attn_heads(p["cross"], scfg, h, **kw[i])[0]
-             for i, (p, h) in enumerate(zip(ps, hs))]
-    return linear_apply_row([p["cross"]["wo"] for p in ps], heads,
-                            mode=cfg.quant_mode, backend=cfg.quant_backend)
+    rows = range(len(hs))
+    devs = _devs(hs)
+    amax = rows_amax(hs, cfg.quant_mode)
+    kv_amax = rows_amax(enc_outs, cfg.quant_mode)
+
+    def heads(d, i, c):
+        return attn_heads(ps[d][i]["cross"], c, hs[d][i],
+                          positions=loc[d][i]["positions"],
+                          kv_source=enc_outs[d][i], causal=False,
+                          x_amax=_at(amax, d, i),
+                          kv_amax=_at(kv_amax, d, i))[0]
+
+    wo = [[p["cross"]["wo"] for p in ps[d]] for d in rows]
+    if layout.heads:
+        scfg = layout.shard_cfg(cfg)
+        return _rows_row_parallel(
+            wo, [[heads(d, i, scfg) for i in range(len(ps[d]))]
+                 for d in rows], cfg)
+    return _rows_replicated(
+        wo, [per_device(devs[d], lambda i: heads(d, i, cfg)) for d in rows],
+        cfg)
+
+
+def _moe_rows(ps, cfg, layout, hs) -> list:
+    """The MoE block over the mesh.  Its routing, capacity and drop order
+    span every token of the call, so with several data rows their inputs
+    are gathered in slot order onto data row 0's entries, the block runs
+    there once over the whole batch (``moe.moe_apply_shards``, bit for bit
+    the unsplit call) and each row takes its slots' outputs back."""
+    if len(hs) == 1:
+        return [moe_apply_shards([p["moe"] for p in ps[0]], cfg, hs[0],
+                                 layout)[0]]
+    rows = range(len(hs))
+    devs = _devs(hs)
+    whole = per_device(devs[0], lambda i: torch.cat(
+        [hs[d][i].to(devs[0][i]) for d in rows]))
+    outs, _ = moe_apply_shards([p["moe"] for p in ps[0]], cfg, whole, layout)
+    n = hs[0][0].shape[0]
+    return [per_device(devs[d], lambda i: outs[i][d * n:(d + 1) * n]
+                       .to(devs[d][i])) for d in rows]
 
 
 def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
                     loc: list, caches, mode: str, causal: bool = True,
                     enc_outs=None):
-    """One pre-norm layer over the shards ``ps`` (one parameter dict
-    each); ``xs`` is the replicated residual stream, ``caches`` one cache
-    dict per shard (or None), ``enc_outs`` the encoder output per shard
-    for a cross-attention (or None).  Returns (xs, per-shard new caches);
-    serving reads no MoE aux loss, as at tp=1."""
-    devs = [x.device for x in xs]
+    """One pre-norm layer over the mesh: ``ps[d][m]`` entry ``(d, m)``'s
+    parameter dict, ``xs[d]`` row ``d``'s residual stream (replicated over
+    its shards), ``caches[d][m]`` one cache dict per entry (or None),
+    ``enc_outs[d][m]`` the encoder output for a cross-attention (or
+    None).  Returns (xs, per-entry new caches); serving reads no MoE aux
+    loss, as at tp=1."""
+    rows = range(len(xs))
+    devs = _devs(xs)
 
     def norm(key, xs):
-        return per_device(devs, lambda i: rms_norm(ps[i][key], xs[i],
-                                                   cfg.norm_eps))
+        return [per_device(devs[d], lambda i: rms_norm(
+            ps[d][i][key], xs[d][i], cfg.norm_eps)) for d in rows]
 
     def add(xs, outs):
-        return per_device(devs, lambda i: xs[i] + outs[i])
+        return [per_device(devs[d], lambda i: xs[d][i] + outs[d][i])
+                for d in rows]
 
     if spec.mixer == "mamba":
         outs, cs = _tp_mamba(ps, cfg, layout, norm("mixer_norm", xs),
@@ -485,80 +614,162 @@ def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
                             loc=loc, caches=caches, mode=mode,
                             causal=causal)
     xs = add(xs, outs)
-    if "cross" in ps[0] and enc_outs is not None:
+    if "cross" in ps[0][0] and enc_outs is not None:
         xs = add(xs, _tp_cross(ps, cfg, layout, norm("cross_norm", xs),
                                loc=loc, enc_outs=enc_outs))
     if spec.ffn == "none":
         return xs, cs
     hs = norm("ffn_norm", xs)
+    if spec.ffn == "moe":
+        return add(xs, _moe_rows(ps, cfg, layout, hs)), cs
+    amax = rows_amax(hs, cfg.quant_mode)
     act = dict(act=cfg.act, quant_mode=cfg.quant_mode,
                quant_backend=cfg.quant_backend)
-    if spec.ffn == "moe":
-        outs, _ = moe_apply_shards([p["moe"] for p in ps], cfg, hs, layout)
-    elif layout.ffn:
-        outs = linear_apply_row(
-            [p["mlp"]["down"] for p in ps],
-            [mlp_hidden(p["mlp"], h, **act) for p, h in zip(ps, hs)],
-            mode=cfg.quant_mode, backend=cfg.quant_backend)
+
+    def hidden(d, i):
+        return mlp_hidden(ps[d][i]["mlp"], hs[d][i], x_amax=_at(amax, d, i),
+                          **act)
+
+    down = [[p["mlp"]["down"] for p in ps[d]] for d in rows]
+    if layout.ffn:
+        outs = _rows_row_parallel(
+            down, [[hidden(d, i) for i in range(len(ps[d]))] for d in rows],
+            cfg)
     else:
-        outs = per_device(devs, lambda i: mlp_apply(ps[i]["mlp"], hs[i],
-                                                    **act))
+        outs = _rows_replicated(
+            down, [per_device(devs[d], lambda i: hidden(d, i)) for d in rows],
+            cfg)
     return add(xs, outs), cs
 
 
-def _tp_stack_apply(layers: list, cfg: ModelConfig, layout, xs: list, *,
+def _mirror_pool_writes(cs: list, loc: list, s: int) -> None:
+    """Paged pools are whole on every data row, one copy per distinct
+    device: the rows each data row wrote this step are copied into the
+    other copies, so every copy holds every page (a prefix page one row
+    wrote may be read by another row's slot).  Rows sharing a device
+    share one copy, and nothing is copied."""
+    for m in range(len(cs[0])):
+        for key in cs[0][m]:
+            if key not in _SEQ_CACHE_KEYS:
+                continue
+            copies = list(_unique(c[m][key] for c in cs))
+            if len(copies) < 2:
+                continue
+            for d, c in enumerate(cs):
+                for dst in copies:
+                    if dst is not c[m][key]:
+                        mirror_paged_rows(c[m][key], dst,
+                                          loc[d][m]["page_table"],
+                                          loc[d][m]["cache_index"], s)
+
+
+def _tp_stack_apply(layer_params, cfg: ModelConfig, layout, xs: list, *,
                     loc, caches=None, mode: str, causal: bool = True,
                     enc_outs=None):
-    """A stack over the shards (``layers``: one layer list per shard, in
-    ``cfg.layer_specs`` order, the decoder's or with ``_enc_cfg`` the
-    encoder's); returns (xs, per-shard caches as lists)."""
-    per_shard = [[] for _ in layers]
+    """A stack over the mesh (``layer_params(li)``: layer ``li``'s
+    parameter dicts ``[d][m]``, gathered at use, in ``cfg.layer_specs``
+    order, the decoder's or with ``_enc_cfg`` the encoder's); returns
+    (xs, per-entry caches as lists ``[d][m]``).  A decode step through
+    page tables mirrors each row's pool writes into the other rows' copies
+    on other devices."""
+    per_entry = [[[] for _ in row] for row in xs]
+    mirror = (mode == "decode" and len(xs) > 1
+              and loc[0][0]["page_table"] is not None)
     for li, spec in enumerate(cfg.layer_specs):
         xs, cs = _tp_layer_apply(
-            [p[li] for p in layers], cfg, layout, spec, xs, loc=loc,
-            caches=None if caches is None else [c[li] for c in caches],
+            layer_params(li), cfg, layout, spec, xs, loc=loc,
+            caches=None if caches is None else [[c[li] for c in row]
+                                                for row in caches],
             mode=mode, causal=causal, enc_outs=enc_outs)
-        for lst, c in zip(per_shard, cs):
-            lst.append(c)
-    return xs, per_shard
+        if mirror and spec.mixer != "mamba":
+            _mirror_pool_writes(cs, loc, xs[0][0].shape[1])
+        for lst_row, c_row in zip(per_entry, cs):
+            for lst, c in zip(lst_row, c_row):
+                lst.append(c)
+    return xs, per_entry
 
 
-def _tp_embed(params: Shards, cfg: ModelConfig, tokens) -> list:
-    toks = broadcast(tokens, params.devices)
+def _layers_at_use(params: Shards, cfg: ModelConfig, rows: int, stack):
+    """``layer_params`` for :func:`_tp_stack_apply`: layer ``li`` of
+    ``stack(tree)`` per entry ``[d][m]``, gathered at use
+    (``sharding.gather_rows``); an MoE block for data row 0 only, which
+    runs it over the whole batch."""
+    mode = cfg.quant_mode
+
+    def layer(li):
+        if params.fsdp is None:
+            return gather_rows(params, lambda t: stack(t)[li], rows, mode)
+        ps = gather_rows(params, lambda t: {
+            k: v for k, v in stack(t)[li].items() if k != "moe"}, rows, mode)
+        if "moe" in stack(params.fsdp)[li]:
+            moe = gather_rows(params, lambda t: stack(t)[li]["moe"], 1,
+                              mode)[0]
+            for p, m in zip(ps[0], moe):
+                p["moe"] = m
+        return ps
+
+    return layer
+
+
+def _tp_embed(params: Shards, cfg: ModelConfig, tokens, rows: int) -> list:
+    """Each row's tokens embedded on its entries ``[d][m]`` (vocab-
+    parallel where the vocab divides the shards)."""
     scale = cfg.emb_scale_by_sqrt_dim
-    if params.layout.vocab:
-        return vocab_parallel_embed([p["embed"] for p in params], toks,
-                                    scale_by_sqrt_dim=scale)
-    return per_device(params.devices, lambda i: embed_apply(
-        params[i]["embed"], toks[i], scale_by_sqrt_dim=scale))
+    embs = gather_rows(params, lambda t: t["embed"], rows, cfg.quant_mode)
+    out = []
+    for d, tok in enumerate(_row_split(tokens, rows)):
+        devs = params.row_devices(d)
+        toks = broadcast(tok, devs)
+        if params.layout.vocab:
+            out.append(vocab_parallel_embed(embs[d], toks,
+                                            scale_by_sqrt_dim=scale))
+        else:
+            out.append(per_device(devs, lambda i: embed_apply(
+                embs[d][i], toks[i], scale_by_sqrt_dim=scale)))
+    return out
 
 
-def _tp_logits(params: Shards, cfg: ModelConfig, xs: list):
-    """f32 logits, whole, on shard 0's device."""
+def _logits_rows(params: Shards, cfg: ModelConfig, xs: list):
+    """f32 logits, whole, on entry (0, 0)'s device: the rows' final
+    hidden states gathered in slot order onto data row 0's entries, then
+    the final norm and the head once over the whole batch (so the head's
+    bf16 product sees the unsplit batch's shape)."""
+    devs = params.row_devices(0)
+    if len(xs) > 1:
+        xs = [per_device(devs, lambda i: torch.cat(
+            [row[i].to(devs[i]) for row in xs]))]
+    keys = ("final_norm", "embed") if cfg.tie_embeddings \
+        else ("final_norm", "lm_head")
+    ps = gather_rows(params, lambda t: {k: t[k] for k in keys}, 1,
+                     cfg.quant_mode)[0]
     if not params.layout.vocab:
-        return _logits(params[0], cfg, xs[0])
-    xs = per_device(params.devices, lambda i: rms_norm(
-        params[i]["final_norm"], xs[i], cfg.norm_eps))
+        return _logits(ps[0], cfg, xs[0][0])
+    hs = per_device(devs, lambda i: rms_norm(ps[i]["final_norm"], xs[0][i],
+                                             cfg.norm_eps))
     tied = cfg.tie_embeddings
-    heads = [p["embed"] if tied else p["lm_head"] for p in params]
-    return vocab_parallel_logits(heads, xs, tied=tied)[0]
+    heads = [p["embed"] if tied else p["lm_head"] for p in ps]
+    return vocab_parallel_logits(heads, hs, tied=tied)[0]
 
 
-def _tp_encode(params: Shards, cfg: ModelConfig, frames) -> list:
-    """:func:`encode` over the shards (the decoder's head and MLP split,
-    bidirectional attention): the encoder output once per device."""
-    devs = params.devices
+def _tp_encode(params: Shards, cfg: ModelConfig, frames, rows: int) -> list:
+    """:func:`encode` over the mesh (the decoder's head and MLP split,
+    bidirectional attention, each row on its slots' frames): the encoder
+    output per entry ``[d][m]``, once per device of a row."""
     ecfg = _enc_cfg(cfg)
     b, s, _ = frames.shape
     pos = torch.broadcast_to(
         torch.arange(s, device=frames.device)[None, :], (b, s))
-    loc = _shard_locals(devs, positions=pos, cache_index=None,
-                        page_table=None, context_start=None)
-    xs, _ = _tp_stack_apply([p["encoder"]["layers"] for p in params],
-                            ecfg, params.layout, broadcast(frames, devs),
-                            loc=loc, mode="train", causal=False)
-    return per_device(devs, lambda i: rms_norm(params[i]["encoder"]["norm"],
-                                               xs[i], cfg.norm_eps))
+    loc = _row_locals(params, rows, positions=pos, cache_index=None,
+                      page_table=None, context_start=None)
+    xs = [broadcast(f, params.row_devices(d))
+          for d, f in enumerate(_row_split(frames, rows))]
+    xs, _ = _tp_stack_apply(
+        _layers_at_use(params, cfg, rows, lambda t: t["encoder"]["layers"]),
+        ecfg, params.layout, xs, loc=loc, mode="train", causal=False)
+    norms = gather_rows(params, lambda t: t["encoder"]["norm"], rows,
+                        cfg.quant_mode)
+    return [per_device(params.row_devices(d), lambda i: rms_norm(
+        norms[d][i], xs[d][i], cfg.norm_eps)) for d in range(rows)]
 
 
 def encode(params, cfg: ModelConfig, frames):
@@ -625,52 +836,64 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     so its prompts come unpadded (the engine prefills them at their exact
     length)."""
     sharded = isinstance(params, Shards)
+    b = tokens.shape[0]
     if sharded:
-        devs = params.devices
+        rows = slot_rows(b, params.dp)
         enc_outs = None if frames is None else _tp_encode(params, cfg,
-                                                          frames)
-        enc_out = None if enc_outs is None else enc_outs[0]
-        xs = _tp_embed(params, cfg, tokens)
+                                                          frames, rows)
+        xs = _tp_embed(params, cfg, tokens, rows)
         if extra_embeds is not None:
-            pre = broadcast(extra_embeds, devs)
-            xs = per_device(devs, lambda i: torch.cat(
-                [pre[i].to(xs[i].dtype), xs[i]], dim=1))
-        dev = devs[0]
+            for d, pre in enumerate(_row_split(extra_embeds, rows)):
+                pre = broadcast(pre, params.row_devices(d))
+                xs[d] = per_device(params.row_devices(d), lambda i: torch.cat(
+                    [pre[i].to(xs[d][i].dtype), xs[d][i]], dim=1))
+        dev = params.devices[0]
+        enc_out = None if enc_outs is None else (
+            enc_outs[0][0] if rows == 1
+            else torch.cat([e[0].to(dev) for e in enc_outs]))
     else:
         enc_out = encode(params, cfg, frames) if frames is not None \
             else None
-        xs = [_embed_inputs(params, cfg, tokens, extra_embeds)]
-        dev = xs[0].device
-    b, s, _ = xs[0].shape
+        xs = [[_embed_inputs(params, cfg, tokens, extra_embeds)]]
+        dev = xs[0][0].device
+    s = xs[0][0].shape[1]
     pos = torch.arange(s, device=dev)[None, :]
     if ctx_start is not None:
         pos = pos + torch.as_tensor(ctx_start, device=dev)
     pos = torch.broadcast_to(pos, (b, s))
     if sharded:
-        loc = _shard_locals(devs, positions=pos, cache_index=None,
-                            page_table=ctx_table, context_start=ctx_start)
+        loc = _row_locals(params, rows, positions=pos, cache_index=None,
+                          page_table=ctx_table, context_start=ctx_start)
         xs, caches = _tp_stack_apply(
-            [p["layers"] for p in params], cfg, params.layout, xs, loc=loc,
-            caches=ctx_caches, mode="prefill", enc_outs=enc_outs)
-        caches = Shards(caches, devs, params.layout)
+            _layers_at_use(params, cfg, rows, lambda t: t["layers"]), cfg,
+            params.layout, xs, loc=loc,
+            caches=None if ctx_caches is None
+            else [ctx_caches.row(d) for d in range(rows)],
+            mode="prefill", enc_outs=enc_outs)
+        caches = Shards([t for row in caches for t in row],
+                        params.devices[:len(xs) * params.tp], params.layout,
+                        dp=rows)
     else:
-        x, caches, _ = _stack_apply(params, cfg, xs[0], positions=pos,
+        x, caches, _ = _stack_apply(params, cfg, xs[0][0], positions=pos,
                                     enc_out=enc_out, mode="prefill",
                                     caches=ctx_caches, page_table=ctx_table,
                                     context_start=ctx_start)
-        xs = [x]
+        xs = [[x]]
     if logits_index is None:
-        x_last = [x[:, -1:] for x in xs]
+        x_last = [[x[:, -1:] for x in row] for row in xs]
     else:
         idx = torch.broadcast_to(
             torch.as_tensor(logits_index, device=dev).reshape(-1).long(),
             (b,))
-        x_last = [x[torch.arange(b, device=x.device), i][:, None]
-                  for x, i in zip(xs, broadcast(idx, [x.device for x in xs]))]
+        x_last = []
+        for row, ix in zip(xs, _row_split(idx, len(xs))):
+            ixs = broadcast(ix, [x.device for x in row])
+            x_last.append([x[torch.arange(x.shape[0], device=x.device), i]
+                           [:, None] for x, i in zip(row, ixs)])
     if sharded:
-        logits = _tp_logits(params, cfg, x_last)
+        logits = _logits_rows(params, cfg, x_last)
     else:
-        logits = _logits(params, cfg, x_last[0])
+        logits = _logits(params, cfg, x_last[0][0])
     if max_len is not None and max_len > s:
         # the sequence axis is 1 in every sequence leaf; the recurrent
         # state has none
@@ -679,7 +902,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
             if k in _SEQ_CACHE_KEYS else v
             for k, v in c.items()} for c in tree]
             for tree in (caches if sharded else [caches])]
-        caches = (Shards(grown, caches.devices, caches.layout) if sharded
+        caches = (dataclasses.replace(caches, trees=grown) if sharded
                   else grown[0])
     return logits, caches, enc_out
 
@@ -695,20 +918,24 @@ def decode_step(params, cfg: ModelConfig, token, caches, index, *,
     included; it takes S == 1 only).  Returns (logits (B, S, V),
     caches)."""
     if isinstance(params, Shards):
-        devs = params.devices
-        xs = _tp_embed(params, cfg, token)
         b, s = token.shape
-        dev = devs[0]
+        rows = slot_rows(b, caches.dp)
+        xs = _tp_embed(params, cfg, token, rows)
+        dev = params.devices[0]
         index = torch.as_tensor(index, device=dev).to(torch.int64)
         pos = (torch.broadcast_to(index.reshape(-1, 1), (b, 1))
                + torch.arange(s, device=dev)[None, :])
-        loc = _shard_locals(devs, positions=pos, cache_index=index,
-                            page_table=page_table, context_start=None)
+        loc = _row_locals(params, rows, positions=pos, cache_index=index,
+                          page_table=page_table, context_start=None)
+        enc_outs = None if enc_out is None else [
+            broadcast(e, params.row_devices(d))
+            for d, e in enumerate(_row_split(enc_out, rows))]
         xs, _ = _tp_stack_apply(
-            [p["layers"] for p in params], cfg, params.layout, xs, loc=loc,
-            caches=caches, mode="decode",
-            enc_outs=None if enc_out is None else broadcast(enc_out, devs))
-        return _tp_logits(params, cfg, xs), caches
+            _layers_at_use(params, cfg, rows, lambda t: t["layers"]), cfg,
+            params.layout, xs, loc=loc,
+            caches=[caches.row(d) for d in range(rows)], mode="decode",
+            enc_outs=enc_outs)
+        return _logits_rows(params, cfg, xs), caches
     x = _embed_inputs(params, cfg, token)
     b, s = x.shape[0], token.shape[1]
     index = torch.as_tensor(index, device=x.device).to(torch.int64)
@@ -728,8 +955,7 @@ def decode_step(params, cfg: ModelConfig, token, caches, index, *,
 # Cache leaves with a sequence axis (axis 1: slab rows or pool pages); every
 # other leaf (mamba's conv and ssm state) is per-slot.  The reference's set,
 # int8 scales included.
-_SEQ_CACHE_KEYS = frozenset({"k", "v", "c_kv", "k_rope", "k_scale",
-                             "v_scale"})
+_SEQ_CACHE_KEYS = SEQ_CACHE_KEYS
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -781,30 +1007,75 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
 
 def init_shard_caches(cfg: ModelConfig, batch: int, max_len: int,
                       params: Shards) -> Shards:
-    """:func:`init_caches` for the model shards ``params``: a GQA layer's
-    pools hold each shard's share of the kv heads on its device, a mamba
-    layer's state each shard's conv channels and SSD heads; where the
-    heads do not divide the shards, and for MLA's latent pools (no head
-    axis), the whole pools or state, one set per distinct device (shared
-    by the shards on it)."""
-    layout, devs = params.layout, params.devices
+    """:func:`init_caches` for the mesh entries of ``params``: a GQA
+    layer's pools hold each shard's share of the kv heads on its device,
+    a mamba layer's state each shard's conv channels and SSD heads; where
+    the heads do not divide the shards, and for MLA's latent pools (no
+    head axis), the whole pools or state, one set per distinct device of
+    a row (shared by the shards on it).  Over a data axis the slots split
+    by row (``slot_rows``): each row's dense slabs and mamba state hold
+    its ``batch / dp`` slots, and the paged pools are whole on every row,
+    one copy per distinct device (shared by the rows on it)."""
+    layout = params.layout
     scfg = layout.shard_cfg(cfg)
-    trees = [[] for _ in devs]
-    for spec in cfg.layer_specs:
-        if layout.ssm_heads and spec.mixer == "mamba":
-            cs = [init_mamba_cache(cfg, batch, dev, ssm_dims(
-                cfg, ssm_segments(cfg, layout, i)))
-                for i, dev in enumerate(devs)]
-        elif layout.heads and spec.mixer == "attn" \
-                and spec.attn_kind != "mla":
-            cs = [_layer_cache(scfg, spec, batch, max_len, dev)
-                  for dev in devs]
-        else:
-            cs = per_device(devs, lambda i: _layer_cache(
-                cfg, spec, batch, max_len, devs[i]))
-        for tree, c in zip(trees, cs):
-            tree.append(c)
-    return Shards(trees, devs, layout)
+    paged = cfg.cache_mode == "paged"
+    rows = slot_rows(batch, params.dp)
+    per = batch // rows
+    shared: dict = {}
+    trees = []
+    for d in range(rows):
+        devs = params.row_devices(d)
+        row = [[] for _ in devs]
+        for li, spec in enumerate(cfg.layer_specs):
+            pools = paged and spec.mixer != "mamba"
+            n = batch if pools else per
+
+            def make(i, c, key):
+                # pools are shared by every row on a device, per-slot
+                # leaves only within their row
+                key = (li, key, str(devs[i])) if pools \
+                    else (d, li, key, str(devs[i]))
+                if key not in shared:
+                    shared[key] = _layer_cache(c, spec, n, max_len, devs[i]) \
+                        if c is not None else init_mamba_cache(
+                            cfg, n, devs[i], ssm_dims(
+                                cfg, ssm_segments(cfg, layout, i)))
+                return shared[key]
+
+            if layout.ssm_heads and spec.mixer == "mamba":
+                cs = [make(i, None, i) for i in range(len(devs))]
+            elif layout.heads and spec.mixer == "attn" \
+                    and spec.attn_kind != "mla":
+                cs = [make(i, scfg, i) for i in range(len(devs))]
+            else:
+                cs = [make(i, cfg, "whole") for i in range(len(devs))]
+            for tree, c in zip(row, cs):
+                tree.append(c)
+        trees += row
+    return Shards(trees, params.devices[:rows * params.tp], layout, dp=rows)
+
+
+@torch.no_grad()
+def decode_gather_bytes(params, cfg: ModelConfig, batch: int) -> int:
+    """Weight bytes the FSDP gather writes in one decode step of ``batch``
+    slots (0 without a data axis): one eager step over scratch caches
+    (pools of two pages, or a one-row slab), counted by
+    ``collectives.gathered_bytes``; the kernel launch counters are left
+    as they were."""
+    if not isinstance(params, Shards) or params.fsdp is None:
+        return 0
+    paged = cfg.cache_mode == "paged"
+    c = cfg.replace(num_pages=2) if paged else cfg
+    length = cfg.page_size if paged else 1
+    caches = init_shard_caches(c, batch, length, params)
+    dev = params.devices[0]
+    zeros = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+    before, launched = gathered_bytes(), launch_counts()
+    decode_step(params, c, zeros, caches, zeros[:, 0],
+                page_table=zeros if paged else None)
+    # the scratch step's launches are no stage's
+    add_launch_counts([b - a for a, b in zip(launch_counts(), launched)])
+    return gathered_bytes() - before
 
 
 def _unique(leaves):
@@ -825,18 +1096,18 @@ def sequence_pools(caches) -> list:
                         for k, pool in c.items() if k in _SEQ_CACHE_KEYS))
 
 
-def _logical_pools(caches):
+def _logical_pools(caches, d: int = 0):
     """Per sequence leaf of the unsharded layout, layer-major in key
-    order: ``(pools, split)``: one pool per shard, split along the head
-    axis (``split``: a GQA pool under head-split attention), or the
-    replicated pool's copies, one per distinct device (an MLA latent
-    pool, or heads that do not divide; unsharded caches: the pool
-    alone)."""
+    order, as data row ``d`` holds it: ``(pools, split)``: one pool per
+    shard, split along the head axis (``split``: a GQA pool under
+    head-split attention), or the replicated pool's copies, one per
+    distinct device (an MLA latent pool, or heads that do not divide;
+    unsharded caches: the pool alone)."""
     if not isinstance(caches, Shards):
         return [([pool], False) for pool in sequence_pools(caches)]
     heads = caches.layout.heads
     per = [[(k, pool) for c in tree for k, pool in c.items()
-            if k in _SEQ_CACHE_KEYS] for tree in caches]
+            if k in _SEQ_CACHE_KEYS] for tree in caches.row(d)]
     out = []
     for leaves in zip(*per):
         pools = [pool for _, pool in leaves]
@@ -848,32 +1119,46 @@ def _logical_pools(caches):
 def cache_bytes(caches) -> int:
     """Bytes of every sequence leaf in the unsharded layout (what one
     device holds at ``tp=1``): shards' head slices summed, a replicated
-    pool once."""
+    pool once, the pools whole on every data row counted once."""
     return sum(sum(p.numel() * p.element_size()
                    for p in (pools if split else pools[:1]))
                for pools, split in _logical_pools(caches))
 
 
 def _leaves(big, one):
-    """``(key, big leaf, one leaf)`` for every cache leaf, layer-major;
-    over ``Shards`` every shard's, each big leaf once."""
+    """``(key, big leaf, one leaf, row)`` for every cache leaf,
+    layer-major; over ``Shards`` every entry's, each big leaf once, with
+    its data row, paired with the batch-1 cache's tree of the same model
+    shard (a batch-1 prefill runs on one data row)."""
     if isinstance(big, Shards):
-        pairs = list(zip(big, one))
+        tp = big.tp
+        pairs = [(t, one.trees[e % tp], e // tp)
+                 for e, t in enumerate(big.trees)]
     else:
-        pairs = [(big, one)]
+        pairs = [(big, one, 0)]
     seen = set()
-    for b_tree, s_tree in pairs:
+    for b_tree, s_tree, d in pairs:
         for b_c, s_c in zip(b_tree, s_tree):
             for key in b_c:
                 if id(b_c[key]) not in seen:
                     seen.add(id(b_c[key]))
-                    yield key, b_c[key], s_c[key]
+                    yield key, b_c[key], s_c[key], d
+
+
+def _put_slot(b_leaf, s_leaf, slot: int, d: int) -> None:
+    """Slot ``slot``'s row of a per-slot leaf held by data row ``d`` (its
+    ``b_leaf.shape[0]`` slots from ``d * shape[0]``): written where the
+    row holds the slot."""
+    local = slot - d * b_leaf.shape[0]
+    if 0 <= local < b_leaf.shape[0]:
+        b_leaf[local] = s_leaf[0].to(b_leaf.dtype)
 
 
 def merge_slot_caches(big: list, one: list, slot: int) -> list:
-    """Copy a batch-1 cache (same max_len) into slot ``slot``, in place."""
-    for _, b_leaf, s_leaf in _leaves(big, one):
-        b_leaf[slot] = s_leaf[0].to(b_leaf.dtype)
+    """Copy a batch-1 cache (same max_len) into slot ``slot``, in place
+    (over a data axis into the row that holds the slot)."""
+    for _, b_leaf, s_leaf, d in _leaves(big, one):
+        _put_slot(b_leaf, s_leaf, slot, d)
     return big
 
 
@@ -882,10 +1167,12 @@ def merge_slot_paged_caches(big: list, one: list, slot: int, pages) -> list:
     sequence leaves (length a whole number of pages) at page ids
     ``pages[:n]``, its recurrent state (mamba's conv and ssm) at batch
     slot ``slot`` as in the dense path.  Entries past the request's pages
-    point at the trash page, so pad rows land there."""
-    for key, b_leaf, s_leaf in _leaves(big, one):
+    point at the trash page, so pad rows land there.  Over a data axis
+    every copy of the pools is written, the state only in the slot's
+    row."""
+    for key, b_leaf, s_leaf, d in _leaves(big, one):
         if key not in _SEQ_CACHE_KEYS:
-            b_leaf[slot] = s_leaf[0].to(b_leaf.dtype)
+            _put_slot(b_leaf, s_leaf, slot, d)
             continue
         ps, s = b_leaf.shape[1], s_leaf.shape[1]
         if s % ps:
@@ -906,7 +1193,7 @@ def scatter_prefill_paged_caches(big: list, one: list, slot: int, row,
     in place.  Shared prefix pages below ``start`` are never touched."""
     del slot                      # pools are shared; the row routes the slot
     row = torch.as_tensor(row)
-    for key, b_leaf, s_leaf in _leaves(big, one):
+    for key, b_leaf, s_leaf, _ in _leaves(big, one):
         if key in _SEQ_CACHE_KEYS:
             scatter_prefill_rows(b_leaf, s_leaf, row.to(b_leaf.device),
                                  start)
@@ -972,7 +1259,8 @@ def insert_cache_pages(caches: list, pages, payloads, pad_to: int | None = None
     pages ``pages``, in place, in one transfer (swap-in and prefix
     promotion): each payload's bytes are split back into the pools' rows
     in their own dtypes.  ``pad_to`` pads with zero rows written onto the
-    trash page, which no query attends."""
+    trash page, which no query attends.  Over a data axis every copy of
+    the pools is written."""
     pages = list(pages)
     if len(pages) != len(payloads):
         raise ValueError(f"{len(pages)} pages but {len(payloads)} payloads")
@@ -988,15 +1276,23 @@ def insert_cache_pages(caches: list, pages, payloads, pad_to: int | None = None
     width = [sum(p[0].numel() * p.element_size()
                  for p in (pools if split else pools[:1]))
              for pools, split in logical]
-    for (pools, split), part in zip(logical, torch.split(rows, width,
-                                                         dim=1)):
+    n_rows = caches.dp if isinstance(caches, Shards) else 1
+    per_row = [logical] + [_logical_pools(caches, d)
+                           for d in range(1, n_rows)]
+    written = set()
+    for li, part in enumerate(torch.split(rows, width, dim=1)):
+        pools, split = logical[li]
         shape = list(pools[0].shape[1:])
         if split:
             shape[1] *= len(pools)
         page = part.contiguous().view(pools[0].dtype).reshape(
             len(padded), *shape)
-        heads = (torch.chunk(page, len(pools), dim=2) if split
-                 else [page] * len(pools))
-        for pool, rows_s in zip(pools, heads):
-            pool[idx.to(pool.device)] = rows_s.to(pool.device)
+        for row in per_row:
+            copies = row[li][0]
+            heads = (torch.chunk(page, len(copies), dim=2) if split
+                     else [page] * len(copies))
+            for pool, rows_s in zip(copies, heads):
+                if id(pool) not in written:
+                    written.add(id(pool))
+                    pool[idx.to(pool.device)] = rows_s.to(pool.device)
     return caches

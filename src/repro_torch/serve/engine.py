@@ -101,9 +101,30 @@ Each batch slot is an independent sequence sharing one model:
   shards share one card the captured stages are captured as before; over
   several cards they run eagerly.  Every quant mode shards (``dense``
   and ``qat`` within a rounding of tp=1: a row-parallel projection sums
-  f32 partials); a data axis above 1 inside an engine raises.  Data
-  parallelism is ``serve.router``: N engines (each on its own device
-  slice when meshed) behind one admission queue.
+  f32 partials).
+* **A data axis** (``mesh_shape=(dp, tp)``, ``dp > 1``).  Entry ``(d,
+  m)`` stores piece ``d`` of model shard ``m``'s weights along each
+  leaf's FSDP dimension (``param_specs``; ``param_bytes`` per entry), and
+  every stage gathers each layer's weights in data order onto the
+  devices that use them, at use (``gathered_bytes_per_step``), on a
+  shared card too.  Slot ``b`` lives on data row ``b // (B / dp)``
+  (``slot_row``): its dense slab rows and mamba state sit there and the
+  row computes its slots.  When ``dp`` does not divide the batch, the
+  batch is not split: data row 0 holds and runs every slot, the other
+  rows only store their weight pieces.  A batch-1 prefill runs on data
+  row 0 and its caches are merged into the slot's row.  Paged pools are
+  whole on every row, one copy per distinct device (a decode step's rows
+  are mirrored into the other copies), so a prefix page, a swapped-in
+  page or a copy-on-write page is the same on every row.  The rows meet
+  where the unsplit batch does: the integer modes' per-tensor
+  activation scale is the max over all rows, the MoE block (routing,
+  capacity, drops) runs once over the whole batch on data row 0, and the
+  final norm and head run over the gathered batch, so every integer
+  mode keeps the single-device engine's streams and logits bit for bit
+  (``dense`` within a rounding: a data row's dense products run at its
+  own row count).  Capture across cards is refused as at tp > 1.  Data
+  parallelism across engines is ``serve.router``: N engines (each on its
+  own device slice when meshed) behind one admission queue.
 """
 
 from __future__ import annotations
@@ -120,11 +141,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, spec_split
 from repro_torch.distributed.sharding import TP_ROADMAP, \
-    check_tp_supported, shard_params
+    check_tp_supported, shard_params, slot_rows, stored_bytes
 from repro_torch.kernels.ops import add_launch_counts, launch_counts
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.transformer import (
     cache_bytes,
+    decode_gather_bytes,
     copy_paged_cache_page,
     decode_step,
     extract_cache_pages,
@@ -540,7 +562,7 @@ class Engine:
             raise ValueError("capture=True needs a CUDA device: CUDA "
                              "graphs replay on the card only")
         several = self._mesh is not None and len(
-            {str(d) for d in self._mesh.model_devices}) > 1
+            self._mesh.distinct_devices) > 1
         if capture and several:
             raise NotImplementedError(
                 f"capture=True over a mesh of several cards: a CUDA graph "
@@ -668,6 +690,28 @@ class Engine:
         without a mesh): a mesh that repeats a card counts it per entry,
         as the reference's forced host devices count."""
         return 1 if self._mesh is None else self._mesh.size
+
+    def slot_row(self, slot: int) -> int:
+        """The data row that holds and runs ``slot``: ``slot // (B /
+        dp)`` where ``dp`` divides the batch ``B``, else 0."""
+        if self._mesh is None:
+            return 0
+        rows = slot_rows(self.scfg.batch, self._mesh.shape["data"])
+        return slot // (self.scfg.batch // rows)
+
+    @property
+    def param_bytes(self) -> list:
+        """Parameter bytes each mesh entry stores (every leaf it holds,
+        the int8 copies and the bf16 weights beside them), row-major;
+        one entry without a mesh."""
+        return stored_bytes([self.params] if self._mesh is None
+                            else self.params.trees)
+
+    @property
+    def gathered_bytes_per_step(self) -> int:
+        """Weight bytes the FSDP gather writes in one decode step at this
+        engine's batch (0 without a data axis)."""
+        return decode_gather_bytes(self.params, self.cfg, self.scfg.batch)
 
     def _validate_mechanisms(self) -> None:
         """The config rules of the prefix cache, the host swap,

@@ -72,10 +72,10 @@ def test_entry_points_default_to_cuda():
     ("tp", 2), ("mesh_shape", (1, 2))])
 def test_unported_serve_knobs_raise(field, value):
     """A (1, 2) mesh, by ``tp`` or ``mesh_shape``, builds over two CPU
-    entries and serves two equal greedy streams without a leak; what tensor
-    parallelism does not cover raises ``NotImplementedError``: a data
-    axis above 1 inside one engine (a (2, 1) mesh, and a (2, 2) mesh
-    beside ``tp=2``)."""
+    entries and serves two equal greedy streams without a leak, and so
+    does a data axis above 1 (a (2, 1) mesh, and a (2, 2) mesh beside
+    ``tp=2``) over four; what still raises is a mesh larger than the
+    devices it is given."""
     cfg = reduced(get_config("yi-6b")).replace(cache_mode="paged",
                                                page_size=4)
     params = model_init(cfg, device="cpu")
@@ -86,13 +86,21 @@ def test_unported_serve_knobs_raise(field, value):
     done = engine.run()
     assert done[ids[0]].tokens == done[ids[1]].tokens
     assert len(done[ids[0]].tokens) == 8 and engine.leaked_pages() == 0
-    refused = {"tp": (cfg, {"mesh_shape": (2, 2)}),
-               "mesh_shape": (cfg, {"mesh_shape": (2, 1)})}[field]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        Engine(refused[0], model_init(refused[0], device="cpu"),
-               ServeConfig(batch=2, max_len=16, **{field: value,
-                                                   **refused[1]}),
-               device="cpu", devices=["cpu"] * 2)
+    shape = {"tp": (2, 2), "mesh_shape": (2, 1)}[field]
+    dp_engine = Engine(cfg, params,
+                       ServeConfig(batch=2, max_len=16, prefill_len=8,
+                                   **{field: value, "mesh_shape": shape}),
+                       device="cpu", devices=["cpu"] * 4)
+    assert dp_engine.mesh_shape == shape
+    ids = [dp_engine.submit([1, 2, 3, 4, 5, 6], 8) for _ in range(2)]
+    got = dp_engine.run()
+    assert [got[i].tokens for i in ids] == [done[i].tokens for i in ids]
+    assert dp_engine.leaked_pages() == 0
+    with pytest.raises(ValueError, match="devices but only"):
+        Engine(cfg, params, ServeConfig(batch=2, max_len=16,
+                                        **{field: value,
+                                           "mesh_shape": shape}),
+               device="cpu", devices=["cpu"] * (shape[0] * shape[1] - 1))
 
 
 @pytest.mark.parametrize("field,value", [

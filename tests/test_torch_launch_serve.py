@@ -152,9 +152,9 @@ def test_spec_and_wave_flags_serve(monkeypatch, capsys, flags):
 def test_unported_flags_raise(monkeypatch, capsys, flag):
     """``--tp 2`` and ``--mesh 1x2`` serve over a (1, 2) mesh of CPU
     entries, ``--verify`` holding the streams to the tp=1 engine's, and
-    ``--predict`` is skipped; what the mesh does not cover raises: a data
-    axis above 1 (``--mesh 2x1``, and ``--mesh 2x2`` beside ``--tp
-    2``)."""
+    ``--predict`` is skipped; a data axis above 1 (``--mesh 2x1``, and
+    ``--mesh 2x2`` beside ``--tp 2``) serves too, its streams held to the
+    single-device build; a malformed mesh still raises."""
     r, engine = _run_requests(monkeypatch, "uniform", "--verify",
                               "--predict", "--quant", "w8a8_nibble",
                               *OVERCOMMIT, *flag)
@@ -164,10 +164,16 @@ def test_unported_flags_raise(monkeypatch, capsys, flag):
     assert "verify: 5 streams bit-match" in out
     assert "capacity model: (skipped" in out
     assert r["preemptions"] >= 1 and engine.leaked_pages() == 0
-    refused = (["--mesh", "2x1"] if flag[0] == "--mesh"
-               else flag + ["--mesh", "2x2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        serve.main(BASE + ["--workload", "uniform"] + refused)
+    data = (["--mesh", "2x1"] if flag[0] == "--mesh"
+            else flag + ["--mesh", "2x2"])
+    r, engine = _run_requests(monkeypatch, "uniform", "--verify", "--quant",
+                              "w8a8_nibble", *OVERCOMMIT, *data)
+    out = capsys.readouterr().out
+    assert engine.mesh_shape == ((2, 1) if flag[0] == "--mesh" else (2, 2))
+    assert "verify: 5 streams bit-match" in out and "fsdp:" in out
+    assert engine.leaked_pages() == 0
+    with pytest.raises(SystemExit, match="DATAxMODEL"):
+        serve.main(BASE + ["--workload", "uniform", "--mesh", "2by1"])
 
 
 @pytest.mark.parametrize("extra", [[], PREFIX],

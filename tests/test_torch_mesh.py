@@ -132,15 +132,18 @@ def test_fit_spec_equals_reference(spec, shape):
 
 def test_prepared_int8_leaves_follow_their_weight():
     """The port's own leaves: ``qt8`` takes its weight's spec reversed,
-    ``s8`` its out axis, so a row-parallel weight keeps its scales
-    whole and a column-parallel one splits them with its columns."""
+    ``s8`` its out axis where that is the model axis and never the data
+    axis, so a row-parallel weight keeps its scales whole (also over a
+    data axis) and a column-parallel one splits them with its
+    columns."""
     fsdp = ("data",)
-    for parent, w_spec in (("wq", (fsdp, "model")), ("wo", ("model", fsdp))):
+    for parent, w_spec, s_spec in (("wq", (fsdp, "model"), (None, "model")),
+                                   ("wo", ("model", fsdp), (None, None))):
         assert tsh._param_rule((parent, "w"), FakeLeaf(8, 8), fsdp) == w_spec
         assert tsh._param_rule((parent, "qt8"), FakeLeaf(8, 8), fsdp) == \
             w_spec[::-1]
         assert tsh._param_rule((parent, "s4"), FakeLeaf(1, 8), fsdp) == \
-            (None, w_spec[1])
+            s_spec
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
@@ -298,10 +301,9 @@ def test_shard_caches_split_heads_and_copy(arch, kv_dtype):
 
 
 def test_tp_refuses_the_other_families():
-    """A data axis above 1 raises naming ROADMAP, at any tp; every
-    family (MLA, MoE, the encoder-decoder, the VLM, the mamba mixers)
-    and every quant mode (``qat`` too) pass at tp=2; tp=1 checks
-    nothing."""
+    """Every family (MLA, MoE, the encoder-decoder, the VLM, the mamba
+    mixers) and every quant mode (``qat`` too) pass at tp=2, and a data
+    axis above 1 passes at any tp; only a size below 1 raises."""
     for arch in ("deepseek-v3-671b", "llama4-maverick-400b-a17b",
                  "whisper-base", "phi-3-vision-4.2b", "mamba2-780m",
                  "jamba-v0.1-52b"):
@@ -310,7 +312,8 @@ def test_tp_refuses_the_other_families():
     tsh.check_tp_supported(
         reduced(get_config("yi-6b")).replace(quant_mode="qat"), 2)
     for tp in (1, 2):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tsh.check_tp_supported(reduced(get_config("yi-6b")), tp, dp=2)
+        tsh.check_tp_supported(reduced(get_config("yi-6b")), tp, dp=2)
+        with pytest.raises(ValueError, match="dp >= 1 and tp >= 1"):
+            tsh.check_tp_supported(reduced(get_config("yi-6b")), tp, dp=0)
     assert isinstance(_mesh(), LocalMesh)
     np.testing.assert_equal(tsh.split_dim((None, ("data", "model"))), 1)

@@ -49,7 +49,8 @@ from repro.models import merge_slot_paged_caches as jmerge_paged
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.linear import (linear_apply, linear_apply_row,
                                      linear_init, prepare_quantized)
-from repro_torch.distributed.sharding import shard_caches, shard_params
+from repro_torch.distributed.sharding import TP_ROADMAP, shard_caches, \
+    shard_params
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import (decode_step, extract_cache_pages,
                                 init_caches, insert_cache_pages,
@@ -422,16 +423,24 @@ def test_router_dp2_tp2_over_four_devices():
 
 
 @pytest.mark.parametrize("arch,over,match", [
-    ("yi-6b", dict(mesh_shape=(2, 1)), "data axis above 1"),
-    ("yi-6b", dict(mesh_shape=(2, 2)), "data axis above 1"),
+    ("yi-6b", dict(mesh_shape=(2, 1)), "needs 2 devices but only 1"),
+    ("yi-6b", dict(mesh_shape=(2, 2)), "needs 4 devices but only 3"),
 ])
 def test_tp_refusals_name_the_roadmap(arch, over, match):
+    """A data axis above 1 is no longer refused: the (2, 1) and (2, 2)
+    engines build over four CPU entries, and what remains of the mesh
+    inside one engine (capture across cards, a multi-process backend) is
+    named by ROADMAP items 4d and 4e; a mesh larger than its devices
+    raises the reference's message."""
     cfg = reduced(get_config(arch))
     params = model_init(cfg, device="cpu")
     scfg = ServeConfig(batch=2, max_len=16, **over)
-    with pytest.raises(NotImplementedError, match=match) as err:
-        Engine(cfg, params, scfg, device="cpu", devices=["cpu"] * 4)
-    assert "ROADMAP queue 1 item 4" in str(err.value)
+    eng = Engine(cfg, params, scfg, device="cpu", devices=["cpu"] * 4)
+    assert eng.mesh_shape == over["mesh_shape"]
+    assert "ROADMAP queue 1 item 4d" in TP_ROADMAP and "4e" in TP_ROADMAP
+    n = over["mesh_shape"][0] * over["mesh_shape"][1]
+    with pytest.raises(ValueError, match=match):
+        Engine(cfg, params, scfg, device="cpu", devices=["cpu"] * (n - 1))
 
 
 @pytest.mark.parametrize("arch,mode", [

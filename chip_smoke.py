@@ -67,6 +67,18 @@ Phases (any failure exits non-zero and prints no result line):
    equal to the emitted tokens minus the firsts; then the sampler on the
    card against the CPU (key words and random bits equal, tokens equal
    off near-ties).
+3c. Static: the gate's grid (``repro_torch.staticcheck``) on the card,
+   captured, ``nibble-cuda`` included (the nibble, flash forward and
+   paged decode kernels): any finding fails.  The same grid walked on
+   the CPU (plain versions): every cell's static MACs per stage on the
+   card must equal the CPU walk's exactly (``nibble-cuda`` against the
+   CPU's ``nibble``), so the count does not depend on which
+   implementation runs.  Then the serve phase's engine (drained): its
+   captured decode chunk's and its prefill's static rows (MACs, flops,
+   ``io_bytes``, ``bytes_accessed``, ``stage_roofline``), the chunk's
+   graph replayed with CUDA events on the same engine, and ``step_s`` over
+   that time (phase 3b's chunks run at another ``max_len``, so its host
+   time is not set against this floor).
 4. Workload: the same weights through ``run_timed_workload`` (the
    launcher's timed driver) over an overcommitted paged pool
    (``alloc_mode="incremental"``, 1 trash + 18 allocatable pages of 16
@@ -347,7 +359,7 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.quant_matmul_fused import (  # noqa: E402
     quantize_rows)
 from repro_torch.launch.train import stub_extras  # noqa: E402
-from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.mesh import HW, make_local_mesh  # noqa: E402
 from repro_torch.distributed.sharding import shard_params  # noqa: E402
 from repro_torch.core.linear import (linear_apply,  # noqa: E402
                                      linear_apply_row)
@@ -376,9 +388,9 @@ from repro_torch.tree import tree_paths  # noqa: E402
 DEV = "cuda"
 
 # H100 SXM published peaks (dense): HBM bytes/s, int8 ops/s, bf16 FLOP/s
-HBM_BPS = 3.35e12
-INT8_OPS = 1.979e15
-BF16_FLOPS = 989e12
+HBM_BPS = HW.HBM_BW
+INT8_OPS = HW.PEAK_INT8_OPS
+BF16_FLOPS = HW.PEAK_BF16_FLOPS
 
 # attention kernels vs their plain versions: same inputs in bf16; both
 # accumulate in f32, but the kernel rescales online per 32-key tile and
@@ -1713,6 +1725,108 @@ def time_decode_chunks(cfg, params, prompts, reps=7) -> dict:
     require_captured(engines["captured_sampled"], "timed sampled chunks")
     return {"ms": {n: statistics.median(r) for n, r in runs.items()},
             "runs": runs}
+
+
+def _static_row(stage, sig, pools) -> dict:
+    """One stage walk's static counts and roofline terms."""
+    from repro_torch.roofline.analysis import stage_roofline
+    from repro_torch.staticcheck.flops import walk_stage
+    walk, _ = walk_stage(stage, sig, pools)
+    row = walk.cost.to_dict()
+    row["roofline"] = stage_roofline(row)
+    return row
+
+
+def phase_static(engine, smi: str) -> dict:
+    """The gate's grid on the card against the CPU walk, then the serve
+    phase's drained engine: static rows of its captured decode chunk and
+    its prefill beside the chunk's measured time (see the docstring,
+    3c)."""
+    from repro_torch.staticcheck import runner
+    from repro_torch.staticcheck.flops import analytic_macs
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    card_f, card = runner.run_graph_layer(device=DEV)
+    cpu_f, cpu = runner.run_graph_layer(device="cpu")
+    for label, f in (("card", card_f), ("CPU", cpu_f)):
+        if f:
+            raise AssertionError(f"static gate on the {label}: "
+                                 + "; ".join(x.render() for x in f))
+    cpu_macs = {(r["cell"], r["stage"], r["signature"]):
+                (r["int_dot_macs"], r["float_dot_macs"]) for r in cpu}
+    plain_of = {"nibble-cuda": "nibble"}
+    for r in card:
+        key = (plain_of.get(r["cell"], r["cell"]), r["stage"],
+               r["signature"])
+        got = (r["int_dot_macs"], r["float_dot_macs"])
+        if cpu_macs.get(key) != got:
+            raise AssertionError(f"static MACs of {r['cell']}/{r['stage']} "
+                                 f"on the card {got} != the CPU walk's "
+                                 f"{cpu_macs.get(key)}")
+    print(f"static: gate clean on the card ({len(card)} stage walks over "
+          f"{[c.name for c in runner.GRID_CELLS]}, captured) and on the CPU "
+          f"({len(cpu)}); static MACs per stage equal on both, nibble-cuda "
+          f"(flash + paged kernels) against the CPU's nibble: "
+          + ", ".join(f"{r['cell']}/{r['stage']} {r['dot_macs']}"
+                      for r in card), flush=True)
+
+    stages = engine.stage_programs()
+    pools = tree_leaves(engine._caches)
+    rows = {name: _static_row(stages[name], stages[name].signatures[0],
+                              pools) for name in ("decode_chunk", "prefill")}
+    engine.reset()
+    cfg, scfg = engine.cfg, engine.scfg
+    geo = {"decode_chunk": dict(tokens=scfg.batch * scfg.decode_chunk,
+                                kv_len=scfg.max_len,
+                                logit_positions=scfg.batch
+                                * scfg.decode_chunk),
+           "prefill": dict(tokens=scfg.prefill_len,
+                           kv_len=scfg.prefill_len, logit_positions=1)}
+    for name, row in rows.items():
+        want = analytic_macs(cfg, quantized=True, **geo[name])
+        row["analytic_macs"] = want["total_macs"]
+        if row["dot_macs"] != want["total_macs"]:
+            raise AssertionError(f"serve cell {name}: static MACs "
+                                 f"{row['dot_macs']} != analytic {want}")
+    # the chunk's graph, replayed on its static buffers (CUDA events)
+    chunk = stages["decode_chunk"]
+    sig = chunk.signatures[0]
+    for _ in range(2):
+        chunk.rerun(sig)
+    reps, a, b = 10, torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        chunk.rerun(sig)
+    b.record()
+    torch.cuda.synchronize()
+    replay_ms = a.elapsed_time(b) / reps
+    for name, row in rows.items():
+        r = row["roofline"]
+        print(f"  serve cell {name} ({cfg.name} full width, 4 slots, max_len "
+              f"{scfg.max_len}, decode_chunk {scfg.decode_chunk}): MACs "
+              f"{row['dot_macs']} (int {row['int_dot_macs']}, analytic "
+              f"{row['analytic_macs']}), flops {row['total_flops']}, "
+              f"io_bytes {row['io_bytes']}, bytes_accessed "
+              f"{row['bytes_accessed']}, padding MACs "
+              f"{row['padding_macs']}; roofline compute "
+              f"{r['compute_s'] * 1e3:.4f} ms, memory "
+              f"{r['memory_s'] * 1e3:.4f} ms, step {r['step_s'] * 1e3:.4f} "
+              f"ms ({r['dominant']}, intensity "
+              f"{r['arithmetic_intensity']:.1f} against the mix's ridge "
+              f"{r['ridge_intensity']:.1f}; int8 {r['ridge_int8']:.1f}, bf16 "
+              f"{r['ridge_bf16']:.1f})", flush=True)
+    step = rows["decode_chunk"]["roofline"]["step_s"] * 1e3
+    print(f"  captured decode chunk measured ({smi}): graph replay "
+          f"{replay_ms:.3f} ms (CUDA events, {reps} replays, max_len "
+          f"{scfg.max_len}); step_s / measured {step / replay_ms:.4f}",
+          flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"  static phase {wall:.1f} s", flush=True)
+    return {"grid_card": card, "grid_cpu": cpu, "serve_rows": rows,
+            "replay_ms": replay_ms, "step_over_replay": step / replay_ms,
+            "wall_s": wall}
 
 
 def check_sampler(n_keys=64, vocab=64000) -> dict:
@@ -3317,6 +3431,124 @@ def _kernel_launches(fn) -> int:
         torch.cuda.synchronize()
     return sum(1 for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+# one turn of ``serve_ab``, run by ``python3 -c`` at a tree's root with
+# that tree's ``chip_smoke.py``: the serve phase's yi-6b requests through
+# a ``capture=False`` engine and a captured one
+_SERVE_TURN = r"""
+import json, time
+import numpy as np
+import chip_smoke as cs
+t0 = time.perf_counter()
+cs.phase_build()
+cfg = cs.get_config("yi-6b").replace(
+    quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+    cache_mode="paged", page_size=16)
+params = cs.model_init(cfg, seed=0, device=cs.DEV)
+rng = np.random.default_rng(0)
+lens = rng.integers(32, 129, 8)
+prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+           for n in lens]
+out = {}
+for label, capture in (("eager", False), ("captured", True)):
+    eng = cs.Engine(cfg, params, cs.ServeConfig(
+        batch=4, max_len=160, prefill_len=128, decode_chunk=8),
+        device=cs.DEV, capture=capture)
+    streams, wall, _ = cs._serve_timed(eng, prompts, 32)
+    out[label + "_tok_s"] = sum(map(len, streams)) / wall
+    del eng
+out["process_s"] = time.perf_counter() - t0
+print("SERVE_TURN " + json.dumps(out), flush=True)
+"""
+
+
+def serve_ab(trees, pairs: int = 3) -> list:
+    """The serve phase's requests, eager and captured, under each tree's
+    ``chip_smoke.py`` in turns (a, b, b, a, a, b, ...: ``pairs`` turns
+    each), each turn a process of its own started at the tree's root.
+    Not run by ``main``: ``python3 -c "import chip_smoke as c;
+    c.serve_ab(['path/to/parent', '.'])"`` compares a parent tree's
+    serving with this tree's on one card."""
+    order = [trees[(i + 1) // 2 % 2] for i in range(2 * pairs)]
+    out = []
+    for tree in order:
+        proc = subprocess.run([sys.executable, "-c", _SERVE_TURN], cwd=tree,
+                              capture_output=True, text=True, timeout=600)
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("SERVE_TURN ")]
+        if proc.returncode or not line:
+            raise AssertionError(f"serve turn in {tree}: "
+                                 f"{proc.stderr[-2000:]}")
+        out.append({"tree": tree, **json.loads(line[0].split(" ", 1)[1])})
+        print(f"serve_ab {tree}: {out[-1]}", flush=True)
+    return out
+
+
+@torch.no_grad()
+def costed_overhead(reps: int = 4, calls: int = 2000) -> dict:
+    """What the kernels' cost hook (``kernels.ops.costed``) adds to an
+    eager call: host microseconds per call of ``quant_matmul`` through
+    its costed entry and straight to the function it wraps, in turns
+    (entry, bare, bare, entry; medians), at a shape whose kernel is
+    shorter than the call's host work (1 x 256 int8 against 256 x 256, the
+    nibble kernel), so the loop times the host; and the costed calls
+    of one eager decode chunk (the serve phase's engine, 4 slots, its
+    chunk's body run eagerly on zeros), counted by a hook that only
+    counts, beside that chunk's host ms."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    x = torch.randint(-128, 128, (1, 256), generator=gen, device=DEV,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (256, 256), generator=gen, device=DEV,
+                      dtype=torch.int8)
+    entry = kops.quant_matmul
+    bare = entry.__wrapped__
+    times = {"entry": [], "bare": []}
+    for name in ("entry", "bare", "bare", "entry") * reps:
+        fn = entry if name == "entry" else bare
+        times[name].append(host_us(lambda: fn(x, w), calls))
+    per = {k: statistics.median(v) for k, v in times.items()}
+
+    cfg = get_config("yi-6b").replace(
+        quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
+        cache_mode="paged", page_size=16)
+    params = model_init(cfg, seed=0, device=DEV)
+    eng = Engine(cfg, params, ServeConfig(batch=4, max_len=160,
+                                          prefill_len=128, decode_chunk=8),
+                 device=DEV, capture=False)
+    rng = np.random.default_rng(0)
+    for n in (40, 60, 80, 100):
+        eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 8)
+    eng.run()
+    chunk = eng.stage_programs()["decode_chunk"]
+    sig = chunk.signatures[0]
+    calls_seen = []
+
+    def count(fn, cost, args, kwargs):
+        calls_seen.append(fn.__name__)
+        return fn(*args, **kwargs)
+
+    kops.cost_hook = count
+    try:
+        chunk.rerun(sig)          # the chunk's body on zeros, eagerly
+    finally:
+        kops.cost_hook = None
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        chunk.rerun(sig)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t) / 3 * 1e3
+    del eng, params, chunk
+    torch.cuda.empty_cache()
+    out = {"entry_us": per["entry"], "bare_us": per["bare"],
+           "runs_us": times, "calls_per_chunk": len(calls_seen),
+           "by_fn": {n: calls_seen.count(n) for n in sorted(set(calls_seen))},
+           "eager_chunk_ms": chunk_ms}
+    out["chunk_overhead_ms"] = (len(calls_seen)
+                                * (per["entry"] - per["bare"]) / 1e3)
+    print(f"costed_overhead: {out}", flush=True)
+    return out
 
 
 @torch.no_grad()
@@ -5224,10 +5456,11 @@ def main() -> int:
         r["launches"] = serve["counts"][r["name"]]
     if args.profile:
         serve["profile"] = phase_profile(engine, prompts)
-    del engine
     serve["prompts"] = prompts
     graphs = phase_graphs(params, smi, serve)
     del serve["prompts"], serve["streams"]
+    static = phase_static(engine, smi)
+    del engine
     workload = phase_workload(params, smi)
     for r in rows[:3]:
         r["workload_launches"] = workload["counts"][r["name"]]
@@ -5341,7 +5574,8 @@ def main() -> int:
                        "families": families, "ssm": ssm,
                        "encdec_vlm": encdec_vlm, "train": train,
                        "train_families": train_families,
-                       "train_grads": grads, "torch": torch.__version__},
+                       "train_grads": grads, "static": static,
+                       "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -40,18 +40,17 @@ import dataclasses
 import numpy as np
 
 from repro_torch.capacity.spec_math import expected_tokens_per_round
+from repro_torch.launch.mesh import HW
 from repro_torch.serve.paging import pages_needed
+from repro_torch.staticcheck.flops import analytic_macs
 
 __all__ = ["WorkloadShape", "Knobs", "StageCosts", "CapacityError", "H100",
            "predict", "analytic_cache_token_bytes"]
 
 
-class H100:
-    """The peak rates the static cost model divides work by: NVIDIA H100
-    SXM at its 700 W limit, from NVIDIA's data sheet (dense bf16 without
-    sparsity; HBM3)."""
-    PEAK_BF16_FLOPS = 989e12
-    HBM_BW = 3.35e12
+# the peak rates the static cost model divides work by: the roofline's
+# H100 (``launch.mesh.HW``), under the name the capacity model exports
+H100 = HW
 
 
 class CapacityError(ValueError):
@@ -266,32 +265,6 @@ class StageCosts:
                 knobs.batch * knobs.decode_chunk, knobs.max_len,
                 knobs.batch * knobs.decode_chunk, knobs.batch, quant)
         return out
-
-
-def analytic_macs(cfg, tokens: int, kv_len: int, logit_positions: int,
-                  quantized: bool) -> dict:
-    """Closed-form per-dispatch MACs for a stage that runs ``tokens``
-    tokens, attends over a padded ``kv_len`` context and projects
-    ``logit_positions`` positions through the LM head (a copy of the
-    reference's ``staticcheck.flops.analytic_macs``).  Projections count
-    q, k, v, o and a three-matrix FFN per layer; a quantized stage counts
-    its linear MACs twice, one per nibble plane."""
-    d, hd = cfg.d_model, cfg.head_dim
-    per_token = cfg.n_layers * (d * cfg.n_heads * hd
-                                + 2 * d * cfg.n_kv_heads * hd
-                                + cfg.n_heads * hd * d
-                                + 3 * d * cfg.d_ff)
-    linear = tokens * per_token
-    head = logit_positions * cfg.d_model * cfg.vocab_size
-    attn = (tokens * kv_len * cfg.n_heads * cfg.head_dim * 2
-            * cfg.n_layers)
-    weight_factor = 2 if quantized else 1
-    return {
-        "linear_macs": linear * weight_factor,
-        "attn_macs": attn,
-        "head_macs": head,
-        "total_macs": linear * weight_factor + attn + head,
-    }
 
 
 def analytic_cache_token_bytes(cfg) -> int:

@@ -9,9 +9,16 @@ runs its plain version for CPU tensors and its CUDA kernel for CUDA
 tensors; ragged shapes are masked inside the kernels instead of padded to
 a 128 grid, and head dims are zero-padded only as far as the kernels need
 (the results are the same).
+
+Each entry point also knows its cost from its arguments' shapes alone
+(:func:`costed`): a static walk (``staticcheck.flops``) sets
+:data:`cost_hook`, and the entry points hand it their calls, so a stage's
+count is the same whichever implementation runs it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -29,7 +36,7 @@ from repro_torch.kernels.quant_matmul_fused import quant_matmul_fused
 __all__ = ["quant_matmul", "nibble_matmul", "nibble_matmul_w4", "lut_matmul",
            "quant_matmul_fused", "flash_mha", "paged_flash_decode",
            "W_FORMATS", "LAUNCH_COUNTERS", "launch_counts",
-           "add_launch_counts"]
+           "add_launch_counts", "costed", "tensor_bytes"]
 
 W_FORMATS = ("int8", "int4_packed", "lut")
 
@@ -56,6 +63,52 @@ def add_launch_counts(delta) -> None:
         setattr(mod, name, getattr(mod, name) + d)
 
 
+# None unless a static walk runs; then a costed entry point returns
+# ``cost_hook(fn, cost, args, kwargs)``, which must run ``fn(*args,
+# **kwargs)`` and return its result (``staticcheck.flops``)
+cost_hook = None
+
+
+def tensor_bytes(*ts) -> int:
+    """Bytes of the tensors among ``ts`` (anything else counts 0)."""
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def costed(cost):
+    """Mark ``fn`` as an entry point whose work ``cost(*args, **kwargs)``
+    gives from shapes alone, as ``(int_macs, float_macs, bytes,
+    padding_macs)``: the MACs of its products, the bytes of its operands
+    and result, each read or written once, and the MACs it runs beyond
+    its work (zero rows a fixed-shape call pads with; 0 for the
+    kernels).  Outside a walk a call pays one ``is None`` check, so a
+    captured graph replays unchanged."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            if cost_hook is None:
+                return fn(*args, **kwargs)
+            return cost_hook(fn, cost, args, kwargs)
+        return entry
+    return wrap
+
+
+def _quant_matmul_cost(x_q, w, *, x_scale=None, w_scale=None,
+                       w_format="int8", out_dtype=None):
+    """The nibble formats count each product twice, once per activation
+    plane (the reference's plane-concatenated K); ``lut`` once."""
+    k = x_q.shape[-1]
+    m = x_q.numel() // max(k, 1)
+    n = 2 * w.shape[1] if w_format == "int4_packed" else w.shape[1]
+    if out_dtype is None:
+        scaled = x_scale is not None or w_scale is not None
+        out_dtype = torch.bfloat16 if scaled else torch.int32
+    planes = 1 if w_format == "lut" else 2
+    out = m * n * out_dtype.itemsize
+    return (planes * m * n * k, 0,
+            tensor_bytes(x_q, w, x_scale, w_scale) + out, 0)
+
+
 def _row_scale(s, m, device):
     """Scalar / (M,) / (M,1) scale -> f32 (M, 1)."""
     s = torch.as_tensor(s, dtype=torch.float32, device=device).reshape(-1, 1)
@@ -68,6 +121,7 @@ def _col_scale(s, n, device):
     return torch.broadcast_to(s, (1, n))
 
 
+@costed(_quant_matmul_cost)
 def quant_matmul(x_q: torch.Tensor, w: torch.Tensor, *, x_scale=None,
                  w_scale=None, w_format: str = "int8",
                  out_dtype=None) -> torch.Tensor:
@@ -166,6 +220,16 @@ class _FlashMHA(torch.autograd.Function):
                 None, None, None)
 
 
+def _flash_mha_cost(q, k, v, *args, **kwargs):
+    """Every (query, key) pair of the square: the plain version's work
+    and the analytic model's (the causal mask is not subtracted)."""
+    bh, sq, d = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    out = bh * sq * dv * q.element_size()
+    return 0, bh * sq * sk * (d + dv), tensor_bytes(q, k, v) + out, 0
+
+
+@costed(_flash_mha_cost)
 def flash_mha(q, k, v, scale, causal=True, window=0, softcap=0.0, group=1):
     """Flash attention over flat head-major layouts: q (B*H, Sq, d), k/v
     (B*KVH, Sk, d/dv), heads ordered (kv_head, group) so head ``bh`` reads
@@ -174,6 +238,21 @@ def flash_mha(q, k, v, scale, causal=True, window=0, softcap=0.0, group=1):
     return _FlashMHA.apply(q, k, v, scale, causal, window, softcap, group)
 
 
+def _paged_decode_cost(q, k_pool, v_pool, table, q_pos, **kwargs):
+    """Over the table's full width x page size, the padded ``kv_len`` of
+    ``analytic_macs``: the rows the table names, whatever ``q_pos`` holds
+    (the values are never read)."""
+    b, _, h, d = q.shape
+    ps, kvh, dv = k_pool.shape[1], k_pool.shape[2], v_pool.shape[-1]
+    rows = b * table.shape[1] * ps
+    pages = rows * kvh * (d * k_pool.element_size()
+                          + dv * v_pool.element_size())
+    out = b * h * dv * q.element_size()
+    return (0, rows * h * (d + dv),
+            tensor_bytes(q, table, q_pos) + pages + out, 0)
+
+
+@costed(_paged_decode_cost)
 def paged_flash_decode(q, k_pool, v_pool, table, q_pos, *, scale, window=0,
                        softcap=0.0):
     """Single-token decode attention against a paged KV cache.  ``q``:

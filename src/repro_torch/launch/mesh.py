@@ -10,10 +10,11 @@ then share it, which is how one card (or the CPU) runs ``tp=2``, or a
 the engine stores FSDP pieces of the weights per entry and splits its
 slots over the data rows (``distributed.sharding``).
 
-Not here yet: ``make_production_mesh`` (a TPU pod) and ``HW`` (the
-roofline's hardware constants); both come with the analysis tools that
-read them (ROADMAP queue 1 item 5), ``HW`` then carrying the H100's
-numbers.
+``HW`` carries the H100's data-sheet rates, which the roofline
+(``roofline.analysis``) and the capacity model (``capacity.model``) divide
+work by.  Not here yet: ``make_production_mesh`` (the reference's TPU
+pod mesh); it comes with the dry run (``launch/dryrun.py``), the one tool
+that reads it.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["LocalMesh", "make_local_mesh", "canonical_device"]
+__all__ = ["LocalMesh", "make_local_mesh", "canonical_device", "HW"]
 
 
 def canonical_device(device) -> torch.device:
@@ -105,3 +106,16 @@ def make_local_mesh(*, dp: int = 0, tp: int = 1, devices=None) -> LocalMesh:
                          f"only {n} are available")
     grid = tuple(tuple(devices[r * tp:(r + 1) * tp]) for r in range(dp))
     return LocalMesh(grid)
+
+
+class HW:
+    """NVIDIA H100 SXM at its 700 W limit, from NVIDIA's data sheet (dense
+    rates without sparsity; HBM3): what the roofline and the capacity
+    model divide work by.  ``NVLINK_BW`` is one direction of a card's
+    NVLink 4 bandwidth, the link the roofline's collective term crosses
+    (the reference's ``ICI_BW``)."""
+    PEAK_BF16_FLOPS = 989e12        # per card
+    PEAK_INT8_OPS = 1.979e15        # per card
+    HBM_BW = 3.35e12                # bytes/s per card
+    HBM_BYTES = 80e9                # bytes per card
+    NVLINK_BW = 450e9               # bytes/s per card, per direction

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.linear import linear_apply, linear_init
+from repro_torch.kernels.ops import costed, tensor_bytes
 from repro_torch.distributed.collectives import all_gather, all_reduce_sum
 
 __all__ = ["rms_norm_init", "rms_norm", "rope", "apply_rope", "mlp_init",
@@ -84,6 +85,19 @@ def _in_fixed_calls(fn, p: int, *ts):
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
+def _bmm_cost(a, b):
+    """The product's own work; the zero entries the fixed calls pad with
+    are reported apart (no other route of the same attention runs
+    them)."""
+    n, m, k = a.shape
+    per = m * k * b.shape[2]
+    p = entries_per_call(m, k, b.shape[2])
+    padding = (p * max(1, -(-n // p)) - n) * per
+    out = n * m * b.shape[2] * a.element_size()
+    return 0, n * per, tensor_bytes(a, b) + out, padding
+
+
+@costed(_bmm_cost)
 def fixed_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.bmm(a, b)`` for a (N, m, k) and b (N, k, n), in calls of
     ``entries_per_call(m, k, n)`` entries (``_in_fixed_calls``).  cuBLAS

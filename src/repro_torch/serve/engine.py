@@ -385,10 +385,16 @@ class _StageCounter:
         """The distinct signatures recorded so far, in a fixed order."""
         return tuple(sorted(self._keys, key=repr))
 
-    def rerun(self, signature):
-        """Run the stage's body once on zero tensors of ``signature``, on
-        the stage's device (stand-ins for non-tensor arguments): the
-        calibration's timed dispatch.  Returns the body's outputs."""
+    @property
+    def body(self):
+        """The stage's body: what ``rerun`` runs (a captured stage's replay
+        runs no Python, so the static walk calls this)."""
+        return self._fn
+
+    def abstract_args(self, signature) -> list:
+        """Zero tensors of ``signature`` on the stage's device, stand-ins
+        for its non-tensor arguments (the reference's
+        ``_CountingJit.abstract_args``)."""
         args = []
         for leaf in signature:
             if len(leaf) == 1:
@@ -399,7 +405,13 @@ class _StageCounter:
                      if dtype.startswith("torch.")
                      else torch.from_numpy(np.zeros(0, dtype)).dtype)
             args.append(torch.zeros(shape, dtype=dtype, device=self.device))
-        return self._fn(*args)
+        return args
+
+    def rerun(self, signature):
+        """Run the stage's body once on :meth:`abstract_args` of
+        ``signature``: the calibration's timed dispatch.  Returns the
+        body's outputs."""
+        return self._fn(*self.abstract_args(signature))
 
 
 @dataclasses.dataclass

@@ -17,7 +17,9 @@ MoE and SSD mixer families and whisper-base and phi-3-vision served
 text-only too),
 one capture per stage once warm, equal launch counters; the MoE block on
 the card repeats bit for bit and routes as on the CPU; the sampler on the
-card equals the sampler on the CPU.  Run on
+card equals the sampler on the CPU; the static gate's grid on the card
+(captured, ``nibble-cuda`` on the kernels) is clean, and every stage's
+static MACs equal the CPU walk's.  Run on
 the GPU machine with ``python -m pytest -q -m cuda
 tests/test_torch_graphs.py``.
 """
@@ -444,3 +446,22 @@ def test_capture_runs_with_the_cyclic_collector_off(cuda, monkeypatch):
     assert got == want
     assert seen == [False, False] and gc.isenabled()
     assert second.capture_counts == {"decode_chunk": 1}
+
+
+@pytest.mark.cuda
+def test_static_gate_on_the_card(cuda):
+    """The gate's grid built on the card, captured: no finding (the walk
+    calls each captured stage's body, never its graph), and each stage's
+    static MACs equal the CPU walk's (``nibble-cuda``, on the flash and
+    paged kernels, against the CPU's ``nibble``)."""
+    from repro_torch.staticcheck import runner
+    card_f, card = runner.run_graph_layer(device="cuda")
+    cpu_f, cpu = runner.run_graph_layer(device="cpu")
+    assert card_f == [] and cpu_f == []
+    want = {(r["cell"], r["stage"]): (r["int_dot_macs"], r["float_dot_macs"])
+            for r in cpu}
+    for r in card:
+        cell = "nibble" if r["cell"] == "nibble-cuda" else r["cell"]
+        assert (r["int_dot_macs"], r["float_dot_macs"]) == \
+            want[cell, r["stage"]], (r["cell"], r["stage"])
+    assert {r["cell"] for r in card} == {c.name for c in runner.GRID_CELLS}

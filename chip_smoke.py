@@ -318,6 +318,33 @@ Phases (any failure exits non-zero and prints no result line):
    deepseek-v3-671b cut to its first 2 layers and gemma3-1b cut to its
    first 6 (one 5:1 block) at seq 1024.
 
+8d. Mesh train (``phase_mesh_train``): the sharded training step
+   (``make_train_step`` over ``sharding.train_shards``) on meshes of the
+   one card repeated, every entry a card of its own.  (a) full-width
+   qwen3-4b as phase 8 (QAT, flash, remat, AdamW, batch 8 x seq 256,
+   no warmup), 2 steps at (1, 1) (unsharded), (1, 2) and (2, 1), each
+   from the same weights (a host copy) and the same two batches: per
+   step loss, grad norm and wall; the collective bytes by kind and axis
+   (``collectives.collective_bytes``); rows 2 and 4 launched exactly
+   twice (1, 1)'s; peak memory; loss within ``MESH_LOSS_ATOL`` and grad
+   norm within ``MESH_GNORM_RTOL`` of (1, 1)'s at each step (the CPU
+   tests' tolerances, ``tests/test_torch_mesh_train.py``).  (b) at (1, 2)
+   against (1, 1), one step each: deepseek-v3-671b cut as phase 8b cuts it
+   (its 2 dense MLA layers, MTP 0.3: the MLA heads split) and
+   jamba-v0.1-52b cut to its first 2 layers (its MoE of 16 experts split
+   by expert: the reference's mesh MoE at dp = 1 equals the unsharded
+   one up to the bf16 combine), the aux printed and held within
+   ``MESH_AUX_ATOL``.  (c) The dry run
+   (``python -m repro_torch.launch.dryrun``, fake tensors, host only)
+   over ``256gpu_32x8`` for yi-6b and deepseek-v3-671b at ``train_4k``
+   and ``decode_32k``, started as a subprocess when the script starts
+   (it runs beside the card's phases) and collected here: every cell
+   ``ok``, ``format_table``, each record's per-card memory and ``fits``
+   and the subprocess's seconds.  (d) Fake against real: reduced yi-6b
+   (``dense``, ``chunked``, 2 layers) at (2, 2), the dry run's walk once on
+   fake ``meta:N`` entries and once on real tensors on ``cuda:0``
+   repeated: flops, collective bytes and ``io_bytes`` must be equal.
+
 The last three lines are the per-kernel JSON, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
 """
@@ -360,7 +387,9 @@ from repro_torch.kernels.quant_matmul_fused import (  # noqa: E402
     quantize_rows)
 from repro_torch.launch.train import stub_extras  # noqa: E402
 from repro_torch.launch.mesh import HW, make_local_mesh  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.distributed.sharding import shard_params  # noqa: E402
+from repro_torch.distributed.sharding import train_shards  # noqa: E402
 from repro_torch.core.linear import (linear_apply,  # noqa: E402
                                      linear_apply_row)
 from repro_torch.models import (decode_step, forward,  # noqa: E402
@@ -370,7 +399,7 @@ from repro_torch.models.transformer import init_shard_caches  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.attention import attention_core  # noqa: E402
 from repro_torch.models.layers import fixed_mean  # noqa: E402
-from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.capacity import (Knobs, WorkloadShape,  # noqa: E402
                                   analytic_cache_token_bytes, predict)
 from repro_torch.capacity.calibrate import calibrate_engine  # noqa: E402
@@ -379,13 +408,14 @@ from repro_torch.serve import Engine as _PortEngine  # noqa: E402
 from repro_torch.serve import (Router, ServeConfig,  # noqa: E402
                                 draw_workload, hash_chunks, pages_needed,
                                 run_timed_workload, sampling)
-from repro_torch.train import TrainConfig  # noqa: E402
+from repro_torch.train import TrainConfig, make_train_step  # noqa: E402
 from repro_torch.train.step import (accumulate_grads,  # noqa: E402
                                     cross_entropy, make_loss_fn)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tree import tree_paths  # noqa: E402
 
 DEV = "cuda"
+DEV_ONE = "cuda:0"      # a mesh of the one card repeated
 
 # H100 SXM published peaks (dense): HBM bytes/s, int8 ops/s, bf16 FLOP/s
 HBM_BPS = HW.HBM_BW
@@ -5227,6 +5257,245 @@ def phase_train_families(smi: str) -> dict:
     return out
 
 
+# the CPU tests' tolerances for the mesh step against the unsharded one
+# (tests/test_torch_mesh_train.py)
+MESH_LOSS_ATOL = 1e-3
+MESH_GNORM_RTOL = 5e-3
+MESH_AUX_ATOL = 1e-3
+DRYRUN_CELLS = (["yi-6b", "deepseek-v3-671b"], ["train_4k", "decode_32k"])
+
+
+def start_dryrun(path: str):
+    """The dry run's cells as a subprocess (host work on fake tensors, so
+    it runs beside the card's phases); :func:`finish_dryrun` collects
+    it."""
+    archs, shapes_ = DRYRUN_CELLS
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"),
+        OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+           "--arch", *archs, "--shape", *shapes_, "--singlepod",
+           "--out", path]
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), \
+        time.perf_counter()
+
+
+def finish_dryrun(proc, t0: float, path: str, smi: str,
+                  limit_s: float) -> dict:
+    """Wait for the dry run (at most ``limit_s`` more seconds; past that it
+    is stopped and the phase fails), then print its table and each
+    record's per-card memory."""
+    from repro_torch.roofline import analyze_file, format_table
+    try:
+        log, _ = proc.communicate(timeout=limit_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dry run: not done {limit_s:.0f} s after the "
+                             f"card's phases")
+    wall = time.perf_counter() - t0
+    for line in log.splitlines():
+        if line.startswith(("[ok]", "[FAIL]", "dry-run:")):
+            print(f"  {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run: exit {proc.returncode}\n{log[-3000:]}")
+    with open(path) as f:
+        records = json.load(f)
+    archs, shapes_ = DRYRUN_CELLS
+    if len(records) != len(archs) * len(shapes_) \
+            or any(r["status"] != "ok" for r in records):
+        raise AssertionError(f"dry run: a cell is not ok: {records}")
+    print("  " + format_table(analyze_file(path)).replace("\n", "\n  "),
+          flush=True)
+    for r in records:
+        print(f"  {r['arch']} {r['shape']} {r['mesh']}: per card "
+              f"{r['argument_size_in_bytes'] / 1e9:.2f} GB stored + "
+              f"{r['temp_size_in_bytes'] / 1e9:.2f} GB peak live, fits "
+              f"{r['fits']} (HBM {HW.HBM_BYTES / 1e9:.0f} GB); "
+              f"{r['scan_trips']} blocks from 1 and 2, data rows from "
+              f"{r['data_rows_walked']}; walked in {r['walk_s']} s",
+              flush=True)
+    print(f"  dry run: {len(records)} cells in {wall:.1f} s of host time "
+          f"(data-sheet arithmetic, not a measurement; {smi})", flush=True)
+    return {"records": records, "wall_s": wall}
+
+
+def _tree_to(tree, dev):
+    """A copy of ``tree`` on ``dev`` (always a copy: a step updates its
+    parameters in place)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev, copy=True)
+
+
+def _mesh_steps(cfg, tcfg, host_params, batches, shape) -> dict:
+    """``len(batches)`` steps of ``make_train_step`` from ``host_params``:
+    unsharded (``shape`` None) or over a ``shape`` mesh of the one card
+    repeated.  Per step loss, grad norm, aux and wall; launches,
+    collective bytes, peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = _tree_to(host_params, DEV)
+    if shape is not None:
+        mesh = make_local_mesh(dp=shape[0], tp=shape[1],
+                               devices=[DEV_ONE] * (shape[0] * shape[1]))
+        params = train_shards(params, cfg, mesh)
+    opt = adamw_init(params, tcfg.optimizer)
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    collectives.reset_collective_counts()
+    hist = []
+    for b in batches:
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        hist.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "aux": float(m["aux"]),
+                     "wall_s": time.perf_counter() - t})
+    out = {"history": hist, "counts": read_counts(),
+           "collective_bytes": collectives.collective_bytes(),
+           "collective_calls": collectives.collective_calls(),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _print_mesh_run(label: str, r: dict, smi: str) -> None:
+    for i, h in enumerate(r["history"]):
+        print(f"    {label} step {i}: loss {h['loss']:.6f}, grad norm "
+              f"{h['grad_norm']:.6f}, aux {h['aux']:.6f}, {h['wall_s']:.3f} s",
+              flush=True)
+    moved = {k: v for k, v in r["collective_bytes"].items()
+             if any(v.values())}
+    print(f"    {label}: collective bytes {moved} in "
+          f"{r['collective_calls']} calls; launches "
+          f"{ {k: v for k, v in r['counts'].items() if v} }; peak memory "
+          f"{r['peak_bytes'] / 1e9:.2f} GB ({smi})", flush=True)
+
+
+def _hold_mesh(label: str, got: dict, want: dict, aux: bool = False) -> None:
+    for i, (g, w) in enumerate(zip(got["history"], want["history"])):
+        dl = abs(g["loss"] - w["loss"])
+        dg = abs(g["grad_norm"] / w["grad_norm"] - 1)
+        da = abs(g["aux"] - w["aux"])
+        print(f"    {label} step {i} against (1, 1): |dloss| {dl:.2e} "
+              f"(bound {MESH_LOSS_ATOL}), grad norm rel {dg:.2e} (bound "
+              f"{MESH_GNORM_RTOL}), |daux| {da:.2e}", flush=True)
+        if not (math.isfinite(g["loss"]) and dl <= MESH_LOSS_ATOL
+                and dg <= MESH_GNORM_RTOL
+                and (not aux or da <= MESH_AUX_ATOL)):
+            raise AssertionError(f"{label}: step {i} leaves (1, 1)'s loss, "
+                                 f"grad norm or aux")
+
+
+def _fake_vs_real() -> dict:
+    """The dry run's walk of reduced yi-6b (dense, chunked, 2 layers) at
+    (2, 2): fake ``meta:N`` entries against real tensors on the card."""
+    from repro_torch.configs import reduced
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCase
+    cfg = reduced(get_config("yi-6b")).replace(n_layers=2)
+    case = ShapeCase("check", "train", 64, 8)
+    t = time.perf_counter()
+    fake = dryrun.walk_cell(cfg, case, dryrun._walk_mesh(2, 2),
+                            quant_moments=False)
+    real = dryrun.walk_cell(
+        cfg, case, make_local_mesh(dp=2, tp=2, devices=[DEV_ONE] * 4),
+        quant_moments=False, params=model_init(cfg, seed=0, device=DEV),
+        fake=False)
+    keys = ("flops", "collective_bytes", "io_bytes", "bytes_accessed")
+    print(f"  fake against real (reduced yi-6b, dense, chunked, (2, 2)): "
+          + ", ".join(f"{k} {fake[k]} / {real[k]}" for k in keys
+                      if k != "collective_bytes")
+          + f"; collective bytes equal: "
+          f"{fake['collective_bytes'] == real['collective_bytes']} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    bad = [k for k in keys if fake[k] != real[k]]
+    if bad:
+        raise AssertionError(f"fake walk differs from the real one on the "
+                             f"card: {bad}")
+    return {"fake": fake, "real": real}
+
+
+def phase_mesh_train(smi: str, dry) -> dict:
+    """Phase 8d (see the module docstring)."""
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = get_config("qwen3-4b").replace(quant_mode="qat", attn_impl="flash",
+                                         remat=True)
+    batch, seq, steps = 8, 256, 2
+    tcfg = TrainConfig(optimizer=AdamWConfig(), total_steps=10,
+                       warmup_steps=0)
+    print(f"mesh train: {cfg.name} full width ({cfg.n_layers} layers), "
+          f"quant_mode=qat attn_impl=flash remat, batch {batch} x seq {seq}, "
+          f"{steps} steps at (1, 1), (1, 2) and (2, 1) on one card repeated",
+          flush=True)
+    host = _tree_to(model_init(cfg, seed=0, device=DEV), "cpu")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch), device=DEV)
+    batches = [data.batch(i) for i in range(steps)]
+    runs = {"(1, 1)": _mesh_steps(cfg, tcfg, host, batches, None)}
+    _print_mesh_run("(1, 1)", runs["(1, 1)"], smi)
+    require_launched(runs["(1, 1)"]["counts"], (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv"))
+    for shape in ((1, 2), (2, 1)):
+        label = str(shape)
+        runs[label] = r = _mesh_steps(cfg, tcfg, host, batches, shape)
+        _print_mesh_run(label, r, smi)
+        _hold_mesh(f"qwen3-4b {label}", r, runs["(1, 1)"])
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            if r["counts"][k] != 2 * runs["(1, 1)"]["counts"][k]:
+                raise AssertionError(f"{label}: {k} launched "
+                                     f"{r['counts'][k]} times, not twice "
+                                     f"(1, 1)'s")
+        require_no_f32(r["counts"])
+    del host
+    out["qwen3-4b"] = runs
+
+    full = get_config("deepseek-v3-671b")
+    ds = full.replace(n_layers=2, prefix_pattern=full.prefix_pattern[:2],
+                      attn_impl="flash", quant_mode="qat", remat=True)
+    full = get_config("jamba-v0.1-52b")
+    jb = full.replace(n_layers=2, block_pattern=full.block_pattern[:2],
+                      attn_impl="flash", quant_mode="qat", remat=True)
+    for c, tc, what in (
+            (ds, TrainConfig(total_steps=10, warmup_steps=0, mtp_weight=0.3),
+             "its 2 dense MLA layers, MTP 0.3"),
+            (jb, TrainConfig(total_steps=10, warmup_steps=0),
+             f"its first 2 layers, MoE of {jb.n_experts} experts")):
+        print(f"  {c.name} full width cut to {what}: 1 step at (1, 1) and "
+              f"(1, 2), batch 4 x seq 256", flush=True)
+        host = _tree_to(model_init(c, seed=0, device=DEV), "cpu")
+        b = [SyntheticLM(DataConfig(vocab_size=c.vocab_size, seq_len=256,
+                                    global_batch=4), device=DEV).batch(0)]
+        pair = {"(1, 1)": _mesh_steps(c, tc, host, b, None),
+                "(1, 2)": _mesh_steps(c, tc, host, b, (1, 2))}
+        del host
+        for label, r in pair.items():
+            _print_mesh_run(label, r, smi)
+            require_no_f32(r["counts"])
+        _hold_mesh(f"{c.name} (1, 2)", pair["(1, 2)"], pair["(1, 1)"],
+                   aux=True)
+        out[c.name] = pair
+    if not out[jb.name]["(1, 2)"]["history"][0]["aux"] > 0:
+        raise AssertionError("jamba: the mesh step's aux is not positive")
+    out["fake_vs_real"] = _fake_vs_real()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["dryrun"] = finish_dryrun(*dry, smi, limit_s=600)
+    print(f"  mesh train phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def _device_times(prof) -> dict:
     """Self device time (us) per CUDA kernel name from a profiler run."""
     kernels = {}
@@ -5440,6 +5709,20 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     smi = phase_device()
+    dry_path = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build",
+        "dryrun_records.json")
+    os.makedirs(os.path.dirname(dry_path), exist_ok=True)
+    dry = start_dryrun(dry_path)
+    try:
+        return _main(args, t0, smi, dry + (dry_path,))
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].communicate()
+
+
+def _main(args, t0, smi, dry) -> int:
     phase_build()
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = [check_nibble(gen), check_flash(gen), check_paged(gen)]
@@ -5555,6 +5838,13 @@ def main() -> int:
             name: sum(f["counts"][k] for k in keys)
             for name, f in train_families.items() if isinstance(f, dict)}
     grads = check_train_grads()
+    mesh_train = phase_mesh_train(smi, dry)
+    for r, keys in ((rows[1], ("flash_attention_fwd",)),
+                    (rows[3], ("flash_attention_bwd_dq",
+                               "flash_attention_bwd_dkv"))):
+        r["mesh_train_launches"] = {
+            f"qwen3-4b {shape}": sum(run["counts"][k] for k in keys)
+            for shape, run in mesh_train["qwen3-4b"].items()}
     print(f"cache bytes per token held to the capacity model's closed form "
           f"on {len(CACHE_BYTES)} configs: {CACHE_BYTES}", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5575,6 +5865,7 @@ def main() -> int:
                        "encdec_vlm": encdec_vlm, "train": train,
                        "train_families": train_families,
                        "train_grads": grads, "static": static,
+                       "mesh_train": mesh_train,
                        "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -5591,7 +5882,7 @@ def main() -> int:
              "encdec_vlm_launches", "encdec_vlm_shapes", "paper_launches",
              "train_families_launches", "train_families_shapes",
              "tp_launches", "tp_shapes", "tp_families_launches",
-             "tp_families_shapes", "dp_launches")
+             "tp_families_shapes", "dp_launches", "mesh_train_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

@@ -194,7 +194,8 @@ def linear_apply_row(shards: list, xs: list, *, mode: str = "dense",
         parts = [torch.matmul(x.to(torch.float32),
                               p["w"].to(torch.float32))
                  for p, x in zip(shards, xs)]
-        return broadcast(reduce_sum(parts).to(dtype), devices)
+        return broadcast(reduce_sum(parts).to(dtype), devices, src=0,
+                         kind="all_reduce_sum")
     if mode == "qat":
         # the per-row activation scale and the per-column weight scale
         # each span the whole K: a max of the shards' amaxes
@@ -208,7 +209,8 @@ def linear_apply_row(shards: list, xs: list, *, mode: str = "dense",
             q.fake_quant(x, bits=8, scale=q.scale_from_amax(xa)),
             q.fake_quant(w, bits=8, scale=q.scale_from_amax(wa)))
             for x, w, xa, wa in zip(xs, ws, x_amax, w_amax)]
-        return broadcast(reduce_sum(parts).to(dtype), devices)
+        return broadcast(reduce_sum(parts).to(dtype), devices, src=0,
+                         kind="all_reduce_sum")
     if mode not in _INT_MODES:
         raise NotImplementedError(f"quant mode {mode!r} has no "
                                   f"row-parallel projection")
@@ -222,4 +224,4 @@ def linear_apply_row(shards: list, xs: list, *, mode: str = "dense",
     # the epilogue once, on shard 0's device, then a copy per device
     out = (reduce_sum(accs).to(torch.float32)
            * q.scale_from_amax(amax[0])) * _weight(shards[0], bits)[1]
-    return broadcast(out.to(dtype), devices)
+    return broadcast(out.to(dtype), devices, src=0, kind="all_reduce_sum")

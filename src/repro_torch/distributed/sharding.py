@@ -45,6 +45,11 @@ lives on data row ``b // (B / dp)`` when ``dp`` divides the batch ``B``
 (its dense slab rows and mamba state), else the batch is not split and
 data row 0 holds every slot (``slot_rows``); paged pools are whole on
 each row, one copy per distinct device.
+
+:func:`train_shards` is :func:`shard_params` for the training step:
+every entry's leaves its own tensors, marked to need grads; ``split``
+and ``fsdp`` say which entries hold copies of one piece
+(:func:`piece_groups`), whose gradients the step sums.
 """
 
 from __future__ import annotations
@@ -55,14 +60,16 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import data_gather
+from repro_torch.distributed.collectives import data_gather, \
+    entries_distinct
 
 __all__ = ["TP_AXIS", "fsdp_axes", "param_specs", "opt_state_specs",
            "batch_specs", "cache_specs", "page_table_spec", "TPLayout",
            "tp_layout", "check_tp_supported", "Shards", "shard_params",
            "shard_caches", "split_dim", "data_dim", "slot_rows",
            "gather_rows", "stored_bytes", "MLA_CACHE_KEYS", "SSM_CACHE_KEYS",
-           "SEQ_CACHE_KEYS", "SSMSegments", "ssm_segments"]
+           "SEQ_CACHE_KEYS", "SSMSegments", "ssm_segments", "train_shards",
+           "piece_groups"]
 
 TP_AXIS = "model"
 
@@ -407,16 +414,22 @@ _SSM_SPLITS = {"w": (1, "proj"), "qt8": (0, "proj"), "qt4": (0, "proj"),
                "dt_bias": (0, "heads"), "ssm": (1, "heads")}
 
 
+def _ssm_cut(path) -> bool:
+    """A mamba mixer leaf that :func:`_ssm_piece` cuts per segment."""
+    leafk = path[-1]
+    return leafk in _SSM_SPLITS and not (
+        leafk in _QUANT_VALUES + _QUANT_SCALES + ("w",)
+        and "in_proj" not in path)
+
+
 def _ssm_piece(cfg, layout, s, path, leaf):
     """Shard ``s``'s piece of a mamba mixer leaf (``in_proj``'s leaves,
     the conv, the per-head scalars, the conv and SSM state), its segments
     concatenated in order; None for a leaf split as its spec says
     (``out_proj``, row-parallel) or kept whole (the norm)."""
-    leafk = path[-1]
-    if leafk not in _SSM_SPLITS or (leafk in _QUANT_VALUES + _QUANT_SCALES
-                                    + ("w",) and "in_proj" not in path):
+    if not _ssm_cut(path):
         return None
-    dim, which = _SSM_SPLITS[leafk]
+    dim, which = _SSM_SPLITS[path[-1]]
     seg = ssm_segments(cfg, layout, s)
     ranges = ((seg.head_lo, seg.heads),) if which == "heads" \
         else getattr(seg, which)
@@ -433,12 +446,19 @@ class Shards:
     per distinct device.  Parameters over a data axis above 1 carry
     ``fsdp``: one tree's layout with each leaf's FSDP dimension (None:
     stored whole), each entry holding its row's pieces
-    (:func:`gather_rows` rebuilds a shard's tensors at use)."""
+    (:func:`gather_rows` rebuilds a shard's tensors at use).  ``split``:
+    one tree's layout with each leaf's model-axis split (True: every
+    model shard holds its own part; False: whole on every shard).
+    ``shared`` (:func:`train_shards`): per leaf index (``tree_leaves``
+    order), the ranges of a split leaf's piece that every model shard
+    holds a copy of."""
     trees: list
     devices: list
     layout: TPLayout
     dp: int = 1
     fsdp: Any = None
+    split: Any = None
+    shared: Any = None
 
     def __len__(self) -> int:
         return len(self.trees)
@@ -557,7 +577,24 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
     src = prepare_params(_copy_nodes(params), cfg)
     specs = param_specs(src, mesh)
     devices = mesh.model_devices
+    keep_whole, piece = _param_splitters(cfg, layout)
+    split = _map_with_path(lambda path, spec: (
+        "mamba" in path and layout.ssm_heads and _ssm_cut(path))
+        or (not keep_whole(path) and split_dim(spec) is not None), specs)
+    trees = _split_tree(src, specs, devices, keep_whole, copy_whole=False,
+                        piece=piece)
+    if mesh.shape["data"] == 1:
+        return Shards(trees, devices, layout, split=split)
+    dims = _map_with_path(lambda path, spec: data_dim(spec), specs)
+    return Shards(_fsdp_pieces(trees, dims, mesh), mesh.entries, layout,
+                  dp=mesh.shape["data"], fsdp=dims, split=split)
 
+
+def _param_splitters(cfg: ModelConfig, layout: TPLayout):
+    """``(keep_whole(path), piece(s, path, leaf))`` of the parameter
+    split: the attention blocks whose heads do not divide the shards (and
+    the mamba mixers whose SSD heads do not) stay whole; a mamba mixer's
+    leaves are cut per segment where they do."""
     def keep_whole(path):
         if "mamba" in path:
             return not layout.ssm_heads
@@ -571,13 +608,77 @@ def shard_params(params: dict, cfg: ModelConfig, mesh) -> Shards:
             return None
         return _ssm_piece(cfg, layout, s, path, leaf)
 
-    trees = _split_tree(src, specs, devices, keep_whole, copy_whole=False,
-                        piece=piece)
-    if mesh.shape["data"] == 1:
-        return Shards(trees, devices, layout)
-    dims = _map_with_path(lambda path, spec: data_dim(spec), specs)
-    return Shards(_fsdp_pieces(trees, dims, mesh), mesh.entries, layout,
-                  dp=mesh.shape["data"], fsdp=dims)
+    return keep_whole, piece
+
+
+def train_shards(params: dict, cfg: ModelConfig, mesh) -> Shards:
+    """:func:`shard_params` for a training step over ``mesh``: every entry
+    holds its own copy of each of its leaves (a fresh tensor, never a
+    view or a tensor another entry holds, as on distinct cards), marked
+    to need grads.  Train from unprepared float weights (``dense`` or
+    ``qat``)."""
+    shards = shard_params(params, cfg, mesh)
+
+    def own(node):
+        if isinstance(node, dict):
+            return {k: own(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [own(v) for v in node]
+        if not node.is_floating_point():
+            raise ValueError(f"a {node.dtype} leaf: train from unprepared "
+                             f"float weights")
+        return node.detach().clone().requires_grad_(True)
+
+    shards.trees = [own(t) for t in shards.trees]
+    from repro_torch.tree import tree_paths
+    shared = {j: _shared_ranges(cfg, shards.layout, tuple(path.split("/")))
+              for j, (path, _) in enumerate(tree_paths(shards.trees[0]))}
+    shards.shared = {j: r for j, r in shared.items() if r}
+    return shards
+
+
+def _shared_ranges(cfg: ModelConfig, layout: TPLayout, path: tuple) -> list:
+    """``(dim, start, length)`` ranges of a model shard's piece of a mamba
+    leaf (cut per segment, ``_ssm_piece``) that every shard holds a copy
+    of: the B and C segments where the groups do not divide the shards
+    (their gradients sum over the shards)."""
+    if (layout.tp < 2 or not layout.ssm_heads or layout.ssm_groups
+            or "mamba" not in path or not _ssm_cut(path)):
+        return []
+    dim, which = _SSM_SPLITS[path[-1]]
+    if which == "heads":
+        return []
+    names = ("z", "x", "B", "C", "dt") if which == "proj" else ("x", "B",
+                                                                 "C")
+    out, off = [], 0
+    for name, (_, ln) in zip(names, getattr(ssm_segments(cfg, layout, 0),
+                                           which)):
+        if name in ("B", "C"):
+            out.append((dim, off, ln))
+        off += ln
+    return out
+
+
+def piece_groups(shards: Shards) -> list:
+    """Per leaf (in ``tree_paths`` order of one entry's tree), the entries
+    holding one piece of it, grouped: a list of entry lists, each sorted.
+    A leaf split over the model axis and over the data axis has one entry
+    per piece; a leaf whole over an axis is held by every entry along it
+    (its copies, whose gradients sum)."""
+    from repro_torch.tree import tree_leaves
+    tp, dp = shards.tp, shards.dp
+    splits = tree_leaves(shards.split)
+    dims = (tree_leaves(shards.fsdp) if shards.fsdp is not None
+            else [None] * len(splits))
+    out = []
+    for split, dim in zip(splits, dims):
+        groups: dict = {}
+        for e in range(tp * dp):
+            d, m = divmod(e, tp)
+            key = (d if dim is not None else 0, m if split else 0)
+            groups.setdefault(key, []).append(e)
+        out.append(list(groups.values()))
+    return out
 
 
 def _fsdp_pieces(trees: list, dims, mesh) -> list:
@@ -625,19 +726,19 @@ def _read_keys(node: dict, mode: str) -> list:
     return ["w"]
 
 
-def _gather_tree(pieces: list, dims, dev, mode: str, own):
-    """One shard's subtree on ``dev``: each FSDP leaf gathered from
-    ``pieces`` (the data rows' subtrees, in data order), each whole leaf
-    ``own``'s (the subtree of an entry on ``dev``)."""
+def _gather_tree(pieces: list, dims, dev, mode: str, own, row: int):
+    """One shard's subtree on ``dev`` for data row ``row``: each FSDP leaf
+    gathered from ``pieces`` (the data rows' subtrees, in data order),
+    each whole leaf ``own``'s (the subtree of an entry on ``dev``)."""
     if isinstance(own, dict):
         return {k: _gather_tree([p[k] for p in pieces], dims[k], dev, mode,
-                                own[k]) for k in _read_keys(own, mode)}
+                                own[k], row) for k in _read_keys(own, mode)}
     if isinstance(own, list):
-        return [_gather_tree([p[i] for p in pieces], dims[i], dev, mode, o)
-                for i, o in enumerate(own)]
+        return [_gather_tree([p[i] for p in pieces], dims[i], dev, mode, o,
+                             row) for i, o in enumerate(own)]
     if dims is None:
         return own
-    return data_gather(pieces, dims, [dev])[0]
+    return data_gather(pieces, dims, [dev], rows=[row])[0]
 
 
 def stored_bytes(trees: list) -> list:
@@ -661,7 +762,8 @@ def gather_rows(params: Shards, select, rows: int, mode: str) -> list:
     the rows' entries ``(d, m)`` (one gather a device, shared by the
     entries on it, and a copy even where every piece already lies there,
     as across cards), each whole leaf the entry's own; a linear's leaves
-    ``mode`` does not read are left out (``_read_keys``)."""
+    ``mode`` does not read are left out (``_read_keys``).  Under
+    ``collectives.distinct_entries`` every entry gathers its own."""
     tp = params.tp
     if params.fsdp is None:
         return [[select(t) for t in params.row(d)] for d in range(rows)]
@@ -672,10 +774,11 @@ def gather_rows(params: Shards, select, rows: int, mode: str) -> list:
         done: dict = {}
         for d in range(rows):
             dev = params.devices[d * tp + m]
-            if str(dev) not in done:
-                done[str(dev)] = _gather_tree(pieces, dims, dev, mode,
-                                              pieces[d])
-            out[d][m] = done[str(dev)]
+            key = d if entries_distinct() else str(dev)
+            if key not in done:
+                done[key] = _gather_tree(pieces, dims, dev, mode, pieces[d],
+                                         d)
+            out[d][m] = done[key]
     return out
 
 

@@ -34,7 +34,8 @@ from repro_torch.kernels.nibble_matmul import fused_nibble_matmul
 from repro_torch.kernels.quant_matmul_fused import quant_matmul_fused
 
 __all__ = ["quant_matmul", "nibble_matmul", "nibble_matmul_w4", "lut_matmul",
-           "quant_matmul_fused", "flash_mha", "paged_flash_decode",
+           "quant_matmul_fused", "flash_mha", "flash_mha_bwd",
+           "paged_flash_decode",
            "W_FORMATS", "LAUNCH_COUNTERS", "launch_counts",
            "add_launch_counts", "costed", "tensor_bytes"]
 
@@ -215,7 +216,7 @@ class _FlashMHA(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         dmat = torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1)
-        dq, dk, dv = flash_attention_bwd(q, k, v, lse, do, dmat, **ctx.opts)
+        dq, dk, dv = flash_mha_bwd(q, k, v, lse, do, dmat, **ctx.opts)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None, None)
 
@@ -227,6 +228,31 @@ def _flash_mha_cost(q, k, v, *args, **kwargs):
     sk, dv = k.shape[1], v.shape[-1]
     out = bh * sq * dv * q.element_size()
     return 0, bh * sq * sk * (d + dv), tensor_bytes(q, k, v) + out, 0
+
+
+def _flash_bwd_cost(q, k, v, lse, do, dmat, **kwargs):
+    """Every (query, key) pair of the square, as the plain version runs
+    it: the scores ``q k^T`` and ``do v^T`` recomputed, then ``dq = ds
+    k``, ``dk = ds^T q`` and ``dv = p^T do``; the operands read once and
+    the three f32 gradients written once."""
+    bh, sq, d = q.shape
+    bkv, sk, dv = v.shape
+    grads = 4 * (bh * sq * d + bkv * sk * (d + dv))
+    return (0, bh * sq * sk * (3 * d + 2 * dv),
+            tensor_bytes(q, k, v, lse, do, dmat) + grads, 0)
+
+
+@costed(_flash_bwd_cost)
+def flash_mha_bwd(q, k, v, lse, do, dmat, *, scale, causal=True, window=0,
+                  softcap=0.0, group=1):
+    """The flash backward's entry point (``flash_mha``'s autograd calls
+    it): dq and dk / dv (summed over each KV head's group), f32, from the
+    forward's ``lse`` and ``dmat = rowsum(do * o)``.  Costed on its own,
+    so a walk of a training step counts it the same on the plain route
+    and on the kernels (whose calls the dispatcher never sees)."""
+    return flash_attention_bwd(q, k, v, lse, do, dmat, scale=scale,
+                               causal=causal, window=window,
+                               softcap=softcap, group=group)
 
 
 @costed(_flash_mha_cost)

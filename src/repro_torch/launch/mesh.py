@@ -12,9 +12,17 @@ slots over the data rows (``distributed.sharding``).
 
 ``HW`` carries the H100's data-sheet rates, which the roofline
 (``roofline.analysis``) and the capacity model (``capacity.model``) divide
-work by.  Not here yet: ``make_production_mesh`` (the reference's TPU
-pod mesh); it comes with the dry run (``launch/dryrun.py``), the one tool
-that reads it.
+work by.
+
+:func:`make_production_mesh` is the dry run's mesh (``launch/dryrun.py``,
+its one reader): the reference's chip counts, 256 entries in one pod and
+512 in two, laid out for HGX H100 nodes: the model axis is 8, the cards
+of one NVLink node, and the data axis takes the rest (32 rows; two pods
+fold their pod axis into 64 data rows, so FSDP spans pod x data, as
+``sharding.fsdp_axes`` spans the reference's).  Its default entries are
+the placeholder device ``meta``: the dry run reads the mesh's shape and
+walks meshes of its own, each entry a distinct ``meta:N`` (a torch device
+index has 8 bits, so no more than 128 of them).
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["LocalMesh", "make_local_mesh", "canonical_device", "HW"]
+__all__ = ["LocalMesh", "make_local_mesh", "make_production_mesh",
+           "production_tag", "canonical_device", "HW"]
 
 
 def canonical_device(device) -> torch.device:
@@ -39,6 +48,7 @@ class LocalMesh:
     """``devices[d][m]`` runs data row ``d``, model shard ``m``."""
     devices: tuple                    # (dp, tp) grid of torch.device
     axis_names: tuple = ("data", "model")
+    pods: int = 1                     # pods folded into the data rows
 
     @property
     def shape(self) -> dict:
@@ -108,14 +118,42 @@ def make_local_mesh(*, dp: int = 0, tp: int = 1, devices=None) -> LocalMesh:
     return LocalMesh(grid)
 
 
+# cards per HGX H100 node: the NVLink domain the model axis stays inside
+NODE_CARDS = 8
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LocalMesh:
+    """The dry run's mesh: 256 entries as (data 32, model 8), or with
+    ``multi_pod`` 512 as two pods of that, their pod axis folded into 64
+    data rows; every entry the placeholder ``meta``."""
+    pods = 2 if multi_pod else 1
+    mesh = make_local_mesh(dp=pods * 32, tp=NODE_CARDS,
+                           devices=[torch.device("meta")]
+                           * (pods * 32 * NODE_CARDS))
+    return dataclasses.replace(mesh, pods=pods)
+
+
+def production_tag(mesh: LocalMesh) -> str:
+    """``256gpu_32x8`` or ``512gpu_2x32x8``: cards, then the axes."""
+    rows, tp = mesh.shape["data"], mesh.shape["model"]
+    axes = (f"{mesh.pods}x{rows // mesh.pods}x{tp}" if mesh.pods > 1
+            else f"{rows}x{tp}")
+    return f"{mesh.size}gpu_{axes}"
+
+
 class HW:
     """NVIDIA H100 SXM at its 700 W limit, from NVIDIA's data sheet (dense
     rates without sparsity; HBM3): what the roofline and the capacity
     model divide work by.  ``NVLINK_BW`` is one direction of a card's
     NVLink 4 bandwidth, the link the roofline's collective term crosses
-    (the reference's ``ICI_BW``)."""
+    (the reference's ``ICI_BW``); ``NET_BW`` the network a data axis
+    crosses."""
     PEAK_BF16_FLOPS = 989e12        # per card
     PEAK_INT8_OPS = 1.979e15        # per card
     HBM_BW = 3.35e12                # bytes/s per card
     HBM_BYTES = 80e9                # bytes per card
     NVLINK_BW = 450e9               # bytes/s per card, per direction
+    # the network a data axis crosses between nodes: one 400 Gb/s NDR
+    # InfiniBand adapter per card (HGX H100 with 8 ConnectX-7, NVIDIA's
+    # DGX H100 data sheet): 400e9 / 8 bytes/s per card, one direction
+    NET_BW = 50e9

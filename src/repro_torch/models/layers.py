@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.kernels.ops import costed, tensor_bytes
@@ -97,6 +98,30 @@ def _bmm_cost(a, b):
     return 0, n * per, tensor_bytes(a, b) + out, padding
 
 
+class _FixedBmm(torch.autograd.Function):
+    """``torch.bmm`` in fixed calls, its backward two more
+    :func:`fixed_bmm` calls (so the gradients keep one sum order per
+    entry too, and a static walk counts them by their cost)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if isinstance(a, FakeTensor):      # no values to order
+            return torch.bmm(a, b)
+        return _in_fixed_calls(torch.bmm,
+                               entries_per_call(a.shape[1], a.shape[2],
+                                                b.shape[2]), a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = fixed_bmm(g, b.transpose(1, 2)) if ctx.needs_input_grad[0] \
+            else None
+        gb = fixed_bmm(a.transpose(1, 2), g) if ctx.needs_input_grad[1] \
+            else None
+        return ga, gb
+
+
 @costed(_bmm_cost)
 def fixed_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.bmm(a, b)`` for a (N, m, k) and b (N, k, n), in calls of
@@ -105,10 +130,11 @@ def fixed_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     batch count too; here every entry is summed in the order its
     (m, k, n) fixes, so an entry's result does not depend on how many
     heads or slots share the batch (a tensor-parallel shard's heads equal
-    the unsharded call's rows bit for bit).  Differentiable."""
-    return _in_fixed_calls(torch.bmm,
-                           entries_per_call(a.shape[1], a.shape[2],
-                                            b.shape[2]), a, b)
+    the unsharded call's rows bit for bit).  Differentiable: the backward
+    is two ``fixed_bmm`` calls.  Fake tensors (the dry run's) hold no
+    values to order: one call gives the result's shape, and a walk counts
+    this entry point by its cost alone."""
+    return _FixedBmm.apply(a, b)
 
 
 def fixed_cumsum(a: torch.Tensor) -> torch.Tensor:

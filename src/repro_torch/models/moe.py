@@ -30,6 +30,17 @@ so GSPMD partitions ``_moe_local`` by expert and its tp=2 streams equal
 its tp=1's.  The reference's ``_moe_sharded`` (a ``shard_map`` that sums
 each shard's bf16 output with ``psum``) runs only under its dry run's
 ambient mesh, and is not this path.
+
+:func:`moe_apply_mesh` is that ``_moe_sharded``, the semantics of the
+reference's training step over a mesh (its only use), where the experts
+divide the model shards: each data row routes its own tokens (all of
+them where the rows do not divide the batch), with the capacity taken
+over its own token count; each model shard runs its ``E / tp`` experts
+and combines their rows to a bf16 output; the shards' bf16 outputs are
+summed in shard order.  Its aux loss is the value of data row 0's
+routing (the reference's ``out_specs=P()`` returns one shard's value)
+and carries the gradient of the rows' mean (what the reference's
+transpose of that output gives each row).
 """
 
 from __future__ import annotations
@@ -38,11 +49,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.linear import linear_apply_row
-from repro_torch.distributed.collectives import all_reduce_sum, per_device
+from repro_torch.distributed.collectives import all_reduce_sum, \
+    per_device, reduce_sum
 from repro_torch.models.layers import bf16_matmul, mlp_apply, mlp_hidden, \
     mlp_init
 
-__all__ = ["moe_init", "moe_apply", "moe_apply_shards"]
+__all__ = ["moe_init", "moe_apply", "moe_apply_shards", "moe_apply_mesh"]
 
 
 def moe_init(cfg, *, generator, device) -> dict:
@@ -244,3 +256,50 @@ def moe_apply_shards(ps: list, cfg, xs: list, layout):
         outs = per_device(devs, lambda i: outs[i] + shared[i])
     return per_device(devs, lambda i: outs[i].reshape(b, s, d)), \
         routes[0][2]
+
+
+def _shared_rows(ps: list, cfg, xts: list, layout) -> list:
+    """The shared expert over one row's shards (flat tokens ``xts``):
+    row-parallel where its ``d_ff`` divides, else once per device."""
+    act = dict(act=cfg.act, quant_mode=cfg.quant_mode,
+               quant_backend=cfg.quant_backend)
+    if layout.shared:
+        return linear_apply_row(
+            [p["shared"]["down"] for p in ps],
+            [mlp_hidden(p["shared"], xt, **act) for p, xt in zip(ps, xts)],
+            mode=cfg.quant_mode, backend=cfg.quant_backend)
+    devs = [x.device for x in xts]
+    return per_device(devs, lambda i: mlp_apply(ps[i]["shared"], xts[i],
+                                                **act))
+
+
+def moe_apply_mesh(ps: list, cfg, hs: list, layout):
+    """The reference's ``_moe_sharded`` over a mesh (``layout.experts``):
+    ``ps[d][m]`` entry ``(d, m)``'s MoE dict (its shard's experts),
+    ``hs[d][m]`` data row ``d``'s input, replicated over its shards (the
+    rows hold their own tokens).  Returns (outputs ``[d][m]``, aux): the
+    outputs as the module docstring says, the aux on entry ``(0, 0)``'s
+    device, valued as row 0's with the gradient of the rows' mean."""
+    auxes, outs = [], []
+    for pr, xr in zip(ps, hs):
+        devs = [x.device for x in xr]
+        b, s, d = xr[0].shape
+        xts = [x.reshape(b * s, d) for x in xr]
+        routes = per_device(devs, lambda i: _route(pr[i], cfg, xts[i]))
+        sorts = per_device(devs, lambda i: _sort(routes[i][1]))
+        cap = _capacity(cfg, b * s, cfg.n_experts)
+        parts = [_combine(_expert_rows(
+            cfg, xts[i], routes[i][0], routes[i][1], sorts[i], p["w_gate"],
+            p["w_up"], p["w_down"], cap=cap, e_lo=i * p["w_gate"].shape[0]),
+            routes[i][1], sorts[i], xr[i].dtype) for i, p in enumerate(pr)]
+        out = all_reduce_sum(parts, devices=devs)
+        if cfg.n_shared_experts:
+            shared = _shared_rows(pr, cfg, xts, layout)
+            out = per_device(devs, lambda i: out[i] + shared[i])
+        outs.append(per_device(devs, lambda i: out[i].reshape(b, s, d)))
+        auxes.append(routes[0][2])
+    if len(auxes) == 1:
+        return outs, auxes[0]
+    mean = reduce_sum(auxes, axis="data",
+                      devices=[row[0].device for row in hs]) / len(auxes)
+    return outs, mean + (auxes[0] - mean).detach()

@@ -68,6 +68,21 @@ states gathered in slot order on row 0.  Dense slabs and mamba state
 are split by slot; the paged pools are whole on every row, one copy
 per distinct device, and a decode step's pool rows are mirrored into
 the other copies.
+
+Training over the mesh (:func:`forward_rows`, and :func:`forward` over
+``Shards``): the same per-layer path in training mode (differentiable,
+per-layer remat with each layer's weight gather inside the checkpoint,
+the encoder's frames and a VLM's patches split by row), but every row
+keeps its own slots to the end: the MoE block takes the reference's
+mesh semantics (``moe.moe_apply_mesh``: each row routes its own tokens)
+and each row's head runs on its own hidden states, vocabulary-parallel.
+This is the layout the reference's training step gets from its ambient
+mesh: batch on the data rows and, where the KV heads divide the model
+axis, heads on it (its ``_flash_self_attention`` runs the flash kernel
+per shard in exactly this layout, so it has no module of its own here).
+The reference's ``ambient_mesh`` / ``maybe_shard`` have no counterpart:
+they ask GSPMD to place values, and the port places them itself, each
+tensor on the entry that computes it.
 """
 
 from __future__ import annotations
@@ -81,7 +96,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.linear import linear_apply, linear_apply_row, \
     linear_init, prepare_quantized, rows_amax
-from repro_torch.distributed.collectives import broadcast, \
+from repro_torch.distributed.collectives import all_gather, broadcast, \
     gathered_bytes, per_device
 from repro_torch.kernels.ops import add_launch_counts, launch_counts
 from repro_torch.distributed.sharding import MLA_CACHE_KEYS, \
@@ -124,11 +139,13 @@ from repro_torch.models.layers import (
     vocab_parallel_embed,
     vocab_parallel_logits,
 )
-from repro_torch.models.moe import moe_apply, moe_apply_shards, moe_init
+from repro_torch.models.moe import moe_apply, moe_apply_mesh, \
+    moe_apply_shards, moe_init
 
 __all__ = ["model_init", "load_jax_params", "unstack_jax_tree",
            "prepare_params", "encode",
-           "forward", "prefill", "decode_step", "init_caches",
+           "forward", "forward_rows", "prefill", "decode_step",
+           "init_caches",
            "init_paged_caches",
            "merge_slot_caches", "merge_slot_paged_caches",
            "scatter_prefill_paged_caches", "copy_paged_cache_page",
@@ -567,34 +584,51 @@ def _tp_cross(ps, cfg, layout, hs, *, loc, enc_outs) -> list:
         cfg)
 
 
-def _moe_rows(ps, cfg, layout, hs) -> list:
-    """The MoE block over the mesh.  Its routing, capacity and drop order
-    span every token of the call, so with several data rows their inputs
-    are gathered in slot order onto data row 0's entries, the block runs
-    there once over the whole batch (``moe.moe_apply_shards``, bit for bit
-    the unsplit call) and each row takes its slots' outputs back."""
+def _moe_rows(ps, cfg, layout, hs, train: bool = False):
+    """The MoE block over the mesh; returns (outputs ``[d][m]``, aux).
+    Serving: its routing, capacity and drop order span every token of the
+    call, so with several data rows their inputs are gathered in slot
+    order onto data row 0's entries, the block runs there once over the
+    whole batch (``moe.moe_apply_shards``, bit for bit the unsplit call)
+    and each row takes its slots' outputs back.  Training (``train``,
+    where the experts divide the shards): the reference's mesh semantics,
+    each row on its own tokens (``moe.moe_apply_mesh``)."""
+    if train and layout.experts:
+        return moe_apply_mesh([[p["moe"] for p in row] for row in ps], cfg,
+                              hs, layout)
     if len(hs) == 1:
-        return [moe_apply_shards([p["moe"] for p in ps[0]], cfg, hs[0],
-                                 layout)[0]]
+        outs, aux = moe_apply_shards([p["moe"] for p in ps[0]], cfg, hs[0],
+                                     layout)
+        return [outs], aux
     rows = range(len(hs))
     devs = _devs(hs)
     whole = per_device(devs[0], lambda i: torch.cat(
-        [hs[d][i].to(devs[0][i]) for d in rows]))
-    outs, _ = moe_apply_shards([p["moe"] for p in ps[0]], cfg, whole, layout)
+        [hs[d][i] if d == 0 else _to_row(hs[d][i], devs[0][i])
+         for d in rows]))
+    outs, aux = moe_apply_shards([p["moe"] for p in ps[0]], cfg, whole,
+                                 layout)
     n = hs[0][0].shape[0]
     return [per_device(devs[d], lambda i: outs[i][d * n:(d + 1) * n]
-                       .to(devs[d][i])) for d in rows]
+                       if d == 0 else _to_row(outs[i][d * n:(d + 1) * n],
+                                              devs[d][i]))
+            for d in rows], aux
+
+
+def _to_row(t, dev):
+    """``t`` on an entry of another data row on ``dev`` (a counted move
+    where the two are distinct cards)."""
+    return broadcast(t, [t.device, dev], src=0, axis="data")[1]
 
 
 def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
                     loc: list, caches, mode: str, causal: bool = True,
-                    enc_outs=None):
+                    enc_outs=None, train: bool = False):
     """One pre-norm layer over the mesh: ``ps[d][m]`` entry ``(d, m)``'s
     parameter dict, ``xs[d]`` row ``d``'s residual stream (replicated over
     its shards), ``caches[d][m]`` one cache dict per entry (or None),
     ``enc_outs[d][m]`` the encoder output for a cross-attention (or
-    None).  Returns (xs, per-entry new caches); serving reads no MoE aux
-    loss, as at tp=1."""
+    None).  Returns (xs, per-entry new caches, the MoE aux loss or None);
+    ``train``: the MoE block takes the training step's mesh semantics."""
     rows = range(len(xs))
     devs = _devs(xs)
 
@@ -618,10 +652,11 @@ def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
         xs = add(xs, _tp_cross(ps, cfg, layout, norm("cross_norm", xs),
                                loc=loc, enc_outs=enc_outs))
     if spec.ffn == "none":
-        return xs, cs
+        return xs, cs, None
     hs = norm("ffn_norm", xs)
     if spec.ffn == "moe":
-        return add(xs, _moe_rows(ps, cfg, layout, hs)), cs
+        outs, aux = _moe_rows(ps, cfg, layout, hs, train)
+        return add(xs, outs), cs, aux
     amax = rows_amax(hs, cfg.quant_mode)
     act = dict(act=cfg.act, quant_mode=cfg.quant_mode,
                quant_backend=cfg.quant_backend)
@@ -639,7 +674,7 @@ def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
         outs = _rows_replicated(
             down, [per_device(devs[d], lambda i: hidden(d, i)) for d in rows],
             cfg)
-    return add(xs, outs), cs
+    return add(xs, outs), cs, None
 
 
 def _mirror_pool_writes(cs: list, loc: list, s: int) -> None:
@@ -665,39 +700,63 @@ def _mirror_pool_writes(cs: list, loc: list, s: int) -> None:
 
 def _tp_stack_apply(layer_params, cfg: ModelConfig, layout, xs: list, *,
                     loc, caches=None, mode: str, causal: bool = True,
-                    enc_outs=None):
+                    enc_outs=None, train: bool = False):
     """A stack over the mesh (``layer_params(li)``: layer ``li``'s
     parameter dicts ``[d][m]``, gathered at use, in ``cfg.layer_specs``
     order, the decoder's or with ``_enc_cfg`` the encoder's); returns
-    (xs, per-entry caches as lists ``[d][m]``).  A decode step through
-    page tables mirrors each row's pool writes into the other rows' copies
-    on other devices."""
+    (xs, per-entry caches as lists ``[d][m]``, the summed MoE aux loss or
+    None).  A decode step through page tables mirrors each row's pool
+    writes into the other rows' copies on other devices.  ``train``: the
+    training step's semantics, and under ``cfg.remat`` with grads on each
+    layer, its weights' gather included, runs under a non-reentrant
+    checkpoint (recomputed in the backward pass, as :func:`_stack_apply`
+    does)."""
     per_entry = [[[] for _ in row] for row in xs]
     mirror = (mode == "decode" and len(xs) > 1
               and loc[0][0]["page_table"] is not None)
+    remat = train and cfg.remat and torch.is_grad_enabled()
+    shape = [len(row) for row in xs]
+    total_aux = None
     for li, spec in enumerate(cfg.layer_specs):
-        xs, cs = _tp_layer_apply(
-            layer_params(li), cfg, layout, spec, xs, loc=loc,
-            caches=None if caches is None else [[c[li] for c in row]
-                                                for row in caches],
-            mode=mode, causal=causal, enc_outs=enc_outs)
+        def run(*flat, li=li, spec=spec):
+            it = iter(flat)
+            rows = [[next(it) for _ in range(n)] for n in shape]
+            out, cs, aux = _tp_layer_apply(
+                layer_params(li), cfg, layout, spec, rows, loc=loc,
+                caches=None if caches is None else [[c[li] for c in row]
+                                                    for row in caches],
+                mode=mode, causal=causal, enc_outs=enc_outs, train=train)
+            return [x for row in out for x in row], cs, aux
+
+        flat = [x for row in xs for x in row]
+        if remat:
+            flat, cs, aux = checkpoint(run, *flat, use_reentrant=False)
+        else:
+            flat, cs, aux = run(*flat)
+        it = iter(flat)
+        xs = [[next(it) for _ in range(n)] for n in shape]
+        if aux is not None:
+            total_aux = aux if total_aux is None else total_aux + aux
         if mirror and spec.mixer != "mamba":
             _mirror_pool_writes(cs, loc, xs[0][0].shape[1])
         for lst_row, c_row in zip(per_entry, cs):
             for lst, c in zip(lst_row, c_row):
                 lst.append(c)
-    return xs, per_entry
+    return xs, per_entry, total_aux
 
 
-def _layers_at_use(params: Shards, cfg: ModelConfig, rows: int, stack):
+def _layers_at_use(params: Shards, cfg: ModelConfig, rows: int, stack,
+                   train: bool = False):
     """``layer_params`` for :func:`_tp_stack_apply`: layer ``li`` of
     ``stack(tree)`` per entry ``[d][m]``, gathered at use
     (``sharding.gather_rows``); an MoE block for data row 0 only, which
-    runs it over the whole batch."""
+    runs it over the whole batch (``train`` with expert-split stacks:
+    every row, each on its own tokens)."""
     mode = cfg.quant_mode
+    moe_rows = rows if train and params.layout.experts else 1
 
     def layer(li):
-        if params.fsdp is None:
+        if params.fsdp is None or moe_rows == rows:
             return gather_rows(params, lambda t: stack(t)[li], rows, mode)
         ps = gather_rows(params, lambda t: {
             k: v for k, v in stack(t)[li].items() if k != "moe"}, rows, mode)
@@ -751,10 +810,12 @@ def _logits_rows(params: Shards, cfg: ModelConfig, xs: list):
     return vocab_parallel_logits(heads, hs, tied=tied)[0]
 
 
-def _tp_encode(params: Shards, cfg: ModelConfig, frames, rows: int) -> list:
+def _tp_encode(params: Shards, cfg: ModelConfig, frames, rows: int,
+               train: bool = False) -> list:
     """:func:`encode` over the mesh (the decoder's head and MLP split,
     bidirectional attention, each row on its slots' frames): the encoder
-    output per entry ``[d][m]``, once per device of a row."""
+    output per entry ``[d][m]``, once per device of a row (``train``:
+    per-layer remat, as in :func:`forward`)."""
     ecfg = _enc_cfg(cfg)
     b, s, _ = frames.shape
     pos = torch.broadcast_to(
@@ -763,9 +824,11 @@ def _tp_encode(params: Shards, cfg: ModelConfig, frames, rows: int) -> list:
                       page_table=None, context_start=None)
     xs = [broadcast(f, params.row_devices(d))
           for d, f in enumerate(_row_split(frames, rows))]
-    xs, _ = _tp_stack_apply(
-        _layers_at_use(params, cfg, rows, lambda t: t["encoder"]["layers"]),
-        ecfg, params.layout, xs, loc=loc, mode="train", causal=False)
+    xs, _, _ = _tp_stack_apply(
+        _layers_at_use(params, cfg, rows, lambda t: t["encoder"]["layers"],
+                       train),
+        ecfg, params.layout, xs, loc=loc, mode="train", causal=False,
+        train=train)
     norms = gather_rows(params, lambda t: t["encoder"]["norm"], rows,
                         cfg.quant_mode)
     return [per_device(params.row_devices(d), lambda i: rms_norm(
@@ -801,7 +864,17 @@ def forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     prepended (S' = P + S); an encoder-decoder's ``frames`` (B, S_enc, D)
     run through the encoder first and every decoder layer cross-attends
     its output.  Differentiable with respect to every float leaf of
-    ``params``."""
+    ``params``.  Over ``Shards`` (:func:`forward_rows`): the logits whole
+    on entry (0, 0)'s device."""
+    if isinstance(params, Shards):
+        parts, aux = forward_rows(params, cfg, tokens,
+                                  extra_embeds=extra_embeds, frames=frames)
+        dev = params.devices[0]
+        rows = [all_gather(row, devices=params.row_devices(d))[0]
+                if params.layout.vocab else row[0]
+                for d, row in enumerate(parts)]
+        return torch.cat([r if d == 0 else _to_row(r, dev)
+                          for d, r in enumerate(rows)]), aux
     enc_out = encode(params, cfg, frames) if frames is not None else None
     x = _embed_inputs(params, cfg, tokens, extra_embeds)
     b, s, _ = x.shape
@@ -810,6 +883,62 @@ def forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     x, _, aux = _stack_apply(params, cfg, x, positions=pos, enc_out=enc_out,
                              mode="train")
     return _logits(params, cfg, x), aux
+
+
+def forward_rows(params: Shards, cfg: ModelConfig, tokens, *,
+                 extra_embeds=None, frames=None, token_grid: bool = False):
+    """:func:`forward` over the mesh, the training step's semantics: the
+    batch splits over ``slot_rows`` data rows, each row runs the layers
+    on its slots (heads, MLP columns and experts split over its shards;
+    the MoE block as the reference's mesh step runs it,
+    ``moe.moe_apply_mesh``; per-layer remat under ``cfg.remat``), and its
+    head runs on its own hidden states.  Returns ``(parts, aux)``:
+    ``parts[d][m]`` entry ``(d, m)``'s f32 logits for row ``d``'s slots,
+    its shard's slice of the vocabulary where the vocabulary divides the
+    shards (``layout.vocab``), else the whole logits on every entry;
+    ``aux`` the summed MoE aux loss on entry (0, 0)'s device (0 without
+    an MoE layer).  ``token_grid``: a VLM's patch positions are cut off
+    before the head."""
+    b, n_tok = tokens.shape
+    rows = slot_rows(b, params.dp)
+    layout = params.layout
+    enc_outs = None if frames is None else _tp_encode(params, cfg, frames,
+                                                      rows, train=True)
+    xs = _tp_embed(params, cfg, tokens, rows)
+    if extra_embeds is not None:
+        for d, pre in enumerate(_row_split(extra_embeds, rows)):
+            pre = broadcast(pre, params.row_devices(d))
+            xs[d] = per_device(params.row_devices(d), lambda i: torch.cat(
+                [pre[i].to(xs[d][i].dtype), xs[d][i]], dim=1))
+    s = xs[0][0].shape[1]
+    pos = torch.broadcast_to(
+        torch.arange(s, device=params.devices[0])[None, :], (b, s))
+    loc = _row_locals(params, rows, positions=pos, cache_index=None,
+                      page_table=None, context_start=None)
+    xs, _, aux = _tp_stack_apply(
+        _layers_at_use(params, cfg, rows, lambda t: t["layers"], True), cfg,
+        layout, xs, loc=loc, mode="train", enc_outs=enc_outs, train=True)
+    if token_grid:
+        xs = [[x[:, -n_tok:] for x in row] for row in xs]
+    keys = ("final_norm", "embed") if cfg.tie_embeddings \
+        else ("final_norm", "lm_head")
+    ps = gather_rows(params, lambda t: {k: t[k] for k in keys}, rows,
+                     cfg.quant_mode)
+    parts = []
+    for d in range(rows):
+        devs = params.row_devices(d)
+        if not layout.vocab:
+            parts.append(per_device(devs, lambda i: _logits(
+                ps[d][i], cfg, xs[d][i])))
+            continue
+        hs = per_device(devs, lambda i: rms_norm(
+            ps[d][i]["final_norm"], xs[d][i], cfg.norm_eps))
+        parts.append([embed_logits(p["embed"], h) if cfg.tie_embeddings
+                      else bf16_matmul(h, p["lm_head"]["w"].to(h.dtype))
+                      .to(torch.float32) for p, h in zip(ps[d], hs)])
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=params.devices[0])
+    return parts, aux
 
 
 @torch.no_grad()
@@ -864,7 +993,7 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     if sharded:
         loc = _row_locals(params, rows, positions=pos, cache_index=None,
                           page_table=ctx_table, context_start=ctx_start)
-        xs, caches = _tp_stack_apply(
+        xs, caches, _ = _tp_stack_apply(
             _layers_at_use(params, cfg, rows, lambda t: t["layers"]), cfg,
             params.layout, xs, loc=loc,
             caches=None if ctx_caches is None
@@ -930,7 +1059,7 @@ def decode_step(params, cfg: ModelConfig, token, caches, index, *,
         enc_outs = None if enc_out is None else [
             broadcast(e, params.row_devices(d))
             for d, e in enumerate(_row_split(enc_out, rows))]
-        xs, _ = _tp_stack_apply(
+        xs, _, _ = _tp_stack_apply(
             _layers_at_use(params, cfg, rows, lambda t: t["layers"]), cfg,
             params.layout, xs, loc=loc,
             caches=[caches.row(d) for d in range(rows)], mode="decode",

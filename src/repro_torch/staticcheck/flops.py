@@ -11,14 +11,15 @@ under a ``TorchDispatchMode`` that sees every aten op, and counts:
   ``mv``, ``dot``), split by operand dtype class;
 * ``elementwise_flops``: one per output element of arithmetic ops;
 * ``bytes_accessed``: every op's tensor inputs and outputs summed (view
-  ops move no bytes and count nothing);
+  ops move no bytes and count nothing, nor do metadata queries);
 * ``padding_macs``: what ``fixed_bmm``'s fixed-shape calls run on their
   zero padding, beyond the stage's work (not in the MACs);
 * ``io_bytes``: the dispatch's HBM floor, see below.
 
 **The kernel cost hook.**  While a walk runs it sets
 ``kernels.ops.cost_hook``: every costed entry point (``quant_matmul``,
-``flash_mha``, ``paged_flash_decode``, and ``models.layers.fixed_bmm``,
+``flash_mha``, ``flash_mha_bwd``, ``paged_flash_decode``, and
+``models.layers.fixed_bmm``,
 whose fixed-shape calls pad with zeros) hands over its call with its cost
 from shapes alone, and the walk counts nothing inside it.  So a stage
 counts the same on the plain route (CPU tensors: the plain versions run
@@ -51,6 +52,7 @@ import dataclasses
 import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -127,10 +129,21 @@ def _tensors(tree) -> list:
 
 
 def _storage(t: torch.Tensor):
-    """``(key, bytes)`` of ``t``'s storage; None for an empty one."""
+    """``(key, bytes)`` of ``t``'s storage; None for an empty one.  A
+    fake (or ``meta``) storage has no address, so its identity keys it."""
     st = t.untyped_storage()
     n = st.nbytes()
-    return None if n == 0 else ((t.device.type, st.data_ptr()), n)
+    if n == 0:
+        return None
+    fake = isinstance(t, FakeTensor) or t.device.type == "meta"
+    return (str(t.device), st._cdata if fake else st.data_ptr()), n
+
+
+def _fresh(ins, outs) -> list:
+    """The tensors of ``outs`` on storages none of ``ins`` holds (not a
+    view, nor an input handed back)."""
+    held = {k[0] for k in map(_storage, ins) if k is not None}
+    return [t for t in outs if (_storage(t) or (None,))[0] not in held]
 
 
 def _name(func) -> str:
@@ -190,13 +203,14 @@ class StageWalk(TorchDispatchMode):
         if self._depth:
             return fn(*args, **kwargs)
         int_macs, float_macs, nbytes, padding = cost(*args, **kwargs)
-        self._reads(_tensors((args, kwargs)))
+        ins = _tensors((args, kwargs))
+        self._reads(ins)
         self._depth += 1
         try:
             out = fn(*args, **kwargs)
         finally:
             self._depth -= 1
-        self._make(_tensors(out))
+        self._make(_fresh(ins, _tensors(out)))
         self.cost.int_dot_macs += int_macs
         self.cost.float_dot_macs += float_macs
         self.cost.bytes_accessed += nbytes
@@ -253,6 +267,10 @@ class StageWalk(TorchDispatchMode):
         out = func(*args, **kwargs)
         if not self._depth:
             self._observe(func, args, kwargs, out)
+        else:
+            # made inside a costed call: never an older storage, even
+            # where autograd keeps it for the backward pass
+            self._make(_fresh(_tensors((args, kwargs)), _tensors(out)))
         return out
 
     def _observe(self, func, args, kwargs, out) -> None:
@@ -298,6 +316,10 @@ class StageWalk(TorchDispatchMode):
             for t in outs:
                 self._widen(t, src_int)
 
+        if not outs and not written:
+            return          # a metadata query (``prim::device``)
+        if name == "lift_fresh":
+            self._make(ins)     # a constant the body made
         self._reads(ins)
         for t in written:
             key = _storage(t)

@@ -344,6 +344,24 @@ Phases (any failure exits non-zero and prints no result line):
    (``dense``, ``chunked``, 2 layers) at (2, 2), the dry run's walk once on
    fake ``meta:N`` entries and once on real tensors on ``cuda:0``
    repeated: flops, collective bytes and ``io_bytes`` must be equal.
+8e. Mesh serve (``phase_mesh_serve``, before 8d): the serving steps under
+   the reference's dry-run semantics (``prefill`` / ``decode_step`` with
+   ``semantics="mesh"``: each data row routes its own tokens through the
+   MoE block, each row's head vocabulary-parallel on its own hidden
+   states) on ``cuda:0`` repeated, at (1, 2), (2, 1) and (2, 2), and the
+   engine's route at (1, 2), on deepseek-v3-671b at full width cut to 4
+   layers and llama4-maverick-400b-a17b cut to 2 (phase 7's cuts), in
+   ``w8a8_nibble`` on the nibble kernel with flash prefill over dense
+   slabs: one prefill of 4 x 128 (seed 0) and 8 decode steps, after one
+   untimed prefill, every run fed the engine run's greedy tokens.
+   Printed per run: the launches of rows 1 and 2, the dropped (token,
+   expert) assignments per data row (prefill and decode apart) and the
+   wall ms of the prefill and of each step; per model the largest logit
+   gaps.  Held: rows 1 and 2 launched and no f32 route; the mesh route
+   at (1, 2) within ``MESH_SERVE_ATOL`` of the engine's at (1, 2) (they
+   differ only in the bf16 sum of the expert shards' outputs) and
+   launching the same; (2, 2) within ``MESH_SERVE_ATOL`` of (2, 1) (both
+   route per row) and launching twice (1, 2)'s.
 
 The last three lines are the per-kernel JSON, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -395,7 +413,8 @@ from repro_torch.core.linear import (linear_apply,  # noqa: E402
 from repro_torch.models import (decode_step, forward,  # noqa: E402
                                 init_caches, merge_slot_paged_caches,
                                 model_init, prefill)
-from repro_torch.models.transformer import init_shard_caches  # noqa: E402
+from repro_torch.models.transformer import (init_shard_caches,  # noqa: E402
+                                            mesh_logits)
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.attention import attention_core  # noqa: E402
 from repro_torch.models.layers import fixed_mean  # noqa: E402
@@ -3464,42 +3483,31 @@ def _kernel_launches(fn) -> int:
 
 
 # one turn of ``serve_ab``, run by ``python3 -c`` at a tree's root with
-# that tree's ``chip_smoke.py``: the serve phase's yi-6b requests through
-# a ``capture=False`` engine and a captured one
+# that tree's ``chip_smoke.py``: the serve phase (yi-6b's requests through
+# the captured engine) and the dp phase (the serve cell's captured chunk at
+# (1, 1), (2, 1) and (2, 2))
 _SERVE_TURN = r"""
 import json, time
-import numpy as np
 import chip_smoke as cs
 t0 = time.perf_counter()
+smi = cs.phase_device()
 cs.phase_build()
-cfg = cs.get_config("yi-6b").replace(
-    quant_mode="w8a8_nibble", quant_backend="cuda", attn_impl="flash",
-    cache_mode="paged", page_size=16)
-params = cs.model_init(cfg, seed=0, device=cs.DEV)
-rng = np.random.default_rng(0)
-lens = rng.integers(32, 129, 8)
-prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-           for n in lens]
-out = {}
-for label, capture in (("eager", False), ("captured", True)):
-    eng = cs.Engine(cfg, params, cs.ServeConfig(
-        batch=4, max_len=160, prefill_len=128, decode_chunk=8),
-        device=cs.DEV, capture=capture)
-    streams, wall, _ = cs._serve_timed(eng, prompts, 32)
-    out[label + "_tok_s"] = sum(map(len, streams)) / wall
-    del eng
-out["process_s"] = time.perf_counter() - t0
-print("SERVE_TURN " + json.dumps(out), flush=True)
+serve = cs.phase_serve()
+serve.pop("engine")
+dp = cs.phase_dp(serve.pop("params"), serve.pop("prompts"), serve, smi)
+print("SERVE_TURN " + json.dumps({
+    "serve_tok_s": serve["tok_s"], "dp_chunk_ms": dp["chunk_ms"],
+    "process_s": time.perf_counter() - t0}), flush=True)
 """
 
 
 def serve_ab(trees, pairs: int = 3) -> list:
-    """The serve phase's requests, eager and captured, under each tree's
-    ``chip_smoke.py`` in turns (a, b, b, a, a, b, ...: ``pairs`` turns
-    each), each turn a process of its own started at the tree's root.
-    Not run by ``main``: ``python3 -c "import chip_smoke as c;
-    c.serve_ab(['path/to/parent', '.'])"`` compares a parent tree's
-    serving with this tree's on one card."""
+    """The serve and dp phases under each tree's ``chip_smoke.py`` in
+    turns (a, b, b, a, a, b, ...: ``pairs`` turns each), each turn a
+    process of its own started at the tree's root.  Not run by ``main``:
+    ``python3 -c "import chip_smoke as c; c.serve_ab(['path/to/parent',
+    '.'])"`` compares a parent tree's serving with this tree's on one
+    card."""
     order = [trees[(i + 1) // 2 % 2] for i in range(2 * pairs)]
     out = []
     for tree in order:
@@ -5425,6 +5433,185 @@ def _fake_vs_real() -> dict:
     return {"fake": fake, "real": real}
 
 
+# the serving steps under the mesh semantics held to each other: the CPU
+# test's tolerance (``tests/test_torch_mesh_serve_steps.py``
+# ``LOGIT_ATOL``, the mesh route against the reference's dry-run steps)
+MESH_SERVE_ATOL = 2.0 ** -4
+MESH_SERVE_SHAPES = ((1, 2), (2, 1), (2, 2))
+
+
+def _drops(cfg, calls: list, rows: int) -> list:
+    """Dropped (token, expert) assignments per data row from recorded
+    routing calls ``(tokens, top_e)`` (each MoE layer routes ``rows``
+    calls in row order): an expert's assignments past the capacity of
+    the call's token count."""
+    out = [0] * rows
+    for i, (n, top_e) in enumerate(calls):
+        cap = tmoe._capacity(cfg, n, cfg.n_experts)
+        cnt = torch.bincount(top_e.reshape(-1), minlength=cfg.n_experts)
+        out[i % rows] += int((cnt - cap).clamp(min=0).sum())
+    return out
+
+
+def _mesh_serve_run(sh, cfg, toks, semantics: str, n_steps: int,
+                    feed=None) -> dict:
+    """One prefill of ``toks`` and ``n_steps`` decode steps over ``sh``
+    (the one card repeated) under ``semantics``, each step fed ``feed[i]``
+    (or, without ``feed``, its own greedy token), after one untimed
+    prefill: per step the f32 logits of the last position (on the host),
+    the greedy tokens and the wall ms; the launches; the dropped
+    assignments per row, prefill and decode apart."""
+    b, s = toks.shape
+    rows = sh.dp if semantics == "mesh" else 1
+    calls: list = []
+    route = tmoe._route
+
+    def recording(p, c, xt):
+        out = route(p, c, xt)
+        calls.append((xt.shape[0], out[1]))
+        return out
+
+    def whole(out):
+        if semantics != "mesh":
+            return out[:, -1].float()
+        return mesh_logits(sh, [[p[:, -1] for p in row] for row in out],
+                           b).float()
+
+    # an untimed prefill first: a mesh's first call allocates what its
+    # gathered weights and MoE buffers take, which the timed one should not
+    prefill(sh, cfg, toks, max_len=s + n_steps, semantics=semantics)
+    torch.cuda.synchronize()
+    reset_counts()
+    tmoe._route = recording
+    try:
+        t = time.perf_counter()
+        out, caches, _ = prefill(sh, cfg, toks, max_len=s + n_steps,
+                                 semantics=semantics)
+        torch.cuda.synchronize()
+        ms = [(time.perf_counter() - t) * 1e3]
+        n_pre = len(calls)
+        logits = [whole(out)]
+        greedy = [torch.argmax(logits[0], dim=-1)]
+        for i in range(n_steps):
+            tok = (greedy[-1] if feed is None else feed[i])[:, None]
+            t = time.perf_counter()
+            out, caches = decode_step(sh, cfg, tok, caches, s + i,
+                                      semantics=semantics)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            logits.append(whole(out))
+            greedy.append(torch.argmax(logits[-1], dim=-1))
+    finally:
+        tmoe._route = route
+    counts = read_counts()
+    return {"logits": [lg.cpu() for lg in logits], "greedy": greedy,
+            "ms": ms, "counts": counts,
+            "drops_prefill": _drops(cfg, calls[:n_pre], rows),
+            "drops_decode": _drops(cfg, calls[n_pre:], rows)}
+
+
+def _logit_gap(a: dict, b: dict) -> float:
+    return max(float((x - y).abs().max())
+               for x, y in zip(a["logits"], b["logits"]))
+
+
+def phase_mesh_serve(smi: str) -> dict:
+    """Phase 8e (see the module docstring)."""
+    t_phase = time.perf_counter()
+    out = {}
+    full = get_config("deepseek-v3-671b")
+    models = (full.replace(n_layers=4), get_config(
+        "llama4-maverick-400b-a17b").replace(n_layers=2))
+    b, s, n_steps = 4, 128, 8
+    for cfg in models:
+        cfg = cfg.replace(quant_mode="w8a8_nibble", quant_backend="cuda",
+                          attn_impl="flash")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"mesh serve: {cfg.name} full width cut to {cfg.n_layers} "
+              f"layers, w8a8_nibble, flash prefill, dense slabs; one "
+              f"prefill of {b} x {s} and {n_steps} decode steps on one "
+              f"card repeated", flush=True)
+        params = model_init(cfg, seed=0, device=DEV)
+        host = _tree_to(params, "cpu")
+        rng = np.random.default_rng(0)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                               device=DEV)
+        runs = {}
+        for shape in MESH_SERVE_SHAPES:
+            if params is None:
+                params = _tree_to(host, DEV)
+            sh = shard_params(params, cfg, make_local_mesh(
+                dp=shape[0], tp=shape[1],
+                devices=[DEV_ONE] * (shape[0] * shape[1])))
+            if shape[0] > 1:
+                params = None
+                gc.collect()
+                torch.cuda.empty_cache()
+            if shape == (1, 2):
+                runs["engine (1, 2)"] = _mesh_serve_run(sh, cfg, toks,
+                                                        "engine", n_steps)
+            feed = runs["engine (1, 2)"]["greedy"]
+            runs[str(shape)] = _mesh_serve_run(sh, cfg, toks, "mesh",
+                                               n_steps, feed=feed)
+            del sh
+        del params
+        for label, r in runs.items():
+            kern = {k: r["counts"][k] for k in ("nibble_matmul",
+                                                "flash_attention_fwd")}
+            print(f"  {label}: launches {kern}; dropped assignments per "
+                  f"row, prefill {r['drops_prefill']} / decode "
+                  f"{r['drops_decode']}; prefill {r['ms'][0]:.2f} ms, "
+                  f"decode steps ms "
+                  f"{[round(m, 2) for m in r['ms'][1:]]} ({smi})",
+                  flush=True)
+            require_launched(r["counts"], ("nibble_matmul",
+                                           "flash_attention_fwd"))
+            require_no_f32(r["counts"])
+        gaps = {"mesh (1, 2) against engine (1, 2)": _logit_gap(
+                    runs["(1, 2)"], runs["engine (1, 2)"]),
+                "(2, 2) against (2, 1)": _logit_gap(runs["(2, 2)"],
+                                                    runs["(2, 1)"]),
+                "(2, 1) against (1, 2)": _logit_gap(runs["(2, 1)"],
+                                                    runs["(1, 2)"])}
+        agree = {label: sum(int((g == f).sum()) for g, f in zip(
+            r["greedy"][:-1], runs["engine (1, 2)"]["greedy"][:-1]))
+            for label, r in runs.items()}
+        print(f"  {cfg.name}: max|dlogit| over the prefill and {n_steps} "
+              f"steps (every run fed the engine's tokens): "
+              + ", ".join(f"{k} {v:.4e}" for k, v in gaps.items())
+              + f" (bound {MESH_SERVE_ATOL} for the first two; the third "
+              f"is the routing: each row's own capacity); greedy tokens "
+              f"equal to the fed ones {agree} of {b * n_steps}; "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        for label in ("mesh (1, 2) against engine (1, 2)",
+                      "(2, 2) against (2, 1)"):
+            if not gaps[label] <= MESH_SERVE_ATOL:
+                raise AssertionError(f"mesh serve {cfg.name}: {label} "
+                                     f"max|dlogit| {gaps[label]}")
+        for k in ("nibble_matmul", "flash_attention_fwd"):
+            one, two = runs["(1, 2)"]["counts"][k], \
+                runs["(2, 2)"]["counts"][k]
+            if runs["engine (1, 2)"]["counts"][k] != one or two != 2 * one:
+                raise AssertionError(
+                    f"mesh serve {cfg.name}: {k} launched "
+                    f"{ {n: r['counts'][k] for n, r in runs.items()} }: "
+                    f"the mesh route at (1, 2) as the engine's, (2, 2) "
+                    f"twice (1, 2)")
+        out[cfg.name] = {label: {k: v for k, v in r.items()
+                                 if k not in ("logits", "greedy")}
+                         for label, r in runs.items()}
+        out[cfg.name].update(gaps=gaps, greedy_equal=agree,
+                             peak_gib=torch.cuda.max_memory_allocated()
+                             / 2**30)
+        del runs, host
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  mesh serve phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def phase_mesh_train(smi: str, dry) -> dict:
     """Phase 8d (see the module docstring)."""
     t_phase = time.perf_counter()
@@ -5838,6 +6025,13 @@ def _main(args, t0, smi, dry) -> int:
             name: sum(f["counts"][k] for k in keys)
             for name, f in train_families.items() if isinstance(f, dict)}
     grads = check_train_grads()
+    mesh_serve = phase_mesh_serve(smi)
+    for r, k in ((rows[0], "nibble_matmul"), (rows[1], "flash_attention_fwd")):
+        r["mesh_serve_launches"] = {
+            f"{name} {label}": run["counts"][k]
+            for name, m in mesh_serve.items() if isinstance(m, dict)
+            for label, run in m.items()
+            if isinstance(run, dict) and "counts" in run}
     mesh_train = phase_mesh_train(smi, dry)
     for r, keys in ((rows[1], ("flash_attention_fwd",)),
                     (rows[3], ("flash_attention_bwd_dq",
@@ -5866,6 +6060,7 @@ def _main(args, t0, smi, dry) -> int:
                        "train_families": train_families,
                        "train_grads": grads, "static": static,
                        "mesh_train": mesh_train,
+                       "mesh_serve": mesh_serve,
                        "torch": torch.__version__},
                       f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
@@ -5882,7 +6077,8 @@ def _main(args, t0, smi, dry) -> int:
              "encdec_vlm_launches", "encdec_vlm_shapes", "paper_launches",
              "train_families_launches", "train_families_shapes",
              "tp_launches", "tp_shapes", "tp_families_launches",
-             "tp_families_shapes", "dp_launches", "mesh_train_launches")
+             "tp_families_shapes", "dp_launches", "mesh_train_launches",
+             "mesh_serve_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(smi)

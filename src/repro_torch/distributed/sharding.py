@@ -43,8 +43,9 @@ rebuilds shard ``m``'s tensors in data order on each device that uses
 them, at use, one layer at a time.  The caches split by slot: slot ``b``
 lives on data row ``b // (B / dp)`` when ``dp`` divides the batch ``B``
 (its dense slab rows and mamba state), else the batch is not split and
-data row 0 holds every slot (``slot_rows``); paged pools are whole on
-each row, one copy per distinct device.
+data row 0 holds every slot (``slot_rows``; under the reference's mesh
+semantics, ``semantics="mesh"``, every row holds every slot instead);
+paged pools are whole on each row, one copy per distinct device.
 
 :func:`train_shards` is :func:`shard_params` for the training step:
 every entry's leaves its own tensors, marked to need grads; ``split``
@@ -67,6 +68,7 @@ __all__ = ["TP_AXIS", "fsdp_axes", "param_specs", "opt_state_specs",
            "batch_specs", "cache_specs", "page_table_spec", "TPLayout",
            "tp_layout", "check_tp_supported", "Shards", "shard_params",
            "shard_caches", "split_dim", "data_dim", "slot_rows",
+           "row_slots", "SEMANTICS", "check_semantics",
            "gather_rows", "stored_bytes", "MLA_CACHE_KEYS", "SSM_CACHE_KEYS",
            "SEQ_CACHE_KEYS", "SSMSegments", "ssm_segments", "train_shards",
            "piece_groups"]
@@ -74,8 +76,9 @@ __all__ = ["TP_AXIS", "fsdp_axes", "param_specs", "opt_state_specs",
 TP_AXIS = "model"
 
 # where ROADMAP.md places what a mesh inside one engine does not do yet
-TP_ROADMAP = ("ROADMAP queue 1 item 4d (capture across cards) and item 4e "
-              "(a multi-process NCCL backend)")
+TP_ROADMAP = ("ROADMAP queue 1 item 4d (capture across cards, a speed item "
+              "that waits for a 4-chip cell; item 4e, a multi-process "
+              "backend, left the port queue: the reference has none)")
 
 
 def fsdp_axes(mesh) -> tuple:
@@ -299,11 +302,30 @@ def data_dim(spec: tuple) -> int | None:
     return _axis_dim(spec, "data")
 
 
-def slot_rows(batch: int, dp: int) -> int:
-    """The data rows a batch of ``batch`` slots splits over: ``dp`` where
-    it divides the batch, else 1 (``_fit_spec`` drops the split and data
-    row 0 runs every slot)."""
-    return dp if batch % dp == 0 else 1
+# the serving steps' routes over a data axis: the reference's engine's
+# (it installs no mesh) and its dry run's (under ``ambient_mesh``)
+SEMANTICS = ("engine", "mesh")
+
+
+def check_semantics(semantics: str) -> None:
+    if semantics not in SEMANTICS:
+        raise ValueError(f"semantics {semantics!r}: one of {SEMANTICS}")
+
+
+def slot_rows(batch: int, dp: int, semantics: str = "engine") -> int:
+    """The data rows a batch of ``batch`` slots runs on: ``dp`` where it
+    divides the batch; else under the engine's semantics 1 (``_fit_spec``
+    drops the split and data row 0 runs every slot), under the mesh
+    semantics ``dp``, each row holding the whole batch (the reference's
+    ``P(None, ...)`` batch specs replicate it)."""
+    check_semantics(semantics)
+    return dp if batch % dp == 0 or semantics == "mesh" else 1
+
+
+def row_slots(batch: int, rows: int) -> int:
+    """The slots each of ``rows`` data rows holds: its share where the
+    rows divide the batch, else the whole batch (replicated)."""
+    return batch // rows if batch % rows == 0 else batch
 
 
 # ---------------------------------------------------------------------------

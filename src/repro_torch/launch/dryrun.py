@@ -28,11 +28,17 @@ Around the step run
 
 **Per-card figures.**  One process runs the whole mesh, so a record's
 per-device flops, bytes and collective bytes are the mesh's totals over
-the entry count.  The training step gives every entry an equal share, as
-the reference's SPMD program does.  Where a cell cannot be balanced, the
-record names it under ``unbalanced``: the serving paths a prefill and a
-decode run (``models.prefill`` / ``decode_step``) put the head, and an
-MoE block, over the whole batch on data row 0.
+the entry count.  Every entry gets an equal share, as the reference's
+SPMD program gives it: the training step, and the prefill and decode
+cells, which run ``models.prefill`` / ``decode_step`` with
+``semantics="mesh"``, the reference's dry-run semantics (each data row
+routes its own tokens through an MoE block, ``moe.moe_apply_mesh``;
+each row's head runs on its own hidden states, vocabulary-parallel, and
+its logits stay on its entries; a decode cell's next token is the
+vocabulary-parallel argmax, ``models.transformer.mesh_next_tokens``).
+A serving batch the data rows do not divide (``long_500k``'s 1) is whole
+on every row, as the reference's ``P(None, ...)`` batch specs replicate
+it, and each entry's figures count the whole batch's work.
 
 **Memory.**  ``argument_size_in_bytes`` is the stored bytes of the busiest
 entry (its parameter pieces, optimizer state and batch or caches),
@@ -50,12 +56,14 @@ all 256 entries took 23 minutes on one CPU core), so
 axis kept) and extrapolates every figure, the memory ones included,
 linearly in depth (``cost(n) = cost(1) + (n - 1) * (cost(2) -
 cost(1))``, the reference's recipe) and in ``1 / dp`` (``scan_trips``
-and ``data_rows_walked`` say so).  For the training step the flops,
-bytes, collective bytes and stored bytes extrapolate exactly (tests
-hold them to direct walks); the peak of live bytes moves with the order
-the entries run in, so it is near (within 10% on reduced configs).  The
-serving cells' row-0 work (``unbalanced``) is not affine in ``1 / dp``,
-so their figures are near too (within 5% on reduced configs).
+and ``data_rows_walked`` say so).  For the training step and the
+serving cells alike the flops, bytes, collective bytes and stored bytes
+extrapolate exactly (tests hold them to direct walks; a replicated
+serving batch is walked as a split one of the same slots per row, the
+same work per entry, and only its ``io_bytes`` move, by under 0.3% on
+reduced configs: the tokens tensor is shared by the rows); the peak of
+live bytes moves with the order the entries run in, so it is near
+(within 10% on reduced configs for training, 0.2% for serving).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -179,9 +187,9 @@ def build_cell(cfg, case, mesh, *, quant_moments: bool, params=None):
     stored = [_tensors(t) for t in shards.trees]
     n = len(stored)
 
-    def batch_bytes(batch) -> int:
+    def batch_bytes(batch, rows=mesh.shape["data"]) -> int:
         # each entry holds its data row's slots of every batch leaf
-        return sum(_nbytes(t) for t in _tensors(batch)) // mesh.shape["data"]
+        return sum(_nbytes(t) for t in _tensors(batch)) // rows
 
     if case.kind == "train":
         tcfg = TrainConfig(optimizer=AdamWConfig(
@@ -203,11 +211,18 @@ def build_cell(cfg, case, mesh, *, quant_moments: bool, params=None):
             batch_bytes(batch), returned
 
     from repro_torch.models import decode_step, prefill
+    from repro_torch.models.transformer import mesh_next_tokens
 
-    def caches_returned(out):
+    # the serving steps under the reference's mesh semantics: each row its
+    # own slots (a batch the rows do not divide whole on every row), the
+    # head's output left on its entries
+    rows = mesh.shape["data"] if case.batch % mesh.shape["data"] == 0 \
+        else 1
+
+    def entries_returned(out):
         head, caches = out
-        return [_tensors(caches.trees[e]) + ([head] if e == 0 else [])
-                for e in range(n)]
+        flat = [t for row in head for t in row]
+        return [_tensors(caches.trees[e]) + [flat[e]] for e in range(n)]
 
     if case.kind == "prefill":
         batch = prefill_input_structs(cfg, case, dev0)
@@ -218,10 +233,11 @@ def build_cell(cfg, case, mesh, *, quant_moments: bool, params=None):
                 kw["extra_embeds"] = batch["patch_embeds"]
             if "frames" in batch:
                 kw["frames"] = batch["frames"]
-            logits, caches, _ = prefill(shards, cfg, batch["tokens"], **kw)
+            logits, caches, _ = prefill(shards, cfg, batch["tokens"],
+                                        semantics="mesh", **kw)
             return logits, caches
 
-        return fn, stored, batch_bytes(batch), caches_returned
+        return fn, stored, batch_bytes(batch, rows), entries_returned
 
     ins = decode_input_structs(cfg, case, dev0, params=shards)
     for e, tree in enumerate(ins["caches"].trees):
@@ -232,12 +248,15 @@ def build_cell(cfg, case, mesh, *, quant_moments: bool, params=None):
         index = ins["index"].expand(case.batch)
         logits, caches = decode_step(shards, cfg, ins["token"],
                                      ins["caches"], index,
-                                     enc_out=ins.get("enc_out"))
-        nxt = torch.argmax(logits[:, -1].to(torch.float32), dim=-1)
-        return nxt[:, None].to(torch.int32), caches
+                                     enc_out=ins.get("enc_out"),
+                                     semantics="mesh")
+        nxt = mesh_next_tokens(shards, [[p[:, -1] for p in row]
+                                        for row in logits])
+        return [[t[:, None].to(torch.int32) for t in row]
+                for row in nxt], caches
 
     extra = [ins["token"]] + ([ins["enc_out"]] if "enc_out" in ins else [])
-    return fn, stored, batch_bytes(extra), caches_returned
+    return fn, stored, batch_bytes(extra, rows), entries_returned
 
 
 def _distinct_bytes(tensors) -> int:
@@ -340,8 +359,13 @@ def scan_extrapolated_cost(cfg, case, mesh, quant_moments: bool) -> dict:
 
     def at(depth, r):
         c = cfg if depth is None else _with_blocks(cfg, depth)
-        k = dataclasses.replace(case, batch=per_row * r if split
-                                else case.batch)
+        if r == dp or (not split and case.kind == "train"):
+            k = case
+        else:
+            # a serving batch the rows do not divide is whole on every
+            # row: per entry the work of ``per_row`` slots a row, as in a
+            # split batch of ``per_row * r``
+            k = dataclasses.replace(case, batch=per_row * r)
         m = _walk_mesh(r, tp)
         return _per_entry(walk_cell(c, k, m, quant_moments=quant_moments),
                           m.size)
@@ -354,17 +378,6 @@ def scan_extrapolated_cost(cfg, case, mesh, quant_moments: bool) -> dict:
     out = by_depth[0] if len(by_depth) == 1 else _affine(
         by_depth[0], by_depth[1], 1, 2, n)
     return dict(out, scan_trips=n, data_rows_walked=list(rows))
-
-
-def _unbalanced(cfg, case) -> list:
-    if case.kind == "train":
-        return []
-    out = ["head: the final norm and head run over the whole batch on "
-           "data row 0 (the serving path)"]
-    if any(s.ffn == "moe" for s in cfg.layer_specs):
-        out.append("moe: every MoE block runs over the whole batch on data "
-                   "row 0 (the serving path)")
-    return out
 
 
 def run_cell(arch: str, shape: str, mesh, mesh_tag: str, *,
@@ -401,7 +414,6 @@ def run_cell(arch: str, shape: str, mesh, mesh_tag: str, *,
             **mem,
             "fits": mem["argument_size_in_bytes"]
             + mem["temp_size_in_bytes"] <= HW.HBM_BYTES,
-            "unbalanced": _unbalanced(cfg, case),
         }
         if verbose:
             print(f"[ok] {arch:28s} {shape:12s} {mesh_tag:14s} "

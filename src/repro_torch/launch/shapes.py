@@ -88,11 +88,13 @@ def prefill_input_structs(cfg: ModelConfig, case: ShapeCase,
 def decode_input_structs(cfg: ModelConfig, case: ShapeCase, device="meta",
                          params=None) -> dict:
     """Decode cells: one new token against a ``seq``-long cache, per
-    entry of ``params`` (``Shards``) where given, else on ``device``;
-    an encoder-decoder's ``enc_out`` beside it."""
+    entry of ``params`` (``Shards``, its data rows laid out under the
+    reference's mesh semantics, which the dry run serves in) where given,
+    else on ``device``; an encoder-decoder's ``enc_out`` beside it."""
     from repro_torch.models import init_caches
     from repro_torch.models.transformer import init_shard_caches
-    caches = (init_shard_caches(cfg, case.batch, case.seq, params)
+    caches = (init_shard_caches(cfg, case.batch, case.seq, params,
+                                semantics="mesh")
               if params is not None
               else init_caches(cfg, case.batch, case.seq, device=device))
     out = {"token": torch.zeros((case.batch, 1), dtype=torch.int32,

@@ -21,7 +21,8 @@ __all__ = ["rms_norm_init", "rms_norm", "rope", "apply_rope", "mlp_init",
            "embed_logits", "bf16_matmul", "fixed_bmm", "fixed_cumsum",
            "fixed_mean",
            "entries_per_call",
-           "vocab_parallel_embed", "vocab_parallel_logits"]
+           "vocab_parallel_embed", "vocab_parallel_logits",
+           "vocab_parallel_argmax"]
 
 
 def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -285,3 +286,22 @@ def vocab_parallel_logits(shards: list, xs: list, *, tied: bool) -> list:
         parts = [bf16_matmul(x, p["w"].to(x.dtype)).to(torch.float32)
                  for p, x in zip(shards, xs)]
     return all_gather(parts, dim=-1)
+
+
+def vocab_parallel_argmax(parts: list) -> list:
+    """The argmax over the whole vocabulary of logits split by vocab
+    (``parts``: each shard's slice, in shard order), on every shard: each
+    shard's maximum and its index (offset to the whole vocabulary) are
+    gathered, and the first shard holding the largest maximum wins, so
+    ties go to the lowest index, as ``torch.argmax`` of the whole
+    logits."""
+    offsets, start = [], 0
+    for p in parts:
+        offsets.append(start)
+        start += p.shape[-1]
+    best = [torch.max(p, dim=-1) for p in parts]
+    vals = all_gather([b.values.unsqueeze(-1) for b in best])
+    idx = all_gather([(b.indices + o).unsqueeze(-1)
+                      for b, o in zip(best, offsets)])
+    return [i.gather(-1, torch.argmax(v, dim=-1, keepdim=True)).squeeze(-1)
+            for v, i in zip(vals, idx)]

@@ -32,7 +32,8 @@ each shard's bf16 output with ``psum``) runs only under its dry run's
 ambient mesh, and is not this path.
 
 :func:`moe_apply_mesh` is that ``_moe_sharded``, the semantics of the
-reference's training step over a mesh (its only use), where the experts
+reference's training step over a mesh and of its dry run's serving
+steps (the two places it sets the ambient mesh), where the experts
 divide the model shards: each data row routes its own tokens (all of
 them where the rows do not divide the batch), with the capacity taken
 over its own token count; each model shard runs its ``E / tp`` experts
@@ -40,7 +41,10 @@ and combines their rows to a bf16 output; the shards' bf16 outputs are
 summed in shard order.  Its aux loss is the value of data row 0's
 routing (the reference's ``out_specs=P()`` returns one shard's value)
 and carries the gradient of the rows' mean (what the reference's
-transpose of that output gives each row).
+transpose of that output gives each row); without gradients (the
+serving steps under the mesh semantics, the reference's dry-run
+``prefill`` and ``decode_step``) it is row 0's value alone, and nothing
+crosses the data axis for it.
 """
 
 from __future__ import annotations
@@ -298,7 +302,7 @@ def moe_apply_mesh(ps: list, cfg, hs: list, layout):
             out = per_device(devs, lambda i: out[i] + shared[i])
         outs.append(per_device(devs, lambda i: out[i].reshape(b, s, d)))
         auxes.append(routes[0][2])
-    if len(auxes) == 1:
+    if len(auxes) == 1 or not torch.is_grad_enabled():
         return outs, auxes[0]
     mean = reduce_sum(auxes, axis="data",
                       devices=[row[0].device for row in hs]) / len(auxes)

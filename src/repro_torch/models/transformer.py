@@ -69,20 +69,24 @@ are split by slot; the paged pools are whole on every row, one copy
 per distinct device, and a decode step's pool rows are mirrored into
 the other copies.
 
-Training over the mesh (:func:`forward_rows`, and :func:`forward` over
-``Shards``): the same per-layer path in training mode (differentiable,
-per-layer remat with each layer's weight gather inside the checkpoint,
+The reference's mesh semantics (:func:`forward_rows` and
+:func:`forward` over ``Shards``, training; :func:`prefill` and
+:func:`decode_step` with ``semantics="mesh"``, the dry run's serving
+cells): the same per-layer path (in training differentiable, with
+per-layer remat and each layer's weight gather inside the checkpoint;
 the encoder's frames and a VLM's patches split by row), but every row
-keeps its own slots to the end: the MoE block takes the reference's
-mesh semantics (``moe.moe_apply_mesh``: each row routes its own tokens)
-and each row's head runs on its own hidden states, vocabulary-parallel.
-This is the layout the reference's training step gets from its ambient
-mesh: batch on the data rows and, where the KV heads divide the model
-axis, heads on it (its ``_flash_self_attention`` runs the flash kernel
-per shard in exactly this layout, so it has no module of its own here).
-The reference's ``ambient_mesh`` / ``maybe_shard`` have no counterpart:
-they ask GSPMD to place values, and the port places them itself, each
-tensor on the entry that computes it.
+keeps its own slots to the end: the MoE block routes each row's own
+tokens (``moe.moe_apply_mesh``) and each row's head runs on its own
+hidden states, vocabulary-parallel, the logits left on their entries.
+A serving batch the rows do not divide is whole on every row.  This is
+the layout the reference's training step and dry run get from its
+ambient mesh: batch on the data rows and, where the KV heads divide the
+model axis, heads on it (its ``_flash_self_attention`` runs the flash
+kernel per shard in exactly this layout, so it has no module of its own
+here).  The reference's ``ambient_mesh`` / ``maybe_shard`` have no
+counterpart: they ask GSPMD to place values, and the port places them
+itself, each tensor on the entry that computes it; the route is the
+explicit ``semantics`` keyword, and ``Engine`` keeps the engine's.
 """
 
 from __future__ import annotations
@@ -100,7 +104,8 @@ from repro_torch.distributed.collectives import all_gather, broadcast, \
     gathered_bytes, per_device
 from repro_torch.kernels.ops import add_launch_counts, launch_counts
 from repro_torch.distributed.sharding import MLA_CACHE_KEYS, \
-    SEQ_CACHE_KEYS, Shards, gather_rows, slot_rows, ssm_segments
+    SEQ_CACHE_KEYS, Shards, check_semantics, gather_rows, row_slots, \
+    slot_rows, ssm_segments
 from repro_torch.models.attention import (
     KV_CACHE_DTYPES,
     attn_apply,
@@ -136,6 +141,7 @@ from repro_torch.models.layers import (
     mlp_init,
     rms_norm,
     rms_norm_init,
+    vocab_parallel_argmax,
     vocab_parallel_embed,
     vocab_parallel_logits,
 )
@@ -145,7 +151,7 @@ from repro_torch.models.moe import moe_apply, moe_apply_mesh, \
 __all__ = ["model_init", "load_jax_params", "unstack_jax_tree",
            "prepare_params", "encode",
            "forward", "forward_rows", "prefill", "decode_step",
-           "init_caches",
+           "mesh_logits", "mesh_next_tokens", "init_caches",
            "init_paged_caches",
            "merge_slot_caches", "merge_slot_paged_caches",
            "scatter_prefill_paged_caches", "copy_paged_cache_page",
@@ -412,13 +418,16 @@ def _logits(params, cfg: ModelConfig, x):
 # model shard ``m`` (one row without a data axis).  A row runs its own
 # slots; within a row the residual stream is replicated over the shards.
 # The rows meet where the reference's batch-wide values meet: the int
-# modes' per-tensor activation scale (``rows_amax``), the MoE block's
-# routing and capacity (``_moe_rows``) and the head (``_logits_rows``).
+# modes' per-tensor activation scale (``rows_amax``) and, under the
+# engine's semantics, the MoE block's routing and capacity
+# (``_moe_rows``) and the head (``_logits_rows``).
 
 def _row_split(t, rows: int) -> list:
     """``t``'s leading (batch) axis in ``rows`` equal parts; a scalar, a
-    0-d tensor or None repeated."""
-    if not isinstance(t, torch.Tensor) or t.ndim == 0 or rows == 1:
+    0-d tensor or None repeated, and so is a tensor whose batch the rows
+    do not divide (the mesh semantics' replicated batch)."""
+    if not isinstance(t, torch.Tensor) or t.ndim == 0 or rows == 1 \
+            or t.shape[0] % rows:
         return [t] * rows
     n = t.shape[0] // rows
     return [t[d * n:(d + 1) * n] for d in range(rows)]
@@ -584,18 +593,27 @@ def _tp_cross(ps, cfg, layout, hs, *, loc, enc_outs) -> list:
         cfg)
 
 
-def _moe_rows(ps, cfg, layout, hs, train: bool = False):
+def _moe_rows(ps, cfg, layout, hs, mesh=None):
     """The MoE block over the mesh; returns (outputs ``[d][m]``, aux).
-    Serving: its routing, capacity and drop order span every token of the
-    call, so with several data rows their inputs are gathered in slot
-    order onto data row 0's entries, the block runs there once over the
-    whole batch (``moe.moe_apply_shards``, bit for bit the unsplit call)
-    and each row takes its slots' outputs back.  Training (``train``,
-    where the experts divide the shards): the reference's mesh semantics,
-    each row on its own tokens (``moe.moe_apply_mesh``)."""
-    if train and layout.experts:
+    The engine's semantics (``mesh`` None): its routing, capacity and
+    drop order span every token of the call, so with several data rows
+    their inputs are gathered in slot order onto data row 0's entries,
+    the block runs there once over the whole batch
+    (``moe.moe_apply_shards``, bit for bit the unsplit call) and each row
+    takes its slots' outputs back.  The reference's mesh semantics
+    (``mesh`` "split" or "replicated": the training step, and the serving
+    steps under ``semantics="mesh"``), where the experts divide the
+    shards: each row on its own tokens (``moe.moe_apply_mesh``).  Where
+    they do not, the reference's local path spans the whole batch, as the
+    engine's does; a replicated batch is whole on every row already, so
+    each row runs it alone."""
+    if mesh is not None and layout.experts:
         return moe_apply_mesh([[p["moe"] for p in row] for row in ps], cfg,
                               hs, layout)
+    if mesh == "replicated":
+        res = [moe_apply_shards([p["moe"] for p in ps[d]], cfg, hs[d],
+                                layout) for d in range(len(hs))]
+        return [outs for outs, _ in res], res[0][1]
     if len(hs) == 1:
         outs, aux = moe_apply_shards([p["moe"] for p in ps[0]], cfg, hs[0],
                                      layout)
@@ -622,13 +640,14 @@ def _to_row(t, dev):
 
 def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
                     loc: list, caches, mode: str, causal: bool = True,
-                    enc_outs=None, train: bool = False):
+                    enc_outs=None, mesh=None):
     """One pre-norm layer over the mesh: ``ps[d][m]`` entry ``(d, m)``'s
     parameter dict, ``xs[d]`` row ``d``'s residual stream (replicated over
     its shards), ``caches[d][m]`` one cache dict per entry (or None),
     ``enc_outs[d][m]`` the encoder output for a cross-attention (or
     None).  Returns (xs, per-entry new caches, the MoE aux loss or None);
-    ``train``: the MoE block takes the training step's mesh semantics."""
+    ``mesh``: the MoE block takes the reference's mesh semantics
+    (:func:`_moe_rows`)."""
     rows = range(len(xs))
     devs = _devs(xs)
 
@@ -655,7 +674,7 @@ def _tp_layer_apply(ps: list, cfg: ModelConfig, layout, spec, xs: list, *,
         return xs, cs, None
     hs = norm("ffn_norm", xs)
     if spec.ffn == "moe":
-        outs, aux = _moe_rows(ps, cfg, layout, hs, train)
+        outs, aux = _moe_rows(ps, cfg, layout, hs, mesh)
         return add(xs, outs), cs, aux
     amax = rows_amax(hs, cfg.quant_mode)
     act = dict(act=cfg.act, quant_mode=cfg.quant_mode,
@@ -700,21 +719,21 @@ def _mirror_pool_writes(cs: list, loc: list, s: int) -> None:
 
 def _tp_stack_apply(layer_params, cfg: ModelConfig, layout, xs: list, *,
                     loc, caches=None, mode: str, causal: bool = True,
-                    enc_outs=None, train: bool = False):
+                    enc_outs=None, mesh=None):
     """A stack over the mesh (``layer_params(li)``: layer ``li``'s
     parameter dicts ``[d][m]``, gathered at use, in ``cfg.layer_specs``
     order, the decoder's or with ``_enc_cfg`` the encoder's); returns
     (xs, per-entry caches as lists ``[d][m]``, the summed MoE aux loss or
     None).  A decode step through page tables mirrors each row's pool
-    writes into the other rows' copies on other devices.  ``train``: the
-    training step's semantics, and under ``cfg.remat`` with grads on each
-    layer, its weights' gather included, runs under a non-reentrant
-    checkpoint (recomputed in the backward pass, as :func:`_stack_apply`
-    does)."""
+    writes into the other rows' copies on other devices.  ``mesh``: the
+    reference's mesh semantics (:func:`_moe_rows`); in training mode
+    under ``cfg.remat`` with grads each layer, its weights' gather
+    included, runs under a non-reentrant checkpoint (recomputed in the
+    backward pass, as :func:`_stack_apply` does)."""
     per_entry = [[[] for _ in row] for row in xs]
     mirror = (mode == "decode" and len(xs) > 1
               and loc[0][0]["page_table"] is not None)
-    remat = train and cfg.remat and torch.is_grad_enabled()
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     shape = [len(row) for row in xs]
     total_aux = None
     for li, spec in enumerate(cfg.layer_specs):
@@ -725,7 +744,7 @@ def _tp_stack_apply(layer_params, cfg: ModelConfig, layout, xs: list, *,
                 layer_params(li), cfg, layout, spec, rows, loc=loc,
                 caches=None if caches is None else [[c[li] for c in row]
                                                     for row in caches],
-                mode=mode, causal=causal, enc_outs=enc_outs, train=train)
+                mode=mode, causal=causal, enc_outs=enc_outs, mesh=mesh)
             return [x for row in out for x in row], cs, aux
 
         flat = [x for row in xs for x in row]
@@ -746,14 +765,15 @@ def _tp_stack_apply(layer_params, cfg: ModelConfig, layout, xs: list, *,
 
 
 def _layers_at_use(params: Shards, cfg: ModelConfig, rows: int, stack,
-                   train: bool = False):
+                   mesh=None):
     """``layer_params`` for :func:`_tp_stack_apply`: layer ``li`` of
     ``stack(tree)`` per entry ``[d][m]``, gathered at use
     (``sharding.gather_rows``); an MoE block for data row 0 only, which
-    runs it over the whole batch (``train`` with expert-split stacks:
-    every row, each on its own tokens)."""
+    runs it over the whole batch (under ``mesh`` with expert-split stacks
+    or a replicated batch: every row, each on its own tokens)."""
     mode = cfg.quant_mode
-    moe_rows = rows if train and params.layout.experts else 1
+    moe_rows = rows if mesh is not None and (
+        params.layout.experts or mesh == "replicated") else 1
 
     def layer(li):
         if params.fsdp is None or moe_rows == rows:
@@ -810,12 +830,66 @@ def _logits_rows(params: Shards, cfg: ModelConfig, xs: list):
     return vocab_parallel_logits(heads, hs, tied=tied)[0]
 
 
+def _head_rows(params: Shards, cfg: ModelConfig, xs: list) -> list:
+    """The final norm and head of every row on its own hidden states
+    ``xs[d][m]``: entry ``(d, m)``'s f32 logits, its shard's slice of the
+    vocabulary where the vocabulary divides the shards
+    (``layout.vocab``; the reference's ``maybe_shard(out, "logits")``),
+    else the whole logits on every entry."""
+    keys = ("final_norm", "embed") if cfg.tie_embeddings \
+        else ("final_norm", "lm_head")
+    ps = gather_rows(params, lambda t: {k: t[k] for k in keys}, len(xs),
+                     cfg.quant_mode)
+    parts = []
+    for d in range(len(xs)):
+        devs = params.row_devices(d)
+        if not params.layout.vocab:
+            parts.append(per_device(devs, lambda i: _logits(
+                ps[d][i], cfg, xs[d][i])))
+            continue
+        hs = per_device(devs, lambda i: rms_norm(
+            ps[d][i]["final_norm"], xs[d][i], cfg.norm_eps))
+        parts.append([embed_logits(p["embed"], h) if cfg.tie_embeddings
+                      else bf16_matmul(h, p["lm_head"]["w"].to(h.dtype))
+                      .to(torch.float32) for p, h in zip(ps[d], hs)])
+    return parts
+
+
+def mesh_logits(params: Shards, parts: list, batch: int) -> torch.Tensor:
+    """Per-entry logits ``parts[d][m]`` (:func:`forward_rows`, or
+    :func:`prefill` / :func:`decode_step` under ``semantics="mesh"``)
+    whole on entry (0, 0)'s device: each row's vocabulary slices
+    gathered in shard order, the rows' slots in row order (row 0's alone
+    where the rows hold the whole ``batch`` each)."""
+    rows = [all_gather(row, devices=params.row_devices(d))[0]
+            if params.layout.vocab else row[0]
+            for d, row in enumerate(parts)]
+    if batch % len(rows):
+        return rows[0]
+    dev = params.devices[0]
+    return torch.cat([r if d == 0 else _to_row(r, dev)
+                      for d, r in enumerate(rows)])
+
+
+def mesh_next_tokens(params: Shards, parts: list) -> list:
+    """The greedy next tokens of per-entry logits ``parts[d][m]``
+    (``(B_d, S, V)`` or a vocabulary slice), ``[d][m]``: each row's
+    argmax over the whole vocabulary, on every entry of the row, with
+    only each slice's maximum and its index crossing the model axis
+    where the vocabulary is split (``layers.vocab_parallel_argmax``)."""
+    if params.layout.vocab:
+        return [vocab_parallel_argmax(row) for row in parts]
+    return [per_device([p.device for p in row],
+                       lambda i, row=row: torch.argmax(row[i], dim=-1))
+            for row in parts]
+
+
 def _tp_encode(params: Shards, cfg: ModelConfig, frames, rows: int,
-               train: bool = False) -> list:
+               mesh=None) -> list:
     """:func:`encode` over the mesh (the decoder's head and MLP split,
     bidirectional attention, each row on its slots' frames): the encoder
-    output per entry ``[d][m]``, once per device of a row (``train``:
-    per-layer remat, as in :func:`forward`)."""
+    output per entry ``[d][m]``, once per device of a row (with grads
+    under ``cfg.remat``: per-layer remat, as in :func:`forward`)."""
     ecfg = _enc_cfg(cfg)
     b, s, _ = frames.shape
     pos = torch.broadcast_to(
@@ -826,9 +900,9 @@ def _tp_encode(params: Shards, cfg: ModelConfig, frames, rows: int,
           for d, f in enumerate(_row_split(frames, rows))]
     xs, _, _ = _tp_stack_apply(
         _layers_at_use(params, cfg, rows, lambda t: t["encoder"]["layers"],
-                       train),
+                       mesh),
         ecfg, params.layout, xs, loc=loc, mode="train", causal=False,
-        train=train)
+        mesh=mesh)
     norms = gather_rows(params, lambda t: t["encoder"]["norm"], rows,
                         cfg.quant_mode)
     return [per_device(params.row_devices(d), lambda i: rms_norm(
@@ -869,12 +943,7 @@ def forward(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     if isinstance(params, Shards):
         parts, aux = forward_rows(params, cfg, tokens,
                                   extra_embeds=extra_embeds, frames=frames)
-        dev = params.devices[0]
-        rows = [all_gather(row, devices=params.row_devices(d))[0]
-                if params.layout.vocab else row[0]
-                for d, row in enumerate(parts)]
-        return torch.cat([r if d == 0 else _to_row(r, dev)
-                          for d, r in enumerate(rows)]), aux
+        return mesh_logits(params, parts, tokens.shape[0]), aux
     enc_out = encode(params, cfg, frames) if frames is not None else None
     x = _embed_inputs(params, cfg, tokens, extra_embeds)
     b, s, _ = x.shape
@@ -903,7 +972,7 @@ def forward_rows(params: Shards, cfg: ModelConfig, tokens, *,
     rows = slot_rows(b, params.dp)
     layout = params.layout
     enc_outs = None if frames is None else _tp_encode(params, cfg, frames,
-                                                      rows, train=True)
+                                                      rows, mesh="split")
     xs = _tp_embed(params, cfg, tokens, rows)
     if extra_embeds is not None:
         for d, pre in enumerate(_row_split(extra_embeds, rows)):
@@ -916,35 +985,34 @@ def forward_rows(params: Shards, cfg: ModelConfig, tokens, *,
     loc = _row_locals(params, rows, positions=pos, cache_index=None,
                       page_table=None, context_start=None)
     xs, _, aux = _tp_stack_apply(
-        _layers_at_use(params, cfg, rows, lambda t: t["layers"], True), cfg,
-        layout, xs, loc=loc, mode="train", enc_outs=enc_outs, train=True)
+        _layers_at_use(params, cfg, rows, lambda t: t["layers"], "split"),
+        cfg, layout, xs, loc=loc, mode="train", enc_outs=enc_outs,
+        mesh="split")
     if token_grid:
         xs = [[x[:, -n_tok:] for x in row] for row in xs]
-    keys = ("final_norm", "embed") if cfg.tie_embeddings \
-        else ("final_norm", "lm_head")
-    ps = gather_rows(params, lambda t: {k: t[k] for k in keys}, rows,
-                     cfg.quant_mode)
-    parts = []
-    for d in range(rows):
-        devs = params.row_devices(d)
-        if not layout.vocab:
-            parts.append(per_device(devs, lambda i: _logits(
-                ps[d][i], cfg, xs[d][i])))
-            continue
-        hs = per_device(devs, lambda i: rms_norm(
-            ps[d][i]["final_norm"], xs[d][i], cfg.norm_eps))
-        parts.append([embed_logits(p["embed"], h) if cfg.tie_embeddings
-                      else bf16_matmul(h, p["lm_head"]["w"].to(h.dtype))
-                      .to(torch.float32) for p, h in zip(ps[d], hs)])
+    parts = _head_rows(params, cfg, xs)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=params.devices[0])
     return parts, aux
 
 
+def _mesh_route(params, semantics: str, batch: int):
+    """The ``mesh`` argument of the stack for ``semantics``: None for the
+    engine's semantics, else "split" or, where the data rows do not
+    divide ``batch``, "replicated"; the mesh semantics need ``Shards``."""
+    check_semantics(semantics)
+    if semantics == "engine":
+        return None
+    if not isinstance(params, Shards):
+        raise ValueError("semantics='mesh' runs over Shards of a mesh")
+    return "split" if batch % params.dp == 0 else "replicated"
+
+
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
             frames=None, max_len: int | None = None, logits_index=None,
-            ctx_caches=None, ctx_table=None, ctx_start=None):
+            ctx_caches=None, ctx_table=None, ctx_start=None,
+            semantics: str = "engine"):
     """Run the prompt; returns (logits (B, 1, V), caches, enc_out).
     ``extra_embeds`` (a VLM's patches) are prepended to the prompt, and
     positions and ``logits_index`` count them; ``frames`` run through the
@@ -963,13 +1031,24 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
     the plain prefill's values through ``attention_core``.  A mamba
     layer's state is the prompt's whole: end padding would run through it,
     so its prompts come unpadded (the engine prefills them at their exact
-    length)."""
+    length).
+
+    ``semantics`` (over ``Shards`` with a data axis): ``"engine"``, the
+    reference engine's values, as if the batch ran unsplit (the module
+    docstring); ``"mesh"``, the reference's under its dry run's
+    ``ambient_mesh``: each data row routes its own tokens through the MoE
+    blocks (``moe.moe_apply_mesh``), a batch the rows do not divide is
+    whole on every row, and the logits stay on their rows: the returned
+    logits and ``enc_out`` are per entry, ``[d][m]`` (the logits
+    vocabulary-parallel, :func:`mesh_logits` and
+    :func:`mesh_next_tokens` read them)."""
     sharded = isinstance(params, Shards)
+    mesh = _mesh_route(params, semantics, tokens.shape[0])
     b = tokens.shape[0]
     if sharded:
-        rows = slot_rows(b, params.dp)
+        rows = slot_rows(b, params.dp, semantics)
         enc_outs = None if frames is None else _tp_encode(params, cfg,
-                                                          frames, rows)
+                                                          frames, rows, mesh)
         xs = _tp_embed(params, cfg, tokens, rows)
         if extra_embeds is not None:
             for d, pre in enumerate(_row_split(extra_embeds, rows)):
@@ -977,9 +1056,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
                 xs[d] = per_device(params.row_devices(d), lambda i: torch.cat(
                     [pre[i].to(xs[d][i].dtype), xs[d][i]], dim=1))
         dev = params.devices[0]
-        enc_out = None if enc_outs is None else (
-            enc_outs[0][0] if rows == 1
-            else torch.cat([e[0].to(dev) for e in enc_outs]))
+        if mesh is not None or enc_outs is None:
+            enc_out = enc_outs
+        else:
+            enc_out = enc_outs[0][0] if rows == 1 \
+                else torch.cat([e[0].to(dev) for e in enc_outs])
     else:
         enc_out = encode(params, cfg, frames) if frames is not None \
             else None
@@ -994,11 +1075,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
         loc = _row_locals(params, rows, positions=pos, cache_index=None,
                           page_table=ctx_table, context_start=ctx_start)
         xs, caches, _ = _tp_stack_apply(
-            _layers_at_use(params, cfg, rows, lambda t: t["layers"]), cfg,
-            params.layout, xs, loc=loc,
+            _layers_at_use(params, cfg, rows, lambda t: t["layers"], mesh),
+            cfg, params.layout, xs, loc=loc,
             caches=None if ctx_caches is None
             else [ctx_caches.row(d) for d in range(rows)],
-            mode="prefill", enc_outs=enc_outs)
+            mode="prefill", enc_outs=enc_outs, mesh=mesh)
         caches = Shards([t for row in caches for t in row],
                         params.devices[:len(xs) * params.tp], params.layout,
                         dp=rows)
@@ -1019,7 +1100,9 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
             ixs = broadcast(ix, [x.device for x in row])
             x_last.append([x[torch.arange(x.shape[0], device=x.device), i]
                            [:, None] for x, i in zip(row, ixs)])
-    if sharded:
+    if mesh is not None:
+        logits = _head_rows(params, cfg, x_last)
+    elif sharded:
         logits = _logits_rows(params, cfg, x_last)
     else:
         logits = _logits(params, cfg, x_last[0][0])
@@ -1038,17 +1121,25 @@ def prefill(params, cfg: ModelConfig, tokens, *, extra_embeds=None,
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, token, caches, index, *,
-                enc_out=None, page_table=None):
+                enc_out=None, page_table=None, semantics: str = "engine"):
     """One decode step.  token: (B, S) int (classically S == 1); ``index``
     is the cache position of ``token[:, 0]``, a scalar or (B,) per-slot
     vector.  With ``page_table`` (B, max_pages) the caches are page pools.
     With ``enc_out`` (from :func:`prefill`) every decoder layer
     cross-attends it.  Caches are updated in place (a mamba layer's state
     included; it takes S == 1 only).  Returns (logits (B, S, V),
-    caches)."""
+    caches).  ``semantics`` as in :func:`prefill`: under ``"mesh"`` the
+    caches hold every data row (a replicated batch whole on each), as
+    ``init_shard_caches(..., semantics="mesh")`` or the mesh prefill
+    leaves them, ``enc_out`` may be the mesh prefill's per-entry list,
+    and the logits come back per entry, ``[d][m]``."""
+    mesh = _mesh_route(params, semantics, token.shape[0])
     if isinstance(params, Shards):
         b, s = token.shape
-        rows = slot_rows(b, caches.dp)
+        rows = slot_rows(b, caches.dp, semantics)
+        if mesh is not None and rows != params.dp:
+            raise ValueError(f"the mesh route needs caches on all "
+                             f"{params.dp} data rows, not {caches.dp}")
         xs = _tp_embed(params, cfg, token, rows)
         dev = params.devices[0]
         index = torch.as_tensor(index, device=dev).to(torch.int64)
@@ -1056,14 +1147,18 @@ def decode_step(params, cfg: ModelConfig, token, caches, index, *,
                + torch.arange(s, device=dev)[None, :])
         loc = _row_locals(params, rows, positions=pos, cache_index=index,
                           page_table=page_table, context_start=None)
-        enc_outs = None if enc_out is None else [
-            broadcast(e, params.row_devices(d))
-            for d, e in enumerate(_row_split(enc_out, rows))]
+        if enc_out is None or isinstance(enc_out, list):
+            enc_outs = enc_out
+        else:
+            enc_outs = [broadcast(e, params.row_devices(d))
+                        for d, e in enumerate(_row_split(enc_out, rows))]
         xs, _, _ = _tp_stack_apply(
-            _layers_at_use(params, cfg, rows, lambda t: t["layers"]), cfg,
-            params.layout, xs, loc=loc,
+            _layers_at_use(params, cfg, rows, lambda t: t["layers"], mesh),
+            cfg, params.layout, xs, loc=loc,
             caches=[caches.row(d) for d in range(rows)], mode="decode",
-            enc_outs=enc_outs)
+            enc_outs=enc_outs, mesh=mesh)
+        if mesh is not None:
+            return _head_rows(params, cfg, xs), caches
         return _logits_rows(params, cfg, xs), caches
     x = _embed_inputs(params, cfg, token)
     b, s = x.shape[0], token.shape[1]
@@ -1135,21 +1230,24 @@ def init_paged_caches(cfg: ModelConfig, batch: int, num_pages: int,
 
 
 def init_shard_caches(cfg: ModelConfig, batch: int, max_len: int,
-                      params: Shards) -> Shards:
+                      params: Shards, *, semantics: str = "engine"
+                      ) -> Shards:
     """:func:`init_caches` for the mesh entries of ``params``: a GQA
     layer's pools hold each shard's share of the kv heads on its device,
     a mamba layer's state each shard's conv channels and SSD heads; where
     the heads do not divide the shards, and for MLA's latent pools (no
     head axis), the whole pools or state, one set per distinct device of
     a row (shared by the shards on it).  Over a data axis the slots split
-    by row (``slot_rows``): each row's dense slabs and mamba state hold
-    its ``batch / dp`` slots, and the paged pools are whole on every row,
-    one copy per distinct device (shared by the rows on it)."""
+    by row (``slot_rows`` under ``semantics``): each row's dense slabs
+    and mamba state hold its ``batch / dp`` slots (every slot where the
+    mesh semantics replicate the batch), and the paged pools are whole on
+    every row, one copy per distinct device (shared by the rows on
+    it)."""
     layout = params.layout
     scfg = layout.shard_cfg(cfg)
     paged = cfg.cache_mode == "paged"
-    rows = slot_rows(batch, params.dp)
-    per = batch // rows
+    rows = slot_rows(batch, params.dp, semantics)
+    per = row_slots(batch, rows)
     shared: dict = {}
     trees = []
     for d in range(rows):

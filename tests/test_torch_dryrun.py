@@ -8,7 +8,9 @@ CPU.
   over NVLink and the network with the H100's.
 * A walk counts the same on fake ``meta:N`` entries as on real CPU
   tensors (flops, bytes, collective bytes, ``io_bytes``); the depth and
-  data-row extrapolations equal a direct walk of the training step.
+  data-row extrapolations equal a direct walk of the training step and
+  of an MoE config's prefill and decode cells (the serving steps under
+  the reference's mesh semantics, every entry an equal share).
 * ``flash_attn_cost`` is half the walk's attention flops for ``d == dv``
   (the walk counts the costed calls' full square, the model the causal
   half), in training and in a prefill; the flash backward is counted
@@ -182,38 +184,56 @@ def test_fake_walk_counts_what_a_real_walk_counts(arch, fake_devices):
     assert fake["temp_size_in_bytes"] > 0
 
 
-def test_depth_extrapolation_equals_the_full_walk():
-    """4 blocks on a (2, 2) mesh of distinct labels: the 1- and 2-block
-    walks extrapolated equal the full-depth walk."""
-    cfg = reduced(get_config("qwen3-4b")).replace(n_layers=4)
+@pytest.mark.parametrize("arch,n_layers,kind", [
+    ("qwen3-4b", 4, "train"),
+    ("llama4-maverick-400b-a17b", 6, "prefill"),
+    ("llama4-maverick-400b-a17b", 6, "decode")])
+def test_depth_extrapolation_equals_the_full_walk(arch, n_layers, kind):
+    """Several blocks on a (2, 2) mesh of distinct labels: the 1- and
+    2-block walks extrapolated equal the full-depth walk (the training
+    step; llama4's 3 dense + MoE blocks in its prefill and decode
+    cells)."""
+    cfg = reduced(get_config(arch)).replace(n_layers=n_layers)
+    case = dataclasses.replace(_CASE, kind=kind)
     mesh = _meta(2, 2)
-    ext = dryrun.scan_extrapolated_cost(cfg, _CASE, mesh, False)
-    full = dryrun._per_entry(dryrun.walk_cell(cfg, _CASE, mesh,
+    ext = dryrun.scan_extrapolated_cost(cfg, case, mesh, False)
+    full = dryrun._per_entry(dryrun.walk_cell(cfg, case, mesh,
                                               quant_moments=False), 4)
-    assert ext["scan_trips"] == 4 and ext["data_rows_walked"] == [2]
+    assert ext["scan_trips"] == cfg.n_blocks > 2
+    assert ext["data_rows_walked"] == [2]
     for k in ("flops", "bytes_accessed", "io_bytes",
-              "argument_size_in_bytes", "temp_size_in_bytes"):
+              "argument_size_in_bytes"):
         assert ext[k] == pytest.approx(full[k], rel=1e-9), k
-    for kind, axes in full["collective_bytes"].items():
-        assert ext["collective_bytes"][kind] == pytest.approx(axes,
+    # the training step's peak of live bytes is affine in depth; a decode
+    # step's moves with the order its tensors are freed in (4 bytes of
+    # 98022 here)
+    assert ext["temp_size_in_bytes"] == pytest.approx(
+        full["temp_size_in_bytes"], rel=1e-9 if kind == "train" else 1e-3)
+    for name, axes in full["collective_bytes"].items():
+        assert ext["collective_bytes"][name] == pytest.approx(axes,
                                                               rel=1e-9)
 
 
-def test_data_row_extrapolation_equals_the_full_walk():
+@pytest.mark.parametrize("arch,kind", [
+    ("yi-6b", "train"), ("llama4-maverick-400b-a17b", "prefill"),
+    ("llama4-maverick-400b-a17b", "decode")])
+def test_data_row_extrapolation_equals_the_full_walk(arch, kind):
     """8 data rows: the walks at 2 and 4 rows (the batch per row kept)
     extrapolated in 1 / dp equal the walk of all 8 (the peak of live
-    bytes within 10%)."""
-    cfg = reduced(get_config("yi-6b")).replace(n_layers=2)
-    case = shapes.ShapeCase("t", "train", 16, 16)
+    bytes within 10%): the training step, and an MoE config's prefill
+    and decode cells, each row routing its own tokens."""
+    cfg = reduced(get_config(arch)).replace(n_layers=2)
+    case = shapes.ShapeCase("t", kind, 16, 16)
     mesh = _meta(8, 2)
     ext = dryrun.scan_extrapolated_cost(cfg, case, mesh, False)
     full = dryrun._per_entry(dryrun.walk_cell(cfg, case, mesh,
                                               quant_moments=False), 16)
     assert ext["data_rows_walked"] == [2, 4]
-    for k in ("flops", "bytes_accessed", "argument_size_in_bytes"):
+    for k in ("flops", "bytes_accessed", "io_bytes", "n_ops",
+              "argument_size_in_bytes", "output_size_in_bytes"):
         assert ext[k] == pytest.approx(full[k], rel=1e-9), k
     # the peak of live bytes moves with the order the entries run in:
-    # near, not exact (5.5% here)
+    # near, not exact (5.5% in training here, 0.2% in decode)
     assert ext["temp_size_in_bytes"] == pytest.approx(
         full["temp_size_in_bytes"], rel=0.1)
     for kind, axes in full["collective_bytes"].items():
@@ -248,7 +268,13 @@ def test_cli_writes_records_the_readers_read(tmp_path, monkeypatch, capsys):
         assert k in train, k
     assert set(train["collective_bytes"]["data_gather"]) == {"model",
                                                             "data"}
-    assert train["unbalanced"] == [] and records[1]["unbalanced"]
+    # every entry takes an equal share of the serving cell too: no
+    # ``unbalanced`` key, and the per-card figures are the mesh's
+    serve = records[1]
+    assert "unbalanced" not in train and "unbalanced" not in serve
+    assert serve["shape"] == "decode_32k" and serve["chips"] == 8
+    assert serve["flops"] > 0 and serve["collective_bytes"][
+        "data_gather"]["data"] > 0
     terms = analysis.analyze_file(str(out))
     assert len(terms) == 2
     table = analysis.format_table(terms)

@@ -142,6 +142,48 @@ def test_seed_shims_exact(shim, shape):
     np.testing.assert_array_equal(got.reshape(-1, n).numpy(), want)
 
 
+@pytest.mark.parametrize("oracle", ["lut_matmul_ref",
+                                    "quant_dequant_matmul_ref",
+                                    "nibble_planes_ref"])
+def test_ref_oracles_match_the_references(oracle):
+    """The port's copies of three helpers of ``repro.kernels.ref`` (no
+    kernel test holds to them: those hold the kernels to the reference's
+    own oracles), on seeded numpy inputs against the reference's: the
+    integer products and planes exact, the dequantized product within
+    1e-6 relative (f32, the same ops in the same order)."""
+    from repro_torch.kernels import ref as tref
+    r = _rng(7)
+    x_q = r.integers(-128, 128, (5, 96)).astype(np.int8)
+    w_q = r.integers(-128, 128, (96, 40)).astype(np.int8)
+    if oracle == "lut_matmul_ref":
+        want = np.asarray(jref.lut_matmul_ref(jnp.asarray(x_q),
+                                              jnp.asarray(w_q)))
+        got = tref.lut_matmul_ref(torch.from_numpy(x_q),
+                                  torch.from_numpy(w_q))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    elif oracle == "nibble_planes_ref":
+        every = np.arange(-128, 128, dtype=np.int8)
+        for x in (x_q, every):
+            want = jref.nibble_planes_ref(jnp.asarray(x))
+            got = tref.nibble_planes_ref(torch.from_numpy(x))
+            for g, w in zip(got, want):
+                assert g.dtype == torch.int8
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    else:
+        x = (r.standard_normal((5, 96)) * 3).astype(np.float32)
+        for scale in (r.uniform(1e-3, 1e-2, (1, 40)).astype(np.float32),
+                      np.float32(0.004)):
+            want = np.asarray(jref.quant_dequant_matmul_ref(
+                jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(scale)))
+            got = tref.quant_dequant_matmul_ref(
+                torch.from_numpy(x), torch.from_numpy(w_q),
+                torch.from_numpy(np.asarray(scale)))
+            assert got.dtype == torch.float32 and got.shape == (5, 40)
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                                       atol=0)
+
+
 def test_quantize_rows_matches_jitted_reference():
     """Per-row int8 quantization on 12800 rows whose magnitudes span 1e-3
     to 1e3 (and a zero row, the 1e-8 floor): values and scales equal to
